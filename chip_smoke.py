@@ -1,0 +1,370 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (`src/repro_torch`).
+
+Run from the repository root on a machine with one CUDA GPU:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (non-zero exit, no result line):
+
+1. device  — the card's name and power limit (nvidia-smi);
+2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+3. kernels — each kernel against its plain PyTorch version on the card at
+             the olmo-1b projection shapes (and a zero-count-block, a
+             ragged-O/M and a packed encoding), with its time beside the
+             plain version's, a ``torch.matmul`` yardstick on the masked
+             dense weight and the card's bound for the same work;
+4. serve   — the port's serving entry point at full olmo-1b width: plan,
+             sparse-vs-masked-dense prefill parity, greedy decode; every
+             kernel's launch count is read from this run only.  Then the
+             same parity at float32 compute, gated end to end, and a
+             `torch.profiler` trace of one sparse generation (device busy
+             share, kernels by device time) with the wall time per call
+             of one planned projection beside the dense matmul's;
+5. result  — one JSON line of per-kernel numbers, then the ok line.
+
+Imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+DEVICE = "cuda"
+SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192))   # (O, N): olmo-1b
+SPARSITY = 0.5
+WIDE_M = 128                 # prefill GEMM M: batch 4 x prompt 32
+SKINNY_MS = (1, 4, 8)        # decode batches (the kernel's tile is 8 rows)
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/balanced_spmm.cu"
+REPLACES = {"tiled_balanced_spmm": "src/repro/kernels/balanced_spmm.py:106",
+            "tiled_balanced_spmm_skinny":
+                "src/repro/kernels/balanced_spmm.py:185"}
+SERVE_ARGS = ["--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
+              "--gen-steps", "32", "--sparsity", str(SPARSITY)]
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def time_ms(torch, fn, *, flush, warmup: int = 3, runs: int = 25) -> float:
+    """Median CUDA-event time of ``fn`` over ``runs`` calls after warm-up,
+    with the L2 cache overwritten before each call (the main path finds
+    the weights cold: a decode step streams gigabytes).  All runs are
+    enqueued before one synchronize: while the card clears ``flush``, the
+    host enqueues the next call, so the events time the device's work and
+    not the host's launch overhead."""
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(runs):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(stop)
+                             for start, stop in events)
+
+
+def make_encoding(torch, o: int, n: int, dtype, gen, *, empty_half=False,
+                  pack=False):
+    """A balanced-pruned random [o, n] weight at SPARSITY, encoded as the
+    plan encodes it (bn = 128).  ``empty_half`` keeps every row's nonzeros
+    in the first half of the columns (zero-count blocks in the rest);
+    ``pack`` applies the column-combining permutation."""
+    from repro_torch.core.pruning import keep_count, nonzero_columns, \
+        topk_mask
+    from repro_torch.kernels import tile_format as tf
+    w = (torch.randn((o, n), generator=gen, device=DEVICE)
+         / n ** 0.5).to(dtype)
+    live = n // 2 if empty_half else n
+    k = keep_count(live, SPARSITY)
+    mask = torch.zeros((o, n), dtype=torch.bool, device=DEVICE)
+    mask[:, :live] = topk_mask(w[:, :live], k)
+    idx = nonzero_columns(mask, k)
+    vals = w.gather(1, idx)
+    n_enc, perm = n, None
+    if pack:
+        perm = tf.pack_columns(mask, 128)
+        pidx = tf.invert_perm(perm).long()[idx]
+        order = torch.argsort(pidx, dim=1, stable=True)
+        idx, vals = pidx.gather(1, order), vals.gather(1, order)
+        n_enc = perm.shape[0]
+    tb = tf.encode_tiled(vals, idx, n_enc, bn=128)
+    tb = tf.TiledBalanced(tb.values, tb.indices, tb.counts, n_in=n, bn=128,
+                          perm=perm)
+    return tb, w * mask
+
+
+def check_kernels(torch):
+    """Phase 3: every kernel against its plain version; returns the rows
+    and the worst error per kernel."""
+    from repro_torch.kernels import balanced_spmm as bs
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    # 256 MB: five times the 50 MB L2, and about 0.1 ms of device time
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    worst = {name: 0.0 for name in bs.LAUNCHES}
+    rows = []
+
+    def compare(name, got, want, dtype, what):
+        err = (got.float() - want.float()).abs()
+        diff = float(err.max())
+        tol = TOL[str(dtype).removeprefix("torch.")]
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (err <= tol + tol * want.float().abs()).all())
+        log(f"check {name:27s} {what:38s} max|diff| {diff:.3e} "
+            f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {what}: max|diff| {diff}")
+        worst[name] = max(worst[name], diff)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for o, n in SHAPES:
+            tb, w_masked = make_encoding(torch, o, n, dtype, gen)
+            k = int(tb.counts[0].sum())
+            enc_bytes = tb.values.numel() * tb.values.element_size() \
+                + tb.indices.numel() * 4
+            for name, m in (("tiled_balanced_spmm", WIDE_M),
+                            *(("tiled_balanced_spmm_skinny", mm)
+                              for mm in SKINNY_MS)):
+                x = torch.randn((m, n), generator=gen,
+                                device=DEVICE).to(dtype)
+                if name == "tiled_balanced_spmm":
+                    kern = lambda: bs.tiled_balanced_spmm(x, tb)  # noqa: E731
+                else:
+                    kern = lambda: bs.tiled_balanced_spmm_skinny(x, tb)  # noqa: E731,E501
+                plain = lambda: bs.tiled_balanced_spmm_plain(x, tb)  # noqa: E731,E501
+                compare(name, kern(), plain(), dtype,
+                        f"{dname} M={m} O={o} N={n} KB={tb.kb}")
+                if m not in (WIDE_M, 8):
+                    continue       # timed at the shapes the main path runs
+                wd = w_masked.to(dtype)
+                library = lambda: torch.matmul(x, wd.T)  # noqa: E731
+                nbytes = x.numel() * x.element_size() + enc_bytes + m * o * 4
+                flops = 2 * m * o * k
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[dname] * 1e3
+                row = {"name": name, "dtype": dname, "M": m, "O": o, "N": n,
+                       "KB": tb.kb,
+                       "ms": time_ms(torch, kern, flush=flush),
+                       "plain_ms": time_ms(torch, plain, flush=flush),
+                       "library_ms": time_ms(torch, library, flush=flush),
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations"}
+                rows.append(row)
+                log("time  " + json.dumps(row))
+        # edge encodings: zero-count blocks, ragged O and M, packed columns
+        tb, _ = make_encoding(torch, 2048, 2048, dtype, gen, empty_half=True)
+        for name, m in (("tiled_balanced_spmm", WIDE_M),
+                        ("tiled_balanced_spmm_skinny", 8)):
+            x = torch.randn((m, 2048), generator=gen, device=DEVICE).to(dtype)
+            fn = bs.tiled_balanced_spmm if m > 8 \
+                else bs.tiled_balanced_spmm_skinny
+            compare(name, fn(x, tb), bs.tiled_balanced_spmm_plain(x, tb),
+                    dtype, f"{dname} zero-count blocks")
+        # O = 2004: a multiple of neither kernel's CTA tile (64 wide, 8 skinny)
+        tb, _ = make_encoding(torch, 2004, 2048, dtype, gen)
+        x = torch.randn((100, 2048), generator=gen, device=DEVICE).to(dtype)
+        compare("tiled_balanced_spmm", bs.tiled_balanced_spmm(x, tb, bm=4,
+                                                              bo=4),
+                bs.tiled_balanced_spmm_plain(x, tb), dtype,
+                f"{dname} ragged M=100 O=2004")
+        x = torch.randn((5, 2048), generator=gen, device=DEVICE).to(dtype)
+        compare("tiled_balanced_spmm_skinny",
+                bs.tiled_balanced_spmm_skinny(x, tb, bo=4),
+                bs.tiled_balanced_spmm_plain(x, tb), dtype,
+                f"{dname} ragged M=5 O=2004")
+        tb, _ = make_encoding(torch, 2048, 2048, dtype, gen, pack=True)
+        for name, m in (("tiled_balanced_spmm", WIDE_M),
+                        ("tiled_balanced_spmm_skinny", 4)):
+            x = torch.randn((m, 2048), generator=gen, device=DEVICE).to(dtype)
+            compare(name, ops.tiled_spmm(x, tb).float(),
+                    ref.tiled_balanced_spmm_ref(x, tb).float(), dtype,
+                    f"{dname} packed M={m} KB={tb.kb}")
+    return rows, worst
+
+
+def full_width(torch, compute_dtype: str):
+    """olmo-1b at full width as `launch/serve.py` builds it (seed 0
+    weights, seed 1 prompt of batch 4 x 32): ``(bundle, params, plan,
+    prompt)``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("olmo-1b"), sparse_serving=True,
+                              compute_dtype=compute_dtype)
+    bundle = build_model(cfg, DEVICE)
+    params = bundle.init(0)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(1))
+    plan = engine_plan.plan_transformer(cfg, params, sparsity=SPARSITY,
+                                        m_hint=128)
+    return bundle, params, plan, prompt.to(DEVICE)
+
+
+def full_width_f32_parity(torch, serve) -> dict:
+    """The sparse plan against its masked-dense reference at float32
+    compute and full olmo-1b width, gated end to end on the prefill logits
+    at 1e-4 (bf16 rounding compounds over depth; f32 does not)."""
+    from repro_torch.engine import plan as engine_plan
+    bundle, params, plan, prompt = full_width(torch, "float32")
+    return serve._parity_check(
+        bundle, {**params, "sparse_plan": plan},
+        engine_plan.masked_dense_params(params, plan), prompt,
+        tol=TOL["float32"])
+
+
+def profile_generate(torch, serve, steps: int = 8) -> dict:
+    """Where the device time goes in one sparse greedy generation at full
+    width (bf16; one prefill and ``steps`` decode steps): the device's
+    busy share of the wall time and the kernels by total device time,
+    from a `torch.profiler` trace of the card's activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    bundle, params, plan, prompt = full_width(torch, "bfloat16")
+    sparse = {**params, "sparse_plan": plan}
+    max_len = prompt.shape[1] + steps
+    serve.greedy_generate(bundle, sparse, prompt, steps, max_len)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        serve.greedy_generate(bundle, sparse, prompt, steps, max_len)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            n, ms = by_name.get(evt.name, (0, 0.0))
+            by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "top": [{"kernel": name[:80], "count": n, "ms": ms}
+                    for name, (n, ms) in top],
+            "per_call_us": per_call_us(torch, params, plan)}
+
+
+def per_call_us(torch, params, plan, calls: int = 200) -> dict:
+    """Wall microseconds per call of one decode-shaped projection (wq of
+    layer 0, x of 4 rows in the compute dtype), 200 calls back to back:
+    the larger of the host's and the device's time per call, for
+    `models.api.planned_proj` on the plan (the sparse path) and without
+    it (the dense matmul it replaces), as the model calls it."""
+    from repro_torch.models.api import planned_proj
+    layer = {nm: t[0] for nm, t in params["blocks"].items()}
+    plan0 = plan.per_layer[0]
+    cd = plan0["wq"].weights.values.dtype
+    x = torch.randn((4, layer["wq"].shape[0]), device=DEVICE).to(cd)
+
+    def wall_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) / calls * 1e6
+
+    with torch.no_grad():
+        return {"sparse": wall_us(lambda: planned_proj(layer, plan0, "wq", x,
+                                                       cd)),
+                "dense": wall_us(lambda: planned_proj(layer, None, "wq", x,
+                                                      cd))}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import balanced_spmm as bs
+    from repro_torch.launch import serve
+
+    # 1. device
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card.splitlines()[0], flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # 2. build
+    t0 = time.monotonic()
+    libs = _build.build()
+    log(f"built {sorted(libs)} in {time.monotonic() - t0:.2f} s "
+        f"(nvcc {_build.BUILD_SECONDS})")
+    for stem in libs:
+        for line in _build.build_log(stem).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {stem}: {line.strip()}")
+
+    # 3. kernels vs plain versions (launches here are not the main path's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, worst = check_kernels(torch)
+
+    # 4. the main path: counts zeroed just before, read just after
+    bs.reset_launches()
+    t0 = time.monotonic()
+    res = serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(bs.LAUNCHES)
+    log(f"serve {' '.join(SERVE_ARGS)}: {time.monotonic() - t0:.1f} s, plan "
+        f"{res['plan']['plan_build_s']:.2f} s, dense "
+        f"{res['dense']['tokens_per_s']:.1f} tok/s, sparse "
+        f"{res['sparse']['tokens_per_s']:.1f} tok/s, parity "
+        f"{json.dumps(res['plan']['parity'])}")
+    log("launches " + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel never launched on the main path: "
+                             f"{launches}")
+    parity_f32 = full_width_f32_parity(torch, serve)
+    log(f"float32 compute, full width, end to end: {json.dumps(parity_f32)}")
+    log(f"profile {json.dumps(profile_generate(torch, serve))}")
+
+    # 5. result
+    kernels = []
+    for name in bs.LAUNCHES:
+        m = WIDE_M if name == "tiled_balanced_spmm" else 8
+        row = next(r for r in rows if r["name"] == name and r["M"] == m
+                   and (r["O"], r["N"]) == (8192, 2048)
+                   and r["dtype"] == "bfloat16")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": KERNEL_SOURCE, "replaces": REPLACES[name],
+                        "launches": launches[name],
+                        "max_abs_err": worst[name], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

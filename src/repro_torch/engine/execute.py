@@ -1,0 +1,68 @@
+"""Plan execution: dispatch one pre-built `LayerPlan` per call site —
+counterpart of `repro.engine.execute`.
+
+``cuda`` plans run the pre-encoded `kernels.ops.tiled_spmm` at the plan's
+blocks (decode-shaped ones when M is skinny), the eager rungs the flat
+`kernels.ops.balanced_spmm`, dense layers a plain matmul on the masked
+weights.  `STATS` counts balanced-sparse dispatches per call (PyTorch runs
+eagerly, so this is per execution, not per trace); `launch/serve.py`
+asserts on it that the sparse path really ran.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from ..kernels import ops as kernel_ops
+from ..kernels.tile_format import TiledBalanced
+from .plan import LayerPlan
+
+Tensor = torch.Tensor
+
+STATS: "collections.Counter[str]" = collections.Counter()
+
+
+def reset_stats() -> None:
+    STATS.clear()
+
+
+def stats() -> dict:
+    return dict(STATS)
+
+
+def _count_dispatch(spec, *extra: str) -> None:
+    """Record one balanced-sparse dispatch: the family, the impl, and any
+    extra tags (``decode_dispatch`` for skinny M)."""
+    STATS["balanced_spmm"] += 1
+    STATS[f"impl_{spec.impl}"] += 1
+    for name in extra:
+        STATS[name] += 1
+
+
+def apply_fc(x: Tensor, lp: LayerPlan) -> Tensor:
+    """``y = x @ W.T`` for one planned linear layer, ``[..., N] ->
+    [..., O]``.  ``block_m`` is clamped to the live M's power-of-two bucket
+    (8-row floor), so a small live M never pads to a stale prefill tile;
+    this changes which tile the kernel pads to, not the result."""
+    spec = lp.spec
+    if spec.impl == "dense":
+        STATS["dense_matmul"] += 1
+        return x @ lp.weights.T.to(x.dtype)
+    m = 1
+    for d in x.shape[:-1]:
+        m *= d
+    skinny = m <= kernel_ops.SKINNY_M
+    _count_dispatch(spec, *(("decode_dispatch",) if skinny else ()))
+    if isinstance(lp.weights, TiledBalanced):
+        blk = spec.blocks_decode if skinny and spec.blocks_decode \
+            else spec.blocks
+        bm = min(blk.bm, max(8, kernel_ops.bucket_m(m)))
+        return kernel_ops.tiled_spmm(x, lp.weights, block_m=bm,
+                                     block_o=blk.bo, impl=spec.impl)
+    sp = lp.weights
+    return kernel_ops.balanced_spmm(x, sp.values, sp.indices,
+                                    n_in=spec.n_in, impl=spec.impl)
+
+
+__all__ = ["apply_fc", "stats", "reset_stats", "STATS"]

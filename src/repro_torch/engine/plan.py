@@ -1,0 +1,317 @@
+"""Layer-plan construction — counterpart of `repro.engine.plan` at the
+latency objective.
+
+One offline pass fixes every per-layer execution decision: the dataflow
+mode (§V-C `choose_dataflow`), the kernel impl (§VI-F thresholds), the
+block sizes (`kernels.ops.choose_blocks`) and the weights pre-encoded to
+the impl's native format (`TiledBalanced` for the ``cuda`` kernels, flat
+`BalancedSparse` for the eager rungs, masked dense otherwise).
+
+Pruning, column packing and encoding run as tensor ops on the weights'
+device, so a full-width plan builds on the GPU in seconds; the result is
+array-equal to the reference's plan (its ``pallas`` impl <-> ``cuda``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..core.dataflow import LayerSpec, choose_dataflow
+from ..core.pruning import BalancedSparse, keep_count, nonzero_columns, \
+    topk_mask
+from ..core.sparse_ops import SparseLinearSpec
+from ..kernels import ops as kernel_ops
+from ..kernels.tile_format import (_KB_ROUND, _round_up, TiledBalanced,
+                                   encode_tiled, invert_perm,
+                                   max_block_count, pack_columns,
+                                   tiled_to_dense)
+
+Tensor = torch.Tensor
+
+# the impl ladder, most specialized first (the reference's IMPL_LADDER with
+# the hand-kernel rung named after its backend)
+IMPL_LADDER = ("cuda", "xla", "xla_gather", "dense")
+
+ATTN_PROJ_NAMES = ("wq", "wk", "wv", "wo")
+MLP_PROJ_NAMES = ("w_gate", "w_up", "w_down", "w_in", "w_out")
+
+
+def mask_block_k(mask2d: Tensor, bn: int = 128) -> int:
+    """Max per-(row, bn-block) NZE count of a concrete mask ``[O, N]``."""
+    o, n = mask2d.shape
+    nb = -(-n // bn)
+    m = torch.nn.functional.pad((mask2d != 0).to(torch.int32),
+                                (0, nb * bn - n))
+    return int(m.reshape(o, nb, bn).sum(dim=2).max())
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanSpec:
+    """The static half of a LayerPlan."""
+    name: str
+    kind: str                       # "fc"
+    impl: str                       # cuda | xla | xla_gather | dense
+    mode: str                       # RIF | RWF | ON_CHIP
+    n_in: int
+    n_out: int
+    k: int                          # NZE per output row (n_in when dense)
+    block_k: int                    # per-bn-block capacity (KB)
+    blocks: kernel_ops.BlockChoice | None
+    w_sparsity: float
+    d_mem_bits: int
+    i_mem_bits: int
+    w_mem_bits: int
+    experts: int = 0
+    m_hint: int = 0                 # prefill GEMM M ``blocks`` was chosen at
+    decode_m: int = 0               # decode GEMM M of ``blocks_decode``
+    blocks_decode: kernel_ops.BlockChoice | None = None
+    packed: bool = False            # column-combining perm on the encoding
+    pack_kb: Tuple = ()             # (kb_unpacked, kb_packed) when packed
+    quant: str = "none"
+    cost: Any = None                # cost-model provenance (not ported yet)
+
+    @property
+    def is_sparse(self) -> bool:
+        return self.impl != "dense"
+
+
+@dataclasses.dataclass
+class LayerPlan:
+    """One layer's frozen execution decision + its pre-encoded weights
+    (`TiledBalanced`, `BalancedSparse` or a dense ``[..., O, N]`` tensor;
+    leaves may carry a leading stacked-layer axis)."""
+    spec: PlanSpec
+    weights: Any
+
+    def dense_weights(self) -> Tensor:
+        """Densify back to ``[..., O, N]`` — the masked-dense reference this
+        plan must match."""
+        w = self.weights
+        if isinstance(w, TiledBalanced):
+            return tiled_to_dense(w)
+        if isinstance(w, BalancedSparse):
+            return w.to_dense()
+        return w
+
+    def nbytes(self) -> int:
+        """Stored bytes of the weights, every stacked layer included."""
+        w = self.weights
+        if isinstance(w, TiledBalanced):
+            return w.nbytes()
+        if isinstance(w, BalancedSparse):
+            return sum(t.numel() * t.element_size()
+                       for t in (w.values, w.indices))
+        return w.numel() * w.element_size()
+
+    def layer(self, i: int) -> "LayerPlan":
+        """The plan of stacked layer ``i`` (views of the stacked leaves)."""
+        w = self.weights
+        if isinstance(w, TiledBalanced):
+            w = TiledBalanced(w.values[i], w.indices[i], w.counts[i],
+                              n_in=w.n_in, bn=w.bn,
+                              perm=None if w.perm is None else w.perm[i])
+        elif isinstance(w, BalancedSparse):
+            w = BalancedSparse(w.values[i], w.indices[i], w.n_in)
+        else:
+            w = w[i]
+        return LayerPlan(spec=self.spec, weights=w)
+
+
+@dataclasses.dataclass
+class ModelPlan:
+    """Per-model container: layer name -> LayerPlan, plus build metadata."""
+    layers: Dict[str, LayerPlan]
+    meta: Tuple = ()
+
+    def mode_mix(self) -> Dict[str, int]:
+        mix: Dict[str, int] = {}
+        for lp in self.layers.values():
+            mix[lp.spec.mode] = mix.get(lp.spec.mode, 0) + 1
+        return mix
+
+    def impl_mix(self) -> Dict[str, int]:
+        mix: Dict[str, int] = {}
+        for lp in self.layers.values():
+            mix[lp.spec.impl] = mix.get(lp.spec.impl, 0) + 1
+        return mix
+
+    @property
+    def sparse_layer_count(self) -> int:
+        return sum(1 for lp in self.layers.values() if lp.spec.is_sparse)
+
+    @functools.cached_property
+    def per_layer(self) -> list:
+        """``[{name: LayerPlan}]`` per stacked layer, built once (the model
+        walks it per layer and step)."""
+        n = int(dict(self.meta).get("n_layers", 0))
+        return [{nm: lp.layer(i) for nm, lp in self.layers.items()}
+                for i in range(n)]
+
+    def summary(self) -> str:
+        lines = [f"{'layer':14s} {'mode':>8s} {'impl':>10s} {'O':>6s} "
+                 f"{'N':>6s} {'K':>6s} {'KB':>4s} {'spars':>6s} "
+                 f"{'Dmem(Kb)':>9s}"]
+        for name in sorted(self.layers):
+            s = self.layers[name].spec
+            lines.append(f"{name:14s} {s.mode:>8s} {s.impl:>10s} "
+                         f"{s.n_out:6d} {s.n_in:6d} {s.k:6d} "
+                         f"{s.block_k:4d} {s.w_sparsity:6.2f} "
+                         f"{s.d_mem_bits / 1e3:9.0f}")
+        lines.append(f"mode mix {self.mode_mix()}  impl mix "
+                     f"{self.impl_mix()}")
+        return "\n".join(lines)
+
+
+def default_impl(*, balanced: bool, w_sparsity: float,
+                 ifm_sparsity: float = 0.0,
+                 device: torch.device | str = "cuda") -> str:
+    """dense below the §VI-F thresholds or for unbalanced patterns; else the
+    CUDA kernels for a plan built on a CUDA device, the eager ``xla``
+    densify+matmul on the CPU (as the reference picks pallas on a TPU and
+    xla where Pallas would run interpreted)."""
+    spec = SparseLinearSpec(w_sparsity=w_sparsity, ifm_sparsity=ifm_sparsity)
+    if not balanced or not spec.use_sparse:
+        return "dense"
+    return "cuda" if torch.device(device).type == "cuda" else "xla"
+
+
+def _maybe_pack(idx: Tensor, vals: Tensor, pattern2: Tensor, n_in: int,
+                bn: int, block_k: int):
+    """Column-combining packing of a flat encoding, adopted only when it
+    strictly shrinks KB.  ``idx`` ``[..., O, K]`` ascending, ``pattern2``
+    the pooled ``[rows, n_in]`` mask.  Returns ``(idx, vals, block_k,
+    n_enc, perm, pack_kb)`` (perm None when not adopted)."""
+    nb = -(-n_in // bn)
+    if nb <= 1:
+        return idx, vals, block_k, n_in, None, ()
+    perm = pack_columns(pattern2, bn)
+    pidx = invert_perm(perm).long()[idx]
+    order = torch.argsort(pidx, dim=-1, stable=True)
+    pidx = pidx.gather(-1, order)
+    npack = nb * bn
+    kb_packed = max_block_count(pidx.reshape(-1, pidx.shape[-1]), npack, bn)
+    if kb_packed >= block_k:
+        return idx, vals, block_k, n_in, None, ()
+    return (pidx, vals.gather(-1, order), kb_packed, npack, perm,
+            (block_k, kb_packed))
+
+
+def _as_dtype(dt) -> torch.dtype:
+    return dt if isinstance(dt, torch.dtype) else getattr(torch, str(dt))
+
+
+def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
+                  m_hint: int, cd, decode_m: int = 4,
+                  pack: bool = True) -> LayerPlan:
+    """Plan one stacked projection ``[*lead, n_in, n_out]``: transpose to
+    output-major, cast to the compute dtype (ties break in that dtype, as
+    the reference's), balanced-prune each row to K = keep_count(n_in), and
+    encode every slice with one shared BlockChoice / KB (and one shared
+    packing permutation over the pooled pattern)."""
+    cd = _as_dtype(cd)
+    lead = tuple(w.shape[:-2])
+    n_in, n_out = w.shape[-2:]
+    g = 1
+    for d in lead:
+        g *= int(d)
+    k = keep_count(n_in, sparsity)
+    impl_nm = impl or default_impl(balanced=True, w_sparsity=1.0 - k / n_in,
+                                   device=w.device)
+    if impl_nm not in IMPL_LADDER:
+        raise ValueError(f"impl must be one of {IMPL_LADDER}, got {impl_nm!r}")
+    wt = w.reshape(g, n_in, n_out).transpose(-1, -2).to(cd)     # [g, O, N]
+    masks = topk_mask(wt, k)
+    blk = blk_dec = None
+    block_k = 0
+    packed = False
+    pack_kb: Tuple = ()
+    if impl_nm == "dense":
+        weights: Any = (wt * masks).reshape(*lead, n_out, n_in)
+    else:
+        blk = kernel_ops.choose_blocks(kernel_ops.bucket_m(m_hint), n_out,
+                                       n_in, k, itemsize=cd.itemsize)
+        blk_dec = kernel_ops.choose_blocks(kernel_ops.bucket_m(decode_m),
+                                           n_out, n_in, k,
+                                           itemsize=cd.itemsize)
+        pooled = masks.reshape(g * n_out, n_in)
+        block_k = max(_KB_ROUND,
+                      _round_up(mask_block_k(pooled, bn=blk.bn), _KB_ROUND))
+        idx = nonzero_columns(masks, k)                          # [g, O, K]
+        vals = wt.gather(-1, idx)
+        if impl_nm == "cuda":
+            n_enc, perm = n_in, None
+            if pack:
+                idx, vals, block_k, n_enc, perm, pack_kb = _maybe_pack(
+                    idx, vals, pooled, n_in, blk.bn, block_k)
+            tb = encode_tiled(vals.reshape(g * n_out, k),
+                              idx.reshape(g * n_out, k), n_enc, bn=blk.bn,
+                              kb=block_k)
+            perm_leaf = None
+            if perm is not None:
+                packed = True
+                perm_leaf = perm.expand(*lead, perm.shape[0]).contiguous() \
+                    if lead else perm
+            weights = TiledBalanced(
+                tb.values.reshape(*lead, n_out, tb.nb, block_k),
+                tb.indices.reshape(*lead, n_out, tb.nb, block_k),
+                tb.counts.reshape(*lead, n_out, tb.nb),
+                n_in=n_in, bn=blk.bn, perm=perm_leaf)
+        else:
+            weights = BalancedSparse(vals.reshape(*lead, n_out, k),
+                                     idx.to(torch.int32).reshape(
+                                         *lead, n_out, k), n_in)
+    flow = choose_dataflow(LayerSpec(name=nm, kind="fc", c_i=n_in,
+                                     c_o=n_out, w_sparsity=1.0 - k / n_in))
+    spec = PlanSpec(name=nm, kind="fc", impl=impl_nm, mode=flow.mode,
+                    n_in=n_in, n_out=n_out, k=k, block_k=block_k,
+                    blocks=blk, w_sparsity=1.0 - k / n_in,
+                    d_mem_bits=int(flow.d_mem_bits) * g,
+                    i_mem_bits=int(flow.i_mem) * g,
+                    w_mem_bits=int(flow.w_mem) * g,
+                    experts=int(lead[1]) if len(lead) > 1 else 0,
+                    m_hint=int(m_hint), decode_m=int(decode_m),
+                    blocks_decode=blk_dec, packed=packed, pack_kb=pack_kb)
+    return LayerPlan(spec=spec, weights=weights)
+
+
+def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
+                     impl: str | None = None, include_mlp: bool = True,
+                     m_hint: int | None = None, decode_m: int | None = None,
+                     pack: bool = True) -> ModelPlan:
+    """Offline plan for a dense transformer's stacked projections
+    ``[L, n_in, n_out]`` (attention, plus the MLP unless ``include_mlp`` is
+    False).  Built on the params' device."""
+    if cfg.family != "dense":
+        raise ValueError(f"this package plans the dense family only, got "
+                         f"{cfg.family!r}")
+    sparsity = cfg.w_sparsity if sparsity is None else sparsity
+    if not 0.0 < sparsity < 1.0:
+        raise ValueError(f"need 0 < sparsity < 1, got {sparsity}")
+    blocks = params["blocks"]
+    names = [n for n in ATTN_PROJ_NAMES
+             + (MLP_PROJ_NAMES if include_mlp else ()) if n in blocks]
+    layers = {nm: _plan_stacked(nm, blocks[nm], sparsity=sparsity, impl=impl,
+                                m_hint=m_hint or 256, cd=cfg.compute_dtype,
+                                decode_m=decode_m or 4, pack=pack)
+              for nm in names if blocks[nm].ndim == 3}
+    meta = (("model", cfg.name), ("sparsity", float(sparsity)),
+            ("n_layers", int(cfg.n_layers)), ("quant", "none"))
+    return ModelPlan(layers=layers, meta=meta)
+
+
+def masked_dense_params(params: dict, plan: ModelPlan) -> dict:
+    """The masked-dense reference: the plan's pruned weights densified back
+    into the params layout ``[L, n_in, n_out]``."""
+    blocks = dict(params["blocks"])
+    for nm, lp in plan.layers.items():
+        blocks[nm] = lp.dense_weights().transpose(-1, -2).to(
+            params["blocks"][nm].dtype)
+    return {**params, "blocks": blocks}
+
+
+__all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "IMPL_LADDER",
+           "default_impl", "mask_block_k", "plan_transformer",
+           "masked_dense_params", "ATTN_PROJ_NAMES", "MLP_PROJ_NAMES"]

@@ -1,0 +1,250 @@
+"""Public wrappers around the kernels — counterpart of `repro.kernels.ops`.
+
+Responsibilities: tile-alignment padding, the static block-size model
+(`choose_blocks`, the reference's formula bit for bit, because ``bn`` and
+KB are baked into the encodings a plan stores), skinny-M routing, the
+differentiable pre-encoded entry `tiled_spmm` and the flat-format eager
+fallbacks:
+
+* ``impl="cuda"``       — the hand-written tile-local decode-and-matmul
+                          kernels (`balanced_spmm`); skinny M (<= `SKINNY_M`)
+                          routes to the decode kernel.  CPU tensors run the
+                          kernels' plain version.
+* ``impl="xla"``        — eager densify (gather-only, per-row searchsorted
+                          into the ascending indices) + one matmul; skinny M
+                          takes the gather formulation.
+* ``impl="xla_gather"`` — gather + rank-3 reduction (``[M, O, K]`` buffer).
+
+The impl names keep the reference's ladder; the hand-kernel rung is named
+after its backend (``cuda``, the reference's ``pallas``).  Flat-format
+indices must be ascending within each row.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import ref
+from .balanced_spmm import tiled_balanced_spmm, tiled_balanced_spmm_skinny
+from .tile_format import TiledBalanced, leaf_perm, tiled_to_dense
+
+Tensor = torch.Tensor
+
+# M at or below which the decode-specialized paths dispatch (the padded
+# decode batch; a decode step's GEMM M is the batch).
+SKINNY_M = 8
+
+# The reference's static block model budget (its per-step VMEM model):
+# kept so bn and KB, which the encodings bake in, match its plans exactly.
+# The CUDA kernels choose their own CTA tiles (see csrc/balanced_spmm.cu).
+_VMEM_BUDGET = 4 * 1024 * 1024
+
+
+def bucket_m(m: int) -> int:
+    """Next power of two at or above ``m`` (minimum 1)."""
+    return 1 << max(int(m) - 1, 0).bit_length()
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pick_block(dim: int, preferred: int) -> int:
+    """Largest power-of-two block <= preferred that keeps padding sane."""
+    b = preferred
+    while b > 8 and dim < b // 2:
+        b //= 2
+    return b
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockChoice:
+    bm: int
+    bo: int
+    bn: int
+    vmem_bytes: int     # the reference model's per-step footprint
+
+
+def _tiled_footprint(bm: int, bo: int, bn: int, kb: int,
+                     itemsize: int) -> int:
+    """x tile + (vals, idx) block + decoded f32 tile + f32 accumulator."""
+    return int(bm * bn * itemsize + bo * kb * (itemsize + 4)
+               + bo * bn * 4 + bm * bo * 4)
+
+
+def _tiled_kb_est(n: int, k: int, bn: int) -> int:
+    """Balanced-invariant KB estimate (K * bn / N with 50% slack)."""
+    return max(8, min(k, bn, _round_up(int(k * bn / max(n, 1) * 1.5), 8)))
+
+
+@functools.lru_cache(maxsize=512)
+def choose_blocks(m: int, o: int, n: int, k: int, *, itemsize: int = 4,
+                  vmem_budget: int = _VMEM_BUDGET) -> BlockChoice:
+    """Pick (bm, bo, bn) with the reference's static model: start from
+    128s shrunk toward small dims, then halve the largest footprint share
+    until the double-buffered footprint fits the budget."""
+    bm = _pick_block(m, 128)
+    bo = _pick_block(o, 128)
+    bn = _pick_block(n, 128)
+
+    def footprint(bm_, bo_, bn_):
+        return _tiled_footprint(bm_, bo_, bn_, _tiled_kb_est(n, k, bn_),
+                                itemsize)
+
+    while 2 * footprint(bm, bo, bn) > vmem_budget:
+        shares = {
+            "bm": bm * (bn * itemsize + bo * 4),
+            "bo": bo * (_tiled_kb_est(n, k, bn) * (itemsize + 4) + bn * 4
+                        + bm * 4),
+            "bn": bn * (bm * itemsize + bo * 4),
+        }
+        dims = {"bm": bm, "bo": bo, "bn": bn}
+        for name in sorted(shares, key=shares.get, reverse=True):
+            if dims[name] > 8:
+                dims[name] //= 2
+                break
+        else:
+            break   # everything at the floor; accept the overshoot
+        bm, bo, bn = dims["bm"], dims["bo"], dims["bn"]
+    return BlockChoice(bm=bm, bo=bo, bn=bn, vmem_bytes=footprint(bm, bo, bn))
+
+
+# ---------------------------------------------------------------------------
+# balanced_spmm: y = x @ W.T, W = (values[O, K], indices[O, K]) over N inputs
+# ---------------------------------------------------------------------------
+
+def _densify_gather(values: Tensor, indices: Tensor, n_in: int) -> Tensor:
+    """Gather-only densify of ascending-index balanced rows -> ``[O, N]``:
+    per dense column, binary-search the row's indices, take the value at
+    the hit slot, zero the misses."""
+    o, k = values.shape
+    idx = indices.long().contiguous()
+    cols = torch.arange(n_in, device=values.device)
+    slot = torch.searchsorted(idx, cols.expand(o, n_in).contiguous())
+    slot = slot.clamp(0, k - 1)
+    hit = idx.gather(1, slot) == cols[None, :]
+    return torch.where(hit, values.gather(1, slot),
+                       torch.zeros((), dtype=values.dtype,
+                                   device=values.device))
+
+
+def _balanced_spmm_xla(x: Tensor, values: Tensor, indices: Tensor,
+                       n_in: int) -> Tensor:
+    if x.shape[0] <= SKINNY_M:
+        return ref.balanced_spmm_gather(x, values, indices)
+    w = _densify_gather(values, indices, n_in)
+    return (x.float() @ w.float().T).to(x.dtype)
+
+
+def balanced_spmm(x: Tensor, values: Tensor, indices: Tensor, *, n_in: int,
+                  impl: str = "xla") -> Tensor:
+    """Balanced-sparse matmul on *flat-format* weights (``values[O, K]``,
+    ascending ``indices[O, K]`` over ``n_in`` columns): the ladder's eager
+    rungs ``xla`` / ``xla_gather``.  ``x``: ``[..., N]`` -> ``[..., O]``;
+    differentiable through autograd."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if impl == "xla":
+        y = _balanced_spmm_xla(x2, values, indices, n_in)
+    elif impl == "xla_gather":
+        y = ref.balanced_spmm_gather(x2, values, indices)
+    else:
+        raise ValueError(f"balanced_spmm runs impl 'xla' or 'xla_gather' "
+                         f"(the 'cuda' rung takes a TiledBalanced via "
+                         f"tiled_spmm), got {impl!r}")
+    return y.reshape(*lead, values.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# tiled_spmm: the pre-encoded (plan-driven) entry point
+# ---------------------------------------------------------------------------
+
+def _pad_and_run_tiled(x: Tensor, tb: TiledBalanced, bm: int, bo: int,
+                       skinny: bool = False) -> Tensor:
+    """Pad (M, O, N) to tile multiples, run the kernel, slice back and cast
+    to x's dtype.  ``skinny`` selects the decode kernel, which pads M to
+    its 8-row tile itself (rows past M read as zero), so M is not padded
+    here; no copy is made where nothing needs padding."""
+    m = x.shape[0]
+    o = tb.n_out
+    mp = m if skinny else _round_up(m, bm)
+    op_ = _round_up(o, bo)
+    pad_n = tb.nb * tb.bn - x.shape[1]
+    xp = F.pad(x, (0, pad_n, 0, mp - m)) if pad_n or mp != m else x
+    if op_ != o:
+        # zero-padded rows decode to all-zero tiles
+        tb = TiledBalanced(F.pad(tb.values, (0, 0, 0, 0, 0, op_ - o)),
+                           F.pad(tb.indices, (0, 0, 0, 0, 0, op_ - o)),
+                           F.pad(tb.counts, (0, 0, 0, op_ - o)),
+                           n_in=tb.n_in, bn=tb.bn)
+    if skinny:
+        y = tiled_balanced_spmm_skinny(xp, tb, bo=bo)
+    else:
+        y = tiled_balanced_spmm(xp, tb, bm=bm, bo=bo)
+    return y[:m, :o].to(x.dtype)
+
+
+class _TiledSpmm(torch.autograd.Function):
+    """Kernel forward; backward as the reference's ``_tiled_bwd``:
+    ``dx = dy @ W`` on the densified weight, ``dvalues`` gathered from
+    ``dy^T @ x`` at each slot's column with pad slots (slot >= count)
+    forced to exactly 0."""
+
+    @staticmethod
+    def forward(ctx, x, values, indices, counts, n_in, bn, bm, bo, skinny):
+        ctx.save_for_backward(x, values, indices, counts)
+        ctx.n_in, ctx.bn = n_in, bn
+        tb = TiledBalanced(values, indices, counts, n_in=n_in, bn=bn)
+        return _pad_and_run_tiled(x, tb, bm, bo, skinny=skinny)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices, counts = ctx.saved_tensors
+        n_in, bn = ctx.n_in, ctx.bn
+        o, nb, kb = values.shape
+        w = tiled_to_dense(TiledBalanced(values, indices, counts,
+                                         n_in=n_in, bn=bn))      # [O, N]
+        dx = (dy.float() @ w.float()).to(x.dtype)
+        dw = F.pad(dy.float().T @ x.float(), (0, nb * bn - n_in))
+        cols = (torch.arange(nb, device=x.device)[None, :, None] * bn
+                + indices.long()).reshape(o, nb * kb)
+        gathered = dw.gather(1, cols).reshape(o, nb, kb)
+        valid = torch.arange(kb, device=x.device) < counts[..., None]
+        dvals = torch.where(valid, gathered, 0.0).to(values.dtype)
+        return dx, dvals, None, None, None, None, None, None, None
+
+
+def tiled_spmm(x: Tensor, tb: TiledBalanced, *, block_m: int | None = None,
+               block_o: int | None = None, impl: str = "cuda") -> Tensor:
+    """Differentiable balanced-sparse matmul on a *pre-encoded*
+    `TiledBalanced` weight (the plan-driven entry).  ``x``: ``[..., N]`` ->
+    ``[..., O]``.  Skinny M (<= `SKINNY_M`) runs the decode kernel with M
+    padded to 8; wider M the prefill kernel at ``block_m``/``block_o``.
+    Packed encodings permute ``x`` into packed column space here, outside
+    the autograd Function, so autograd carries the gradient back through
+    the permutation."""
+    if impl != "cuda" or tb.quant != "none":
+        raise ValueError(f"tiled_spmm runs impl 'cuda' on unquantized "
+                         f"encodings, got impl={impl!r} quant={tb.quant!r}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    n_eff = tb.n_in
+    if tb.perm is not None:
+        npack = tb.nb * tb.bn
+        x2 = F.pad(x2, (0, npack - x2.shape[1])).index_select(
+            1, leaf_perm(tb.perm).long())
+        n_eff = npack
+    m = x2.shape[0]
+    skinny = m <= SKINNY_M
+    bm = _round_up(m, 8) if skinny else _pick_block(m, block_m or 128)
+    bo = _pick_block(tb.n_out, block_o or 128)
+    y = _TiledSpmm.apply(x2, tb.values, tb.indices, tb.counts, n_eff, tb.bn,
+                         bm, bo, skinny)
+    return y.reshape(*lead, tb.n_out)
+
+
+__all__ = ["balanced_spmm", "tiled_spmm", "choose_blocks", "BlockChoice",
+           "SKINNY_M", "bucket_m"]

@@ -1,0 +1,4 @@
+"""Dense transformer model, its primitives and the params converter."""
+from .api import build_model
+
+__all__ = ["build_model"]

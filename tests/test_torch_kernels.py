@@ -1,0 +1,218 @@
+"""The port's kernel wrappers and `ops` entries against the JAX reference's
+Pallas kernels run in interpret mode (inputs from numpy seeds): f32 within
+1e-4, bf16 within 2e-2 (`guard._probe_tol`).  On the CPU the wrappers run
+the kernels' plain version; the CUDA kernels themselves are checked by the
+`cuda`-marked test, on a GPU."""
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import tile_format as ref_tf  # noqa: E402
+from repro_torch.kernels import balanced_spmm as bs  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import tile_format as tf  # noqa: E402
+
+# the reference package re-exports a function under the module's name
+ref_bs = importlib.import_module("repro.kernels.balanced_spmm")
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _pair(rng, o, n, k, dtype, *, pack=False, bn=32, live=None):
+    """The same balanced encoding in both packages (optionally packed;
+    nonzeros only in the first ``live`` columns when given)."""
+    mask = np.zeros((o, n), bool)
+    for r in range(o):
+        mask[r, rng.choice(live or n, size=k, replace=False)] = True
+    idx = np.sort(np.argsort(~mask, axis=1, kind="stable")[:, :k],
+                  axis=1).astype(np.int32)
+    vals = (rng.standard_normal((o, k)) / np.sqrt(k)).astype(np.float32)
+    n_enc, perm = n, None
+    if pack:
+        perm = ref_tf.pack_columns(mask, bn)
+        pidx = ref_tf.invert_perm(perm)[idx]
+        order = np.argsort(pidx, axis=1, kind="stable")
+        idx = np.take_along_axis(pidx, order, axis=1)
+        vals = np.take_along_axis(vals, order, axis=1)
+        n_enc = perm.shape[0]
+    ref = ref_tf.encode_tiled(jnp.asarray(vals).astype(getattr(jnp, dtype)),
+                              idx, n_enc, bn=bn)
+    ref = ref_tf.TiledBalanced(ref.values, ref.indices, ref.counts, n_in=n,
+                               bn=bn, perm=None if perm is None
+                               else jnp.asarray(perm))
+    got = tf.TiledBalanced(
+        torch.from_numpy(np.array(ref.values, np.float32)).to(
+            getattr(torch, dtype)),
+        torch.from_numpy(np.array(ref.indices)),
+        torch.from_numpy(np.array(ref.counts)), n_in=n, bn=bn,
+        perm=None if perm is None else torch.from_numpy(perm))
+    return got, ref
+
+
+def _x(rng, m, n, dtype):
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    return (torch.from_numpy(x).to(getattr(torch, dtype)),
+            jnp.asarray(x).astype(getattr(jnp, dtype)))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_kernels_match_pallas(dtype):
+    """The wide and skinny wrappers (plain version on CPU tensors) against
+    `tiled_balanced_spmm_pallas` / `_skinny_pallas` in interpret mode on
+    tile-aligned inputs, zero-count blocks included."""
+    rng = np.random.default_rng(0)
+    tb, ref = _pair(rng, 32, 96, 12, dtype, live=60)
+    assert int((tb.counts == 0).sum()) > 0          # empty blocks occur
+    x, xj = _x(rng, 16, 96, dtype)
+    _close(bs.tiled_balanced_spmm(x, tb, bm=8, bo=16),
+           ref_bs.tiled_balanced_spmm_pallas(xj, ref, bm=8, bo=16,
+                                             interpret=True), dtype)
+    x, xj = _x(rng, 8, 96, dtype)
+    _close(bs.tiled_balanced_spmm_skinny(x, tb, bo=16),
+           ref_bs.tiled_balanced_spmm_skinny_pallas(xj, ref, bo=16,
+                                                    interpret=True), dtype)
+    with pytest.raises(ValueError, match="tile-aligned"):
+        bs.tiled_balanced_spmm(x[:5], tb, bm=8, bo=16)
+    assert bs.LAUNCHES == {"tiled_balanced_spmm": 0,
+                           "tiled_balanced_spmm_skinny": 0}
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 128])
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_spmm_matches_reference(m, pack, dtype):
+    """`ops.tiled_spmm` (impl cuda) against the reference's (impl pallas):
+    O = 50 is not a multiple of the block, skinny and wide M, packed and
+    unpacked encodings."""
+    rng = np.random.default_rng(m + 7 * pack)
+    tb, ref = _pair(rng, 50, 100, 30, dtype, pack=pack)
+    x, xj = _x(rng, m, 100, dtype)
+    _close(ops.tiled_spmm(x, tb, block_m=64, block_o=32),
+           ref_ops.tiled_spmm(xj, ref, block_m=64, block_o=32,
+                              impl="pallas"), dtype)
+
+
+@pytest.mark.parametrize("m,pack", [(4, False), (24, True)])
+def test_tiled_spmm_grads_match_reference(m, pack):
+    """dx and dvalues against the reference's custom_vjp; pad slots
+    (slot >= count) get exactly zero gradient."""
+    rng = np.random.default_rng(11)
+    tb, ref = _pair(rng, 40, 100, 20, "float32", pack=pack)
+    x, xj = _x(rng, m, 100, "float32")
+    g = rng.standard_normal((m, 40)).astype(np.float32)
+    x.requires_grad_(True)
+    vals = tb.values.clone().requires_grad_(True)
+    tbv = tf.TiledBalanced(vals, tb.indices, tb.counts, n_in=tb.n_in,
+                           bn=tb.bn, perm=tb.perm)
+    (ops.tiled_spmm(x, tbv) * torch.from_numpy(g)).sum().backward()
+
+    def loss(xv, vv):
+        r = ref_tf.TiledBalanced(vv, ref.indices, ref.counts, n_in=ref.n_in,
+                                 bn=ref.bn, perm=ref.perm)
+        return jnp.sum(ref_ops.tiled_spmm(xv, r, impl="pallas") * g)
+
+    gx, gv = jax.grad(loss, argnums=(0, 1))(xj, ref.values)
+    np.testing.assert_allclose(_np(x.grad), np.asarray(gx), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(_np(vals.grad), np.asarray(gv), rtol=1e-4,
+                               atol=1e-4)
+    pad = torch.arange(tb.kb) >= tb.counts[..., None]
+    assert bool(pad.any()) and bool((vals.grad[pad] == 0).all())
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_gather"])
+@pytest.mark.parametrize("m", [4, 40])
+def test_balanced_spmm_eager_rungs_match(impl, m):
+    """The flat-format eager rungs against the reference's, skinny and
+    wide M (xla routes skinny M to the gather formulation)."""
+    rng = np.random.default_rng(m)
+    mask = np.zeros((24, 70), bool)
+    for r in range(24):
+        mask[r, rng.choice(70, size=20, replace=False)] = True
+    idx = np.sort(np.argsort(~mask, axis=1, kind="stable")[:, :20],
+                  axis=1).astype(np.int32)
+    vals = rng.standard_normal((24, 20)).astype(np.float32)
+    x, xj = _x(rng, m, 70, "float32")
+    got = ops.balanced_spmm(x.reshape(2, m // 2, 70), torch.from_numpy(vals),
+                            torch.from_numpy(idx), n_in=70, impl=impl)
+    want = ref_ops.balanced_spmm(xj.reshape(2, m // 2, 70),
+                                 jnp.asarray(vals), jnp.asarray(idx),
+                                 n_in=70, impl=impl)
+    assert got.shape == (2, m // 2, 24)
+    _close(got, want, "float32")
+
+
+@pytest.mark.parametrize("m,o,n,k,itemsize", [
+    (128, 2048, 2048, 1024, 2), (4, 8192, 2048, 1024, 2),
+    (256, 2048, 8192, 4096, 4), (16, 50, 100, 30, 4), (3, 7, 9, 2, 2)])
+def test_choose_blocks_matches(m, o, n, k, itemsize):
+    got = ops.choose_blocks(m, o, n, k, itemsize=itemsize)
+    want = ref_ops.choose_blocks(m, o, n, k, itemsize=itemsize)
+    assert (got.bm, got.bo, got.bn, got.vmem_bytes) == \
+        (want.bm, want.bo, want.bn, want.vmem_bytes)
+    assert ops.bucket_m(m) == ref_ops.bucket_m(m)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """Each CUDA kernel against its plain version on the card (both
+    dtypes, ragged M and O, a packed encoding through `tiled_spmm`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels run only on the card)")
+    rng = np.random.default_rng(5)
+    for dtype in ("float32", "bfloat16"):
+        # O = 196: a multiple of neither CTA tile (64 wide, 8 skinny)
+        tb, _ = _pair(rng, 196, 384, 96, dtype, bn=128)
+        tbc = tf.TiledBalanced(tb.values.cuda(), tb.indices.cuda(),
+                               tb.counts.cuda(), n_in=tb.n_in, bn=tb.bn)
+        for m, fn in ((100, bs.tiled_balanced_spmm),
+                      (5, bs.tiled_balanced_spmm_skinny)):
+            x = _x(rng, m, 384, dtype)[0].cuda()
+            kw = {"bm": 4, "bo": 4} if m > 8 else {"bo": 4}
+            before = dict(bs.LAUNCHES)
+            got = fn(x, tbc, **kw)
+            torch.cuda.synchronize()
+            assert sum(bs.LAUNCHES.values()) == sum(before.values()) + 1
+            want = bs.tiled_balanced_spmm_plain(x, tbc)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=TOL[dtype], atol=TOL[dtype])
+        tb, _ = _pair(rng, 64, 300, 60, dtype, pack=True, bn=128)
+        tbc = tf.TiledBalanced(tb.values.cuda(), tb.indices.cuda(),
+                               tb.counts.cuda(), n_in=tb.n_in, bn=tb.bn,
+                               perm=tb.perm.cuda())
+        x = _x(rng, 16, 300, dtype)[0]
+        np.testing.assert_allclose(
+            _np(ops.tiled_spmm(x.cuda(), tbc).cpu()),
+            _np(ops.tiled_spmm(x, tb)), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("pack", [False, True])
+def test_ref_oracles_match(pack):
+    """`kernels.ref`'s flat and tiled oracles against the reference's."""
+    from repro.kernels import ref as ref_ref
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(3 + pack)
+    tb, want_tb = _pair(rng, 24, 100, 30, "float32", pack=pack)
+    x, xj = _x(rng, 6, 100, "float32")
+    _close(ref.tiled_balanced_spmm_ref(x, tb),
+           ref_ref.tiled_balanced_spmm_ref(xj, want_tb), "float32")
+    vals, idx = tf.tiled_to_flat(tb)
+    for name in ("balanced_spmm_ref", "balanced_spmm_gather"):
+        _close(getattr(ref, name)(x, vals, idx),
+               getattr(ref_ref, name)(xj, jnp.asarray(vals.numpy()),
+                                      jnp.asarray(idx.numpy())), "float32")

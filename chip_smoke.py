@@ -9,19 +9,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
-3. kernels — each kernel against its plain PyTorch version on the card at
-             the olmo-1b projection shapes (and a zero-count-block, a
-             ragged-O/M and a packed encoding), with its time beside the
-             plain version's, a ``torch.matmul`` yardstick on the masked
-             dense weight and the card's bound for the same work;
+3. kernels — each kernel against its plain PyTorch version on the card:
+             the 2-D kernels at the olmo-1b projection shapes (and a
+             zero-count-block, a ragged-O/M and a packed encoding), the
+             batched expert kernel at the deepseek-moe-16b expert shapes
+             (E = 64, M = 8 and 16; and a ragged-O and a zero-count-block
+             encoding), held at the f32 tolerance (both sides are f32
+             sums of the same products); each timed beside its plain
+             version, a library yardstick on the masked dense weight
+             (``torch.matmul`` / ``torch.bmm``) and the card's bound for
+             the same work (the live slots only: pad slots carry none);
 4. serve   — the port's serving entry point at full olmo-1b width: plan,
-             sparse-vs-masked-dense prefill parity, greedy decode; every
-             kernel's launch count is read from this run only.  Then the
-             same parity at float32 compute, gated end to end, and a
-             `torch.profiler` trace of one sparse generation (device busy
+             sparse-vs-masked-dense prefill parity, greedy decode; the
+             launch counts are zeroed just before and read just after.
+             Then the same parity at float32 compute, gated end to end, and
+             a `torch.profiler` trace of one sparse generation (device busy
              share, kernels by device time) with the wall time per call
              of one planned projection beside the dense matmul's;
-5. result  — one JSON line of per-kernel numbers, then the ok line.
+5. moe     — the same for deepseek-moe-16b at full published width, depth
+             cut to `MOE_LAYERS`: serve (the batched kernel's launches must
+             equal (prefills + decode steps) x layers x 3), peak device
+             memory, float32 end-to-end parity, a profile;
+6. result  — one JSON line of per-kernel numbers, then the ok line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -42,14 +51,39 @@ SPARSITY = 0.5
 WIDE_M = 128                 # prefill GEMM M: batch 4 x prompt 32
 SKINNY_MS = (1, 4, 8)        # decode batches (the kernel's tile is 8 rows)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# a kernel and its plain version both return the f32 sum of the same
+# products (bf16 x bf16 is exact in f32), so they are held at the f32
+# tolerance at either input dtype; a comparison of outputs rounded to the
+# compute dtype (through `ops`) takes that dtype's
+KERNEL_TOL = TOL["float32"]
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/balanced_spmm.cu"
 REPLACES = {"tiled_balanced_spmm": "src/repro/kernels/balanced_spmm.py:106",
             "tiled_balanced_spmm_skinny":
-                "src/repro/kernels/balanced_spmm.py:185"}
+                "src/repro/kernels/balanced_spmm.py:185",
+            "tiled_balanced_spmm_batched":
+                "src/repro/kernels/balanced_spmm.py:267"}
+GEN_STEPS = 32
 SERVE_ARGS = ["--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
-              "--gen-steps", "32", "--sparsity", str(SPARSITY)]
+              "--gen-steps", str(GEN_STEPS), "--sparsity", str(SPARSITY)]
+# deepseek-moe-16b: 64 routed experts (top-6) + 2 shared; E x (O, N) of the
+# expert projections (gate/up, down); capacities M: decode (batch 4 -> 8)
+# and prefill (4 x 32 tokens -> 15, padded to 16)
+EXPERTS = 64
+EXPERT_SHAPES = ((1408, 2048), (2048, 1408))
+EXPERT_MS = (8, 16)
+# depth cut: f32 params + bf16 encodings + the f32 masked-dense reference
+# take about 7 GB per layer at full width; 8 of the 28 layers fit on 80 GB
+MOE_LAYERS = 8
+MOE_ARGS = ["--arch", "deepseek-moe-16b", "--n-layers", str(MOE_LAYERS),
+            "--batch", "4", "--prompt-len", "32", "--gen-steps",
+            str(GEN_STEPS), "--sparsity", str(SPARSITY)]
+# kernel launches of one serve run, in prefills' worth: the parity check's
+# sparse prefill, its teacher-forced layers, the warm-up's and the timed
+# generation's prefills; decode steps: the warm-up's one and GEN_STEPS
+SERVE_PREFILLS = 4
+SERVE_DECODE_STEPS = 1 + GEN_STEPS
 
 
 def log(msg: str) -> None:
@@ -77,6 +111,45 @@ def time_ms(torch, fn, *, flush, warmup: int = 3, runs: int = 25) -> float:
     torch.cuda.synchronize()
     return statistics.median(start.elapsed_time(stop)
                              for start, stop in events)
+
+
+def compare(torch, worst: dict, name: str, got, want, tol: float,
+            what: str) -> None:
+    """Hold ``got`` against ``want`` elementwise at ``tol + tol * |want|``;
+    raise if any element is off or not finite, else record the max |diff|
+    as ``name``'s worst."""
+    err = (got.float() - want.float()).abs()
+    diff = float(err.max())
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (err <= tol + tol * want.float().abs()).all())
+    log(f"check {name:27s} {what:38s} max|diff| {diff:.3e} "
+        f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"at {what}: max|diff| {diff}")
+    worst[name] = max(worst.get(name, 0.0), diff)
+
+
+def live_bytes(tb) -> int:
+    """The encoding bytes a product with ``tb`` must read: each live
+    slot's value and index once, and the per-block counts that say which
+    slots are live (pad slots carry no work)."""
+    live = int(tb.counts.sum())
+    return live * (tb.values.element_size() + tb.indices.element_size()) \
+        + tb.counts.numel() * tb.counts.element_size()
+
+
+def bound(tb, x, m: int, y_numel: int, dname: str) -> dict:
+    """The least time the card could take for ``y = x @ decode(tb)^T``
+    (batched or not, ``m`` rows of x per weight): the larger of the bytes
+    it must move (x read once, the live encoding, the f32 y written once)
+    over the memory rate and its multiply-adds on the live slots over the
+    peak rate of the input dtype."""
+    nbytes = x.numel() * x.element_size() + live_bytes(tb) + y_numel * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * int(tb.counts.sum()) / PEAK_FLOPS[dname] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def make_encoding(torch, o: int, n: int, dtype, gen, *, empty_half=False,
@@ -119,27 +192,12 @@ def check_kernels(torch):
     flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
     worst = {name: 0.0 for name in bs.LAUNCHES}
     rows = []
-
-    def compare(name, got, want, dtype, what):
-        err = (got.float() - want.float()).abs()
-        diff = float(err.max())
-        tol = TOL[str(dtype).removeprefix("torch.")]
-        ok = bool(torch.isfinite(got).all()) and bool(
-            (err <= tol + tol * want.float().abs()).all())
-        log(f"check {name:27s} {what:38s} max|diff| {diff:.3e} "
-            f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"at {what}: max|diff| {diff}")
-        worst[name] = max(worst[name], diff)
+    check = lambda *a: compare(torch, worst, *a)  # noqa: E731
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
         for o, n in SHAPES:
             tb, w_masked = make_encoding(torch, o, n, dtype, gen)
-            k = int(tb.counts[0].sum())
-            enc_bytes = tb.values.numel() * tb.values.element_size() \
-                + tb.indices.numel() * 4
             for name, m in (("tiled_balanced_spmm", WIDE_M),
                             *(("tiled_balanced_spmm_skinny", mm)
                               for mm in SKINNY_MS)):
@@ -150,24 +208,18 @@ def check_kernels(torch):
                 else:
                     kern = lambda: bs.tiled_balanced_spmm_skinny(x, tb)  # noqa: E731,E501
                 plain = lambda: bs.tiled_balanced_spmm_plain(x, tb)  # noqa: E731,E501
-                compare(name, kern(), plain(), dtype,
-                        f"{dname} M={m} O={o} N={n} KB={tb.kb}")
+                check(name, kern(), plain(), KERNEL_TOL,
+                      f"{dname} M={m} O={o} N={n} KB={tb.kb}")
                 if m not in (WIDE_M, 8):
                     continue       # timed at the shapes the main path runs
                 wd = w_masked.to(dtype)
                 library = lambda: torch.matmul(x, wd.T)  # noqa: E731
-                nbytes = x.numel() * x.element_size() + enc_bytes + m * o * 4
-                flops = 2 * m * o * k
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_FLOPS[dname] * 1e3
                 row = {"name": name, "dtype": dname, "M": m, "O": o, "N": n,
                        "KB": tb.kb,
                        "ms": time_ms(torch, kern, flush=flush),
                        "plain_ms": time_ms(torch, plain, flush=flush),
                        "library_ms": time_ms(torch, library, flush=flush),
-                       "bound_ms": max(t_bytes, t_ops),
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations"}
+                       **bound(tb, x, m, m * o, dname)}
                 rows.append(row)
                 log("time  " + json.dumps(row))
         # edge encodings: zero-count blocks, ragged O and M, packed columns
@@ -177,69 +229,146 @@ def check_kernels(torch):
             x = torch.randn((m, 2048), generator=gen, device=DEVICE).to(dtype)
             fn = bs.tiled_balanced_spmm if m > 8 \
                 else bs.tiled_balanced_spmm_skinny
-            compare(name, fn(x, tb), bs.tiled_balanced_spmm_plain(x, tb),
-                    dtype, f"{dname} zero-count blocks")
+            check(name, fn(x, tb), bs.tiled_balanced_spmm_plain(x, tb),
+                  KERNEL_TOL, f"{dname} zero-count blocks")
         # O = 2004: a multiple of neither kernel's CTA tile (64 wide, 8 skinny)
         tb, _ = make_encoding(torch, 2004, 2048, dtype, gen)
         x = torch.randn((100, 2048), generator=gen, device=DEVICE).to(dtype)
-        compare("tiled_balanced_spmm", bs.tiled_balanced_spmm(x, tb, bm=4,
-                                                              bo=4),
-                bs.tiled_balanced_spmm_plain(x, tb), dtype,
-                f"{dname} ragged M=100 O=2004")
+        check("tiled_balanced_spmm", bs.tiled_balanced_spmm(x, tb, bm=4, bo=4),
+              bs.tiled_balanced_spmm_plain(x, tb), KERNEL_TOL,
+              f"{dname} ragged M=100 O=2004")
         x = torch.randn((5, 2048), generator=gen, device=DEVICE).to(dtype)
-        compare("tiled_balanced_spmm_skinny",
-                bs.tiled_balanced_spmm_skinny(x, tb, bo=4),
-                bs.tiled_balanced_spmm_plain(x, tb), dtype,
-                f"{dname} ragged M=5 O=2004")
+        check("tiled_balanced_spmm_skinny",
+              bs.tiled_balanced_spmm_skinny(x, tb, bo=4),
+              bs.tiled_balanced_spmm_plain(x, tb), KERNEL_TOL,
+              f"{dname} ragged M=5 O=2004")
         tb, _ = make_encoding(torch, 2048, 2048, dtype, gen, pack=True)
         for name, m in (("tiled_balanced_spmm", WIDE_M),
                         ("tiled_balanced_spmm_skinny", 4)):
             x = torch.randn((m, 2048), generator=gen, device=DEVICE).to(dtype)
-            compare(name, ops.tiled_spmm(x, tb).float(),
-                    ref.tiled_balanced_spmm_ref(x, tb).float(), dtype,
-                    f"{dname} packed M={m} KB={tb.kb}")
+            check(name, ops.tiled_spmm(x, tb).float(),
+                  ref.tiled_balanced_spmm_ref(x, tb).float(), TOL[dname],
+                  f"{dname} packed M={m} KB={tb.kb}")
     return rows, worst
 
 
-def full_width(torch, compute_dtype: str):
-    """olmo-1b at full width as `launch/serve.py` builds it (seed 0
-    weights, seed 1 prompt of batch 4 x 32): ``(bundle, params, plan,
-    prompt)``."""
+def make_expert_encoding(torch, e: int, o: int, n: int, dtype, gen, *,
+                         empty_half=False):
+    """``e`` experts' balanced-pruned random [o, n] weights, encoded as the
+    plan encodes an expert stack (one shared KB): ``(tb [E, O, NB, KB],
+    masked dense [E, O, N])``."""
+    from repro_torch.kernels import tile_format as tf
+    tb, w = make_encoding(torch, e * o, n, dtype, gen, empty_half=empty_half)
+    nb, kb = tb.nb, tb.kb
+    return tf.TiledBalanced(tb.values.reshape(e, o, nb, kb),
+                            tb.indices.reshape(e, o, nb, kb),
+                            tb.counts.reshape(e, o, nb), n_in=n,
+                            bn=tb.bn), w.reshape(e, o, n)
+
+
+def check_batched(torch, worst: dict) -> list:
+    """Phase 3, the batched expert kernel against its plain version at
+    E = 64 and the deepseek-moe-16b expert shapes, M = 8 (decode) and 16
+    (prefill), both dtypes, timed; then a ragged-O encoding through the
+    wrapper's padding (`ops.tiled_spmm_batched`) and zero-count blocks."""
+    from repro_torch.kernels import balanced_spmm as bs
+    from repro_torch.kernels import ops, ref
+    name = "tiled_balanced_spmm_batched"
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    rows = []
+    check = lambda *a: compare(torch, worst, name, *a)  # noqa: E731
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for o, n in EXPERT_SHAPES:
+            tb, w_masked = make_expert_encoding(torch, EXPERTS, o, n, dtype,
+                                                gen)
+            wd = w_masked.to(dtype)
+            for m in EXPERT_MS:
+                x = torch.randn((EXPERTS, m, n), generator=gen,
+                                device=DEVICE).to(dtype)
+                kern = lambda: bs.tiled_balanced_spmm_batched(x, tb, bm=8, bo=8)  # noqa: E731,E501
+                plain = lambda: bs.tiled_balanced_spmm_batched_plain(x, tb)  # noqa: E731,E501
+                library = lambda: torch.bmm(x, wd.transpose(1, 2))  # noqa: E731,E501
+                check(kern(), plain(), KERNEL_TOL,
+                      f"{dname} E={EXPERTS} M={m} O={o} N={n} KB={tb.kb}")
+                row = {"name": name, "dtype": dname, "E": EXPERTS, "M": m,
+                       "O": o, "N": n, "KB": tb.kb,
+                       "ms": time_ms(torch, kern, flush=flush),
+                       "plain_ms": time_ms(torch, plain, flush=flush),
+                       "library_ms": time_ms(torch, library, flush=flush),
+                       **bound(tb, x, m, EXPERTS * m * o, dname)}
+                rows.append(row)
+                log("time  " + json.dumps(row))
+            del tb, w_masked, wd
+        # O = 1404 per expert: a multiple of neither CTA tile; the wrapper
+        # pads O to its block and M to 8 / 16
+        tb, _ = make_expert_encoding(torch, 8, 1404, 2048, dtype, gen)
+        for m in (5, 15):
+            x = torch.randn((8, m, 2048), generator=gen,
+                            device=DEVICE).to(dtype)
+            want = torch.stack([ref.tiled_balanced_spmm_ref(
+                x[i], type(tb)(tb.values[i], tb.indices[i], tb.counts[i],
+                               n_in=tb.n_in, bn=tb.bn)) for i in range(8)])
+            check(ops.tiled_spmm_batched(x, tb).float(), want.float(),
+                  TOL[dname], f"{dname} ragged E=8 M={m} O=1404")
+        tb, _ = make_expert_encoding(torch, 8, 1408, 2048, dtype, gen,
+                                     empty_half=True)
+        for m in EXPERT_MS:
+            x = torch.randn((8, m, 2048), generator=gen,
+                            device=DEVICE).to(dtype)
+            check(bs.tiled_balanced_spmm_batched(x, tb, bm=8, bo=8),
+                  bs.tiled_balanced_spmm_batched_plain(x, tb), KERNEL_TOL,
+                  f"{dname} zero-count blocks M={m}")
+    return rows
+
+
+def full_width(torch, compute_dtype: str, arch: str = "olmo-1b",
+               n_layers: int | None = None):
+    """``arch`` at full width as `launch/serve.py` builds it (seed 0
+    weights, seed 1 prompt of batch 4 x 32), depth cut to ``n_layers``
+    when given: ``(bundle, params, plan, prompt)``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.engine import plan as engine_plan
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config("olmo-1b"), sparse_serving=True,
+    cfg = dataclasses.replace(get_config(arch), sparse_serving=True,
                               compute_dtype=compute_dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     bundle = build_model(cfg, DEVICE)
     params = bundle.init(0)
     prompt = torch.randint(0, cfg.vocab_size, (4, 32),
                            generator=torch.Generator().manual_seed(1))
-    plan = engine_plan.plan_transformer(cfg, params, sparsity=SPARSITY,
-                                        m_hint=128)
+    plan = engine_plan.plan_model(cfg, params, sparsity=SPARSITY, m_hint=128)
     return bundle, params, plan, prompt.to(DEVICE)
 
 
-def full_width_f32_parity(torch, serve) -> dict:
+def full_width_f32_parity(torch, serve, arch: str = "olmo-1b",
+                          n_layers: int | None = None) -> dict:
     """The sparse plan against its masked-dense reference at float32
-    compute and full olmo-1b width, gated end to end on the prefill logits
-    at 1e-4 (bf16 rounding compounds over depth; f32 does not)."""
+    compute and full width, gated end to end on the prefill logits at 1e-4
+    (bf16 rounding compounds over depth; f32 does not)."""
     from repro_torch.engine import plan as engine_plan
-    bundle, params, plan, prompt = full_width(torch, "float32")
+    bundle, params, plan, prompt = full_width(torch, "float32", arch,
+                                              n_layers)
     return serve._parity_check(
         bundle, {**params, "sparse_plan": plan},
         engine_plan.masked_dense_params(params, plan), prompt,
         tol=TOL["float32"])
 
 
-def profile_generate(torch, serve, steps: int = 8) -> dict:
+def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
+                     n_layers: int | None = None) -> dict:
     """Where the device time goes in one sparse greedy generation at full
     width (bf16; one prefill and ``steps`` decode steps): the device's
     busy share of the wall time and the kernels by total device time,
     from a `torch.profiler` trace of the card's activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    bundle, params, plan, prompt = full_width(torch, "bfloat16")
+    bundle, params, plan, prompt = full_width(torch, "bfloat16", arch,
+                                              n_layers)
     sparse = {**params, "sparse_plan": plan}
     max_len = prompt.shape[1] + steps
     serve.greedy_generate(bundle, sparse, prompt, steps, max_len)   # warm
@@ -255,12 +384,23 @@ def profile_generate(torch, serve, steps: int = 8) -> dict:
             n, ms = by_name.get(evt.name, (0, 0.0))
             by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
     busy_ms = sum(ms for _, ms in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms,
-            "top": [{"kernel": name[:80], "count": n, "ms": ms}
-                    for name, (n, ms) in top],
-            "per_call_us": per_call_us(torch, params, plan)}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    # a decode step reads every planned weight once: its live encoding
+    # bytes over the memory rate bound the step's planned projections
+    from repro_torch.kernels.tile_format import TiledBalanced
+    step_bytes = sum(live_bytes(lp.weights)
+                     if isinstance(lp.weights, TiledBalanced) else lp.nbytes()
+                     for lp in plan.layers.values())
+    out = {"arch": arch, "layers": bundle.cfg.n_layers, "steps": steps,
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms,
+           "step_weight_bytes": step_bytes,
+           "step_weight_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "top": [{"kernel": name[:80], "count": n, "ms": ms}
+                   for name, (n, ms) in top]}
+    if arch == "olmo-1b":
+        out["per_call_us"] = per_call_us(torch, params, plan)
+    return out
 
 
 def per_call_us(torch, params, plan, calls: int = 200) -> dict:
@@ -317,43 +457,63 @@ def main() -> int:
         f"(nvcc {_build.BUILD_SECONDS})")
     for stem in libs:
         for line in _build.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry" in line:
                 log(f"ptxas {stem}: {line.strip()}")
 
     # 3. kernels vs plain versions (launches here are not the main path's)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows, worst = check_kernels(torch)
+    rows += check_batched(torch, worst)
 
-    # 4. the main path: counts zeroed just before, read just after
-    bs.reset_launches()
-    t0 = time.monotonic()
-    res = serve.main(SERVE_ARGS)
-    torch.cuda.synchronize()
-    launches = dict(bs.LAUNCHES)
-    log(f"serve {' '.join(SERVE_ARGS)}: {time.monotonic() - t0:.1f} s, plan "
-        f"{res['plan']['plan_build_s']:.2f} s, dense "
-        f"{res['dense']['tokens_per_s']:.1f} tok/s, sparse "
-        f"{res['sparse']['tokens_per_s']:.1f} tok/s, parity "
-        f"{json.dumps(res['plan']['parity'])}")
-    log("launches " + ", ".join(f"{k}={v}" for k, v in launches.items()))
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{launches}")
+    # 4. the olmo-1b path: counts zeroed just before, read just after
+    launches = serve_path(torch, serve, "olmo-1b", SERVE_ARGS)
     parity_f32 = full_width_f32_parity(torch, serve)
     log(f"float32 compute, full width, end to end: {json.dumps(parity_f32)}")
     log(f"profile {json.dumps(profile_generate(torch, serve))}")
 
-    # 5. result
+    # 5. the deepseek-moe-16b path, the same way, after freeing olmo's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe_launches = serve_path(torch, serve, "deepseek-moe-16b", MOE_ARGS)
+    want = (SERVE_PREFILLS + SERVE_DECODE_STEPS) * MOE_LAYERS * 3
+    if moe_launches["tiled_balanced_spmm_batched"] != want:
+        raise AssertionError(f"batched kernel launched "
+                             f"{moe_launches['tiled_balanced_spmm_batched']} "
+                             f"times on the MoE path, expected {want}")
+    log(f"moe serve peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    parity_f32 = full_width_f32_parity(torch, serve, "deepseek-moe-16b",
+                                       MOE_LAYERS)
+    log(f"moe float32 compute, full width, {MOE_LAYERS} layers, end to end: "
+        f"{json.dumps(parity_f32)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    log("moe profile " + json.dumps(profile_generate(
+        torch, serve, arch="deepseek-moe-16b", n_layers=MOE_LAYERS)))
+
+    # 6. result: launches summed over the two paths' serve runs
+    paths = {"olmo-1b": launches, "deepseek-moe-16b": moe_launches}
     kernels = []
     for name in bs.LAUNCHES:
-        m = WIDE_M if name == "tiled_balanced_spmm" else 8
-        row = next(r for r in rows if r["name"] == name and r["M"] == m
-                   and (r["O"], r["N"]) == (8192, 2048)
-                   and r["dtype"] == "bfloat16")
+        if name == "tiled_balanced_spmm_batched":
+            row = next(r for r in rows if r["name"] == name and r["M"] == 8
+                       and (r["O"], r["N"]) == EXPERT_SHAPES[0]
+                       and r["dtype"] == "bfloat16")
+        else:
+            m = WIDE_M if name == "tiled_balanced_spmm" else 8
+            row = next(r for r in rows if r["name"] == name and r["M"] == m
+                       and (r["O"], r["N"]) == SHAPES[1]
+                       and r["dtype"] == "bfloat16")
         kernels.append({"name": name, "route": "cuda",
                         "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-                        "launches": launches[name],
+                        "launches": sum(p[name] for p in paths.values()),
+                        "launches_by_path": {a: p[name]
+                                             for a, p in paths.items()},
                         "max_abs_err": worst[name], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -364,6 +524,34 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def serve_path(torch, serve, arch: str, args: list) -> dict:
+    """Drive one path through `launch/serve.main` with every launch count
+    zeroed just before and read just after; fail if a kernel that the
+    path's plan reaches never launched."""
+    from repro_torch.kernels import balanced_spmm as bs
+    bs.reset_launches()
+    t0 = time.monotonic()
+    res = serve.main(args)
+    torch.cuda.synchronize()
+    launches = dict(bs.LAUNCHES)
+    log(f"serve {' '.join(args)}: {time.monotonic() - t0:.1f} s, plan "
+        f"{res['plan']['plan_build_s']:.2f} s, dense "
+        f"{res['dense']['tokens_per_s']:.1f} tok/s, sparse "
+        f"{res['sparse']['tokens_per_s']:.1f} tok/s, KB "
+        f"{res['plan']['block_k']}, parity "
+        f"{json.dumps(res['plan']['parity'])}, stored "
+        f"{res['plan']['encoded_bytes']} B vs dense "
+        f"{res['plan']['dense_bytes']} B")
+    log(f"{arch} launches " + ", ".join(f"{k}={v}"
+                                        for k, v in launches.items())
+        + f"; the plan reaches {res['plan']['kernels_reached']}")
+    if not res["plan"]["kernels_reached"] or any(
+            launches[k] == 0 for k in res["plan"]["kernels_reached"]):
+        raise AssertionError(f"a kernel of the {arch} path never launched: "
+                             f"{launches}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import importlib
 
-from .base import (LONG_CONTEXT_FAMILIES, SHAPES, ModelConfig, ShapeSpec,
-                   shape_applicable)
+from .base import (LONG_CONTEXT_FAMILIES, SHAPES, TRANSFORMER_FAMILIES,
+                   ModelConfig, ShapeSpec, shape_applicable)
 
 ARCHS = (
     "olmo-1b", "qwen3-8b", "starcoder2-7b", "command-r-plus-104b",
@@ -43,4 +43,4 @@ def all_cells():
 
 __all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeSpec", "get_config",
            "get_smoke", "all_cells", "shape_applicable",
-           "LONG_CONTEXT_FAMILIES"]
+           "LONG_CONTEXT_FAMILIES", "TRANSFORMER_FAMILIES"]

@@ -117,6 +117,10 @@ SHAPES = {
 # full-attention archs (assignment rule; see DESIGN.md §4).
 LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
 
+# the transformer families this package serves and plans (the reference's
+# models.api.TRANSFORMER_FAMILIES less audio and vlm, which are not ported)
+TRANSFORMER_FAMILIES = ("dense", "moe")
+
 
 def shape_applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
     if shape_name == "long_500k" and cfg.family not in LONG_CONTEXT_FAMILIES:

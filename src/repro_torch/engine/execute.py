@@ -4,9 +4,10 @@ counterpart of `repro.engine.execute`.
 ``cuda`` plans run the pre-encoded `kernels.ops.tiled_spmm` at the plan's
 blocks (decode-shaped ones when M is skinny), the eager rungs the flat
 `kernels.ops.balanced_spmm`, dense layers a plain matmul on the masked
-weights.  `STATS` counts balanced-sparse dispatches per call (PyTorch runs
-eagerly, so this is per execution, not per trace); `launch/serve.py`
-asserts on it that the sparse path really ran.
+weights; `apply_expert_fc` does the same for the MoE experts, every expert
+in one dispatch.  `STATS` counts balanced-sparse dispatches per call
+(PyTorch runs eagerly, so this is per execution, not per trace);
+`launch/serve.py` asserts on it that the sparse path really ran.
 """
 from __future__ import annotations
 
@@ -65,4 +66,36 @@ def apply_fc(x: Tensor, lp: LayerPlan) -> Tensor:
                                     n_in=spec.n_in, impl=spec.impl)
 
 
-__all__ = ["apply_fc", "stats", "reset_stats", "STATS"]
+def apply_expert_fc(x: Tensor, lp: LayerPlan) -> Tensor:
+    """Per-expert planned projection ``x [E, ..., N] -> [E, ..., O]`` (the
+    plan of a rank-4 ``[L, E, n_in, n_out]`` expert tensor, sliced to one
+    layer).  Every impl is one dispatch over all experts: ``cuda`` runs
+    `kernels.ops.tiled_spmm_batched` (the expert is a grid axis of one
+    kernel launch), the eager rungs `kernels.ops.balanced_spmm_batched`.
+    The same live-M clamp of ``block_m`` as `apply_fc`, with M the
+    per-expert capacity.  Counts ``expert_balanced_spmm`` in `STATS`."""
+    spec = lp.spec
+    e = x.shape[0]
+    if spec.impl == "dense":
+        STATS["dense_matmul"] += 1
+        x3 = x.reshape(e, -1, x.shape[-1])
+        y = torch.bmm(x3, lp.weights.to(x.dtype).transpose(1, 2))
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    m = 1
+    for d in x.shape[1:-1]:
+        m *= d
+    skinny = m <= kernel_ops.SKINNY_M
+    _count_dispatch(spec, "expert_balanced_spmm",
+                    *(("decode_dispatch",) if skinny else ()))
+    if isinstance(lp.weights, TiledBalanced):
+        blk = spec.blocks_decode if skinny and spec.blocks_decode \
+            else spec.blocks
+        bm = min(blk.bm, max(8, kernel_ops.bucket_m(m)))
+        return kernel_ops.tiled_spmm_batched(x, lp.weights, block_m=bm,
+                                             block_o=blk.bo, impl=spec.impl)
+    sp = lp.weights
+    return kernel_ops.balanced_spmm_batched(x, sp.values, sp.indices,
+                                            n_in=spec.n_in, impl=spec.impl)
+
+
+__all__ = ["apply_fc", "apply_expert_fc", "stats", "reset_stats", "STATS"]

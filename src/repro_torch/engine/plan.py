@@ -10,6 +10,9 @@ the impl's native format (`TiledBalanced` for the ``cuda`` kernels, flat
 Pruning, column packing and encoding run as tensor ops on the weights'
 device, so a full-width plan builds on the GPU in seconds; the result is
 array-equal to the reference's plan (its ``pallas`` impl <-> ``cuda``).
+Their transients (sort indices, int64 column ids) are taken over chunks of
+at most `_PLAN_CHUNK` elements, so planning the MoE expert stacks
+(``[L*E, O, N]``) needs little memory beyond the masks and the encodings.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..configs.base import TRANSFORMER_FAMILIES
 from ..core.dataflow import LayerSpec, choose_dataflow
 from ..core.pruning import BalancedSparse, keep_count, nonzero_columns, \
     topk_mask
@@ -35,17 +39,35 @@ Tensor = torch.Tensor
 # the hand-kernel rung named after its backend)
 IMPL_LADDER = ("cuda", "xla", "xla_gather", "dense")
 
+# The projection families the planner prunes: every entry is a stacked
+# [L, n_in, n_out] (or [L, E, n_in, n_out] for the MoE expert tensors) leaf
+# of params["blocks"].
 ATTN_PROJ_NAMES = ("wq", "wk", "wv", "wo")
 MLP_PROJ_NAMES = ("w_gate", "w_up", "w_down", "w_in", "w_out")
+MOE_SHARED_NAMES = ("ws_gate", "ws_up", "ws_down")
+MOE_EXPERT_NAMES = ("we_gate", "we_up", "we_down")
+
+# elements per chunk of the planning transients (1 GiB of int64 at most)
+_PLAN_CHUNK = 1 << 27
+
+
+def _chunks(rows: int, width: int):
+    """Slices over ``rows`` of ``width`` elements each, `_PLAN_CHUNK`
+    elements at most per slice (one row at least)."""
+    step = max(1, _PLAN_CHUNK // max(width, 1))
+    return [slice(i, min(i + step, rows)) for i in range(0, rows, step)]
 
 
 def mask_block_k(mask2d: Tensor, bn: int = 128) -> int:
     """Max per-(row, bn-block) NZE count of a concrete mask ``[O, N]``."""
     o, n = mask2d.shape
     nb = -(-n // bn)
-    m = torch.nn.functional.pad((mask2d != 0).to(torch.int32),
-                                (0, nb * bn - n))
-    return int(m.reshape(o, nb, bn).sum(dim=2).max())
+    best = 0
+    for sl in _chunks(o, nb * bn):
+        m = torch.nn.functional.pad((mask2d[sl] != 0).to(torch.int32),
+                                    (0, nb * bn - n))
+        best = max(best, int(m.reshape(-1, nb, bn).sum(dim=2).max()))
+    return best
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,22 +203,46 @@ def default_impl(*, balanced: bool, w_sparsity: float,
 def _maybe_pack(idx: Tensor, vals: Tensor, pattern2: Tensor, n_in: int,
                 bn: int, block_k: int):
     """Column-combining packing of a flat encoding, adopted only when it
-    strictly shrinks KB.  ``idx`` ``[..., O, K]`` ascending, ``pattern2``
-    the pooled ``[rows, n_in]`` mask.  Returns ``(idx, vals, block_k,
-    n_enc, perm, pack_kb)`` (perm None when not adopted)."""
+    strictly shrinks KB.  ``idx`` ``[g, O, K]`` ascending, ``pattern2``
+    the pooled ``[g*O, n_in]`` mask.  Returns ``(idx, vals, block_k,
+    n_enc, perm, pack_kb)`` (perm None when not adopted); the packed
+    indices are re-sorted ascending, chunk by chunk."""
     nb = -(-n_in // bn)
     if nb <= 1:
         return idx, vals, block_k, n_in, None, ()
     perm = pack_columns(pattern2, bn)
-    pidx = invert_perm(perm).long()[idx]
-    order = torch.argsort(pidx, dim=-1, stable=True)
-    pidx = pidx.gather(-1, order)
+    inv = invert_perm(perm).long()
     npack = nb * bn
-    kb_packed = max_block_count(pidx.reshape(-1, pidx.shape[-1]), npack, bn)
+    g, o, k = idx.shape
+    parts = _chunks(g, o * k)
+    # block counts do not depend on the order within a row
+    kb_packed = max(max_block_count(inv[idx[sl].long()].reshape(-1, k),
+                                    npack, bn) for sl in parts)
     if kb_packed >= block_k:
         return idx, vals, block_k, n_in, None, ()
-    return (pidx, vals.gather(-1, order), kb_packed, npack, perm,
-            (block_k, kb_packed))
+    pidx = torch.empty_like(idx)
+    pvals = torch.empty_like(vals)
+    for sl in parts:
+        p = inv[idx[sl].long()]
+        order = torch.argsort(p, dim=-1, stable=True)
+        pidx[sl] = p.gather(-1, order).to(pidx.dtype)
+        pvals[sl] = vals[sl].gather(-1, order)
+    return pidx, pvals, kb_packed, npack, perm, (block_k, kb_packed)
+
+
+def _encode_chunked(vals: Tensor, idx: Tensor, n_enc: int, bn: int,
+                    kb: int) -> TiledBalanced:
+    """`encode_tiled` of the rows ``[R, K]`` one chunk of rows at a time
+    (rows encode independently at a fixed KB)."""
+    r, k = idx.shape
+    nb = -(-n_enc // bn)
+    tv = torch.empty((r, nb, kb), dtype=vals.dtype, device=vals.device)
+    ti = torch.empty((r, nb, kb), dtype=torch.int32, device=vals.device)
+    tc = torch.empty((r, nb), dtype=torch.int32, device=vals.device)
+    for sl in _chunks(r, max(k, nb * kb)):
+        part = encode_tiled(vals[sl], idx[sl], n_enc, bn=bn, kb=kb)
+        tv[sl], ti[sl], tc[sl] = part.values, part.indices, part.counts
+    return TiledBalanced(tv, ti, tc, n_in=n_enc, bn=bn)
 
 
 def _as_dtype(dt) -> torch.dtype:
@@ -223,7 +269,9 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
     if impl_nm not in IMPL_LADDER:
         raise ValueError(f"impl must be one of {IMPL_LADDER}, got {impl_nm!r}")
     wt = w.reshape(g, n_in, n_out).transpose(-1, -2).to(cd)     # [g, O, N]
-    masks = topk_mask(wt, k)
+    masks = torch.empty((g, n_out, n_in), dtype=torch.bool, device=w.device)
+    for sl in _chunks(g, n_out * n_in):
+        masks[sl] = topk_mask(wt[sl], k)
     blk = blk_dec = None
     block_k = 0
     packed = False
@@ -239,16 +287,21 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
         pooled = masks.reshape(g * n_out, n_in)
         block_k = max(_KB_ROUND,
                       _round_up(mask_block_k(pooled, bn=blk.bn), _KB_ROUND))
-        idx = nonzero_columns(masks, k)                          # [g, O, K]
-        vals = wt.gather(-1, idx)
+        # ascending nonzero columns [g, O, K] and their values
+        idx = torch.empty((g, n_out, k), dtype=torch.int32, device=w.device)
+        vals = torch.empty((g, n_out, k), dtype=cd, device=w.device)
+        for sl in _chunks(g, n_out * n_in):
+            cols = nonzero_columns(masks[sl], k)
+            idx[sl] = cols.to(torch.int32)
+            vals[sl] = wt[sl].gather(-1, cols)
         if impl_nm == "cuda":
             n_enc, perm = n_in, None
             if pack:
                 idx, vals, block_k, n_enc, perm, pack_kb = _maybe_pack(
                     idx, vals, pooled, n_in, blk.bn, block_k)
-            tb = encode_tiled(vals.reshape(g * n_out, k),
-                              idx.reshape(g * n_out, k), n_enc, bn=blk.bn,
-                              kb=block_k)
+            tb = _encode_chunked(vals.reshape(g * n_out, k),
+                                 idx.reshape(g * n_out, k), n_enc, blk.bn,
+                                 block_k)
             perm_leaf = None
             if perm is not None:
                 packed = True
@@ -261,8 +314,7 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
                 n_in=n_in, bn=blk.bn, perm=perm_leaf)
         else:
             weights = BalancedSparse(vals.reshape(*lead, n_out, k),
-                                     idx.to(torch.int32).reshape(
-                                         *lead, n_out, k), n_in)
+                                     idx.reshape(*lead, n_out, k), n_in)
     flow = choose_dataflow(LayerSpec(name=nm, kind="fc", c_i=n_in,
                                      c_o=n_out, w_sparsity=1.0 - k / n_in))
     spec = PlanSpec(name=nm, kind="fc", impl=impl_nm, mode=flow.mode,
@@ -281,37 +333,58 @@ def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
                      impl: str | None = None, include_mlp: bool = True,
                      m_hint: int | None = None, decode_m: int | None = None,
                      pack: bool = True) -> ModelPlan:
-    """Offline plan for a dense transformer's stacked projections
-    ``[L, n_in, n_out]`` (attention, plus the MLP unless ``include_mlp`` is
-    False).  Built on the params' device."""
-    if cfg.family != "dense":
-        raise ValueError(f"this package plans the dense family only, got "
-                         f"{cfg.family!r}")
+    """Offline plan for a transformer's stacked projections: attention
+    ``[L, n_in, n_out]``, plus the MLP (or, for MoE, the shared experts)
+    unless ``include_mlp`` is False.  For MoE the rank-4 expert tensors
+    ``[L, E, n_in, n_out]`` get per-expert encodings with one shared
+    BlockChoice / KB (`engine.execute.apply_expert_fc` runs them), also
+    only with ``include_mlp``.  Built on the params' device."""
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        raise ValueError(f"this package plans the {TRANSFORMER_FAMILIES} "
+                         f"families, got {cfg.family!r}")
     sparsity = cfg.w_sparsity if sparsity is None else sparsity
     if not 0.0 < sparsity < 1.0:
         raise ValueError(f"need 0 < sparsity < 1, got {sparsity}")
     blocks = params["blocks"]
     names = [n for n in ATTN_PROJ_NAMES
-             + (MLP_PROJ_NAMES if include_mlp else ()) if n in blocks]
+             + ((MLP_PROJ_NAMES + MOE_SHARED_NAMES) if include_mlp else ())
+             if n in blocks and blocks[n].ndim == 3]
+    if include_mlp and cfg.family == "moe":
+        names += [n for n in MOE_EXPERT_NAMES
+                  if n in blocks and blocks[n].ndim == 4]
     layers = {nm: _plan_stacked(nm, blocks[nm], sparsity=sparsity, impl=impl,
                                 m_hint=m_hint or 256, cd=cfg.compute_dtype,
                                 decode_m=decode_m or 4, pack=pack)
-              for nm in names if blocks[nm].ndim == 3}
+              for nm in names}
     meta = (("model", cfg.name), ("sparsity", float(sparsity)),
             ("n_layers", int(cfg.n_layers)), ("quant", "none"))
     return ModelPlan(layers=layers, meta=meta)
 
 
+def plan_model(cfg, params: dict, **kwargs) -> ModelPlan:
+    """Family dispatcher (the reference's ``plan_model``) for the families
+    this package serves: dense and moe -> `plan_transformer`, keyword
+    arguments forwarded unchanged."""
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return plan_transformer(cfg, params, **kwargs)
+    raise ValueError(f"no planner for family {cfg.family!r} in this "
+                     f"package (it plans {TRANSFORMER_FAMILIES})")
+
+
 def masked_dense_params(params: dict, plan: ModelPlan) -> dict:
     """The masked-dense reference: the plan's pruned weights densified back
-    into the params layout ``[L, n_in, n_out]``."""
+    into the params layout (``[L, n_in, n_out]``, ``[L, E, n_in, n_out]``
+    for expert tensors) and dtype, one stacked layer at a time."""
     blocks = dict(params["blocks"])
     for nm, lp in plan.layers.items():
-        blocks[nm] = lp.dense_weights().transpose(-1, -2).to(
-            params["blocks"][nm].dtype)
+        out = torch.empty_like(params["blocks"][nm])
+        for i in range(out.shape[0]):
+            out[i] = lp.layer(i).dense_weights().transpose(-1, -2)
+        blocks[nm] = out
     return {**params, "blocks": blocks}
 
 
 __all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "IMPL_LADDER",
-           "default_impl", "mask_block_k", "plan_transformer",
-           "masked_dense_params", "ATTN_PROJ_NAMES", "MLP_PROJ_NAMES"]
+           "default_impl", "mask_block_k", "plan_transformer", "plan_model",
+           "masked_dense_params", "ATTN_PROJ_NAMES", "MLP_PROJ_NAMES",
+           "MOE_SHARED_NAMES", "MOE_EXPERT_NAMES"]

@@ -6,11 +6,15 @@ Counterpart of `repro.kernels.balanced_spmm` (Pallas TPU kernels):
 * `tiled_balanced_spmm`        <- ``tiled_balanced_spmm_pallas`` (prefill,
   wide M), kernel ``tiled_spmm_wide`` in ``csrc/balanced_spmm.cu``;
 * `tiled_balanced_spmm_skinny` <- ``tiled_balanced_spmm_skinny_pallas``
-  (decode, M <= 8), kernel ``tiled_spmm_skinny``.
+  (decode, M <= 8), kernel ``tiled_spmm_skinny``;
+* `tiled_balanced_spmm_batched` <- ``tiled_balanced_spmm_batched_pallas``
+  (the MoE experts, one launch over the expert grid), kernel
+  ``tiled_spmm_batched``.
 
-Both compute ``y[M, O] = x[M, NB*bn] @ decode(W)^T`` in f32 and return the
-f32 accumulator (the caller casts).  On a CUDA tensor a wrapper launches its
-kernel or raises; on a CPU tensor it runs `tiled_balanced_spmm_plain`.
+They compute ``y[M, O] = x[M, NB*bn] @ decode(W)^T`` (per expert for the
+batched one) in f32 and return the f32 accumulator (the caller casts).  On
+a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
+runs `tiled_balanced_spmm_plain` / `tiled_balanced_spmm_batched_plain`.
 There is no fallback from the kernel to the plain version.  W is an
 encoding as `tile_format.encode_tiled` makes it: the nonzero slots of one
 row and block hold distinct columns (the kernels store them, see the
@@ -31,10 +35,12 @@ from .tile_format import TiledBalanced, _require_unquantized
 Tensor = torch.Tensor
 
 # launches per kernel; counted where the kernel is launched and nowhere else
-LAUNCHES = {"tiled_balanced_spmm": 0, "tiled_balanced_spmm_skinny": 0}
+LAUNCHES = {"tiled_balanced_spmm": 0, "tiled_balanced_spmm_skinny": 0,
+            "tiled_balanced_spmm_batched": 0}
 
 _C_FN = {"tiled_balanced_spmm": "tiled_spmm_wide",
-         "tiled_balanced_spmm_skinny": "tiled_spmm_skinny"}
+         "tiled_balanced_spmm_skinny": "tiled_spmm_skinny",
+         "tiled_balanced_spmm_batched": "tiled_spmm_batched"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SKINNY_MAX_M = 8
 MAX_BN = 128      # widest column block (and block capacity) the kernels take
@@ -57,12 +63,25 @@ def tiled_balanced_spmm_plain(x: Tensor, tb: TiledBalanced) -> Tensor:
     return x.float() @ w.T
 
 
+def tiled_balanced_spmm_batched_plain(x: Tensor, tb: TiledBalanced) -> Tensor:
+    """The plain version of the batched kernel: every expert's slots
+    scatter-added into a dense f32 ``[E, O, NB*bn]`` weight, then one f32
+    batched matmul.  ``x``: ``[E, M, NB*bn]``; returns f32 ``[E, M, O]``."""
+    e, o, nb, kb = tb.indices.shape
+    cols = (torch.arange(nb, device=x.device)[:, None] * tb.bn
+            + tb.indices.long()).reshape(e, o, nb * kb)
+    w = torch.zeros((e, o, nb * tb.bn), dtype=torch.float32, device=x.device)
+    w.scatter_add_(2, cols, tb.values.reshape(e, o, nb * kb).float())
+    return torch.bmm(x.float(), w.transpose(1, 2))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("balanced_spmm")
     if not getattr(lib, "_typed", False):
-        for fn in _C_FN.values():
+        for name, fn in _C_FN.items():
             f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+            n_int = 7 if name == "tiled_balanced_spmm_batched" else 6
+            f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int \
                 + [ctypes.c_void_p]
             f.restype = ctypes.c_int
         lib.spmm_error_string.argtypes = [ctypes.c_int]
@@ -82,8 +101,9 @@ def _launch(name: str, x: Tensor, tb: TiledBalanced) -> Tensor:
     if not (tb.values.device == tb.indices.device == x.device):
         raise ValueError(f"{name}: x, values and indices must share one "
                          "CUDA device")
-    m, _ = x.shape
-    o, nb, kb = tb.indices.shape
+    batched = name == "tiled_balanced_spmm_batched"
+    m = x.shape[-2]
+    o, nb, kb = tb.indices.shape[-3:]
     if not (4 <= tb.bn <= MAX_BN and tb.bn % 4 == 0 and kb <= MAX_BN):
         raise ValueError(f"{name}: the kernel takes bn a multiple of 4 in "
                          f"[4, {MAX_BN}] and KB <= {MAX_BN}, got bn={tb.bn} "
@@ -91,13 +111,15 @@ def _launch(name: str, x: Tensor, tb: TiledBalanced) -> Tensor:
     x = x.contiguous()
     vals = tb.values.contiguous()
     idx = tb.indices.contiguous()
-    y = torch.empty((m, o), dtype=torch.float32, device=x.device)
+    y = torch.empty((*x.shape[:-2], m, o), dtype=torch.float32,
+                    device=x.device)
     lib = _lib()
+    experts = (x.shape[0],) if batched else ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _C_FN[name])(
             x.data_ptr(), vals.data_ptr(), idx.data_ptr(), y.data_ptr(),
-            m, o, nb, kb, tb.bn, _DTYPES[x.dtype], stream)
+            *experts, m, o, nb, kb, tb.bn, _DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.spmm_error_string(err).decode()}")
@@ -105,10 +127,17 @@ def _launch(name: str, x: Tensor, tb: TiledBalanced) -> Tensor:
     return y
 
 
-def _check(x: Tensor, tb: TiledBalanced, bm: int, bo: int) -> None:
-    m, n = x.shape
-    o, nb, _ = tb.indices.shape
-    if n != nb * tb.bn or m % bm or o % bo:
+def _check(x: Tensor, tb: TiledBalanced, bm: int, bo: int, *,
+           batched: bool = False) -> None:
+    lead = 1 if batched else 0
+    if x.ndim != 2 + lead or tb.indices.ndim != 3 + lead:
+        raise ValueError(f"expected x [{'E, ' * lead}M, N] and W "
+                         f"[{'E, ' * lead}O, NB, KB], got {tuple(x.shape)} / "
+                         f"{tuple(tb.indices.shape)}")
+    m, n = x.shape[-2:]
+    o, nb, _ = tb.indices.shape[-3:]
+    if x.shape[:-2] != tb.indices.shape[:-3] or n != nb * tb.bn or m % bm \
+            or o % bo:
         raise ValueError(f"shapes not tile-aligned: x {tuple(x.shape)}, "
                          f"W {tuple(tb.indices.shape)}, bm={bm} bo={bo} "
                          f"bn={tb.bn}")
@@ -136,3 +165,16 @@ def tiled_balanced_spmm_skinny(x: Tensor, tb: TiledBalanced, *,
     if x.is_cuda:
         return _launch("tiled_balanced_spmm_skinny", x, tb)
     return tiled_balanced_spmm_plain(x, tb)
+
+
+def tiled_balanced_spmm_batched(x: Tensor, tb: TiledBalanced, *,
+                                bm: int = 128, bo: int = 128) -> Tensor:
+    """The MoE experts' tiled matmul, every expert in one launch.  ``x``:
+    ``[E, M, NB*bn]``; ``tb`` leaves ``[E, O, NB, KB]`` with ``M % bm ==
+    O % bo == 0`` (the caller pads, see `ops._TiledSpmmBatched`).  The
+    kernel takes its 8-row tile for ``M <= 8`` and its wide tile otherwise.
+    Returns f32 ``[E, M, O]``."""
+    _check(x, tb, bm, bo, batched=True)
+    if x.is_cuda:
+        return _launch("tiled_balanced_spmm_batched", x, tb)
+    return tiled_balanced_spmm_batched_plain(x, tb)

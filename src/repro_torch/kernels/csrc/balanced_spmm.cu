@@ -4,9 +4,12 @@
 // src/repro_torch/kernels/balanced_spmm.py.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/balanced_spmm.py:
-//   tiled_spmm_wide   <- tiled_balanced_spmm_pallas (_kernel), prefill (wide M)
-//   tiled_spmm_skinny <- tiled_balanced_spmm_skinny_pallas (_kernel_skinny),
-//                        decode (M <= 8, padded to 8)
+//   tiled_spmm_wide    <- tiled_balanced_spmm_pallas (_kernel), prefill (wide M)
+//   tiled_spmm_skinny  <- tiled_balanced_spmm_skinny_pallas (_kernel_skinny),
+//                         decode (M <= 8, padded to 8)
+//   tiled_spmm_batched <- tiled_balanced_spmm_batched_pallas (_kernel_batched),
+//                         the MoE experts: y[e] = x[e] @ decode(W[e])^T for
+//                         every expert e in one launch
 //
 // W is the tile-local balanced format: values[O, NB, KB] (f32 or bf16, the
 // activation dtype) and block-local int32 indices[O, NB, KB] in [0, bn).
@@ -45,6 +48,21 @@
 //  * Small output tiles (64 columns wide, 8 skinny) so O = 2048 still gives
 //    at least one CTA per SM; row strides of bn + 4 floats keep the float4
 //    reads and the decode's scattered stores free of bank conflicts.
+//
+// The batched (MoE expert) kernel is the same two tile shapes with the
+// expert as the grid's z axis: each CTA offsets x [E, M, NB*bn], the
+// encodings [E, O, NB, KB] and y [E, M, O] by its expert and runs the loop
+// above on that expert's slice.  The host takes the 8-row skinny tile when
+// the per-expert M (the capacity) is <= 8, so decode does not pay for a
+// 32-row tile, and the wide tile otherwise.  What bounds it: the encodings
+// of all E experts are read once per call (the capacity buffer holds every
+// expert, empty or not), so it is bound by device-memory bytes at both
+// capacities.  At deepseek-moe-16b's decode, E = 64, O x N = 1408 x 2048,
+// sparsity 0.5, M = 8, the work needs the live slots and the per-block
+// counts: 64 x 1408 x 1024 x 6 B + 64 x 1408 x 16 x 4 B = 559 MB, 0.17 ms
+// at 3.35 TB/s.  This kernel reads every stored slot, pads included: at
+// KB = 88, 64 x 1408 x 16 x 88 x 6 B = 761 MB.  The prefill capacity
+// (M = 16) runs the wide tile half empty.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -150,12 +168,18 @@ constexpr int kWideBM = 32;                  // output rows (M) per CTA
 constexpr int kWideBO = 64;                  // output columns (O) per CTA
 constexpr int kWideThreads = 256;            // 16 (o) x 16 (m), 4 x 2 outputs
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(kWideThreads)
 tiled_spmm_wide_kernel(const T* __restrict__ x, const T* __restrict__ vals,
                        const int* __restrict__ idx, float* __restrict__ y,
                        int M, int O, int NB, int KB, int bn) {
   extern __shared__ float4 smem4[];
+  // the expert (grid z) of a batched launch; the 2-D kernels have none
+  const size_t e = kBatched ? blockIdx.z : 0;
+  x += e * M * ((size_t)NB * bn);
+  vals += e * O * ((size_t)NB * KB);
+  idx += e * O * ((size_t)NB * KB);
+  y += e * M * (size_t)O;
   const int ld = bn + 4;
   float* xs = reinterpret_cast<float*>(smem4);   // [kWideBM][ld]
   float* ws = xs + kWideBM * ld;                 // [kWideBO][ld]
@@ -217,12 +241,18 @@ constexpr int kSkinnyBO = 8;                 // output columns per CTA
 constexpr int kSkinnyThreads = 256;          // 64 outputs x 4 parts of bn
 constexpr int kSkinnyParts = kSkinnyThreads / (kSkinnyM * kSkinnyBO);
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(kSkinnyThreads)
 tiled_spmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ vals,
                          const int* __restrict__ idx, float* __restrict__ y,
                          int M, int O, int NB, int KB, int bn) {
   extern __shared__ float4 smem4[];
+  // the expert (grid z) of a batched launch; the 2-D kernels have none
+  const size_t e = kBatched ? blockIdx.z : 0;
+  x += e * M * ((size_t)NB * bn);
+  vals += e * O * ((size_t)NB * KB);
+  idx += e * O * ((size_t)NB * KB);
+  y += e * M * (size_t)O;
   const int ld = bn + 4;
   float* xs = reinterpret_cast<float*>(smem4);   // [kSkinnyM][ld]
   float* ws = xs + kSkinnyM * ld;                // [kSkinnyBO][ld]
@@ -281,34 +311,52 @@ int launch(KernelFn<T> kernel, dim3 grid, int threads, int smem,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  if (grid.x == 0 || grid.y == 0 || M == 0) return 0;
+  if (grid.x == 0 || grid.y == 0 || grid.z == 0 || M == 0) return 0;
   kernel<<<grid, threads, smem, s>>>(static_cast<const T*>(x),
                                      static_cast<const T*>(vals), idx, y, M,
                                      O, NB, KB, bn);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+constexpr int kMaxExperts = 65535;           // grid z limit
+
+// E > 1 slices only with kBatched (the 2-D kernels skip the z offset).
+template <typename T, bool kBatched>
 int launch_wide(const void* x, const void* vals, const int* idx, float* y,
-                int M, int O, int NB, int KB, int bn, cudaStream_t s) {
-  if (!supported(KB, bn)) return (int)cudaErrorInvalidValue;
+                int E, int M, int O, int NB, int KB, int bn, cudaStream_t s) {
+  if (!supported(KB, bn) || E < 0 || E > kMaxExperts)
+    return (int)cudaErrorInvalidValue;
   const int smem = (kWideBM + kWideBO) * (bn + 4) * (int)sizeof(float);
-  const dim3 grid((O + kWideBO - 1) / kWideBO, (M + kWideBM - 1) / kWideBM);
-  return launch<T>(tiled_spmm_wide_kernel<T>, grid, kWideThreads, smem, s, x,
-                   vals, idx, y, M, O, NB, KB, bn);
+  const dim3 grid((O + kWideBO - 1) / kWideBO, (M + kWideBM - 1) / kWideBM,
+                  E);
+  return launch<T>(tiled_spmm_wide_kernel<T, kBatched>, grid, kWideThreads,
+                   smem, s, x, vals, idx, y, M, O, NB, KB, bn);
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 int launch_skinny(const void* x, const void* vals, const int* idx, float* y,
-                  int M, int O, int NB, int KB, int bn, cudaStream_t s) {
-  if (M > kSkinnyM || !supported(KB, bn)) return (int)cudaErrorInvalidValue;
+                  int E, int M, int O, int NB, int KB, int bn,
+                  cudaStream_t s) {
+  if (M > kSkinnyM || !supported(KB, bn) || E < 0 || E > kMaxExperts)
+    return (int)cudaErrorInvalidValue;
   // the tiles, or the parts' partial sums if those need more room
   const int floats = (kSkinnyM + kSkinnyBO) * (bn + 4);
   const int smem = (floats > kSkinnyThreads ? floats : kSkinnyThreads) *
                    (int)sizeof(float);
-  const dim3 grid((O + kSkinnyBO - 1) / kSkinnyBO);
-  return launch<T>(tiled_spmm_skinny_kernel<T>, grid, kSkinnyThreads, smem, s,
-                   x, vals, idx, y, M, O, NB, KB, bn);
+  const dim3 grid((O + kSkinnyBO - 1) / kSkinnyBO, 1, E);
+  return launch<T>(tiled_spmm_skinny_kernel<T, kBatched>, grid,
+                   kSkinnyThreads, smem, s, x, vals, idx, y, M, O, NB, KB,
+                   bn);
+}
+
+// The expert grid: the skinny tile for per-expert M <= 8, else the wide one.
+template <typename T>
+int launch_batched(const void* x, const void* vals, const int* idx, float* y,
+                   int E, int M, int O, int NB, int KB, int bn,
+                   cudaStream_t s) {
+  if (M <= kSkinnyM)
+    return launch_skinny<T, true>(x, vals, idx, y, E, M, O, NB, KB, bn, s);
+  return launch_wide<T, true>(x, vals, idx, y, E, M, O, NB, KB, bn, s);
 }
 
 }  // namespace
@@ -322,8 +370,9 @@ int tiled_spmm_wide(const void* x, const void* vals, const int* idx, float* y,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_wide<__nv_bfloat16>(x, vals, idx, y, M, O, NB, KB, bn, s);
-  return launch_wide<float>(x, vals, idx, y, M, O, NB, KB, bn, s);
+    return launch_wide<__nv_bfloat16, false>(x, vals, idx, y, 1, M, O, NB, KB,
+                                             bn, s);
+  return launch_wide<float, false>(x, vals, idx, y, 1, M, O, NB, KB, bn, s);
 }
 
 int tiled_spmm_skinny(const void* x, const void* vals, const int* idx,
@@ -331,8 +380,20 @@ int tiled_spmm_skinny(const void* x, const void* vals, const int* idx,
                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_skinny<__nv_bfloat16>(x, vals, idx, y, M, O, NB, KB, bn, s);
-  return launch_skinny<float>(x, vals, idx, y, M, O, NB, KB, bn, s);
+    return launch_skinny<__nv_bfloat16, false>(x, vals, idx, y, 1, M, O, NB,
+                                               KB, bn, s);
+  return launch_skinny<float, false>(x, vals, idx, y, 1, M, O, NB, KB, bn, s);
+}
+
+// x [E, M, NB*bn], values / indices [E, O, NB, KB], y f32 [E, M, O].
+int tiled_spmm_batched(const void* x, const void* vals, const int* idx,
+                       float* y, int E, int M, int O, int NB, int KB, int bn,
+                       int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_batched<__nv_bfloat16>(x, vals, idx, y, E, M, O, NB, KB, bn,
+                                         s);
+  return launch_batched<float>(x, vals, idx, y, E, M, O, NB, KB, bn, s);
 }
 
 const char* spmm_error_string(int err) {

@@ -3,8 +3,9 @@
 Responsibilities: tile-alignment padding, the static block-size model
 (`choose_blocks`, the reference's formula bit for bit, because ``bn`` and
 KB are baked into the encodings a plan stores), skinny-M routing, the
-differentiable pre-encoded entry `tiled_spmm` and the flat-format eager
-fallbacks:
+differentiable pre-encoded entries `tiled_spmm` and (MoE experts, one
+launch over the expert grid) `tiled_spmm_batched`, and the flat-format
+eager fallbacks `balanced_spmm` / `balanced_spmm_batched`:
 
 * ``impl="cuda"``       — the hand-written tile-local decode-and-matmul
                           kernels (`balanced_spmm`); skinny M (<= `SKINNY_M`)
@@ -28,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from . import ref
-from .balanced_spmm import tiled_balanced_spmm, tiled_balanced_spmm_skinny
+from .balanced_spmm import (tiled_balanced_spmm, tiled_balanced_spmm_batched,
+                            tiled_balanced_spmm_skinny)
 from .tile_format import TiledBalanced, leaf_perm, tiled_to_dense
 
 Tensor = torch.Tensor
@@ -187,6 +189,12 @@ def _pad_and_run_tiled(x: Tensor, tb: TiledBalanced, bm: int, bo: int,
     return y[:m, :o].to(x.dtype)
 
 
+def _require_cuda_rung(name: str, tb: TiledBalanced, impl: str) -> None:
+    if impl != "cuda" or tb.quant != "none":
+        raise ValueError(f"{name} runs impl 'cuda' on unquantized "
+                         f"encodings, got impl={impl!r} quant={tb.quant!r}")
+
+
 class _TiledSpmm(torch.autograd.Function):
     """Kernel forward; backward as the reference's ``_tiled_bwd``:
     ``dx = dy @ W`` on the densified weight, ``dvalues`` gathered from
@@ -226,9 +234,7 @@ def tiled_spmm(x: Tensor, tb: TiledBalanced, *, block_m: int | None = None,
     Packed encodings permute ``x`` into packed column space here, outside
     the autograd Function, so autograd carries the gradient back through
     the permutation."""
-    if impl != "cuda" or tb.quant != "none":
-        raise ValueError(f"tiled_spmm runs impl 'cuda' on unquantized "
-                         f"encodings, got impl={impl!r} quant={tb.quant!r}")
+    _require_cuda_rung("tiled_spmm", tb, impl)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     n_eff = tb.n_in
@@ -246,5 +252,136 @@ def tiled_spmm(x: Tensor, tb: TiledBalanced, *, block_m: int | None = None,
     return y.reshape(*lead, tb.n_out)
 
 
-__all__ = ["balanced_spmm", "tiled_spmm", "choose_blocks", "BlockChoice",
-           "SKINNY_M", "bucket_m"]
+# ---------------------------------------------------------------------------
+# tiled_spmm_batched: the MoE experts, [E, M, N] x W[E, O, NB, KB]
+# ---------------------------------------------------------------------------
+
+def _pad_and_run_batched(x: Tensor, tb: TiledBalanced, bm: int,
+                         bo: int) -> Tensor:
+    """Pad every expert's (M, O, N) to tile multiples, run the batched
+    kernel, slice back and cast to x's dtype (the reference's
+    ``_tiled_spmm_batched``).  O is padded with all-zero rows only when it
+    is ragged (the plan's shapes are not)."""
+    _, m, n = x.shape
+    o = tb.indices.shape[1]
+    mp, op_ = _round_up(m, bm), _round_up(o, bo)
+    pad_n = tb.nb * tb.bn - n
+    xp = F.pad(x, (0, pad_n, 0, mp - m)) if pad_n or mp != m else x
+    if op_ != o:
+        tb = TiledBalanced(F.pad(tb.values, (0, 0, 0, 0, 0, op_ - o)),
+                           F.pad(tb.indices, (0, 0, 0, 0, 0, op_ - o)),
+                           F.pad(tb.counts, (0, 0, 0, op_ - o)),
+                           n_in=tb.n_in, bn=tb.bn)
+    y = tiled_balanced_spmm_batched(xp, tb, bm=bm, bo=bo)
+    return y[:, :m, :o].to(x.dtype)
+
+
+class _TiledSpmmBatched(torch.autograd.Function):
+    """Batched kernel forward; backward as the reference's
+    ``_tiled_batched_bwd``: per expert ``dx = dy @ W`` on the densified
+    weight and ``dvalues`` gathered from ``dy^T @ x`` at each slot's column,
+    pad slots (slot >= count) exactly 0."""
+
+    @staticmethod
+    def forward(ctx, x, values, indices, counts, n_in, bn, bm, bo):
+        ctx.save_for_backward(x, values, indices, counts)
+        ctx.n_in, ctx.bn = n_in, bn
+        tb = TiledBalanced(values, indices, counts, n_in=n_in, bn=bn)
+        return _pad_and_run_batched(x, tb, bm, bo)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices, counts = ctx.saved_tensors
+        n_in, bn = ctx.n_in, ctx.bn
+        e, o, nb, kb = values.shape
+        w = tiled_to_dense(TiledBalanced(values, indices, counts,
+                                         n_in=n_in, bn=bn))   # [E, O, N]
+        dx = torch.bmm(dy.float(), w.float()).to(x.dtype)
+        dw = F.pad(torch.bmm(dy.float().transpose(1, 2), x.float()),
+                   (0, nb * bn - n_in))                          # [E, O, NBbn]
+        cols = (torch.arange(nb, device=x.device)[:, None] * bn
+                + indices.long()).reshape(e, o, nb * kb)
+        gathered = dw.gather(2, cols).reshape(e, o, nb, kb)
+        valid = torch.arange(kb, device=x.device) < counts[..., None]
+        dvals = torch.where(valid, gathered, 0.0).to(values.dtype)
+        return dx, dvals, None, None, None, None, None, None
+
+
+def tiled_spmm_batched(x: Tensor, tb: TiledBalanced, *,
+                       block_m: int | None = None,
+                       block_o: int | None = None,
+                       impl: str = "cuda") -> Tensor:
+    """Every expert's balanced-sparse matmul in ONE kernel launch (the
+    plan-driven MoE entry).  ``x``: ``[E, ..., N]``; ``tb`` leaves carry the
+    matching expert axis (values ``[E, O, NB, KB]``, one shared
+    BlockChoice / KB).  Skinny per-expert M (the capacity, <= `SKINNY_M`)
+    pins bm to M padded to 8; the kernel then takes its 8-row tile.  A
+    packed encoding permutes x into packed column space here, outside the
+    autograd Function: a lead-broadcast perm ``[E, NB*bn]`` row by row,
+    a single ``[NB*bn]`` perm for all experts.  Differentiable."""
+    _require_cuda_rung("tiled_spmm_batched", tb, impl)
+    e = x.shape[0]
+    lead = x.shape[1:-1]
+    o = tb.indices.shape[1]
+    x3 = x.reshape(e, -1, x.shape[-1])
+    n_eff = tb.n_in
+    if tb.perm is not None:
+        npack = tb.nb * tb.bn
+        x3 = F.pad(x3, (0, npack - x3.shape[2]))
+        if tb.perm.ndim > 1:
+            perm = tb.perm.reshape(-1, tb.perm.shape[-1])[:e].long()
+            x3 = x3.gather(2, perm[:, None, :].expand(e, x3.shape[1], npack))
+        else:
+            x3 = x3.index_select(2, tb.perm.long())
+        n_eff = npack
+    m = x3.shape[1]
+    bm = _round_up(m, 8) if m <= SKINNY_M else _pick_block(m, block_m or 128)
+    bo = _pick_block(o, block_o or 128)
+    y = _TiledSpmmBatched.apply(x3, tb.values, tb.indices, tb.counts, n_eff,
+                                tb.bn, bm, bo)
+    return y.reshape(e, *lead, o)
+
+
+# ---------------------------------------------------------------------------
+# balanced_spmm_batched: the experts' flat-format eager rungs
+# ---------------------------------------------------------------------------
+
+def _batched_gather_spmm(x: Tensor, values: Tensor, indices: Tensor) -> Tensor:
+    """Per-expert gather + reduction: ``[E, C, N] x [E, O, K] -> [E, C, O]``
+    (an ``[E, C, O, K]`` buffer)."""
+    e = x.shape[0]
+    xg = x[torch.arange(e, device=x.device)[:, None, None, None],
+           torch.arange(x.shape[1], device=x.device)[None, :, None, None],
+           indices.long()[:, None]]                          # [E, C, O, K]
+    return torch.einsum("ecok,eok->eco", xg.float(),
+                        values.float()).to(x.dtype)
+
+
+def balanced_spmm_batched(x: Tensor, values: Tensor, indices: Tensor, *,
+                          n_in: int, impl: str = "xla") -> Tensor:
+    """Every expert's flat-format balanced matmul, ``[E, ..., N] x
+    values/indices [E, O, K] -> [E, ..., O]``: the MoE fallback rungs.
+    ``xla_gather`` gathers; ``xla`` gathers at skinny capacity (<=
+    `SKINNY_M`) and otherwise densifies each expert right before its f32
+    matmul.  Differentiable through autograd."""
+    e = x.shape[0]
+    lead = x.shape[1:-1]
+    x3 = x.reshape(e, -1, x.shape[-1])
+    if impl == "xla_gather" or (impl == "xla" and x3.shape[1] <= SKINNY_M):
+        y = _batched_gather_spmm(x3, values, indices)
+    elif impl == "xla":
+        y = torch.stack([
+            x3[i].float() @ _densify_gather(values[i], indices[i],
+                                            n_in).float().T
+            for i in range(e)]).to(x.dtype)
+    else:
+        raise ValueError(f"balanced_spmm_batched runs impl 'xla' or "
+                         f"'xla_gather' (the 'cuda' rung takes a "
+                         f"TiledBalanced via tiled_spmm_batched), got "
+                         f"{impl!r}")
+    return y.reshape(e, *lead, values.shape[-2])
+
+
+__all__ = ["balanced_spmm", "balanced_spmm_batched", "tiled_spmm",
+           "tiled_spmm_batched", "choose_blocks", "BlockChoice", "SKINNY_M",
+           "bucket_m"]

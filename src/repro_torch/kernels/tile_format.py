@@ -127,7 +127,7 @@ def pack_columns(pattern, bn: int) -> Tensor:
     if nb <= 1:
         return torch.arange(npad, dtype=torch.int32, device=dev)
     order = torch.argsort(-mask.sum(dim=0), stable=True)
-    mask_t = mask.t().to(torch.int32).contiguous()           # [n, o]
+    mask_t = mask.t().contiguous()                            # [n, o] bool
     block_rows = torch.zeros((nb, o), dtype=torch.int32, device=dev)
     fill = torch.zeros(nb, dtype=torch.int64, device=dev)
     full = torch.full((nb,), n + 2, dtype=torch.int64, device=dev)
@@ -143,7 +143,8 @@ def pack_columns(pattern, bn: int) -> Tensor:
         newmax = torch.where(fill < bn, newmax, full)
         # lexicographic (newmax, fill, block) as one unique integer key
         b = torch.argmin((newmax * (bn + 1) + fill) * nb + tiebreak)
-        block_rows.index_add_(0, b.view(1), col.view(1, -1))
+        block_rows.index_add_(0, b.view(1),
+                              col.view(1, -1).to(torch.int32))
         fill.index_add_(0, b.view(1), one)
         assign[i] = b
     assign_h = assign.cpu().numpy()

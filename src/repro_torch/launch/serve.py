@@ -1,14 +1,16 @@
 """Serving launcher: batched prefill + greedy decode with Sense sparse
-weights — counterpart of `repro.launch.serve` (dense family).
+weights — counterpart of `repro.launch.serve` (dense and moe families).
 
-``python -m repro_torch.launch.serve --arch olmo-1b --sparsity 0.5``
-(on the GPU; add ``--smoke --device cpu`` for the small config on a CPU).
+``python -m repro_torch.launch.serve --arch olmo-1b --sparsity 0.5`` or
+``--arch deepseek-moe-16b`` (on the GPU; add ``--smoke --device cpu`` for
+the small config on a CPU).
 
-One offline pass (`engine.plan.plan_transformer`) balanced-prunes every
-projection, picks the per-layer dataflow mode and kernel impl, and
-pre-encodes the weights; prefill and decode then execute the plan — on a
-GPU every planned projection runs the hand-written CUDA kernels.  Reports
-the plan, a sparse-vs-masked-dense logits parity check, the dispatch and
+One offline pass (`engine.plan.plan_model`) balanced-prunes every
+projection (and every routed expert), picks the per-layer dataflow mode
+and kernel impl, and pre-encodes the weights; prefill and decode then
+execute the plan — on a GPU every planned projection runs the hand-written
+CUDA kernels, the routed experts all in one batched launch per projection.
+Reports the plan, a sparse-vs-masked-dense parity check, the dispatch and
 kernel-launch counts, dense vs sparse tokens/s and the weight storage.
 """
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..device import resolve_device
 from ..engine import execute as engine_execute
 from ..engine import plan as engine_plan
 from ..kernels import balanced_spmm
+from ..kernels.ops import SKINNY_M
 from ..models import build_model
 from ..models.api import merge_prefill_cache
 
@@ -81,20 +84,24 @@ def _parity_check(bundle, sparse_params, ref_params, prompt, *,
     """Sparse plan vs its masked-dense reference on the prompt.
 
     Gated: every layer's block output, teacher-forced from the reference's
-    hidden state, within ``tol`` (abs + rel); and, at float32 compute, the
-    prefill logits within ``tol``.  At bfloat16 the end-to-end logits are
-    reported, not gated: rounding-order differences compound over depth
-    (full-width olmo-1b on an H100, identical weights: max |dlogit| 5.8e-2
-    at bf16, 1.1e-5 at f32 — see PERF.md), so an end-to-end bf16 bound
-    measures the model's depth rather than the kernels.
+    hidden state (and, in an MoE block, from the reference block's routing),
+    within ``tol`` (abs + rel); and, at float32 compute, the prefill logits
+    within ``tol``, each side routing on its own.  At bfloat16 the
+    end-to-end logits are reported, not gated: rounding-order differences
+    compound over depth (full-width olmo-1b on an H100, identical weights:
+    max |dlogit| 5.8e-2 at bf16, 1.1e-5 at f32 — see PERF.md), so an
+    end-to-end bf16 bound measures the model's depth rather than the
+    kernels.  For MoE it reports the share of (token, k) router choices on
+    which the two sides' own routing agrees, over all layers.
     """
     from ..models.transformer import block_diffs
     cfg = bundle.cfg
     with torch.no_grad():
         logits_s, _ = bundle.prefill(sparse_params, {"tokens": prompt})
         logits_r, _ = bundle.prefill(ref_params, {"tokens": prompt})
-        layers = [_compare(got, want, tol) for got, want in
-                  block_diffs(cfg, sparse_params, ref_params, prompt)]
+        diffs = block_diffs(cfg, sparse_params, ref_params, prompt)
+    layers = [_compare(got, want, tol) for got, want, _ in diffs]
+    agree = [a for _, _, a in diffs if a is not None]
     logit_diff, logits_ok = _compare(logits_s, logits_r, tol)
     bad = [i for i, (_, ok) in enumerate(layers) if not ok]
     if bad or (cfg.compute_dtype == "float32" and not logits_ok):
@@ -102,11 +109,32 @@ def _parity_check(bundle, sparse_params, ref_params, prompt, *,
             f"sparse plan differs from the masked-dense reference (tol "
             f"{tol:g}): layers {bad} out of tolerance, per-layer max|diff| "
             f"{[round(d, 6) for d, _ in layers]}, max |dlogit| {logit_diff}")
-    return {"logits_max_abs_diff": logit_diff,
-            "logits_within_tol": logits_ok,
-            "layer_max_abs_diff": max(d for d, _ in layers),
-            "argmax_equal": bool((logits_s.argmax(-1)
-                                  == logits_r.argmax(-1)).all())}
+    out = {"logits_max_abs_diff": logit_diff,
+           "logits_within_tol": logits_ok,
+           "layer_max_abs_diff": max(d for d, _ in layers),
+           "argmax_equal": bool((logits_s.argmax(-1)
+                                 == logits_r.argmax(-1)).all())}
+    if agree:
+        out["routing_agreement"] = sum(agree) / len(agree)
+    return out
+
+
+def kernels_reached(plan, m_prefill: int, m_decode: int) -> set:
+    """The kernels of `kernels.balanced_spmm` that serving this plan
+    launches on a GPU: for 2-D ``cuda`` layers the wide or skinny kernel of
+    each GEMM M (prefill ``batch * prompt_len``, decode ``batch``), for
+    ``cuda`` expert layers the batched one."""
+    need = set()
+    for lp in plan.layers.values():
+        if lp.spec.impl != "cuda":
+            continue
+        if lp.spec.experts:
+            need.add("tiled_balanced_spmm_batched")
+            continue
+        for m in (m_prefill, m_decode):
+            need.add("tiled_balanced_spmm_skinny" if m <= SKINNY_M
+                     else "tiled_balanced_spmm")
+    return need
 
 
 def main(argv=None) -> dict:
@@ -123,7 +151,11 @@ def main(argv=None) -> dict:
                          "kernels on a GPU, the eager xla densify+matmul "
                          "on the CPU)")
     ap.add_argument("--attn-only", action="store_true",
-                    help="plan only the attention projections, not the MLP")
+                    help="plan only the attention projections, not the MLP "
+                         "or the experts")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the "
+                         "config's); the widths stay as published")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--report", default=None,
@@ -136,6 +168,10 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, sparse_serving=True)
+    if args.n_layers is not None:
+        if not 0 < args.n_layers <= cfg.n_layers:
+            ap.error(f"--n-layers must be in [1, {cfg.n_layers}]")
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     bundle = build_model(cfg, device)
     params = bundle.init(0)
     gen = torch.Generator().manual_seed(1)
@@ -146,15 +182,15 @@ def main(argv=None) -> dict:
     # ---- the offline pass: build the plan once, serve from it ------------
     _sync(device)
     t0 = time.monotonic()
-    plan = engine_plan.plan_transformer(
+    plan = engine_plan.plan_model(
         cfg, params, sparsity=args.sparsity,
         impl=None if args.impl == "auto" else args.impl,
         include_mlp=not args.attn_only, m_hint=args.batch * args.prompt_len)
     _sync(device)
     plan_s = time.monotonic() - t0
-    print(f"[serve] {cfg.name} on {device}: layer plan ({len(plan.layers)} "
-          f"projection groups x {cfg.n_layers} layers) built in "
-          f"{plan_s:.2f} s:")
+    print(f"[serve] {cfg.name} (family {cfg.family}) on {device}: layer plan "
+          f"({len(plan.layers)} projection groups x {cfg.n_layers} layers) "
+          f"built in {plan_s:.2f} s:")
     print(plan.summary())
     if plan.sparse_layer_count == 0:
         raise RuntimeError("plan produced no sparse-kernel layers — "
@@ -171,10 +207,18 @@ def main(argv=None) -> dict:
     if stats.get("balanced_spmm", 0) == 0:
         raise RuntimeError(f"balanced_spmm never dispatched — the sparse "
                            f"path is a no-op ({stats})")
+    if any(lp.spec.experts and lp.spec.is_sparse
+           for lp in plan.layers.values()) \
+            and stats.get("expert_balanced_spmm", 0) == 0:
+        raise RuntimeError(f"MoE expert layers never hit the per-expert "
+                           f"path ({stats})")
+    routing = "" if "routing_agreement" not in parity else \
+        f", own routing agrees on {parity['routing_agreement']:.4f} of " \
+        f"(token, k) choices"
     print(f"[serve] parity sparse vs masked-dense (tol {tol:g}): per-layer "
           f"max |diff| = {parity['layer_max_abs_diff']:.2e}, max |dlogit| = "
           f"{parity['logits_max_abs_diff']:.2e}, argmax equal "
-          f"{parity['argmax_equal']};  engine dispatches: {stats}")
+          f"{parity['argmax_equal']}{routing};  engine dispatches: {stats}")
 
     # ---- throughput (warm-up first; clocks read after a synchronize) -----
     results: dict = {}
@@ -191,9 +235,10 @@ def main(argv=None) -> dict:
         print(f"[serve/{mode}] {tps:.1f} tok/s ({dt:.3f} s for "
               f"{args.gen_steps} steps x batch {args.batch})")
     launches = dict(balanced_spmm.LAUNCHES)
-    uses_kernels = any(lp.spec.impl == "cuda" for lp in plan.layers.values())
-    if device.type == "cuda" and uses_kernels:
-        missing = [k for k, n in launches.items() if n == 0]
+    reached = sorted(kernels_reached(plan, args.batch * args.prompt_len,
+                                     args.batch))
+    if device.type == "cuda":
+        missing = [k for k in reached if launches[k] == 0]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: "
                                f"{missing} ({launches})")
@@ -203,8 +248,10 @@ def main(argv=None) -> dict:
     total_numel = total_nnz = enc_bytes = 0
     for lp in plan.layers.values():
         s = lp.spec
-        total_numel += s.n_in * s.n_out * cfg.n_layers
-        total_nnz += s.k * s.n_out * cfg.n_layers
+        # each projection repeats per layer, and per expert for the experts
+        mult = cfg.n_layers * max(s.experts, 1)
+        total_numel += s.n_in * s.n_out * mult
+        total_nnz += s.k * s.n_out * mult
         enc_bytes += lp.nbytes()
     itemsize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                            ).element_size()
@@ -217,13 +264,15 @@ def main(argv=None) -> dict:
           f"{dense_bytes / 1e6:.1f} MB;  mode mix {plan.mode_mix()}  "
           f"impl mix {plan.impl_mix()}")
     results["plan"] = {
-        "model": cfg.name, "device": str(device), "plan_build_s": plan_s,
+        "model": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+        "device": str(device), "plan_build_s": plan_s,
         "mode_mix": plan.mode_mix(), "impl_mix": plan.impl_mix(),
         "sparse_layers": plan.sparse_layer_count,
         "block_k": {nm: lp.spec.block_k for nm, lp in plan.layers.items()},
         "packed": {nm: lp.spec.packed for nm, lp in plan.layers.items()},
         "parity": parity, "parity_tol": tol,
         "engine_stats": stats, "kernel_launches": launches,
+        "kernels_reached": reached,
         "encoded_bytes": enc_bytes, "dense_bytes": dense_bytes,
     }
     if args.report:

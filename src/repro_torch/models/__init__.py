@@ -1,4 +1,5 @@
-"""Dense transformer model, its primitives and the params converter."""
+"""Transformer models (dense and moe), their primitives and the params
+converter."""
 from .api import build_model
 
 __all__ = ["build_model"]

@@ -1,4 +1,5 @@
-"""Model API — counterpart of `repro.models.api` for the dense transformer.
+"""Model API — counterpart of `repro.models.api` for the transformer
+families this package serves (dense and moe).
 
 ``build_model(cfg, device)`` returns a `ModelBundle` of plain functions on
 tensors:
@@ -9,8 +10,8 @@ tensors:
 * ``init_cache(batch, max_len) -> cache``   (plane layout ``[L, B*KH, S, dh]``)
 
 The Sense serving path: when ``cfg.sparse_serving`` and the caller attached
-a plan (``params["sparse_plan"]``, from `engine.plan.plan_transformer`),
-every planned projection runs through the balanced-sparse kernels.
+a plan (``params["sparse_plan"]``, from `engine.plan.plan_model`), every
+planned projection runs through the balanced-sparse kernels.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import TRANSFORMER_FAMILIES, ModelConfig
 from ..device import resolve_device
 
 Tensor = torch.Tensor
@@ -77,10 +78,10 @@ def merge_prefill_cache(cache: dict, prefill_cache: dict) -> dict:
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
-    """The dense-family bundle on ``device`` (default: the GPU; a missing
+    """The transformer bundle on ``device`` (default: the GPU; a missing
     GPU raises unless ``device="cpu"``)."""
-    if cfg.family != "dense":
-        raise ValueError(f"this package serves the dense family only, got "
-                         f"{cfg.family!r}")
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        raise ValueError(f"this package serves the {TRANSFORMER_FAMILIES} "
+                         f"families, got {cfg.family!r}")
     from . import transformer
     return transformer.build(cfg, resolve_device(device))

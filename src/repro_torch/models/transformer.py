@@ -1,5 +1,6 @@
-"""Decoder-only dense transformer (olmo-1b and the other dense configs) —
-counterpart of the dense family of `repro.models.transformer`.
+"""Decoder-only transformer, dense (olmo-1b and the other dense configs)
+and MoE (deepseek-moe-16b: capacity-dispatched routed experts plus shared
+experts) — counterpart of those families of `repro.models.transformer`.
 
 Layer parameters are stacked on a leading L axis, in the reference's
 layout (``[L, n_in, n_out]``), and walked with a Python loop.  The KV cache
@@ -9,7 +10,9 @@ exact (one-hot products), and never out of range.
 
 Sense integration: with ``cfg.sparse_serving`` and a plan attached
 (``params["sparse_plan"]``), prefill *and* decode run every planned
-projection through `engine.execute.apply_fc` — the CUDA kernels on a GPU.
+projection through `engine.execute.apply_fc` — the CUDA kernels on a GPU —
+and every planned expert tensor through `engine.execute.apply_expert_fc`
+(all experts in one batched kernel launch).
 """
 from __future__ import annotations
 
@@ -58,9 +61,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     h, kh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     dt = getattr(torch, cfg.param_dtype)
 
-    def mat(n_in, n_out):
-        w = torch.randn((l, n_in, n_out), generator=generator, device=device)
-        return (w / math.sqrt(n_in)).to(dt)
+    def mat(*shape):
+        w = torch.randn((l, *shape), generator=generator, device=device)
+        return (w / math.sqrt(shape[-2])).to(dt)
 
     blocks: Dict[str, Tensor] = {
         "wq": mat(d, h * dh), "wk": mat(d, kh * dh), "wv": mat(d, kh * dh),
@@ -71,7 +74,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.qk_norm:
         blocks["q_norm"] = torch.ones((l, dh), dtype=dt, device=device)
         blocks["k_norm"] = torch.ones((l, dh), dtype=dt, device=device)
-    if cfg.mlp == "swiglu":
+    if cfg.family == "moe":
+        e, fs = cfg.n_experts, cfg.d_ff * max(cfg.n_shared_experts, 0)
+        blocks["router"] = mat(d, e)
+        blocks["we_gate"] = mat(e, d, f)
+        blocks["we_up"] = mat(e, d, f)
+        blocks["we_down"] = mat(e, f, d)
+        if fs:
+            blocks["ws_gate"] = mat(d, fs)
+            blocks["ws_up"] = mat(d, fs)
+            blocks["ws_down"] = mat(fs, d)
+    elif cfg.mlp == "swiglu":
         blocks["w_gate"] = mat(d, f)
         blocks["w_up"] = mat(d, f)
         blocks["w_down"] = mat(f, d)
@@ -142,14 +155,113 @@ def _mlp(cfg: ModelConfig, lp, h: Tensor, plan_layers=None) -> Tensor:
     return _proj(lp, plan_layers, "w_out", g, cd)
 
 
+def _expert_proj(lp, plan_layers, name: str, x: Tensor, cd) -> Tensor:
+    """One per-expert projection on the dispatch buffer ``x [E, C, n_in]``:
+    the planned experts' batched kernel (`engine.execute.apply_expert_fc`)
+    or the dense batched matmul on ``lp[name]`` ``[E, n_in, n_out]``."""
+    if plan_layers is not None and name in plan_layers:
+        from ..engine.execute import apply_expert_fc
+        return apply_expert_fc(x, plan_layers[name]).to(cd)
+    return torch.bmm(x, lp[name].to(cd))
+
+
+_MOE_SEG = 65536
+
+
+def _moe(cfg: ModelConfig, lp, h: Tensor, plan_layers=None,
+         route=None) -> tuple:
+    """Capacity-dispatch MoE FFN.  Returns ``(out, aux_loss, route)`` with
+    ``route = (gate, expert ids)``, each ``[B, S, K]``, this block's own
+    routing.  ``route`` given forces the dispatch to those experts and
+    gates (the teacher-forced parity of `block_diffs`).  Long sequences run
+    in segments of <= ``_MOE_SEG`` tokens, as the reference's scan does:
+    the dispatch buffers are O(tokens)."""
+    cd = _cdtype(cfg)
+    b, s, d = h.shape
+    x = _norm(cfg, h, lp["mlp_norm"]).to(cd)
+    seg_s = max(1, _MOE_SEG // b)
+    while s % seg_s:
+        seg_s //= 2
+    outs = []                               # (y, aux, gate, eidx) per segment
+    for j in range(0, s, seg_s):
+        seg = slice(j, j + seg_s)
+        forced = None if route is None else tuple(
+            r[:, seg].reshape(b * seg_s, -1) for r in route)
+        y, aux, (g, e) = _moe_tokens(cfg, lp, x[:, seg].reshape(b * seg_s, d),
+                                     plan_layers=plan_layers, route=forced)
+        outs.append((y.reshape(b, seg_s, d), aux, g.reshape(b, seg_s, -1),
+                     e.reshape(b, seg_s, -1)))
+    if len(outs) == 1:
+        y, aux, g, e = outs[0]
+        return y, aux, (g, e)
+    ys, auxes, gs, es = zip(*outs)
+    return torch.cat(ys, dim=1), torch.stack(auxes).mean(), (
+        torch.cat(gs, dim=1), torch.cat(es, dim=1))
+
+
+def _moe_tokens(cfg: ModelConfig, lp, xf: Tensor, plan_layers=None,
+                route=None) -> tuple:
+    """Router, top-k, capacity dispatch, experts, combine, shared experts
+    for tokens ``xf [T, d]``.  Returns ``(y, aux, (gate, eidx))``.
+
+    The top-k is a stable descending sort, so equal probabilities keep the
+    lower expert first as ``lax.top_k`` does (``torch.topk`` does not).
+    Positions within each expert come from a token-major cumsum over the
+    ``[T*K, E]`` one-hot; assignments past the capacity are clipped to the
+    last slot with a zeroed input and a zeroed gate."""
+    cd = _cdtype(cfg)
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = (xf @ lp["router"].to(cd)).float()                  # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = gate[:, :k], eidx[:, :k]                        # [T, K]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    own = (gate, eidx)
+    # load-balancing auxiliary (Switch): E * sum_e f_e * p_e
+    assign = torch.zeros((t, e), dtype=torch.float32, device=xf.device)
+    assign.scatter_(1, eidx, 1.0)
+    aux = e * torch.mean(assign.mean(0) * probs.mean(0))
+    if route is not None:
+        gate, eidx = route
+    # capacity + position within expert
+    cap = max(8, int(math.ceil(t * k / e * cfg.capacity_factor)))
+    oh = F.one_hot(eidx.reshape(-1), e)                          # [T*K, E]
+    pos = ((oh.cumsum(dim=0) * oh).sum(-1) - 1).reshape(t, k)
+    valid = (pos < cap).to(cd)
+    slot = (eidx * cap + pos.clamp(0, cap - 1)).reshape(-1)      # [T*K]
+    # dispatch: scatter-add tokens into [E*C, d] (dropped ones add 0)
+    xin = xf[:, None, :].expand(t, k, d).reshape(t * k, d) \
+        * valid.reshape(-1, 1)
+    buf = torch.zeros((e * cap, d), dtype=cd, device=xf.device)
+    buf = buf.index_add_(0, slot, xin).reshape(e, cap, d)
+    hidden = F.silu(_expert_proj(lp, plan_layers, "we_gate", buf, cd)) \
+        * _expert_proj(lp, plan_layers, "we_up", buf, cd)
+    eout = _expert_proj(lp, plan_layers, "we_down", hidden, cd)
+    # combine: gather each (t, k) slot, weight by its gate
+    y = eout.reshape(e * cap, d)[slot].reshape(t, k, d)
+    y = (y * (gate.to(cd) * valid)[..., None]).sum(dim=1)
+    if cfg.n_shared_experts:
+        g = F.silu(_proj(lp, plan_layers, "ws_gate", xf, cd)) \
+            * _proj(lp, plan_layers, "ws_up", xf, cd)
+        y = y + _proj(lp, plan_layers, "ws_down", g, cd)
+    return y, aux, own
+
+
 def _block(cfg: ModelConfig, h: Tensor, lp, positions: Tensor,
-           kv_override=None, plan_layers=None):
-    """One transformer block; returns ``(h, (k, v))``."""
+           kv_override=None, plan_layers=None, route=None):
+    """One transformer block; returns ``(h, (k, v), aux_loss, route)``:
+    the MoE auxiliary loss and this block's own routing (0 and None for a
+    dense block).  ``route`` forces an MoE block's routing."""
     attn_out, kv = _attn(cfg, lp, h, positions, kv_override=kv_override,
                          plan_layers=plan_layers)
     h = h + attn_out.to(h.dtype)
-    h = h + _mlp(cfg, lp, h, plan_layers=plan_layers).to(h.dtype)
-    return h, kv
+    if cfg.family == "moe":
+        mlp_out, aux, route = _moe(cfg, lp, h, plan_layers=plan_layers,
+                                   route=route)
+    else:
+        mlp_out, aux = _mlp(cfg, lp, h, plan_layers=plan_layers), 0.0
+    return h + mlp_out.to(h.dtype), kv, aux, route
 
 
 def block_diffs(cfg: ModelConfig, params, ref_params,
@@ -157,8 +269,15 @@ def block_diffs(cfg: ModelConfig, params, ref_params,
     """Teacher-forced per-layer comparison of two param sets (e.g. a sparse
     plan against its masked-dense reference): walk ``ref_params``' prefill
     and, at every layer, run that layer under both param sets *from the
-    same input hidden state*.  Returns per layer ``(out, ref_out)`` block
-    outputs, so rounding differences do not compound across layers."""
+    same input hidden state*, so rounding differences do not compound
+    across layers.  An MoE block under ``params`` also takes the reference
+    block's routing (expert ids and gates): a near-tie in the router that
+    breaks the other way would send a token to another expert, a large but
+    legitimate difference, so the comparison covers the projections only.
+
+    Returns per layer ``(out, ref_out, agree)``: the block outputs and, for
+    an MoE block, the share of (token, k) choices on which the two sides'
+    own routing agrees (None for a dense block)."""
     cd = _cdtype(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -169,11 +288,17 @@ def block_diffs(cfg: ModelConfig, params, ref_params,
     for i in range(cfg.n_layers):
         lp = {nm: w[i] for nm, w in params["blocks"].items()}
         ref_lp = {nm: w[i] for nm, w in ref_params["blocks"].items()}
-        got, _ = _block(cfg, h, lp, positions, plan_layers=None
-                        if plan is None else plan.per_layer[i])
-        h, _ = _block(cfg, h, ref_lp, positions, plan_layers=None
-                      if ref_plan is None else ref_plan.per_layer[i])
-        out.append((got, h))
+        want, _, _, ref_route = _block(
+            cfg, h, ref_lp, positions,
+            plan_layers=None if ref_plan is None else ref_plan.per_layer[i])
+        got, _, _, route = _block(
+            cfg, h, lp, positions,
+            plan_layers=None if plan is None else plan.per_layer[i],
+            route=ref_route)
+        agree = None if route is None else \
+            float((route[1] == ref_route[1]).float().mean())
+        out.append((got, want, agree))
+        h = want
     return out
 
 
@@ -208,7 +333,8 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
         h = params["embed"][tokens].to(cd)
         ks, vs = [], []
         for lp, plp in _layers(params):
-            h, (k, v) = _block(cfg, h, lp, positions, plan_layers=plp)
+            h, (k, v), _, _ = _block(cfg, h, lp, positions,
+                                     plan_layers=plp)
             ks.append(to_planes(k).to(KV_DTYPE))
             vs.append(to_planes(v).to(KV_DTYPE))
         return _logits(params, h), {"k": torch.stack(ks),
@@ -229,10 +355,10 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
         h = params["embed"][tokens].to(cd)
         ks, vs = [], []
         for i, (lp, plp) in enumerate(_layers(params)):
-            h, (kc, vc) = _block(cfg, h, lp, positions,
-                                 kv_override=(cache["k"][i], cache["v"][i],
-                                              clen),
-                                 plan_layers=plp)
+            h, (kc, vc), _, _ = _block(
+                cfg, h, lp, positions,
+                kv_override=(cache["k"][i], cache["v"][i], clen),
+                plan_layers=plp)
             ks.append(kc)
             vs.append(vc)
         return _logits(params, h), {"k": torch.stack(ks),

@@ -89,7 +89,8 @@ def test_plain_kernels_match_pallas(dtype):
     with pytest.raises(ValueError, match="tile-aligned"):
         bs.tiled_balanced_spmm(x[:5], tb, bm=8, bo=16)
     assert bs.LAUNCHES == {"tiled_balanced_spmm": 0,
-                           "tiled_balanced_spmm_skinny": 0}
+                           "tiled_balanced_spmm_skinny": 0,
+                           "tiled_balanced_spmm_batched": 0}
 
 
 @pytest.mark.parametrize("m", [1, 4, 8, 9, 128])
@@ -199,6 +200,184 @@ def test_cuda_kernels_match_plain():
         np.testing.assert_allclose(
             _np(ops.tiled_spmm(x.cuda(), tbc).cpu()),
             _np(ops.tiled_spmm(x, tb)), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _pair_batched(rng, e, o, n, k, dtype, *, pack=None, bn=32, live=None):
+    """The same per-expert encodings ``[E, O, NB, KB]`` (one shared KB) in
+    both packages.  ``pack``: None, ``"broadcast"`` (one packing perm over
+    the pooled pattern, broadcast to ``[E, NB*bn]`` as a plan stores it)
+    or ``"flat"`` (the same perm as one ``[NB*bn]`` row)."""
+    mask = np.zeros((e * o, n), bool)
+    for r in range(e * o):
+        mask[r, rng.choice(live or n, size=k, replace=False)] = True
+    idx = np.sort(np.argsort(~mask, axis=1, kind="stable")[:, :k],
+                  axis=1).astype(np.int32)
+    vals = (rng.standard_normal((e * o, k)) / np.sqrt(k)).astype(np.float32)
+    n_enc, perm = n, None
+    if pack:
+        perm = ref_tf.pack_columns(mask, bn)
+        pidx = ref_tf.invert_perm(perm)[idx]
+        order = np.argsort(pidx, axis=1, kind="stable")
+        idx = np.take_along_axis(pidx, order, axis=1)
+        vals = np.take_along_axis(vals, order, axis=1)
+        n_enc = perm.shape[0]
+        if pack == "broadcast":
+            perm = np.ascontiguousarray(np.broadcast_to(perm,
+                                                        (e, perm.shape[0])))
+    flat = ref_tf.encode_tiled(jnp.asarray(vals).astype(getattr(jnp, dtype)),
+                               idx, n_enc, bn=bn)
+    nb, kb = flat.values.shape[1:]
+    ref = ref_tf.TiledBalanced(flat.values.reshape(e, o, nb, kb),
+                               flat.indices.reshape(e, o, nb, kb),
+                               flat.counts.reshape(e, o, nb), n_in=n, bn=bn,
+                               perm=None if perm is None
+                               else jnp.asarray(perm))
+    got = tf.TiledBalanced(
+        torch.from_numpy(np.array(ref.values, np.float32)).to(
+            getattr(torch, dtype)),
+        torch.from_numpy(np.array(ref.indices)),
+        torch.from_numpy(np.array(ref.counts)), n_in=n, bn=bn,
+        perm=None if perm is None else torch.from_numpy(perm))
+    return got, ref
+
+
+def _x3(rng, e, m, n, dtype):
+    x = rng.standard_normal((e, m, n)).astype(np.float32)
+    return (torch.from_numpy(x).to(getattr(torch, dtype)),
+            jnp.asarray(x).astype(getattr(jnp, dtype)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [8, 16])
+def test_plain_batched_kernel_matches_pallas(dtype, m):
+    """The batched wrapper (plain version on CPU tensors) against
+    `tiled_balanced_spmm_batched_pallas` in interpret mode, the skinny
+    (M = 8) and wide capacities, zero-count blocks included."""
+    rng = np.random.default_rng(20 + m)
+    tb, ref = _pair_batched(rng, 3, 32, 96, 12, dtype, live=60)
+    assert int((tb.counts == 0).sum()) > 0          # empty blocks occur
+    x, xj = _x3(rng, 3, m, 96, dtype)
+    _close(bs.tiled_balanced_spmm_batched(x, tb, bm=8, bo=16),
+           ref_bs.tiled_balanced_spmm_batched_pallas(
+               xj, ref.values, ref.indices, bn=32, bm=8, bo=16,
+               interpret=True), dtype)
+    with pytest.raises(ValueError, match="tile-aligned"):
+        bs.tiled_balanced_spmm_batched(x[:, :5], tb, bm=8, bo=16)
+    with pytest.raises(ValueError, match="expected x"):
+        bs.tiled_balanced_spmm_batched(x[0], tb, bm=8, bo=16)
+    assert bs.LAUNCHES["tiled_balanced_spmm_batched"] == 0
+
+
+@pytest.mark.parametrize("m", [1, 8, 15])
+@pytest.mark.parametrize("pack", [None, "broadcast", "flat"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_spmm_batched_matches_reference(m, pack, dtype):
+    """`ops.tiled_spmm_batched` (impl cuda) against the reference's (impl
+    pallas): O = 50 is not a multiple of the block, skinny and wide
+    per-expert M, unpacked, lead-broadcast packed and flat packed."""
+    rng = np.random.default_rng(m + 3 * len(pack or ""))
+    tb, ref = _pair_batched(rng, 3, 50, 100, 30, dtype, pack=pack)
+    x, xj = _x3(rng, 3, m, 100, dtype)
+    got = ops.tiled_spmm_batched(x, tb, block_m=16, block_o=32)
+    assert got.shape == (3, m, 50) and got.dtype == x.dtype
+    _close(got, ref_ops.tiled_spmm_batched(xj, ref, block_m=16, block_o=32,
+                                           impl="pallas"), dtype)
+
+
+@pytest.mark.parametrize("m,pack", [(4, None), (12, "broadcast")])
+def test_tiled_spmm_batched_grads_match_reference(m, pack):
+    """dx and dvalues of the batched autograd Function against
+    ``jax.grad`` through the reference's ``_tiled_spmm_batched``; pad
+    slots (slot >= count) get exactly zero gradient."""
+    rng = np.random.default_rng(31)
+    tb, ref = _pair_batched(rng, 3, 40, 100, 20, "float32", pack=pack)
+    x, xj = _x3(rng, 3, m, 100, "float32")
+    g = rng.standard_normal((3, m, 40)).astype(np.float32)
+    x.requires_grad_(True)
+    vals = tb.values.clone().requires_grad_(True)
+    tbv = tf.TiledBalanced(vals, tb.indices, tb.counts, n_in=tb.n_in,
+                           bn=tb.bn, perm=tb.perm)
+    (ops.tiled_spmm_batched(x, tbv) * torch.from_numpy(g)).sum().backward()
+
+    def loss(xv, vv):
+        r = ref_tf.TiledBalanced(vv, ref.indices, ref.counts, n_in=ref.n_in,
+                                 bn=ref.bn, perm=ref.perm)
+        return jnp.sum(ref_ops.tiled_spmm_batched(xv, r, impl="pallas") * g)
+
+    gx, gv = jax.grad(loss, argnums=(0, 1))(xj, ref.values)
+    np.testing.assert_allclose(_np(x.grad), np.asarray(gx), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(_np(vals.grad), np.asarray(gv), rtol=1e-4,
+                               atol=1e-4)
+    pad = torch.arange(tb.kb) >= tb.counts[..., None]
+    assert bool(pad.any()) and bool((vals.grad[pad] == 0).all())
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_gather"])
+@pytest.mark.parametrize("m", [4, 24])
+def test_balanced_spmm_batched_eager_rungs_match(impl, m):
+    """The experts' flat-format eager rungs against the reference's,
+    skinny and wide capacity (xla gathers at skinny M)."""
+    rng = np.random.default_rng(40 + m)
+    e, o, n, k = 3, 24, 70, 20
+    idx = np.stack([np.sort(rng.choice(n, size=k, replace=False))
+                    for _ in range(e * o)]).reshape(e, o, k).astype(np.int32)
+    vals = rng.standard_normal((e, o, k)).astype(np.float32)
+    x, xj = _x3(rng, e, m, n, "float32")
+    got = ops.balanced_spmm_batched(x.reshape(e, 2, m // 2, n),
+                                    torch.from_numpy(vals),
+                                    torch.from_numpy(idx), n_in=n, impl=impl)
+    want = ref_ops.balanced_spmm_batched(xj.reshape(e, 2, m // 2, n),
+                                         jnp.asarray(vals), jnp.asarray(idx),
+                                         n_in=n, impl=impl)
+    assert got.shape == (e, 2, m // 2, o)
+    _close(got, want, "float32")
+
+
+def test_batched_entries_reject_other_rungs():
+    rng = np.random.default_rng(2)
+    tb, _ = _pair_batched(rng, 2, 16, 64, 8, "float32")
+    x = torch.zeros((2, 4, 64))
+    with pytest.raises(ValueError, match="impl 'cuda'"):
+        ops.tiled_spmm_batched(x, tb, impl="xla")
+    with pytest.raises(ValueError, match="impl 'xla'"):
+        ops.balanced_spmm_batched(x, torch.zeros((2, 16, 8)),
+                                  torch.zeros((2, 16, 8), dtype=torch.int32),
+                                  n_in=64, impl="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_batched_kernel_matches_plain():
+    """The batched CUDA kernel against its plain version on the card, both
+    dtypes, the skinny (M <= 8) and wide tiles, ragged O through
+    `ops.tiled_spmm_batched`, and a packed encoding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels run only on the card)")
+    rng = np.random.default_rng(6)
+    for dtype in ("float32", "bfloat16"):
+        tb, _ = _pair_batched(rng, 4, 192, 384, 96, dtype, bn=128)
+        tbc = tf.TiledBalanced(tb.values.cuda(), tb.indices.cuda(),
+                               tb.counts.cuda(), n_in=tb.n_in, bn=tb.bn)
+        for m in (8, 16, 40):
+            x = _x3(rng, 4, m, 384, dtype)[0].cuda()
+            before = bs.LAUNCHES["tiled_balanced_spmm_batched"]
+            got = bs.tiled_balanced_spmm_batched(x, tbc, bm=8, bo=64)
+            torch.cuda.synchronize()
+            assert bs.LAUNCHES["tiled_balanced_spmm_batched"] == before + 1
+            want = bs.tiled_balanced_spmm_batched_plain(x, tbc)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=TOL[dtype], atol=TOL[dtype])
+        # O = 196 ragged, packed columns, through the ops entry
+        tb, _ = _pair_batched(rng, 4, 196, 300, 60, dtype, bn=128,
+                              pack="broadcast")
+        tbc = tf.TiledBalanced(tb.values.cuda(), tb.indices.cuda(),
+                               tb.counts.cuda(), n_in=tb.n_in, bn=tb.bn,
+                               perm=tb.perm.cuda())
+        x = _x3(rng, 4, 5, 300, dtype)[0]
+        np.testing.assert_allclose(
+            _np(ops.tiled_spmm_batched(x.cuda(), tbc).cpu()),
+            _np(ops.tiled_spmm_batched(x, tb)), rtol=TOL[dtype],
+            atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("pack", [False, True])

@@ -1,8 +1,9 @@
 """Plan execution: dispatch one pre-built `LayerPlan` per call site —
 counterpart of `repro.engine.execute`.
 
-``cuda`` plans run the pre-encoded `kernels.ops.tiled_spmm` at the plan's
-blocks (decode-shaped ones when M is skinny), the eager rungs the flat
+``cuda`` plans, and quantized plans on every sparse rung, run the
+pre-encoded `kernels.ops.tiled_spmm` at the plan's blocks (decode-shaped
+ones when M is skinny), the other eager-rung plans the flat
 `kernels.ops.balanced_spmm`, dense layers a plain matmul on the masked
 weights; `apply_expert_fc` does the same for the MoE experts, every expert
 in one dispatch.  `STATS` counts balanced-sparse dispatches per call
@@ -33,10 +34,13 @@ def stats() -> dict:
 
 
 def _count_dispatch(spec, *extra: str) -> None:
-    """Record one balanced-sparse dispatch: the family, the impl, and any
-    extra tags (``decode_dispatch`` for skinny M)."""
+    """Record one balanced-sparse dispatch: the family, the impl, the
+    quant mode of a quantized plan (``quant_<mode>``), and any extra tags
+    (``decode_dispatch`` for skinny M)."""
     STATS["balanced_spmm"] += 1
     STATS[f"impl_{spec.impl}"] += 1
+    if spec.quant != "none":
+        STATS[f"quant_{spec.quant}"] += 1
     for name in extra:
         STATS[name] += 1
 

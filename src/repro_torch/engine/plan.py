@@ -7,9 +7,14 @@ block sizes (`kernels.ops.choose_blocks`) and the weights pre-encoded to
 the impl's native format (`TiledBalanced` for the ``cuda`` kernels, flat
 `BalancedSparse` for the eager rungs, masked dense otherwise).
 
-Pruning, column packing and encoding run as tensor ops on the weights'
-device, so a full-width plan builds on the GPU in seconds; the result is
-array-equal to the reference's plan (its ``pallas`` impl <-> ``cuda``).
+``quant`` ("int8" | "int4") block-quantizes every sparse encoding per
+(row, bn-block); a quantized plan keeps the tiled format on every sparse
+rung (the scales are tile-local) and is column-packed only on ``cuda``.
+
+Pruning, column packing, encoding and quantization run as tensor ops on
+the weights' device, so a full-width plan builds on the GPU in seconds;
+the result is array-equal to the reference's plan (its ``pallas`` impl
+<-> ``cuda``).
 Their transients (sort indices, int64 column ids) are taken over chunks of
 at most `_PLAN_CHUNK` elements, so planning the MoE expert stacks
 (``[L*E, O, N]``) needs little memory beyond the masks and the encodings.
@@ -28,10 +33,10 @@ from ..core.pruning import BalancedSparse, keep_count, nonzero_columns, \
     topk_mask
 from ..core.sparse_ops import SparseLinearSpec
 from ..kernels import ops as kernel_ops
-from ..kernels.tile_format import (_KB_ROUND, _round_up, TiledBalanced,
-                                   encode_tiled, invert_perm,
+from ..kernels.tile_format import (_KB_ROUND, QUANT_MODES, _round_up,
+                                   TiledBalanced, encode_tiled, invert_perm,
                                    max_block_count, pack_columns,
-                                   tiled_to_dense)
+                                   quantize_tiled, tiled_to_dense)
 
 Tensor = torch.Tensor
 
@@ -134,7 +139,9 @@ class LayerPlan:
         if isinstance(w, TiledBalanced):
             w = TiledBalanced(w.values[i], w.indices[i], w.counts[i],
                               n_in=w.n_in, bn=w.bn,
-                              perm=None if w.perm is None else w.perm[i])
+                              perm=None if w.perm is None else w.perm[i],
+                              scales=None if w.scales is None
+                              else w.scales[i], quant=w.quant)
         elif isinstance(w, BalancedSparse):
             w = BalancedSparse(w.values[i], w.indices[i], w.n_in)
         else:
@@ -231,18 +238,26 @@ def _maybe_pack(idx: Tensor, vals: Tensor, pattern2: Tensor, n_in: int,
 
 
 def _encode_chunked(vals: Tensor, idx: Tensor, n_enc: int, bn: int,
-                    kb: int) -> TiledBalanced:
-    """`encode_tiled` of the rows ``[R, K]`` one chunk of rows at a time
-    (rows encode independently at a fixed KB)."""
+                    kb: int, quant: str = "none") -> TiledBalanced:
+    """`encode_tiled` (then `quantize_tiled`) of the rows ``[R, K]`` one
+    chunk of rows at a time: rows encode, and their (row, block) scales
+    quantize, independently at a fixed KB, so the full-precision encoding
+    of a stacked tensor never exists whole."""
     r, k = idx.shape
     nb = -(-n_enc // bn)
-    tv = torch.empty((r, nb, kb), dtype=vals.dtype, device=vals.device)
-    ti = torch.empty((r, nb, kb), dtype=torch.int32, device=vals.device)
-    tc = torch.empty((r, nb), dtype=torch.int32, device=vals.device)
+    out = None                       # values, indices, counts, scales
     for sl in _chunks(r, max(k, nb * kb)):
-        part = encode_tiled(vals[sl], idx[sl], n_enc, bn=bn, kb=kb)
-        tv[sl], ti[sl], tc[sl] = part.values, part.indices, part.counts
-    return TiledBalanced(tv, ti, tc, n_in=n_enc, bn=bn)
+        part = quantize_tiled(encode_tiled(vals[sl], idx[sl], n_enc, bn=bn,
+                                           kb=kb), quant)
+        leaves = (part.values, part.indices, part.counts, part.scales)
+        if out is None:
+            out = [None if t is None else t.new_empty((r, *t.shape[1:]))
+                   for t in leaves]
+        for dst, t in zip(out, leaves):
+            if t is not None:
+                dst[sl] = t
+    return TiledBalanced(*out[:3], n_in=n_enc, bn=bn, scales=out[3],
+                         quant=quant)
 
 
 def _as_dtype(dt) -> torch.dtype:
@@ -250,13 +265,15 @@ def _as_dtype(dt) -> torch.dtype:
 
 
 def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
-                  m_hint: int, cd, decode_m: int = 4,
-                  pack: bool = True) -> LayerPlan:
+                  m_hint: int, cd, decode_m: int = 4, pack: bool = True,
+                  quant: str = "none") -> LayerPlan:
     """Plan one stacked projection ``[*lead, n_in, n_out]``: transpose to
     output-major, cast to the compute dtype (ties break in that dtype, as
     the reference's), balanced-prune each row to K = keep_count(n_in), and
     encode every slice with one shared BlockChoice / KB (and one shared
-    packing permutation over the pooled pattern)."""
+    packing permutation over the pooled pattern, on ``cuda`` only).  A
+    quantized sparse layer is tiled and quantized on every rung; a dense
+    one never quantizes."""
     cd = _as_dtype(cd)
     lead = tuple(w.shape[:-2])
     n_in, n_out = w.shape[-2:]
@@ -278,12 +295,16 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
     pack_kb: Tuple = ()
     if impl_nm == "dense":
         weights: Any = (wt * masks).reshape(*lead, n_out, n_in)
+        quant = "none"
     else:
+        w_bytes = kernel_ops.QUANT_WBYTES[quant]
         blk = kernel_ops.choose_blocks(kernel_ops.bucket_m(m_hint), n_out,
-                                       n_in, k, itemsize=cd.itemsize)
+                                       n_in, k, itemsize=cd.itemsize,
+                                       w_bytes=w_bytes)
         blk_dec = kernel_ops.choose_blocks(kernel_ops.bucket_m(decode_m),
                                            n_out, n_in, k,
-                                           itemsize=cd.itemsize)
+                                           itemsize=cd.itemsize,
+                                           w_bytes=w_bytes)
         pooled = masks.reshape(g * n_out, n_in)
         block_k = max(_KB_ROUND,
                       _round_up(mask_block_k(pooled, bn=blk.bn), _KB_ROUND))
@@ -294,24 +315,26 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
             cols = nonzero_columns(masks[sl], k)
             idx[sl] = cols.to(torch.int32)
             vals[sl] = wt[sl].gather(-1, cols)
-        if impl_nm == "cuda":
+        if impl_nm == "cuda" or quant != "none":
             n_enc, perm = n_in, None
-            if pack:
+            if impl_nm == "cuda" and pack:
                 idx, vals, block_k, n_enc, perm, pack_kb = _maybe_pack(
                     idx, vals, pooled, n_in, blk.bn, block_k)
             tb = _encode_chunked(vals.reshape(g * n_out, k),
                                  idx.reshape(g * n_out, k), n_enc, blk.bn,
-                                 block_k)
+                                 block_k, quant)
             perm_leaf = None
             if perm is not None:
                 packed = True
                 perm_leaf = perm.expand(*lead, perm.shape[0]).contiguous() \
                     if lead else perm
             weights = TiledBalanced(
-                tb.values.reshape(*lead, n_out, tb.nb, block_k),
+                tb.values.reshape(*lead, n_out, *tb.values.shape[-2:]),
                 tb.indices.reshape(*lead, n_out, tb.nb, block_k),
                 tb.counts.reshape(*lead, n_out, tb.nb),
-                n_in=n_in, bn=blk.bn, perm=perm_leaf)
+                n_in=n_in, bn=blk.bn, perm=perm_leaf,
+                scales=None if tb.scales is None
+                else tb.scales.reshape(*lead, n_out, tb.nb), quant=quant)
         else:
             weights = BalancedSparse(vals.reshape(*lead, n_out, k),
                                      idx.reshape(*lead, n_out, k), n_in)
@@ -325,26 +348,31 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
                     w_mem_bits=int(flow.w_mem) * g,
                     experts=int(lead[1]) if len(lead) > 1 else 0,
                     m_hint=int(m_hint), decode_m=int(decode_m),
-                    blocks_decode=blk_dec, packed=packed, pack_kb=pack_kb)
+                    blocks_decode=blk_dec, packed=packed, pack_kb=pack_kb,
+                    quant=quant)
     return LayerPlan(spec=spec, weights=weights)
 
 
 def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
                      impl: str | None = None, include_mlp: bool = True,
                      m_hint: int | None = None, decode_m: int | None = None,
-                     pack: bool = True) -> ModelPlan:
+                     pack: bool = True, quant: str = "none") -> ModelPlan:
     """Offline plan for a transformer's stacked projections: attention
     ``[L, n_in, n_out]``, plus the MLP (or, for MoE, the shared experts)
     unless ``include_mlp`` is False.  For MoE the rank-4 expert tensors
     ``[L, E, n_in, n_out]`` get per-expert encodings with one shared
     BlockChoice / KB (`engine.execute.apply_expert_fc` runs them), also
-    only with ``include_mlp``.  Built on the params' device."""
+    only with ``include_mlp``.  ``quant`` ("none" | "int8" | "int4")
+    block-quantizes every sparse encoding.  Built on the params' device."""
     if cfg.family not in TRANSFORMER_FAMILIES:
         raise ValueError(f"this package plans the {TRANSFORMER_FAMILIES} "
                          f"families, got {cfg.family!r}")
     sparsity = cfg.w_sparsity if sparsity is None else sparsity
     if not 0.0 < sparsity < 1.0:
         raise ValueError(f"need 0 < sparsity < 1, got {sparsity}")
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, got "
+                         f"{quant!r}")
     blocks = params["blocks"]
     names = [n for n in ATTN_PROJ_NAMES
              + ((MLP_PROJ_NAMES + MOE_SHARED_NAMES) if include_mlp else ())
@@ -354,10 +382,11 @@ def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
                   if n in blocks and blocks[n].ndim == 4]
     layers = {nm: _plan_stacked(nm, blocks[nm], sparsity=sparsity, impl=impl,
                                 m_hint=m_hint or 256, cd=cfg.compute_dtype,
-                                decode_m=decode_m or 4, pack=pack)
+                                decode_m=decode_m or 4, pack=pack,
+                                quant=quant)
               for nm in names}
     meta = (("model", cfg.name), ("sparsity", float(sparsity)),
-            ("n_layers", int(cfg.n_layers)), ("quant", "none"))
+            ("n_layers", int(cfg.n_layers)), ("quant", quant))
     return ModelPlan(layers=layers, meta=meta)
 
 

@@ -3,7 +3,8 @@ bound with ctypes).
 
 Each ``csrc/*.cu`` compiles on first use, all sources in parallel, into
 ``_build/`` beside this file (listed in .gitignore), keyed by a hash of the
-source and the flags so an edited source rebuilds.  Nothing here runs at
+source, the shared headers (``csrc/*.cuh``) and the flags so an edited
+source or header rebuilds.  Nothing here runs at
 import time: the CPU tests import every module on machines without nvcc.
 """
 from __future__ import annotations
@@ -37,6 +38,8 @@ def _nvcc() -> str:
 
 def _target(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

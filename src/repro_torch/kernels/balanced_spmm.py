@@ -11,17 +11,24 @@ Counterpart of `repro.kernels.balanced_spmm` (Pallas TPU kernels):
   (the MoE experts, one launch over the expert grid), kernel
   ``tiled_spmm_batched``.
 
+A block-quantized encoding (``tb.quant`` int8 or int4) launches the
+quantized twin of each, ``tiled_spmm_wide_q`` / ``_skinny_q`` /
+``_batched_q`` in ``csrc/balanced_spmm_q.cu`` (the reference's
+``_kernel_q``, ``_kernel_skinny_q``, ``_kernel_batched_q``), counted apart
+under the ``_q`` names of `LAUNCHES`; it dequantizes each slot on chip
+right before the decode.
+
 They compute ``y[M, O] = x[M, NB*bn] @ decode(W)^T`` (per expert for the
 batched one) in f32 and return the f32 accumulator (the caller casts).  On
 a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs `tiled_balanced_spmm_plain` / `tiled_balanced_spmm_batched_plain`.
 There is no fallback from the kernel to the plain version.  W is an
-encoding as `tile_format.encode_tiled` makes it: the nonzero slots of one
-row and block hold distinct columns (the kernels store them, see the
-source note).
+encoding as `tile_format.encode_tiled` (and `quantize_tiled`) makes it:
+the nonzero slots of one row and block hold distinct columns (the kernels
+store them, see the source note).
 
-The source note in ``csrc/balanced_spmm.cu`` gives each kernel's bound on
-an H100 and what its design does about it.
+The source notes in ``csrc/balanced_spmm.cu`` and ``csrc/balanced_spmm_q.cu``
+give each kernel's bound on an H100 and what its design does about it.
 """
 from __future__ import annotations
 
@@ -30,18 +37,31 @@ import ctypes
 import torch
 
 from . import _build
-from .tile_format import TiledBalanced, _require_unquantized
+from .tile_format import TiledBalanced, dequantize_values
 
 Tensor = torch.Tensor
 
 # launches per kernel; counted where the kernel is launched and nowhere else
 LAUNCHES = {"tiled_balanced_spmm": 0, "tiled_balanced_spmm_skinny": 0,
-            "tiled_balanced_spmm_batched": 0}
+            "tiled_balanced_spmm_batched": 0, "tiled_balanced_spmm_q": 0,
+            "tiled_balanced_spmm_skinny_q": 0,
+            "tiled_balanced_spmm_batched_q": 0}
 
-_C_FN = {"tiled_balanced_spmm": "tiled_spmm_wide",
-         "tiled_balanced_spmm_skinny": "tiled_spmm_skinny",
-         "tiled_balanced_spmm_batched": "tiled_spmm_batched"}
+# kernel name -> (csrc source stem, C entry point)
+_C_FN = {"tiled_balanced_spmm": ("balanced_spmm", "tiled_spmm_wide"),
+         "tiled_balanced_spmm_skinny": ("balanced_spmm", "tiled_spmm_skinny"),
+         "tiled_balanced_spmm_batched": ("balanced_spmm",
+                                         "tiled_spmm_batched"),
+         "tiled_balanced_spmm_q": ("balanced_spmm_q", "tiled_spmm_wide_q"),
+         "tiled_balanced_spmm_skinny_q": ("balanced_spmm_q",
+                                          "tiled_spmm_skinny_q"),
+         "tiled_balanced_spmm_batched_q": ("balanced_spmm_q",
+                                           "tiled_spmm_batched_q")}
+_ERROR_FN = {"balanced_spmm": "spmm_error_string",
+             "balanced_spmm_q": "spmm_q_error_string"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the stored value dtype and the kernels' weight-format code per quant mode
+_QUANT_VALUES = {"int8": (torch.int8, 1), "int4": (torch.uint8, 2)}
 SKINNY_MAX_M = 8
 MAX_BN = 128      # widest column block (and block capacity) the kernels take
 
@@ -51,78 +71,115 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _slot_values(tb: TiledBalanced) -> Tensor:
+    """Every slot's f32 value, ``[..., O, NB, KB]``: quantized encodings
+    dequantized (``float(q) * scale``, as the quant kernels decode)."""
+    return dequantize_values(tb.values, tb.scales, tb.quant, tb.kb).float()
+
+
 def tiled_balanced_spmm_plain(x: Tensor, tb: TiledBalanced) -> Tensor:
-    """The plain version of both kernels: scatter-add every block's slots
-    into a dense f32 ``[O, NB*bn]`` weight (pad slots add 0), then one f32
-    matmul.  Returns f32 ``[M, O]``."""
+    """The plain version of the wide and skinny kernels (and their quant
+    twins): scatter-add every block's (dequantized) slots into a dense f32
+    ``[O, NB*bn]`` weight (pad slots add 0), then one f32 matmul.  Returns
+    f32 ``[M, O]``."""
     o, nb, kb = tb.indices.shape
     cols = (torch.arange(nb, device=x.device)[:, None] * tb.bn
             + tb.indices.long()).reshape(o, nb * kb)
     w = torch.zeros((o, nb * tb.bn), dtype=torch.float32, device=x.device)
-    w.scatter_add_(1, cols, tb.values.reshape(o, nb * kb).float())
+    w.scatter_add_(1, cols, _slot_values(tb).reshape(o, nb * kb))
     return x.float() @ w.T
 
 
 def tiled_balanced_spmm_batched_plain(x: Tensor, tb: TiledBalanced) -> Tensor:
-    """The plain version of the batched kernel: every expert's slots
-    scatter-added into a dense f32 ``[E, O, NB*bn]`` weight, then one f32
-    batched matmul.  ``x``: ``[E, M, NB*bn]``; returns f32 ``[E, M, O]``."""
+    """The plain version of the batched kernel (and its quant twin): every
+    expert's (dequantized) slots scatter-added into a dense f32
+    ``[E, O, NB*bn]`` weight, then one f32 batched matmul.  ``x``:
+    ``[E, M, NB*bn]``; returns f32 ``[E, M, O]``."""
     e, o, nb, kb = tb.indices.shape
     cols = (torch.arange(nb, device=x.device)[:, None] * tb.bn
             + tb.indices.long()).reshape(e, o, nb * kb)
     w = torch.zeros((e, o, nb * tb.bn), dtype=torch.float32, device=x.device)
-    w.scatter_add_(2, cols, tb.values.reshape(e, o, nb * kb).float())
+    w.scatter_add_(2, cols, _slot_values(tb).reshape(e, o, nb * kb))
     return torch.bmm(x.float(), w.transpose(1, 2))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("balanced_spmm")
+def _lib(stem: str) -> ctypes.CDLL:
+    lib = _build.load(stem)
     if not getattr(lib, "_typed", False):
-        for name, fn in _C_FN.items():
+        for name, (src, fn) in _C_FN.items():
+            if src != stem:
+                continue
+            quant = name.endswith("_q")
+            # x, values, indices, [scales,] y; [E,] M, O, NB, KB, bn,
+            # dtype, [wfmt]; stream
+            n_ptr = 5 if quant else 4
+            n_int = 6 + ("batched" in name) + quant
             f = getattr(lib, fn)
-            n_int = 7 if name == "tiled_balanced_spmm_batched" else 6
-            f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int \
+            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
                 + [ctypes.c_void_p]
             f.restype = ctypes.c_int
-        lib.spmm_error_string.argtypes = [ctypes.c_int]
-        lib.spmm_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, _ERROR_FN[stem])
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
 def _launch(name: str, x: Tensor, tb: TiledBalanced) -> Tensor:
-    _require_unquantized(tb)
-    if x.dtype not in _DTYPES or tb.values.dtype != x.dtype:
-        raise TypeError(f"{name}: x and values must share float32 or "
-                        f"bfloat16, got {x.dtype} / {tb.values.dtype}")
+    """Launch kernel ``name``, or its quant twin (``name + "_q"``) for a
+    quantized encoding; raise on anything the kernel does not take."""
+    quant = tb.quant != "none"
+    if quant:
+        name += "_q"
+        if tb.quant not in _QUANT_VALUES:
+            raise ValueError(f"{name}: unknown quant {tb.quant!r}")
+        vdtype, wfmt = _QUANT_VALUES[tb.quant]
+        if tb.values.dtype != vdtype or tb.scales is None \
+                or tb.scales.dtype != torch.float32:
+            raise TypeError(f"{name}: {tb.quant} takes {vdtype} values and "
+                            f"float32 scales, got {tb.values.dtype} / "
+                            f"{None if tb.scales is None else tb.scales.dtype}")
+        if tuple(tb.scales.shape) != tuple(tb.counts.shape):
+            raise ValueError(f"{name}: scales {tuple(tb.scales.shape)} must "
+                             f"match counts {tuple(tb.counts.shape)}")
+    if x.dtype not in _DTYPES or (not quant and tb.values.dtype != x.dtype):
+        raise TypeError(f"{name}: x must be float32 or bfloat16 (and share "
+                        f"it with unquantized values), got {x.dtype} / "
+                        f"{tb.values.dtype}")
     if tb.indices.dtype != torch.int32:
         raise TypeError(f"{name}: indices must be int32, got "
                         f"{tb.indices.dtype}")
-    if not (tb.values.device == tb.indices.device == x.device):
-        raise ValueError(f"{name}: x, values and indices must share one "
-                         "CUDA device")
-    batched = name == "tiled_balanced_spmm_batched"
+    tensors = (x, tb.values, tb.indices) + ((tb.scales,) if quant else ())
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: x, values, indices (and scales) must "
+                         "share one CUDA device")
+    batched = name.startswith("tiled_balanced_spmm_batched")
     m = x.shape[-2]
     o, nb, kb = tb.indices.shape[-3:]
+    kbv = -(-kb // 2) if tb.quant == "int4" else kb
+    if tuple(tb.values.shape) != (*tb.indices.shape[:-1], kbv):
+        raise ValueError(f"{name}: values {tuple(tb.values.shape)} do not "
+                         f"hold KB={kb} {tb.quant} slots per block")
     if not (4 <= tb.bn <= MAX_BN and tb.bn % 4 == 0 and kb <= MAX_BN):
         raise ValueError(f"{name}: the kernel takes bn a multiple of 4 in "
                          f"[4, {MAX_BN}] and KB <= {MAX_BN}, got bn={tb.bn} "
                          f"KB={kb}")
     x = x.contiguous()
-    vals = tb.values.contiguous()
-    idx = tb.indices.contiguous()
+    ptrs = [t.contiguous() for t in tensors[1:]]
     y = torch.empty((*x.shape[:-2], m, o), dtype=torch.float32,
                     device=x.device)
-    lib = _lib()
+    stem, fn = _C_FN[name]
+    lib = _lib(stem)
     experts = (x.shape[0],) if batched else ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _C_FN[name])(
-            x.data_ptr(), vals.data_ptr(), idx.data_ptr(), y.data_ptr(),
-            *experts, m, o, nb, kb, tb.bn, _DTYPES[x.dtype], stream)
+        err = getattr(lib, fn)(
+            x.data_ptr(), *(t.data_ptr() for t in ptrs), y.data_ptr(),
+            *experts, m, o, nb, kb, tb.bn, _DTYPES[x.dtype],
+            *((wfmt,) if quant else ()), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.spmm_error_string(err).decode()}")
+                           f"{getattr(lib, _ERROR_FN[stem])(err).decode()}")
     LAUNCHES[name] += 1
     return y
 
@@ -147,7 +204,7 @@ def tiled_balanced_spmm(x: Tensor, tb: TiledBalanced, *, bm: int = 128,
                         bo: int = 128) -> Tensor:
     """Prefill-shaped tiled matmul.  ``x``: ``[M, NB*bn]``; ``tb``:
     ``[O, NB, KB]`` with ``M % bm == O % bo == 0`` (the caller pads, see
-    `ops._pad_and_run_tiled`).  Returns f32 ``[M, O]``."""
+    `ops._pad_and_run_tiled`), quantized or not.  Returns f32 ``[M, O]``."""
     _check(x, tb, bm, bo)
     if x.is_cuda:
         return _launch("tiled_balanced_spmm", x, tb)

@@ -1,0 +1,366 @@
+// The tiled balanced-sparse x dense matmul kernels, y = x @ decode(W)^T,
+// as templates shared by balanced_spmm.cu (values in the activation dtype)
+// and balanced_spmm_q.cu (block-quantized int8 / int4 values).  The
+// design, the bounds and what each entry replaces are in those files'
+// header notes; this file holds the code they share.
+//
+// A value policy W says how a slot's value is stored and decoded:
+//   FloatValues<T>  values[.., O, NB, KB] in T, decoded as float(v);
+//   Int8Values      int8 values[.., O, NB, KB] and f32 scales[.., O, NB],
+//                   decoded as float(q) * scale;
+//   Int4Values      uint8 values[.., O, NB, ceil(KB/2)], slot 2i the low
+//                   nibble of byte i and 2i+1 the high one, sign-extended
+//                   as (n ^ 8) - 8, decoded as float(q) * scale.
+// float(q) * scale is one f32 multiply of exact operands: the same f32
+// the reference's dequantize_values computes, bit for bit.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+#include <stdint.h>
+
+namespace tiled_spmm {
+
+constexpr int kMaxBn = 128;                  // widest column block a plan picks
+constexpr int kLanes = 32;
+constexpr int kSlotIters = kMaxBn / kLanes;  // a lane's slots per row (KB <= 128)
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+struct FloatValues {
+  using Raw = T;
+  static constexpr bool kScaled = false;
+  __host__ __device__ static int width(int kb) { return kb; }
+  __device__ static int byte_of(int s) { return s; }
+  __device__ static float decode(Raw v, int, float) { return to_f32(v); }
+};
+
+struct Int8Values {
+  using Raw = int8_t;
+  static constexpr bool kScaled = true;
+  __host__ __device__ static int width(int kb) { return kb; }
+  __device__ static int byte_of(int s) { return s; }
+  __device__ static float decode(Raw q, int, float scale) {
+    return (float)q * scale;
+  }
+};
+
+struct Int4Values {
+  using Raw = uint8_t;                       // the byte that holds the slot
+  static constexpr bool kScaled = true;
+  __host__ __device__ static int width(int kb) { return (kb + 1) / 2; }
+  __device__ static int byte_of(int s) { return s >> 1; }
+  __device__ static float decode(Raw b, int s, float scale) {
+    const int n = (s & 1) ? (b >> 4) : (b & 0xF);
+    return (float)((n ^ 8) - 8) * scale;
+  }
+};
+
+// The registers that carry one column block from its loads to its decode:
+// the KB slots (and, quantized, the scale) of each row this warp decodes
+// (rows warp, warp + kWarps, ...) and this thread's share of the
+// [kBM, bn] x slice.  Values stay in their storage type until they are
+// used: a conversion right after its load would wait for that load.
+template <typename T, typename W, int kBM, int kBO, int kThreads>
+struct BlockRegs {
+  static constexpr int kWarps = kThreads / kLanes;
+  static constexpr int kRows = kBO / kWarps;
+  static constexpr int kX = kBM * kMaxBn / kThreads;
+  int idx[kRows][kSlotIters];
+  typename W::Raw val[kRows][kSlotIters];
+  float scale[kRows];
+  T x[kX];
+};
+
+template <typename T, typename W, int kBM, int kBO, int kThreads>
+__device__ __forceinline__ void load_block(
+    BlockRegs<T, W, kBM, kBO, kThreads>& r, const T* __restrict__ x,
+    const typename W::Raw* __restrict__ vals, const int* __restrict__ idx,
+    const float* __restrict__ scales, int M, int O, int NB, int KB, int bn,
+    int m0, int o0, int b) {
+  using R = BlockRegs<T, W, kBM, kBO, kThreads>;
+  using Raw = typename W::Raw;
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int kbv = W::width(KB);
+#pragma unroll
+  for (int i = 0; i < R::kRows; ++i) {
+    const int o = o0 + warp + R::kWarps * i;
+    const size_t blk = (size_t)o * NB + b;
+    if (W::kScaled) r.scale[i] = o < O ? scales[blk] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kSlotIters; ++j) {
+      const int s = lane + kLanes * j;
+      const bool live = o < O && s < KB;
+      r.idx[i][j] = live ? idx[blk * KB + s] : -1;
+      r.val[i][j] = live ? vals[blk * kbv + W::byte_of(s)] : Raw(0.f);
+    }
+  }
+  const size_t n = (size_t)NB * bn;
+#pragma unroll
+  for (int i = 0; i < R::kX; ++i) {
+    const int e = threadIdx.x + kThreads * i;
+    const int m = e / bn;
+    const int kk = e - m * bn;
+    r.x[i] = (m < kBM && m0 + m < M)
+                 ? x[(size_t)(m0 + m) * n + (size_t)b * bn + kk]
+                 : T(0.f);
+  }
+}
+
+// Zero the decoded tile and store the x slice (xs[m][kk], ws[o][c], both
+// with row stride ld = bn + 4 floats).  Needs a sync before and after.
+template <typename T, typename W, int kBM, int kBO, int kThreads>
+__device__ __forceinline__ void stage_block(
+    const BlockRegs<T, W, kBM, kBO, kThreads>& r, float* xs, float* ws,
+    int bn, int ld) {
+  using R = BlockRegs<T, W, kBM, kBO, kThreads>;
+  float4* ws4 = reinterpret_cast<float4*>(ws);
+  for (int e = threadIdx.x; e < kBO * ld / 4; e += kThreads)
+    ws4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < R::kX; ++i) {
+    const int e = threadIdx.x + kThreads * i;
+    const int m = e / bn;
+    if (m < kBM) xs[m * ld + (e - m * bn)] = to_f32(r.x[i]);
+  }
+}
+
+// Scatter the block's nonzero slots into the zeroed tile, one warp per row
+// (the live columns of a row are distinct, see balanced_spmm.cu's note).
+template <typename T, typename W, int kBM, int kBO, int kThreads>
+__device__ __forceinline__ void decode_block(
+    const BlockRegs<T, W, kBM, kBO, kThreads>& r, float* ws, int bn,
+    int ld) {
+  using R = BlockRegs<T, W, kBM, kBO, kThreads>;
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+#pragma unroll
+  for (int i = 0; i < R::kRows; ++i) {
+    float* row = ws + (warp + R::kWarps * i) * ld;
+#pragma unroll
+    for (int j = 0; j < kSlotIters; ++j) {
+      const int c = r.idx[i][j];
+      const float v = W::decode(r.val[i][j], lane + kLanes * j,
+                                W::kScaled ? r.scale[i] : 1.f);
+      if ((unsigned)c < (unsigned)bn && v != 0.f) row[c] = v;
+    }
+  }
+}
+
+// ---- wide (prefill) -------------------------------------------------------
+constexpr int kWideBM = 32;                  // output rows (M) per CTA
+constexpr int kWideBO = 64;                  // output columns (O) per CTA
+constexpr int kWideThreads = 256;            // 16 (o) x 16 (m), 4 x 2 outputs
+
+template <typename T, typename W, bool kBatched>
+__global__ void __launch_bounds__(kWideThreads)
+tiled_spmm_wide_kernel(const T* __restrict__ x,
+                       const typename W::Raw* __restrict__ vals,
+                       const int* __restrict__ idx,
+                       const float* __restrict__ scales,
+                       float* __restrict__ y, int M, int O, int NB, int KB,
+                       int bn) {
+  extern __shared__ float4 smem4[];
+  // the expert (grid z) of a batched launch; the 2-D kernels have none
+  const size_t e = kBatched ? blockIdx.z : 0;
+  x += e * M * ((size_t)NB * bn);
+  vals += e * O * ((size_t)NB * W::width(KB));
+  idx += e * O * ((size_t)NB * KB);
+  if (W::kScaled) scales += e * O * (size_t)NB;
+  y += e * M * (size_t)O;
+  const int ld = bn + 4;
+  float* xs = reinterpret_cast<float*>(smem4);   // [kWideBM][ld]
+  float* ws = xs + kWideBM * ld;                 // [kWideBO][ld]
+  const int tx = threadIdx.x % 16;               // columns tx + 16 j
+  const int ty = threadIdx.x / 16;               // rows ty + 16 i
+  const int m0 = blockIdx.y * kWideBM;
+  const int o0 = blockIdx.x * kWideBO;
+  float acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  BlockRegs<T, W, kWideBM, kWideBO, kWideThreads> regs;
+  load_block(regs, x, vals, idx, scales, M, O, NB, KB, bn, m0, o0, 0);
+  for (int b = 0; b < NB; ++b) {
+    __syncthreads();                 // the previous product is done with xs/ws
+    stage_block(regs, xs, ws, bn, ld);
+    __syncthreads();
+    decode_block(regs, ws, bn, ld);
+    if (b + 1 < NB)
+      load_block(regs, x, vals, idx, scales, M, O, NB, KB, bn, m0, o0, b + 1);
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < bn; kk += 4) {
+      float4 xv[2], wv[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xs + (ty + 16 * i) * ld + kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wv[j] = *reinterpret_cast<const float4*>(ws + (tx + 16 * j) * ld + kk);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(xv[i].x, wv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].y, wv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].z, wv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].w, wv[j].w, acc[i][j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + tx + 16 * j;
+      if (o < O) y[(size_t)m * O + o] = acc[i][j];
+    }
+  }
+}
+
+// ---- skinny (decode) ------------------------------------------------------
+constexpr int kSkinnyM = 8;                  // the decode batch, padded to 8
+constexpr int kSkinnyBO = 8;                 // output columns per CTA
+constexpr int kSkinnyThreads = 256;          // 64 outputs x 4 parts of bn
+constexpr int kSkinnyParts = kSkinnyThreads / (kSkinnyM * kSkinnyBO);
+
+template <typename T, typename W, bool kBatched>
+__global__ void __launch_bounds__(kSkinnyThreads)
+tiled_spmm_skinny_kernel(const T* __restrict__ x,
+                         const typename W::Raw* __restrict__ vals,
+                         const int* __restrict__ idx,
+                         const float* __restrict__ scales,
+                         float* __restrict__ y, int M, int O, int NB, int KB,
+                         int bn) {
+  extern __shared__ float4 smem4[];
+  // the expert (grid z) of a batched launch; the 2-D kernels have none
+  const size_t e = kBatched ? blockIdx.z : 0;
+  x += e * M * ((size_t)NB * bn);
+  vals += e * O * ((size_t)NB * W::width(KB));
+  idx += e * O * ((size_t)NB * KB);
+  if (W::kScaled) scales += e * O * (size_t)NB;
+  y += e * M * (size_t)O;
+  const int ld = bn + 4;
+  float* xs = reinterpret_cast<float*>(smem4);   // [kSkinnyM][ld]
+  float* ws = xs + kSkinnyM * ld;                // [kSkinnyBO][ld]
+  const int q = threadIdx.x % (kSkinnyM * kSkinnyBO);
+  const int m = q / kSkinnyBO;                   // this thread's output row
+  const int r = q % kSkinnyBO;                   // and column
+  const int part = threadIdx.x / (kSkinnyM * kSkinnyBO);
+  const int span = bn / kSkinnyParts;            // its share of each block
+  const int o0 = blockIdx.x * kSkinnyBO;
+  float acc = 0.f;
+
+  BlockRegs<T, W, kSkinnyM, kSkinnyBO, kSkinnyThreads> regs;
+  load_block(regs, x, vals, idx, scales, M, O, NB, KB, bn, 0, o0, 0);
+  for (int b = 0; b < NB; ++b) {
+    __syncthreads();
+    stage_block(regs, xs, ws, bn, ld);
+    __syncthreads();
+    decode_block(regs, ws, bn, ld);
+    if (b + 1 < NB)
+      load_block(regs, x, vals, idx, scales, M, O, NB, KB, bn, 0, o0, b + 1);
+    __syncthreads();
+    const float* xrow = xs + m * ld + part * span;
+    const float* wrow = ws + r * ld + part * span;
+#pragma unroll 8
+    for (int kk = 0; kk < span; ++kk) acc = fmaf(xrow[kk], wrow[kk], acc);
+  }
+  // sum the parts in a fixed order
+  __syncthreads();
+  float* red = xs;                   // [kSkinnyParts][64], over xs and ws
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < kSkinnyM * kSkinnyBO) {
+    float sum = 0.f;
+#pragma unroll
+    for (int p = 0; p < kSkinnyParts; ++p)
+      sum += red[p * kSkinnyM * kSkinnyBO + threadIdx.x];
+    const int o = o0 + r;
+    if (m < M && o < O) y[(size_t)m * O + o] = sum;
+  }
+}
+
+// bn a multiple of 4 in [4, 128] (float4 rows; the register slots hold
+// KB <= 128 per row).  The wrapper checks the same before it launches.
+inline bool supported(int KB, int bn) {
+  return bn >= 4 && bn <= kMaxBn && bn % 4 == 0 && KB >= 0 && KB <= kMaxBn;
+}
+
+template <typename T, typename W>
+using KernelFn = void (*)(const T*, const typename W::Raw*, const int*,
+                          const float*, float*, int, int, int, int, int);
+
+template <typename T, typename W>
+int launch(KernelFn<T, W> kernel, dim3 grid, int threads, int smem,
+           cudaStream_t s, const void* x, const void* vals, const int* idx,
+           const float* scales, float* y, int M, int O, int NB, int KB,
+           int bn) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (grid.x == 0 || grid.y == 0 || grid.z == 0 || M == 0) return 0;
+  kernel<<<grid, threads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const typename W::Raw*>(vals),
+      idx, scales, y, M, O, NB, KB, bn);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kMaxExperts = 65535;           // grid z limit
+
+// E > 1 slices only with kBatched (the 2-D kernels skip the z offset).
+template <typename T, typename W, bool kBatched>
+int launch_wide(const void* x, const void* vals, const int* idx,
+                const float* scales, float* y, int E, int M, int O, int NB,
+                int KB, int bn, cudaStream_t s) {
+  if (!supported(KB, bn) || E < 0 || E > kMaxExperts)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (kWideBM + kWideBO) * (bn + 4) * (int)sizeof(float);
+  const dim3 grid((O + kWideBO - 1) / kWideBO, (M + kWideBM - 1) / kWideBM,
+                  E);
+  return launch<T, W>(tiled_spmm_wide_kernel<T, W, kBatched>, grid,
+                      kWideThreads, smem, s, x, vals, idx, scales, y, M, O,
+                      NB, KB, bn);
+}
+
+template <typename T, typename W, bool kBatched>
+int launch_skinny(const void* x, const void* vals, const int* idx,
+                  const float* scales, float* y, int E, int M, int O, int NB,
+                  int KB, int bn, cudaStream_t s) {
+  if (M > kSkinnyM || !supported(KB, bn) || E < 0 || E > kMaxExperts)
+    return (int)cudaErrorInvalidValue;
+  // the tiles, or the parts' partial sums if those need more room
+  const int floats = (kSkinnyM + kSkinnyBO) * (bn + 4);
+  const int smem = (floats > kSkinnyThreads ? floats : kSkinnyThreads) *
+                   (int)sizeof(float);
+  const dim3 grid((O + kSkinnyBO - 1) / kSkinnyBO, 1, E);
+  return launch<T, W>(tiled_spmm_skinny_kernel<T, W, kBatched>, grid,
+                      kSkinnyThreads, smem, s, x, vals, idx, scales, y, M, O,
+                      NB, KB, bn);
+}
+
+// The expert grid: the skinny tile for per-expert M <= 8, else the wide one.
+template <typename T, typename W>
+int launch_batched(const void* x, const void* vals, const int* idx,
+                   const float* scales, float* y, int E, int M, int O, int NB,
+                   int KB, int bn, cudaStream_t s) {
+  if (M <= kSkinnyM)
+    return launch_skinny<T, W, true>(x, vals, idx, scales, y, E, M, O, NB,
+                                     KB, bn, s);
+  return launch_wide<T, W, true>(x, vals, idx, scales, y, E, M, O, NB, KB,
+                                 bn, s);
+}
+
+}  // namespace tiled_spmm

@@ -9,12 +9,18 @@ eager fallbacks `balanced_spmm` / `balanced_spmm_batched`:
 
 * ``impl="cuda"``       — the hand-written tile-local decode-and-matmul
                           kernels (`balanced_spmm`); skinny M (<= `SKINNY_M`)
-                          routes to the decode kernel.  CPU tensors run the
-                          kernels' plain version.
+                          routes to the decode kernel, a block-quantized
+                          encoding to the quant kernels.  CPU tensors run
+                          the kernels' plain version.
 * ``impl="xla"``        — eager densify (gather-only, per-row searchsorted
                           into the ascending indices) + one matmul; skinny M
                           takes the gather formulation.
 * ``impl="xla_gather"`` — gather + rank-3 reduction (``[M, O, K]`` buffer).
+
+A tiled encoding on an eager rung (a quantized plan keeps the tiled format
+on every sparse rung, for its scales) runs the tiled twins: gather +
+reduction with the block scale factored out of the slot sum up to
+`GATHER_M` rows, a gather-only dequantizing densify + matmul above.
 
 The impl names keep the reference's ladder; the hand-kernel rung is named
 after its backend (``cuda``, the reference's ``pallas``).  Flat-format
@@ -31,13 +37,25 @@ import torch.nn.functional as F
 from . import ref
 from .balanced_spmm import (tiled_balanced_spmm, tiled_balanced_spmm_batched,
                             tiled_balanced_spmm_skinny)
-from .tile_format import TiledBalanced, leaf_perm, tiled_to_dense
+from .tile_format import (TiledBalanced, dequantize_values, leaf_perm,
+                          tiled_to_dense, unpack_int4)
 
 Tensor = torch.Tensor
 
 # M at or below which the decode-specialized paths dispatch (the padded
 # decode batch; a decode step's GEMM M is the batch).
 SKINNY_M = 8
+
+# Widest M at which the tiled eager rungs still take the gather + reduction
+# over the densify + matmul (the reference's measured crossover).
+GATHER_M = 32
+
+# Stored bytes per weight slot under block quantization (None: the
+# activation itemsize), for the reference's block model.
+QUANT_WBYTES = {"none": None, "int8": 1.0, "int4": 0.5}
+
+# the rungs that take a pre-encoded tiled weight
+TILED_IMPLS = ("cuda", "xla", "xla_gather")
 
 # The reference's static block model budget (its per-step VMEM model):
 # kept so bn and KB, which the encodings bake in, match its plans exactly.
@@ -70,10 +88,14 @@ class BlockChoice:
     vmem_bytes: int     # the reference model's per-step footprint
 
 
-def _tiled_footprint(bm: int, bo: int, bn: int, kb: int,
-                     itemsize: int) -> int:
-    """x tile + (vals, idx) block + decoded f32 tile + f32 accumulator."""
-    return int(bm * bn * itemsize + bo * kb * (itemsize + 4)
+def _tiled_footprint(bm: int, bo: int, bn: int, kb: int, itemsize: int,
+                     w_bytes: float | None = None) -> int:
+    """x tile + (vals, idx) block + decoded f32 tile + f32 accumulator;
+    ``w_bytes`` (`QUANT_WBYTES`) narrows the stored value slot and adds the
+    ``[bo, 1]`` f32 scales tile."""
+    wb = itemsize if w_bytes is None else w_bytes
+    scales = 0 if w_bytes is None else bo * 4
+    return int(bm * bn * itemsize + bo * kb * (wb + 4) + scales
                + bo * bn * 4 + bm * bo * 4)
 
 
@@ -84,22 +106,25 @@ def _tiled_kb_est(n: int, k: int, bn: int) -> int:
 
 @functools.lru_cache(maxsize=512)
 def choose_blocks(m: int, o: int, n: int, k: int, *, itemsize: int = 4,
-                  vmem_budget: int = _VMEM_BUDGET) -> BlockChoice:
+                  vmem_budget: int = _VMEM_BUDGET,
+                  w_bytes: float | None = None) -> BlockChoice:
     """Pick (bm, bo, bn) with the reference's static model: start from
     128s shrunk toward small dims, then halve the largest footprint share
-    until the double-buffered footprint fits the budget."""
+    until the double-buffered footprint fits the budget.  ``w_bytes``
+    narrows the modeled value slot of a quantized encoding."""
     bm = _pick_block(m, 128)
     bo = _pick_block(o, 128)
     bn = _pick_block(n, 128)
 
     def footprint(bm_, bo_, bn_):
         return _tiled_footprint(bm_, bo_, bn_, _tiled_kb_est(n, k, bn_),
-                                itemsize)
+                                itemsize, w_bytes)
 
+    wb = itemsize if w_bytes is None else w_bytes
     while 2 * footprint(bm, bo, bn) > vmem_budget:
         shares = {
             "bm": bm * (bn * itemsize + bo * 4),
-            "bo": bo * (_tiled_kb_est(n, k, bn) * (itemsize + 4) + bn * 4
+            "bo": bo * (_tiled_kb_est(n, k, bn) * (wb + 4) + bn * 4
                         + bm * 4),
             "bn": bn * (bm * itemsize + bo * 4),
         }
@@ -164,6 +189,17 @@ def balanced_spmm(x: Tensor, values: Tensor, indices: Tensor, *, n_in: int,
 # tiled_spmm: the pre-encoded (plan-driven) entry point
 # ---------------------------------------------------------------------------
 
+def _pad_o(tb: TiledBalanced, rows: int) -> TiledBalanced:
+    """``tb`` with ``rows`` all-zero output rows appended: they decode to
+    all-zero tiles (a zero scale over zero q slots is the valid empty
+    block of a quantized encoding)."""
+    pad3, pad2 = (0, 0, 0, 0, 0, rows), (0, 0, 0, rows)
+    return TiledBalanced(F.pad(tb.values, pad3), F.pad(tb.indices, pad3),
+                         F.pad(tb.counts, pad2), n_in=tb.n_in, bn=tb.bn,
+                         scales=None if tb.scales is None
+                         else F.pad(tb.scales, pad2), quant=tb.quant)
+
+
 def _pad_and_run_tiled(x: Tensor, tb: TiledBalanced, bm: int, bo: int,
                        skinny: bool = False) -> Tensor:
     """Pad (M, O, N) to tile multiples, run the kernel, slice back and cast
@@ -177,11 +213,7 @@ def _pad_and_run_tiled(x: Tensor, tb: TiledBalanced, bm: int, bo: int,
     pad_n = tb.nb * tb.bn - x.shape[1]
     xp = F.pad(x, (0, pad_n, 0, mp - m)) if pad_n or mp != m else x
     if op_ != o:
-        # zero-padded rows decode to all-zero tiles
-        tb = TiledBalanced(F.pad(tb.values, (0, 0, 0, 0, 0, op_ - o)),
-                           F.pad(tb.indices, (0, 0, 0, 0, 0, op_ - o)),
-                           F.pad(tb.counts, (0, 0, 0, op_ - o)),
-                           n_in=tb.n_in, bn=tb.bn)
+        tb = _pad_o(tb, op_ - o)
     if skinny:
         y = tiled_balanced_spmm_skinny(xp, tb, bo=bo)
     else:
@@ -189,10 +221,10 @@ def _pad_and_run_tiled(x: Tensor, tb: TiledBalanced, bm: int, bo: int,
     return y[:m, :o].to(x.dtype)
 
 
-def _require_cuda_rung(name: str, tb: TiledBalanced, impl: str) -> None:
-    if impl != "cuda" or tb.quant != "none":
-        raise ValueError(f"{name} runs impl 'cuda' on unquantized "
-                         f"encodings, got impl={impl!r} quant={tb.quant!r}")
+def _require_tiled_rung(name: str, impl: str) -> None:
+    if impl not in TILED_IMPLS:
+        raise ValueError(f"{name} runs impl {' / '.join(TILED_IMPLS)}, got "
+                         f"{impl!r}")
 
 
 class _TiledSpmm(torch.autograd.Function):
@@ -225,6 +257,99 @@ class _TiledSpmm(torch.autograd.Function):
         return dx, dvals, None, None, None, None, None, None, None
 
 
+def _densify_gather_tiled(values: Tensor, indices: Tensor, counts: Tensor,
+                          scales: Tensor | None, bn: int,
+                          quant: str) -> Tensor:
+    """Gather-only densify of a (perm-free or packed-space) tiled encoding
+    -> ``[O, NB*bn]``, dequantized (f32; the values' dtype unquantized):
+    per block, binary-search the block-local indices, which ascend over the
+    live slots, with pad slots re-pointed at the sentinel ``bn`` so every
+    searched row is sorted (the reference's ``_densify_gather_tiled``)."""
+    o, nb, kb = indices.shape
+    vals = dequantize_values(values, scales, quant, kb).reshape(o * nb, kb)
+    valid = torch.arange(kb, device=indices.device) < counts[..., None]
+    idx = torch.where(valid, indices, bn).reshape(o * nb, kb).contiguous()
+    cols = torch.arange(bn, dtype=idx.dtype, device=idx.device)
+    slot = torch.searchsorted(idx, cols.expand(o * nb, bn).contiguous())
+    slot = slot.clamp(0, kb - 1)
+    hit = idx.gather(1, slot) == cols
+    out = torch.where(hit, vals.gather(1, slot), vals.new_zeros(()))
+    return out.reshape(o, nb * bn)
+
+
+def _tiled_gather_spmm(x: Tensor, values: Tensor, indices: Tensor,
+                       scales: Tensor | None, bn: int, quant: str) -> Tensor:
+    """Gather + reduction on the tiled encoding, no densify: an
+    ``[M, O, NB*KB]`` buffer of x at every slot's column (pad slots carry
+    value 0).  A quantized encoding sums ``x * q`` per block and multiplies
+    by the block's scale after (``sum_s x*q*scale == scale * sum_s x*q``,
+    the reference's factoring).  Returns f32 ``[M, O]``."""
+    o, nb, kb = indices.shape
+    cols = (torch.arange(nb, device=x.device)[None, :, None] * bn
+            + indices.long()).reshape(o, nb * kb)
+    xg = F.pad(x, (0, nb * bn - x.shape[1]))[:, cols].float()  # [M, O, S]
+    if quant == "none":
+        return torch.einsum("mos,os->mo", xg,
+                            values.reshape(o, nb * kb).float())
+    q = unpack_int4(values, kb) if quant == "int4" else values
+    partial = torch.einsum("mons,ons->mon", xg.reshape(-1, o, nb, kb),
+                           q.float())
+    return torch.einsum("mon,on->mo", partial, scales)
+
+
+def _tiled_eager(x: Tensor, values: Tensor, indices: Tensor, counts: Tensor,
+                 scales: Tensor | None, bn: int, quant: str,
+                 impl: str) -> Tensor:
+    """The eager rungs on one (expert's) tiled encoding, f32 ``[M, O]``:
+    the gather (up to `GATHER_M` rows, always for ``xla_gather``), else
+    the dequantizing densify + f32 matmul."""
+    if impl == "xla_gather" or x.shape[0] <= GATHER_M:
+        return _tiled_gather_spmm(x, values, indices, scales, bn, quant)
+    w = _densify_gather_tiled(values, indices, counts, scales, bn, quant)
+    return x.float() @ w[:, :x.shape[1]].float().T
+
+
+def _tiled_dx(dy: Tensor, x: Tensor, values: Tensor, indices: Tensor,
+              counts: Tensor, scales: Tensor | None, bn: int,
+              quant: str) -> Tensor:
+    """Straight-through ``dx = dy @ W`` (f32) on the dequantized weight."""
+    w = _densify_gather_tiled(values, indices, counts, scales, bn, quant)
+    return dy.float() @ w[:, :x.shape[1]].float()
+
+
+def _straight_through_values(values: Tensor) -> Tensor | None:
+    """The quant Functions' cotangent for ``values``: none for integer
+    words, zeros for float ones (the reference's straight-through rule)."""
+    return torch.zeros_like(values) if values.is_floating_point() else None
+
+
+class _TiledSpmmQ(torch.autograd.Function):
+    """The tiled matmul with rung routing (the reference's
+    ``_tiled_spmm_q``): ``cuda`` runs the kernels (the quant ones for a
+    quantized encoding), ``xla`` / ``xla_gather`` `_tiled_eager`.  Backward
+    is straight-through: ``dx = dy @ W`` on the dequantized weight; integer
+    values and the scales get no gradient, float values zeros."""
+
+    @staticmethod
+    def forward(ctx, x, values, indices, counts, scales, n_in, bn, bm, bo,
+                skinny, quant, impl):
+        ctx.save_for_backward(x, values, indices, counts, scales)
+        ctx.bn, ctx.quant = bn, quant
+        if impl == "cuda":
+            tb = TiledBalanced(values, indices, counts, n_in=n_in, bn=bn,
+                               scales=scales, quant=quant)
+            return _pad_and_run_tiled(x, tb, bm, bo, skinny=skinny)
+        return _tiled_eager(x, values, indices, counts, scales, bn, quant,
+                            impl).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices, counts, scales = ctx.saved_tensors
+        dx = _tiled_dx(dy, x, values, indices, counts, scales, ctx.bn,
+                       ctx.quant).to(x.dtype)
+        return (dx, _straight_through_values(values)) + (None,) * 10
+
+
 def tiled_spmm(x: Tensor, tb: TiledBalanced, *, block_m: int | None = None,
                block_o: int | None = None, impl: str = "cuda") -> Tensor:
     """Differentiable balanced-sparse matmul on a *pre-encoded*
@@ -233,8 +358,11 @@ def tiled_spmm(x: Tensor, tb: TiledBalanced, *, block_m: int | None = None,
     padded to 8; wider M the prefill kernel at ``block_m``/``block_o``.
     Packed encodings permute ``x`` into packed column space here, outside
     the autograd Function, so autograd carries the gradient back through
-    the permutation."""
-    _require_cuda_rung("tiled_spmm", tb, impl)
+    the permutation.  An unquantized encoding on ``cuda`` takes
+    `_TiledSpmm`; a quantized one, or any encoding on ``xla`` /
+    ``xla_gather``, the routing of `_TiledSpmmQ` (the reference's
+    routing)."""
+    _require_tiled_rung("tiled_spmm", impl)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     n_eff = tb.n_in
@@ -247,8 +375,13 @@ def tiled_spmm(x: Tensor, tb: TiledBalanced, *, block_m: int | None = None,
     skinny = m <= SKINNY_M
     bm = _round_up(m, 8) if skinny else _pick_block(m, block_m or 128)
     bo = _pick_block(tb.n_out, block_o or 128)
-    y = _TiledSpmm.apply(x2, tb.values, tb.indices, tb.counts, n_eff, tb.bn,
-                         bm, bo, skinny)
+    if tb.quant == "none" and impl == "cuda":
+        y = _TiledSpmm.apply(x2, tb.values, tb.indices, tb.counts, n_eff,
+                             tb.bn, bm, bo, skinny)
+    else:
+        y = _TiledSpmmQ.apply(x2, tb.values, tb.indices, tb.counts,
+                              tb.scales, n_eff, tb.bn, bm, bo, skinny,
+                              tb.quant, impl)
     return y.reshape(*lead, tb.n_out)
 
 
@@ -268,10 +401,7 @@ def _pad_and_run_batched(x: Tensor, tb: TiledBalanced, bm: int,
     pad_n = tb.nb * tb.bn - n
     xp = F.pad(x, (0, pad_n, 0, mp - m)) if pad_n or mp != m else x
     if op_ != o:
-        tb = TiledBalanced(F.pad(tb.values, (0, 0, 0, 0, 0, op_ - o)),
-                           F.pad(tb.indices, (0, 0, 0, 0, 0, op_ - o)),
-                           F.pad(tb.counts, (0, 0, 0, op_ - o)),
-                           n_in=tb.n_in, bn=tb.bn)
+        tb = _pad_o(tb, op_ - o)
     y = tiled_balanced_spmm_batched(xp, tb, bm=bm, bo=bo)
     return y[:, :m, :o].to(x.dtype)
 
@@ -307,6 +437,40 @@ class _TiledSpmmBatched(torch.autograd.Function):
         return dx, dvals, None, None, None, None, None, None
 
 
+def _expert(t: Tensor | None, g: int) -> Tensor | None:
+    return None if t is None else t[g]
+
+
+class _TiledSpmmBatchedQ(torch.autograd.Function):
+    """The experts' tiled matmul with rung routing (the reference's
+    ``_tiled_spmm_batched_q``): ``cuda`` one batched kernel launch (the
+    quant one for a quantized encoding), the eager rungs expert by expert
+    as `_TiledSpmmQ` does; straight-through backward as there."""
+
+    @staticmethod
+    def forward(ctx, x, values, indices, counts, scales, n_in, bn, bm, bo,
+                quant, impl):
+        ctx.save_for_backward(x, values, indices, counts, scales)
+        ctx.bn, ctx.quant = bn, quant
+        if impl == "cuda":
+            tb = TiledBalanced(values, indices, counts, n_in=n_in, bn=bn,
+                               scales=scales, quant=quant)
+            return _pad_and_run_batched(x, tb, bm, bo)
+        return torch.stack([
+            _tiled_eager(x[g], values[g], indices[g], counts[g],
+                         _expert(scales, g), bn, quant, impl)
+            for g in range(x.shape[0])]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices, counts, scales = ctx.saved_tensors
+        dx = torch.stack([
+            _tiled_dx(dy[g], x[g], values[g], indices[g], counts[g],
+                      _expert(scales, g), ctx.bn, ctx.quant)
+            for g in range(x.shape[0])]).to(x.dtype)
+        return (dx, _straight_through_values(values)) + (None,) * 9
+
+
 def tiled_spmm_batched(x: Tensor, tb: TiledBalanced, *,
                        block_m: int | None = None,
                        block_o: int | None = None,
@@ -318,8 +482,10 @@ def tiled_spmm_batched(x: Tensor, tb: TiledBalanced, *,
     pins bm to M padded to 8; the kernel then takes its 8-row tile.  A
     packed encoding permutes x into packed column space here, outside the
     autograd Function: a lead-broadcast perm ``[E, NB*bn]`` row by row,
-    a single ``[NB*bn]`` perm for all experts.  Differentiable."""
-    _require_cuda_rung("tiled_spmm_batched", tb, impl)
+    a single ``[NB*bn]`` perm for all experts.  Routed as `tiled_spmm`
+    (quantized or eager-rung encodings through `_TiledSpmmBatchedQ`).
+    Differentiable."""
+    _require_tiled_rung("tiled_spmm_batched", impl)
     e = x.shape[0]
     lead = x.shape[1:-1]
     o = tb.indices.shape[1]
@@ -337,8 +503,13 @@ def tiled_spmm_batched(x: Tensor, tb: TiledBalanced, *,
     m = x3.shape[1]
     bm = _round_up(m, 8) if m <= SKINNY_M else _pick_block(m, block_m or 128)
     bo = _pick_block(o, block_o or 128)
-    y = _TiledSpmmBatched.apply(x3, tb.values, tb.indices, tb.counts, n_eff,
-                                tb.bn, bm, bo)
+    if tb.quant == "none" and impl == "cuda":
+        y = _TiledSpmmBatched.apply(x3, tb.values, tb.indices, tb.counts,
+                                    n_eff, tb.bn, bm, bo)
+    else:
+        y = _TiledSpmmBatchedQ.apply(x3, tb.values, tb.indices, tb.counts,
+                                     tb.scales, n_eff, tb.bn, bm, bo,
+                                     tb.quant, impl)
     return y.reshape(e, *lead, o)
 
 
@@ -384,4 +555,4 @@ def balanced_spmm_batched(x: Tensor, values: Tensor, indices: Tensor, *,
 
 __all__ = ["balanced_spmm", "balanced_spmm_batched", "tiled_spmm",
            "tiled_spmm_batched", "choose_blocks", "BlockChoice", "SKINNY_M",
-           "bucket_m"]
+           "GATHER_M", "QUANT_WBYTES", "TILED_IMPLS", "bucket_m"]

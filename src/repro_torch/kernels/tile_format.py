@@ -13,6 +13,12 @@ carry value 0 / index 0, so a decode that *adds* needs no count masking.
 A packed encoding (column-combining, Kung et al.) stores the input-column
 permutation in ``perm`` (packed position -> original padded column).
 
+Block quantization (`quantize_tiled`): one f32 absmax scale per (row,
+block), ``scales[O, NB]``, and the values as int8 ``[O, NB, KB]`` or int4
+nibble-packed two per byte, uint8 ``[O, NB, ceil(KB/2)]`` (low nibble =
+slot 2i).  `dequantize_values` is the reconstruction ``float(q) * scale``
+that the quant kernels compute on chip, bit for bit.
+
 The encoders run as tensor ops on the tensors' device (the plan builds on
 the GPU at full width) and produce encodings identical to the reference's
 host encoders, array for array.
@@ -28,6 +34,11 @@ Tensor = torch.Tensor
 
 _KB_ROUND = 8
 
+# Per-block symmetric quantization grids: one f32 absmax scale per
+# (row, bn-block), narrow two's-complement values.
+QUANT_QMAX = {"int8": 127, "int4": 7}
+QUANT_MODES = ("none",) + tuple(QUANT_QMAX)
+
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -38,10 +49,12 @@ class TiledBalanced:
     """Block-partitioned balanced-sparse matrix (see module docstring).
 
     Leaves may carry leading stacked axes (``[L, O, NB, KB]``; ``perm``
-    broadcast to ``[L, NB*bn]``).  ``scales``/``quant`` describe block
-    quantization; this package's kernels take ``quant == "none"`` only.
+    broadcast to ``[L, NB*bn]``).  When ``quant != "none"``, ``values``
+    holds the narrow encoding (int8 ``[..., O, NB, KB]``; int4 uint8
+    ``[..., O, NB, ceil(KB/2)]``) and ``scales`` the f32 per-block scales
+    ``[..., O, NB]``.
     """
-    values: Tensor           # [..., O, NB, KB]
+    values: Tensor           # [..., O, NB, KB] (narrower for int4)
     indices: Tensor          # [..., O, NB, KB] int32, block-local
     counts: Tensor           # [..., O, NB] int32
     n_in: int                # dense input dimension (NB * bn >= n_in)
@@ -73,14 +86,19 @@ class TiledBalanced:
                    for t in (self.values, self.indices, self.counts,
                              self.perm, self.scales) if t is not None)
 
+    def live_nbytes(self) -> int:
+        """The bytes a product with this encoding must read: each live
+        slot's value (half a byte for int4) and index, every per-block
+        count and scale (pad slots carry no work)."""
+        value = {"int8": 1.0, "int4": 0.5}.get(self.quant,
+                                               self.values.element_size())
+        live = int(self.counts.sum())
+        return int(live * (value + self.indices.element_size())) + sum(
+            t.numel() * t.element_size() for t in (self.counts, self.scales)
+            if t is not None)
+
     def to_dense(self) -> Tensor:
         return tiled_to_dense(self)
-
-
-def _require_unquantized(tb: TiledBalanced) -> None:
-    if tb.quant != "none":
-        raise ValueError(f"{tb.quant}-quantized encodings are not supported "
-                         "by this package yet (quant == 'none' only)")
 
 
 def leaf_perm(perm: Tensor) -> Tensor:
@@ -200,13 +218,81 @@ def encode_tiled(values: Tensor, indices, n_in: int, *, bn: int,
     return TiledBalanced(tv, ti, counts.to(torch.int32), n_in=n_in, bn=bn)
 
 
+def pack_int4(q: Tensor) -> Tensor:
+    """Pack int values in [-8, 7] two nibbles per byte along the last axis
+    (low nibble = slot 2i, high nibble = slot 2i+1).  An odd-length axis
+    gets one zero pad slot first: its nibble decodes to 0."""
+    if q.shape[-1] % 2:
+        q = torch.cat([q, q.new_zeros((*q.shape[:-1], 1))], dim=-1)
+    u = (q.to(torch.int32) & 0xF).to(torch.uint8)
+    u = u.reshape(*q.shape[:-1], q.shape[-1] // 2, 2)
+    return u[..., 0] | (u[..., 1] << 4)
+
+
+def unpack_int4(packed: Tensor, kb: int) -> Tensor:
+    """Inverse of `pack_int4`: uint8 ``[..., ceil(kb/2)]`` -> int8
+    ``[..., kb]`` in [-8, 7] (``(n ^ 8) - 8`` sign-extends a nibble)."""
+    q = torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(
+        *packed.shape[:-1], packed.shape[-1] * 2).to(torch.int8)
+    return ((q ^ 8) - 8)[..., :kb]
+
+
+def quantize_tiled(tb: TiledBalanced, quant: str) -> TiledBalanced:
+    """Per-block symmetric quantization of a `TiledBalanced` encoding.
+
+    Each (row, block) gets one f32 scale ``absmax / qmax`` (shape ==
+    ``counts``); values become ``round(v / scale)`` (half to even) clipped
+    to the grid, int8 one byte per slot, int4 two nibbles per byte.  An
+    all-zero block gets scale 0 and every slot 0.  Indices, counts and
+    perm are kept; stacked leaves work as they are.  Computed in f32 from
+    the stored values, as the reference does, so the result is
+    array-equal to its."""
+    if quant == "none":
+        return tb
+    if quant not in QUANT_QMAX:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
+    if tb.quant != "none":
+        raise ValueError(f"encoding is already {tb.quant}-quantized")
+    qmax = QUANT_QMAX[quant]
+    vals = tb.values.float()
+    scales = vals.abs().amax(dim=-1) / qmax                 # counts-shaped
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    q = torch.clamp(torch.round(vals / safe[..., None]), -qmax, qmax)
+    q = torch.where(scales[..., None] > 0, q, torch.zeros_like(q))
+    q = q.to(torch.int8)
+    qv = q if quant == "int8" else pack_int4(q)
+    return TiledBalanced(qv, tb.indices, tb.counts, n_in=tb.n_in, bn=tb.bn,
+                         perm=tb.perm, scales=scales, quant=quant)
+
+
+def dequantize_values(values: Tensor, scales: Tensor | None, quant: str,
+                      kb: int) -> Tensor:
+    """Narrow block-quant values -> f32 ``float(q) * scale`` per block
+    (``kb``, the logical slot count, drops int4's odd-tail pad nibble);
+    ``quant == "none"`` returns ``values`` as they are."""
+    if quant == "none":
+        return values
+    q = unpack_int4(values, kb) if quant == "int4" else values
+    return q.float() * scales[..., None]
+
+
+def dequantize_tiled(tb: TiledBalanced) -> TiledBalanced:
+    """Quantized encoding -> f32 `TiledBalanced` (quant "none")."""
+    if tb.quant == "none":
+        return tb
+    vals = dequantize_values(tb.values, tb.scales, tb.quant, tb.kb)
+    return TiledBalanced(vals, tb.indices, tb.counts, n_in=tb.n_in,
+                         bn=tb.bn, perm=tb.perm)
+
+
 def tiled_to_dense(tb: TiledBalanced) -> Tensor:
     """Densify to ``[..., O, n_in]`` (the inverse of `encode_tiled`).
 
     Packed encodings are unpermuted back to original column order; pad
-    slots add a zero onto some column — harmless under add.
+    slots add a zero onto some column — harmless under add.  Quantized
+    encodings are dequantized first (f32).
     """
-    _require_unquantized(tb)
+    tb = dequantize_tiled(tb)
     nb, bn = tb.nb, tb.bn
     blk = torch.arange(nb, device=tb.indices.device)[:, None] * bn
     cols = blk + tb.indices.long()                       # [..., O, NB, KB]
@@ -222,8 +308,9 @@ def tiled_to_dense(tb: TiledBalanced) -> Tensor:
 def tiled_to_flat(tb: TiledBalanced):
     """`TiledBalanced` ``[O, NB, KB]`` -> flat ``(values[O, K],
     indices[O, K])`` with ascending global columns.  Raises on an
-    unbalanced encoding (unequal per-row totals)."""
-    _require_unquantized(tb)
+    unbalanced encoding (unequal per-row totals).  Quantized encodings
+    are dequantized first (f32 values)."""
+    tb = dequantize_tiled(tb)
     idx, cnt = tb.indices.long(), tb.counts.long()
     o, nb, kb = idx.shape
     totals = cnt.sum(dim=1)

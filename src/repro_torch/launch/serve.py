@@ -3,7 +3,8 @@ weights — counterpart of `repro.launch.serve` (dense and moe families).
 
 ``python -m repro_torch.launch.serve --arch olmo-1b --sparsity 0.5`` or
 ``--arch deepseek-moe-16b`` (on the GPU; add ``--smoke --device cpu`` for
-the small config on a CPU).
+the small config on a CPU); ``--quant int8|int4`` serves block-quantized
+encodings through the quant kernels.
 
 One offline pass (`engine.plan.plan_model`) balanced-prunes every
 projection (and every routed expert), picks the per-layer dataflow mode
@@ -30,6 +31,7 @@ from ..engine import execute as engine_execute
 from ..engine import plan as engine_plan
 from ..kernels import balanced_spmm
 from ..kernels.ops import SKINNY_M
+from ..kernels.tile_format import QUANT_MODES, TiledBalanced
 from ..models import build_model
 from ..models.api import merge_prefill_cache
 
@@ -123,17 +125,19 @@ def kernels_reached(plan, m_prefill: int, m_decode: int) -> set:
     """The kernels of `kernels.balanced_spmm` that serving this plan
     launches on a GPU: for 2-D ``cuda`` layers the wide or skinny kernel of
     each GEMM M (prefill ``batch * prompt_len``, decode ``batch``), for
-    ``cuda`` expert layers the batched one."""
+    ``cuda`` expert layers the batched one; the ``_q`` twin of each for a
+    quantized layer."""
     need = set()
     for lp in plan.layers.values():
         if lp.spec.impl != "cuda":
             continue
+        q = "_q" if lp.spec.quant != "none" else ""
         if lp.spec.experts:
-            need.add("tiled_balanced_spmm_batched")
+            need.add("tiled_balanced_spmm_batched" + q)
             continue
         for m in (m_prefill, m_decode):
-            need.add("tiled_balanced_spmm_skinny" if m <= SKINNY_M
-                     else "tiled_balanced_spmm")
+            need.add(("tiled_balanced_spmm_skinny" if m <= SKINNY_M
+                      else "tiled_balanced_spmm") + q)
     return need
 
 
@@ -150,6 +154,11 @@ def main(argv=None) -> dict:
                     help="force the sparse kernel impl (auto: the CUDA "
                          "kernels on a GPU, the eager xla densify+matmul "
                          "on the CPU)")
+    ap.add_argument("--quant", choices=QUANT_MODES,
+                    default="none",
+                    help="block-quantize the sparse encodings: int8 or "
+                         "nibble-packed int4 values with one f32 scale per "
+                         "(row, column block), dequantized on chip")
     ap.add_argument("--attn-only", action="store_true",
                     help="plan only the attention projections, not the MLP "
                          "or the experts")
@@ -185,10 +194,12 @@ def main(argv=None) -> dict:
     plan = engine_plan.plan_model(
         cfg, params, sparsity=args.sparsity,
         impl=None if args.impl == "auto" else args.impl,
-        include_mlp=not args.attn_only, m_hint=args.batch * args.prompt_len)
+        include_mlp=not args.attn_only, m_hint=args.batch * args.prompt_len,
+        quant=args.quant)
     _sync(device)
     plan_s = time.monotonic() - t0
-    print(f"[serve] {cfg.name} (family {cfg.family}) on {device}: layer plan "
+    print(f"[serve] {cfg.name} (family {cfg.family}, quant {args.quant}) on "
+          f"{device}: layer plan "
           f"({len(plan.layers)} projection groups x {cfg.n_layers} layers) "
           f"built in {plan_s:.2f} s:")
     print(plan.summary())
@@ -199,7 +210,13 @@ def main(argv=None) -> dict:
     ref_params = engine_plan.masked_dense_params(params, plan)
 
     # ---- correctness: sparse plan == masked dense, on the kernel path -----
+    # a quantized plan is held against its dequantized masked-dense
+    # reference (`masked_dense_params` densifies through the scales), so
+    # the gate measures round-off, not the quantization error; the wider
+    # tol is the reference's for quantized plans
     tol = 1e-4 if cfg.compute_dtype == "float32" else 2e-2
+    if args.quant != "none":
+        tol = max(tol, 5e-2)
     engine_execute.reset_stats()
     parity = _parity_check(bundle, sparse_params, ref_params, prompt,
                            tol=tol)
@@ -245,7 +262,7 @@ def main(argv=None) -> dict:
     print(f"[serve] kernel launches: {launches}")
 
     # ---- storage: bitmap model (Fig.8) and the stored tile encodings -----
-    total_numel = total_nnz = enc_bytes = 0
+    total_numel = total_nnz = enc_bytes = live_bytes = 0
     for lp in plan.layers.values():
         s = lp.spec
         # each projection repeats per layer, and per expert for the experts
@@ -253,6 +270,9 @@ def main(argv=None) -> dict:
         total_numel += s.n_in * s.n_out * mult
         total_nnz += s.k * s.n_out * mult
         enc_bytes += lp.nbytes()
+        # what a decode step must read of this projection's weights
+        live_bytes += lp.weights.live_nbytes() \
+            if isinstance(lp.weights, TiledBalanced) else lp.nbytes()
     itemsize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                            ).element_size()
     dense_bytes = total_numel * itemsize
@@ -265,6 +285,7 @@ def main(argv=None) -> dict:
           f"impl mix {plan.impl_mix()}")
     results["plan"] = {
         "model": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+        "quant": args.quant,
         "device": str(device), "plan_build_s": plan_s,
         "mode_mix": plan.mode_mix(), "impl_mix": plan.impl_mix(),
         "sparse_layers": plan.sparse_layer_count,
@@ -274,6 +295,7 @@ def main(argv=None) -> dict:
         "engine_stats": stats, "kernel_launches": launches,
         "kernels_reached": reached,
         "encoded_bytes": enc_bytes, "dense_bytes": dense_bytes,
+        "step_weight_bytes": live_bytes,
     }
     if args.report:
         out = pathlib.Path(args.report)

@@ -88,9 +88,9 @@ def test_plain_kernels_match_pallas(dtype):
                                                     interpret=True), dtype)
     with pytest.raises(ValueError, match="tile-aligned"):
         bs.tiled_balanced_spmm(x[:5], tb, bm=8, bo=16)
-    assert bs.LAUNCHES == {"tiled_balanced_spmm": 0,
-                           "tiled_balanced_spmm_skinny": 0,
-                           "tiled_balanced_spmm_batched": 0}
+    assert bs.LAUNCHES == {f"tiled_balanced_spmm{kind}{q}": 0
+                           for kind in ("", "_skinny", "_batched")
+                           for q in ("", "_q")}
 
 
 @pytest.mark.parametrize("m", [1, 4, 8, 9, 128])
@@ -335,11 +335,17 @@ def test_balanced_spmm_batched_eager_rungs_match(impl, m):
 
 
 def test_batched_entries_reject_other_rungs():
+    """The tiled batched entry takes the tiled rungs (``cuda``, and the
+    eager ``xla`` / ``xla_gather`` twins, as the reference routes a tiled
+    encoding) and raises on any other impl; the flat-format batched entry
+    still raises on ``cuda``."""
     rng = np.random.default_rng(2)
-    tb, _ = _pair_batched(rng, 2, 16, 64, 8, "float32")
-    x = torch.zeros((2, 4, 64))
-    with pytest.raises(ValueError, match="impl 'cuda'"):
-        ops.tiled_spmm_batched(x, tb, impl="xla")
+    tb, ref = _pair_batched(rng, 2, 16, 64, 8, "float32")
+    x, xj = _x3(rng, 2, 4, 64, "float32")
+    with pytest.raises(ValueError, match="impl"):
+        ops.tiled_spmm_batched(x, tb, impl="dense")
+    _close(ops.tiled_spmm_batched(x, tb, impl="xla"),
+           ref_ops.tiled_spmm_batched(xj, ref, impl="xla"), "float32")
     with pytest.raises(ValueError, match="impl 'xla'"):
         ops.balanced_spmm_batched(x, torch.zeros((2, 16, 8)),
                                   torch.zeros((2, 16, 8), dtype=torch.int32),
@@ -378,6 +384,64 @@ def test_cuda_batched_kernel_matches_plain():
             _np(ops.tiled_spmm_batched(x.cuda(), tbc).cpu()),
             _np(ops.tiled_spmm_batched(x, tb)), rtol=TOL[dtype],
             atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_quant_kernels_match_plain():
+    """The three quant kernels (wide, skinny, batched) against their plain
+    versions on the card, int8 and int4 (odd KB included), both x dtypes,
+    with all-zero blocks, and ragged O through the `ops` entries (the
+    scales pad with zeros)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels run only on the card)")
+    rng = np.random.default_rng(7)
+
+    def cuda(tb):
+        return tf.TiledBalanced(
+            tb.values.cuda(), tb.indices.cuda(), tb.counts.cuda(),
+            n_in=tb.n_in, bn=tb.bn, scales=tb.scales.cuda(), quant=tb.quant)
+
+    for quant in ("int8", "int4"):
+        for dtype in ("float32", "bfloat16"):
+            tb, _ = _pair(rng, 256, 384, 96, dtype, bn=128, live=256)
+            for kb in (tb.kb, tb.kb - 1):           # odd KB: a pad nibble
+                t = tf.TiledBalanced(tb.values[..., :kb],
+                                     tb.indices[..., :kb],
+                                     tb.counts.clamp(max=kb), n_in=384,
+                                     bn=128)
+                qt = cuda(tf.quantize_tiled(t, quant))
+                assert bool((qt.scales == 0).any())    # all-zero blocks
+                for m, name in ((64, "tiled_balanced_spmm"),
+                                (5, "tiled_balanced_spmm_skinny")):
+                    x = _x(rng, m, 384, dtype)[0].cuda()
+                    before = bs.LAUNCHES[name + "_q"]
+                    if m > bs.SKINNY_MAX_M:
+                        got = bs.tiled_balanced_spmm(x, qt, bm=8, bo=8)
+                    else:
+                        got = bs.tiled_balanced_spmm_skinny(x, qt, bo=8)
+                    torch.cuda.synchronize()
+                    assert bs.LAUNCHES[name + "_q"] == before + 1
+                    np.testing.assert_allclose(
+                        got.cpu().numpy(),
+                        bs.tiled_balanced_spmm_plain(x, qt).cpu().numpy(),
+                        rtol=1e-4, atol=1e-4)
+            tb, _ = _pair_batched(rng, 4, 192, 384, 96, dtype, bn=128)
+            qt = cuda(tf.quantize_tiled(tb, quant))
+            for m in (8, 16):
+                x = _x3(rng, 4, m, 384, dtype)[0].cuda()
+                got = bs.tiled_balanced_spmm_batched(x, qt, bm=8, bo=64)
+                np.testing.assert_allclose(
+                    got.cpu().numpy(),
+                    bs.tiled_balanced_spmm_batched_plain(x, qt).cpu().numpy(),
+                    rtol=1e-4, atol=1e-4)
+            # ragged O = 190 per expert through the entries' padding
+            tb, _ = _pair_batched(rng, 2, 190, 384, 96, dtype, bn=128)
+            qt = tf.quantize_tiled(tb, quant)
+            x = _x3(rng, 2, 5, 384, dtype)[0]
+            np.testing.assert_allclose(
+                _np(ops.tiled_spmm_batched(x.cuda(), cuda(qt)).cpu()),
+                _np(ops.tiled_spmm_batched(x, qt)), rtol=TOL[dtype],
+                atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("pack", [False, True])

@@ -29,16 +29,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
              a `torch.profiler` trace of one sparse generation (device busy
              share, kernels by device time) with the wall time per call
              of one planned projection beside the dense matmul's;
-5. quant   — ``serve --quant int8`` at full olmo-1b width: parity gate at
+5. bitmap  — the bitmap format's public entry (``ops.encode_bitmap`` +
+             ``ops.bitmap_spmm``) over olmo-1b's seven projections at the
+             prefill and decode M, counts zeroed just before and read just
+             after, each output held against the masked dense matmul;
+6. scatter — olmo-1b at full width with ``cache_update="scatter"``: greedy
+             tokens and every step's logits bitwise equal to the mask
+             path's; then the serve entry point, whose kv kernel launches
+             must equal 2 x layers x decode steps and whose tiled kernel
+             launches must equal the mask path's;
+7. traffic — ``serve --traffic`` at full olmo-1b width on the scatter
+             config (the reference's default scenario): paged-vs-contiguous
+             parity exactly 0.0 (gated inside `traffic_mode`), continuous and
+             static metrics, the kv, wide and skinny launch counts; then a
+             `torch.profiler` trace of the continuous engine serving a batch;
+8. quant   — ``serve --quant int8`` at full olmo-1b width: parity gate at
              5e-2 against the dequantized reference, only the ``_q``
              kernels launch; a profile;
-6. moe     — the same as 4 for deepseek-moe-16b at full published width,
+9. moe     — the same as 4 for deepseek-moe-16b at full published width,
              depth cut to `MOE_LAYERS`: serve (the batched kernel's launches
              must equal (prefills + decode steps) x layers x 3), peak device
              memory, float32 end-to-end parity, a profile; then
              ``serve --quant int4`` (the same launch count for the batched
              quant kernel), with its peak device memory;
-7. result  — one JSON line of per-kernel numbers, then the ok line.
+10. result — one JSON line of per-kernel numbers, then the ok line.
+
+The kernels phase also holds the bitmap kernel against its plain version
+and the tiled kernel on the same pruned weight at olmo-1b's projection
+shapes, and the kv kernel bitwise against its plain version at P = 64
+planes (batch 4 x 16 kv heads), dh = 128, bf16, S = 64 and 4096, C = 1
+and 8, with rows past S; each timed beside its plain version, a library
+call and its bound (the kv kernel also beside the mask-select rewrite).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -69,6 +90,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 QUANTS = ("none", "int8", "int4")
 CSRC = "src/repro_torch/kernels/csrc/"
 REF = "src/repro/kernels/balanced_spmm.py:"
+REF_BITMAP = "src/repro/kernels/bitmap_spmm.py:51"
+REF_KV = "src/repro/kernels/kv_cache_update.py:54"
 # kernel -> (its source, the TPU kernel it replaces, the quant mode of the
 # timed row that the result line reports: the one its serve path runs)
 KERNELS = {
@@ -82,7 +105,9 @@ KERNELS = {
     "tiled_balanced_spmm_skinny_q": (CSRC + "balanced_spmm_q.cu",
                                      REF + "170", "int8"),
     "tiled_balanced_spmm_batched_q": (CSRC + "balanced_spmm_q.cu",
-                                      REF + "250", "int4")}
+                                      REF + "250", "int4"),
+    "bitmap_spmm": (CSRC + "bitmap_spmm.cu", REF_BITMAP, "none"),
+    "kv_cache_update": (CSRC + "kv_cache_update.cu", REF_KV, "none")}
 GEN_STEPS = 32
 SERVE_ARGS = ["--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
               "--gen-steps", str(GEN_STEPS), "--sparsity", str(SPARSITY)]
@@ -107,6 +132,27 @@ SERVE_DECODE_STEPS = 1 + GEN_STEPS
 # the MoE attention and shared experts, the batched one at int4
 QUANT_ARGS = SERVE_ARGS + ["--quant", "int8"]
 MOE_QUANT_ARGS = MOE_ARGS + ["--quant", "int4"]
+# the bitmap kernel: M of prefill (batch 4 x prompt 32) and decode (batch 4,
+# 8 in the kernel phase: its tile)
+BITMAP_MS = (8, 128)
+# olmo-1b's seven projections (O, N) per layer, the bitmap path's weights
+OLMO_PROJECTIONS = {"wq": (2048, 2048), "wk": (2048, 2048),
+                    "wv": (2048, 2048), "wo": (2048, 2048),
+                    "w_gate": (8192, 2048), "w_up": (8192, 2048),
+                    "w_down": (2048, 8192)}
+# the kv kernel: P = batch 4 x 16 kv heads planes of dh = 128, bf16
+KV_PLANES, KV_DH = 64, 128
+KV_SEQS = (64, 4096)
+KV_CHUNKS = (1, 8)
+OLMO_LAYERS = 16
+# the scatter serve: the dense and the sparse generation, each a warm-up
+# decode step and GEN_STEPS timed ones, write K and V of every layer
+SCATTER_KV_LAUNCHES = 2 * OLMO_LAYERS * 2 * (1 + GEN_STEPS)
+# the reference's default traffic scenario (launch/serve.py --traffic)
+TRAFFIC_ARGS = ["--arch", "olmo-1b", "--traffic", "--requests", "12",
+                "--rate", "8", "--page-size", "8", "--slots", "4",
+                "--prefill-chunk", "8", "--seed", "0", "--prompt-len", "32",
+                "--gen-steps", "32", "--sparsity", str(SPARSITY)]
 
 
 def log(msg: str) -> None:
@@ -459,6 +505,322 @@ def per_call_us(torch, params, plan, cd, calls: int = 200) -> dict:
                                                       cd))}
 
 
+def launch_counters():
+    """Every kernel wrapper's launch counter, by module."""
+    from repro_torch.kernels import balanced_spmm, bitmap_spmm, \
+        kv_cache_update
+    return (balanced_spmm, bitmap_spmm, kv_cache_update)
+
+
+def reset_launches() -> None:
+    for mod in launch_counters():
+        mod.reset_launches()
+
+
+def launches() -> dict:
+    out = {}
+    for mod in launch_counters():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def bitmap_bound(x, enc, m: int, o: int, dname: str) -> dict:
+    """The least time for ``y = x @ decode(W)^T`` on the bitmap format:
+    the bytes (x, the bitmap, the live nonzeros, the offsets, the f32 y,
+    each once) over the memory rate against the multiply-adds on the
+    nonzeros over the peak rate of the input dtype."""
+    bitmap, packed, offsets = enc
+    nnz = int((bitmap != 0).sum())
+    nbytes = (x.numel() * x.element_size() + bitmap.numel()
+              + nnz * packed.element_size() + offsets.numel() * 4 + m * o * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * nnz / PEAK_FLOPS[dname] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_bitmap(torch, worst: dict) -> list:
+    """Phase 3, the bitmap kernel against its plain version and the tiled
+    kernel on the same balanced-pruned weight, at olmo-1b's projection
+    shapes, M = 8 and 128, both dtypes, timed beside its plain version,
+    ``torch.matmul`` on the masked dense weight and its bound; then an
+    all-zero-row weight, an all-zero one (K = 1) and a ragged O and M
+    through `ops.bitmap_spmm` (padded as the reference pads)."""
+    from repro_torch.kernels import balanced_spmm as bs
+    from repro_torch.kernels import bitmap_spmm as bmk
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+
+        def check(got, want, what, tol=KERNEL_TOL):
+            compare(torch, worst, "bitmap_spmm", got, want, tol, what)
+
+        for o, n in SHAPES:
+            tb, w_masked = make_encoding(torch, o, n, dtype, gen)
+            enc = bmk.bitmap_encode(w_masked, 128)
+            for m in BITMAP_MS:
+                x = torch.randn((m, n), generator=gen,
+                                device=DEVICE).to(dtype)
+                kern = lambda: bmk.bitmap_spmm(x, *enc, bn=128)  # noqa: E731
+                plain = lambda: bmk.bitmap_spmm_plain(x, *enc, bn=128)  # noqa: E731,E501
+                library = lambda: torch.matmul(x, w_masked.T)  # noqa: E731
+                got = kern()
+                what = f"{dname} M={m} O={o} N={n} K={enc[1].shape[1]}"
+                check(got, plain(), what)
+                tiled = bs.tiled_balanced_spmm(x, tb) if m > 8 \
+                    else bs.tiled_balanced_spmm_skinny(x, tb)
+                check(got, tiled, what + " vs tiled")
+                row = {"name": "bitmap_spmm", "quant": "none",
+                       "dtype": dname, "M": m, "O": o, "N": n,
+                       "K": enc[1].shape[1],
+                       "ms": time_ms(torch, kern, flush=flush),
+                       "plain_ms": time_ms(torch, plain, flush=flush),
+                       "library_ms": time_ms(torch, library, flush=flush),
+                       **bitmap_bound(x, enc, m, o, dname)}
+                rows.append(row)
+                log("time  " + json.dumps(row))
+            del tb, w_masked, enc
+        # all-zero rows, an all-zero matrix (K = 1), ragged O and M
+        _, w = make_encoding(torch, 2004, 2048, dtype, gen)
+        w[::7] = 0
+        for wt in (w, torch.zeros_like(w)):
+            enc = ops.encode_bitmap(wt)
+            for m in (100, 5):
+                x = torch.randn((m, 2048), generator=gen,
+                                device=DEVICE).to(dtype)
+                check(bmk.bitmap_spmm(x, *enc, bn=128),
+                      bmk.bitmap_spmm_plain(x, *enc, bn=128),
+                      f"{dname} ragged M={m} O=2004 K={enc[1].shape[1]}")
+                check(ops.bitmap_spmm(x, *enc).float(),
+                      ref.bitmap_spmm_ref(x, enc[0], enc[1]).float(),
+                      f"{dname} ops, padded M={m} O=2004", TOL[dname])
+    return rows
+
+
+def check_kv(torch, worst: dict) -> list:
+    """Phase 3, the kv kernel bitwise against its plain version at
+    P = 64, dh = 128, bf16, S = 64 and 4096, C = 1 and 8, int32 and int64
+    positions with rows past S (dropped); timed beside its plain version,
+    ``index_put_`` of the in-range rows, the mask-select rewrite that the
+    ``"mask"`` mode runs, and its bound (the in-range rows read and
+    written, the positions read)."""
+    from repro_torch.kernels import kv_cache_update as kv
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    rows = []
+    p, dh = KV_PLANES, KV_DH
+    for s in KV_SEQS:
+        cache0 = torch.randn((p, s, dh), generator=gen,
+                             device=DEVICE).to(torch.bfloat16)
+        for c in KV_CHUNKS:
+            new = torch.randn((p, c, dh), generator=gen,
+                              device=DEVICE).to(torch.bfloat16)
+            pos = torch.randint(0, s - c + 1, (p,), generator=gen,
+                                device=DEVICE)
+            # rows past S: partly (the last row of the chunk or more), and
+            # a whole chunk at S (nothing lands)
+            pos[-3], pos[-2], pos[-1] = s - 1, s - c // 2 - 1, s
+            for pdt in (torch.int64, torch.int32):
+                want = kv.kv_cache_write_chunk_plain(cache0.clone(), new,
+                                                     pos.to(pdt))
+                got = cache0.clone()
+                ptr = got.data_ptr()
+                kv.kv_cache_write_chunk(got, new, pos.to(pdt))
+                torch.cuda.synchronize()
+                diff = float((got.float() - want.float()).abs().max())
+                ok = torch.equal(got, want) and got.data_ptr() == ptr \
+                    and torch.equal(got[-1], cache0[-1])
+                log(f"check {'kv_cache_update':27s} S={s} C={c} pos "
+                    f"{str(pdt).removeprefix('torch.')} bitwise, in place "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"kv_cache_update differs from its "
+                                         f"plain version at S={s} C={c}: "
+                                         f"max|diff| {diff}")
+                worst["kv_cache_update"] = max(
+                    worst.get("kv_cache_update", 0.0), diff)
+            rows_ = pos[:, None] + torch.arange(c, device=DEVICE)
+            keep = rows_ < s
+            planes = torch.arange(p, device=DEVICE)[:, None].expand(p, c)
+            idx = (planes[keep], rows_[keep])
+            vals = new[keep]
+            target = cache0.clone()
+            oh = rows_[:, :, None] == torch.arange(s, device=DEVICE)
+            written = oh.any(dim=1)[..., None]
+            ohf = oh.to(torch.bfloat16)
+
+            def mask_rewrite():
+                return torch.where(written,
+                                   torch.einsum("pcs,pcd->psd", ohf, new),
+                                   target)
+
+            live = int(keep.sum())
+            nbytes = 2 * live * dh * 2 + p * pos.element_size()
+            row = {"name": "kv_cache_update", "quant": "none",
+                   "dtype": "bfloat16", "P": p, "S": s, "C": c, "dh": dh,
+                   "rows_written": live,
+                   "ms": time_ms(torch, lambda: kv.kv_cache_write_chunk(
+                       target, new, pos), flush=flush),
+                   "plain_ms": time_ms(
+                       torch, lambda: kv.kv_cache_write_chunk_plain(
+                           target, new, pos), flush=flush),
+                   "library_ms": time_ms(
+                       torch, lambda: target.index_put_(idx, vals),
+                       flush=flush),
+                   "mask_ms": time_ms(torch, mask_rewrite, flush=flush),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"}
+            rows.append(row)
+            log("time  " + json.dumps(row))
+    return rows
+
+
+def bitmap_path(torch) -> dict:
+    """Phase 7, the bitmap format through its public entry: every olmo-1b
+    projection (random weights balanced-pruned at SPARSITY, bf16) encoded
+    by ``ops.encode_bitmap`` and multiplied by ``ops.bitmap_spmm`` at the
+    prefill M (128) and the decode M (4), each output held against the
+    masked dense matmul at the bf16 tolerance; counts zeroed just before
+    and read just after."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    weights = {}
+    for name, (o, n) in OLMO_PROJECTIONS.items():
+        _, w = make_encoding(torch, o, n, torch.bfloat16, gen)
+        weights[name] = (w, ops.encode_bitmap(w))
+    xs = {(m, n): torch.randn((m, n), generator=gen, device=DEVICE).to(
+        torch.bfloat16) for m in (WIDE_M, 4)
+        for n in {n for _, n in OLMO_PROJECTIONS.values()}}
+    reset_launches()
+    outs = {(name, m): ops.bitmap_spmm(xs[(m, w.shape[1])], *enc)
+            for name, (w, enc) in weights.items() for m in (WIDE_M, 4)}
+    torch.cuda.synchronize()
+    counts = launches()
+    worst = 0.0
+    for (name, m), y in outs.items():
+        w = weights[name][0]
+        want = (xs[(m, w.shape[1])].float() @ w.float().T).to(torch.bfloat16)
+        err = (y.float() - want.float()).abs()
+        tol = TOL["bfloat16"]
+        if not bool((err <= tol + tol * want.float().abs()).all()):
+            raise AssertionError(f"ops.bitmap_spmm {name} M={m} differs from "
+                                 f"the masked dense matmul: max|diff| "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    if counts["bitmap_spmm"] != len(outs):
+        raise AssertionError(f"bitmap_spmm launched {counts['bitmap_spmm']} "
+                             f"times on the bitmap path, expected "
+                             f"{len(outs)}")
+    log(f"bitmap path: {len(outs)} calls of ops.bitmap_spmm over olmo-1b's "
+        f"projections, max|diff| vs masked dense {worst:.3e} (tol "
+        f"{TOL['bfloat16']:g}); launches {counts}")
+    return counts
+
+
+def scatter_vs_mask(torch, steps: int = GEN_STEPS) -> dict:
+    """Phase 8: the full-width olmo-1b plan served greedily with
+    ``cache_update="mask"`` and with ``"scatter"`` from the same weights,
+    plan and prompt; tokens and every step's logits must be bitwise
+    equal."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models.api import merge_prefill_cache
+    bundle_m, params, plan, prompt = full_width(torch, "bfloat16")
+    bundle_s = build_model(dataclasses.replace(bundle_m.cfg,
+                                               cache_update="scatter"),
+                           DEVICE)
+    sparse = {**params, "sparse_plan": plan}
+    b, p = prompt.shape
+    traces = []
+    with torch.no_grad():
+        for bundle in (bundle_m, bundle_s):
+            logits, pfc = bundle.prefill(sparse, {"tokens": prompt})
+            cache = merge_prefill_cache(bundle.init_cache(b, p + steps), pfc)
+            toks = logits.argmax(dim=-1)[:, None]
+            trace = [(logits, toks)]
+            clen = torch.full((b,), p, dtype=torch.long, device=DEVICE)
+            for _ in range(steps):
+                logits, cache = bundle.decode_step(
+                    sparse, {"tokens": toks, "cache_len": clen}, cache)
+                toks = logits.argmax(dim=-1)[:, None]
+                clen = clen + 1
+                trace.append((logits, toks))
+            traces.append(trace)
+    torch.cuda.synchronize()
+    diff = max(float((a[0] - b_[0]).abs().max())
+               for a, b_ in zip(*traces))
+    equal = all(torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1])
+                for a, b_ in zip(*traces))
+    out = {"steps": steps, "logits_max_abs_diff": diff,
+           "bitwise_equal": equal,
+           "sample": torch.cat([t for _, t in traces[1]], 1)[0, :8].tolist()}
+    log(f"scatter vs mask, olmo-1b full width, {steps} decode steps: "
+        f"{json.dumps(out)}")
+    if not equal:
+        raise AssertionError(f"the scatter cache write changed the served "
+                             f"tokens or logits: {out}")
+    return out
+
+
+def profile_traffic(torch, serve) -> dict:
+    """Where the device time goes in the continuous engine (phase 9): the
+    full-width olmo-1b plan, scatter config, four requests of the traffic
+    scenario's shapes (prompts 16 and 32, 8 and 32 new tokens) submitted
+    together and served to the end after a warm-up, under
+    `torch.profiler`: ticks, wall time, the device's busy share and the
+    kernels by device time."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+    bundle, params, plan, _ = full_width(torch, "bfloat16")
+    bundle = build_model(dataclasses.replace(bundle.cfg,
+                                             cache_update="scatter"), DEVICE)
+    sparse = {**params, "sparse_plan": plan}
+    rng = torch.Generator().manual_seed(5)
+    reqs = [(torch.randint(0, bundle.cfg.vocab_size, (plen,),
+                           generator=rng).numpy(), gen)
+            for plen, gen in ((16, 8), (32, 32), (32, 8), (16, 32))]
+
+    def engine():
+        return ServingEngine(bundle, sparse, num_pages=4 * 8 + 1,
+                             page_size=8, max_slots=4, max_pages_per_slot=8,
+                             prefill_chunk=8)
+
+    warm = engine()
+    for prompt, gen in reqs:
+        warm.submit(prompt, gen)
+    warm.run()
+    eng = engine()
+    for prompt, gen in reqs:
+        eng.submit(prompt, gen)
+    ticks = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        while eng.tick():
+            ticks += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            n, ms = by_name.get(evt.name, (0, 0.0))
+            by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"ticks": ticks, "tokens": sum(len(r.out_tokens)
+                                          for r in eng.sched.done),
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "top": [{"kernel": name[:80], "count": n, "ms": ms}
+                    for name, (n, ms) in top]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -494,6 +856,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rows, worst = check_kernels(torch)
     rows += check_batched(torch, worst)
+    rows += check_bitmap(torch, worst)
+    rows += check_kv(torch, worst)
 
     # 4. the olmo-1b path: counts zeroed just before, read just after
     paths = {"olmo-1b": serve_path(torch, serve, "olmo-1b", SERVE_ARGS)}
@@ -501,13 +865,42 @@ def main() -> int:
     log(f"float32 compute, full width, end to end: {json.dumps(parity_f32)}")
     log(f"profile {json.dumps(profile_generate(torch, serve))}")
 
-    # 5. the olmo-1b int8 path, the same way
+    # 5. the bitmap format's entry at olmo-1b's projections, the same way
+    paths["bitmap"] = bitmap_path(torch)
+
+    # 6. olmo-1b with the scatter cache write: bitwise against the mask
+    # path, then the serve entry point, the same way
+    scatter_vs_mask(torch)
+    label = "olmo-1b scatter"
+    paths[label] = serve_path(torch, serve, label, SERVE_ARGS, "scatter")
+    if paths[label]["kv_cache_update"] != SCATTER_KV_LAUNCHES:
+        raise AssertionError(f"kv_cache_update launched "
+                             f"{paths[label]['kv_cache_update']} times on "
+                             f"the {label} path, expected "
+                             f"{SCATTER_KV_LAUNCHES}")
+    tiled = [k for k in bs.LAUNCHES
+             if paths[label][k] != paths["olmo-1b"][k]]
+    if tiled:
+        raise AssertionError(f"the scatter path launched {tiled} another "
+                             f"number of times than the mask path")
+
+    # 7. the continuous-batching runtime on the scatter config, the same way
+    label = "olmo-1b traffic"
+    paths[label] = serve_path(torch, serve, label, TRAFFIC_ARGS, "scatter")
+    quiet = [k for k in ("kv_cache_update", "tiled_balanced_spmm",
+                         "tiled_balanced_spmm_skinny")
+             if paths[label][k] == 0]
+    if quiet:
+        raise AssertionError(f"{quiet} never launched on the {label} path")
+    log("traffic profile " + json.dumps(profile_traffic(torch, serve)))
+
+    # 8. the olmo-1b int8 path, the same way
     paths["olmo-1b int8"] = serve_path(torch, serve, "olmo-1b int8",
                                        QUANT_ARGS)
     log("int8 profile " + json.dumps(profile_generate(torch, serve,
                                                       quant="int8")))
 
-    # 6. the deepseek-moe-16b paths, the same way, after freeing olmo's
+    # 9. the deepseek-moe-16b paths, the same way, after freeing olmo's
     want = (SERVE_PREFILLS + SERVE_DECODE_STEPS) * MOE_LAYERS * 3
     for label, args, batched in (
             ("deepseek-moe-16b", MOE_ARGS, "tiled_balanced_spmm_batched"),
@@ -536,17 +929,22 @@ def main() -> int:
         log("moe profile " + json.dumps(profile_generate(
             torch, serve, arch="deepseek-moe-16b", n_layers=MOE_LAYERS)))
 
-    # 7. result: launches summed over the four paths' serve runs; each
-    # kernel's timed row at bf16, at the quant mode its serve path runs
+    # 10. result: launches summed over the paths' runs; each kernel's timed
+    # row at bf16, at the quant mode its serve path runs, at the shape its
+    # main path runs (the kv kernel: a decode write into a 4096-row cache)
     kernels = []
     for name, (source, replaces, quant) in KERNELS.items():
-        if name.startswith("tiled_balanced_spmm_batched"):
-            m, shape = 8, EXPERT_SHAPES[0]
+        if name == "kv_cache_update":
+            row = next(r for r in rows if r["name"] == name
+                       and r["S"] == KV_SEQS[-1] and r["C"] == 1)
         else:
-            m, shape = (8 if "skinny" in name else WIDE_M), SHAPES[1]
-        row = next(r for r in rows if r["name"] == name and r["M"] == m
-                   and (r["O"], r["N"]) == shape and r["quant"] == quant
-                   and r["dtype"] == "bfloat16")
+            if name.startswith("tiled_balanced_spmm_batched"):
+                m, shape = 8, EXPERT_SHAPES[0]
+            else:
+                m, shape = (8 if "skinny" in name else WIDE_M), SHAPES[1]
+            row = next(r for r in rows if r["name"] == name and r["M"] == m
+                       and (r["O"], r["N"]) == shape and r["quant"] == quant
+                       and r["dtype"] == "bfloat16")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "quant": quant,
                         "launches": sum(p[name] for p in paths.values()),
@@ -564,42 +962,54 @@ def main() -> int:
     return 0
 
 
-def serve_path(torch, serve, label: str, args: list) -> dict:
-    """Drive one path through `launch/serve.main` with every launch count
-    zeroed just before and read just after; fail if a kernel that the
-    path's plan reaches never launched, or if a kernel of the other
-    format launched (a quantized plan runs only the ``_q`` kernels, an
-    unquantized one none of them)."""
-    from repro_torch.kernels import balanced_spmm as bs
-    bs.reset_launches()
+def serve_path(torch, serve, label: str, args: list,
+               cache_update: str | None = None) -> dict:
+    """Drive one path through `launch/serve` (``main``, or ``run`` on the
+    config ``main`` builds with ``cache_update`` set) with every launch
+    count zeroed just before and read just after; fail if a kernel that
+    the path's plan reaches never launched, or if a tiled kernel of the
+    other format launched (a quantized plan runs only the ``_q`` kernels,
+    an unquantized one none of them)."""
+    import dataclasses
+    reset_launches()
     t0 = time.monotonic()
-    res = serve.main(args)
+    if cache_update is None:
+        res = serve.main(args)
+    else:
+        ns = serve.build_parser().parse_args(args)
+        res = serve.run(ns, dataclasses.replace(serve.config(ns),
+                                                cache_update=cache_update))
     torch.cuda.synchronize()
-    launches = dict(bs.LAUNCHES)
+    counts = launches()
     plan = res["plan"]
-    log(f"serve {' '.join(args)}: {time.monotonic() - t0:.1f} s, plan "
-        f"{plan['plan_build_s']:.2f} s, dense "
-        f"{res['dense']['tokens_per_s']:.1f} tok/s, sparse "
-        f"{res['sparse']['tokens_per_s']:.1f} tok/s, KB "
+    if "traffic" in res:
+        served = "traffic " + json.dumps(res["traffic"])
+    else:
+        served = (f"dense {res['dense']['tokens_per_s']:.1f} tok/s, sparse "
+                  f"{res['sparse']['tokens_per_s']:.1f} tok/s")
+    log(f"serve {' '.join(args)}"
+        + (f" (cache_update={cache_update})" if cache_update else "")
+        + f": {time.monotonic() - t0:.1f} s, plan "
+        f"{plan['plan_build_s']:.2f} s, {served}, KB "
         f"{plan['block_k']}, parity (tol {plan['parity_tol']:g}) "
         f"{json.dumps(plan['parity'])}, stored {plan['encoded_bytes']} B vs "
         f"dense {plan['dense_bytes']} B; a decode step reads "
         f"{plan['step_weight_bytes']} B of live weights, bound "
         f"{plan['step_weight_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
     log(f"{label} launches " + ", ".join(f"{k}={v}"
-                                         for k, v in launches.items())
+                                         for k, v in counts.items())
         + f"; the plan reaches {plan['kernels_reached']}")
     quantized = plan["quant"] != "none"
     if not plan["kernels_reached"] or any(
-            launches[k] == 0 for k in plan["kernels_reached"]):
+            counts[k] == 0 for k in plan["kernels_reached"]):
         raise AssertionError(f"a kernel of the {label} path never launched: "
-                             f"{launches}")
-    other = [k for k, v in launches.items()
-             if v and k.endswith("_q") != quantized]
+                             f"{counts}")
+    other = [k for k, v in counts.items() if v and k.startswith("tiled_")
+             and k.endswith("_q") != quantized]
     if other:
         raise AssertionError(f"the {label} path launched {other}, kernels of "
                              f"the other weight format")
-    return launches
+    return counts
 
 
 if __name__ == "__main__":

@@ -1,0 +1,287 @@
+// Bitmap-compressed sparse x dense matmul, y[M, O] = x[M, N] @ decode(W)^T,
+// for NVIDIA Hopper (sm_90a).  Plain C interface, loaded with ctypes by
+// src/repro_torch/kernels/_build.py; the wrapper lives in
+// src/repro_torch/kernels/bitmap_spmm.py.
+//
+// Replaces the Pallas TPU kernel in src/repro/kernels/bitmap_spmm.py:
+//   bitmap_spmm_wide / bitmap_spmm_skinny (M <= 8) <- bitmap_spmm_pallas
+//   (_kernel).
+//
+// W [O, N] is (bitmap int8 [O, N], packed [O, K] in the activation dtype,
+// offsets int32 [O, N / bn]): element (r, c) of column block nb is
+//   packed[r, clip(offsets[r, nb] + (set bits of row r in block nb up to and
+//   including c) - 1, 0, K - 1)] if bitmap[r, c] != 0, else 0.
+// Any nonzero bitmap byte is a set bit, as the reference's `bitmap != 0`.
+//
+// What bounds it on an H100: a call must read the bitmap (one byte per
+// element of W), the packed nonzeros and the offsets once: at olmo-1b's
+// 8192 x 2048, sparsity 0.5, bf16, 16.8 + 16.8 + 0.5 MB, about 0.010 ms at
+// 3.35 TB/s, so both decode (M = 8) and prefill (M = 128) are bound by
+// device-memory bytes; the product itself runs on the f32 FMA pipe over the
+// decoded tile, zeros included.
+//
+// Design (right and simple first; wgmma, TMA and a bit-packed map are later
+// work):
+//  * The TPU grid's sequential column-block axis becomes a loop inside the
+//    CTA; one CTA owns one output tile and nothing carries between CTAs.
+//  * The Pallas kernel stages a row block's whole packed run [bo, K] in
+//    VMEM; at olmo-1b (K = 1024 bf16, 128 rows) that is 256 KB, over the
+//    227 KB a CTA may have.  Here each row's nonzeros of a block are read
+//    from device memory where they start, at offsets[r, nb]: one warp per
+//    row, lanes over the block's columns in chunks of 32, the in-block rank
+//    of a set bit from a warp ballot (__popc(mask & lanemask_lt) plus the
+//    counts of the chunks before it), so the set bits of a chunk read
+//    consecutive packed elements.
+//  * Per column block: stage the x slice in shared memory (as f32), decode
+//    the [BO, bn] tile into shared memory (f32; every element is written,
+//    zeros included, so no separate zeroing pass), sync, accumulate the
+//    product with f32 FMAs in registers.  bf16 x bf16 products are exact in
+//    f32, as on the TPU's preferred_element_type=f32 dot.
+//  * Tiles as the tiled balanced kernels (tiled_spmm.cuh): 32 x 64 outputs
+//    per CTA for prefill, 8 x 8 for decode (M <= 8) with the block's columns
+//    split in 4 parts summed in a fixed order; row strides of bn + 4 floats
+//    keep the float4 reads and the decode's stores free of bank conflicts.
+//    Several CTAs per SM overlap one CTA's decode loads with another's
+//    product.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxBn = 128;
+constexpr int kLanes = 32;
+constexpr int kChunks = kMaxBn / kLanes;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// x[m0 .. m0 + kBM, block b] -> xs[m][kk] (f32, row stride ld), zero rows
+// past M.
+template <typename T, int kBM, int kThreads>
+__device__ __forceinline__ void stage_x(const T* __restrict__ x, float* xs,
+                                        int M, int N, int bn, int ld, int m0,
+                                        int b) {
+  for (int e = threadIdx.x; e < kBM * bn; e += kThreads) {
+    const int m = e / bn;
+    const int kk = e - m * bn;
+    const size_t at = (size_t)(m0 + m) * N + (size_t)b * bn + kk;
+    xs[m * ld + kk] = m0 + m < M ? to_f32(x[at]) : 0.f;
+  }
+}
+
+// Rows o0 .. o0 + kBO of column block b -> ws[r][c] (f32, row stride ld),
+// one warp per row; rows past O decode to zeros.
+template <typename T, int kBO, int kThreads>
+__device__ __forceinline__ void decode_block(
+    const int8_t* __restrict__ bitmap, const T* __restrict__ packed,
+    const int* __restrict__ offsets, float* ws, int O, int N, int K, int bn,
+    int ld, int o0, int b) {
+  constexpr int kWarps = kThreads / kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const unsigned below = (1u << lane) - 1u;     // lanes before this one
+  const int nb = N / bn;
+  for (int r = warp; r < kBO; r += kWarps) {     // warp-uniform
+    const int o = o0 + r;
+    float* row = ws + r * ld;
+    if (o >= O) {
+      for (int c = lane; c < bn; c += kLanes) row[c] = 0.f;
+      continue;
+    }
+    const int8_t* bits = bitmap + (size_t)o * N + (size_t)b * bn;
+    const T* prow = packed + (size_t)o * K;
+    int8_t v[kChunks];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = lane + kLanes * j;
+      v[j] = c < bn ? bits[c] : 0;
+    }
+    int base = offsets[(size_t)o * nb + b];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = lane + kLanes * j;
+      const bool set = v[j] != 0;
+      const unsigned mask = __ballot_sync(0xffffffffu, set);
+      float w = 0.f;
+      if (set) {
+        int pos = base + __popc(mask & below);
+        pos = pos < 0 ? 0 : (pos >= K ? K - 1 : pos);
+        w = to_f32(prow[pos]);
+      }
+      if (c < bn) row[c] = w;
+      base += __popc(mask);
+    }
+  }
+}
+
+// ---- wide (prefill) -------------------------------------------------------
+constexpr int kWideBM = 32;                  // output rows (M) per CTA
+constexpr int kWideBO = 64;                  // output columns (O) per CTA
+constexpr int kWideThreads = 256;            // 16 (o) x 16 (m), 4 x 2 outputs
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+bitmap_spmm_wide_kernel(const T* __restrict__ x,
+                        const int8_t* __restrict__ bitmap,
+                        const T* __restrict__ packed,
+                        const int* __restrict__ offsets,
+                        float* __restrict__ y, int M, int O, int N, int K,
+                        int bn) {
+  extern __shared__ float4 smem4[];
+  const int ld = bn + 4;
+  float* xs = reinterpret_cast<float*>(smem4);   // [kWideBM][ld]
+  float* ws = xs + kWideBM * ld;                 // [kWideBO][ld]
+  const int tx = threadIdx.x % 16;               // columns tx + 16 j
+  const int ty = threadIdx.x / 16;               // rows ty + 16 i
+  const int m0 = blockIdx.y * kWideBM;
+  const int o0 = blockIdx.x * kWideBO;
+  float acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int b = 0; b < N / bn; ++b) {
+    __syncthreads();                 // the previous product is done with xs/ws
+    stage_x<T, kWideBM, kWideThreads>(x, xs, M, N, bn, ld, m0, b);
+    decode_block<T, kWideBO, kWideThreads>(bitmap, packed, offsets, ws, O, N,
+                                           K, bn, ld, o0, b);
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < bn; kk += 4) {
+      float4 xv[2], wv[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xs + (ty + 16 * i) * ld + kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wv[j] = *reinterpret_cast<const float4*>(ws + (tx + 16 * j) * ld + kk);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(xv[i].x, wv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].y, wv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].z, wv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].w, wv[j].w, acc[i][j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + tx + 16 * j;
+      if (o < O) y[(size_t)m * O + o] = acc[i][j];
+    }
+  }
+}
+
+// ---- skinny (decode) ------------------------------------------------------
+constexpr int kSkinnyM = 8;                  // the decode batch, padded to 8
+constexpr int kSkinnyBO = 8;                 // output columns per CTA
+constexpr int kSkinnyThreads = 256;          // 64 outputs x 4 parts of bn
+constexpr int kSkinnyParts = kSkinnyThreads / (kSkinnyM * kSkinnyBO);
+
+template <typename T>
+__global__ void __launch_bounds__(kSkinnyThreads)
+bitmap_spmm_skinny_kernel(const T* __restrict__ x,
+                          const int8_t* __restrict__ bitmap,
+                          const T* __restrict__ packed,
+                          const int* __restrict__ offsets,
+                          float* __restrict__ y, int M, int O, int N, int K,
+                          int bn) {
+  extern __shared__ float4 smem4[];
+  const int ld = bn + 4;
+  float* xs = reinterpret_cast<float*>(smem4);   // [kSkinnyM][ld]
+  float* ws = xs + kSkinnyM * ld;                // [kSkinnyBO][ld]
+  const int q = threadIdx.x % (kSkinnyM * kSkinnyBO);
+  const int m = q / kSkinnyBO;                   // this thread's output row
+  const int r = q % kSkinnyBO;                   // and column
+  const int part = threadIdx.x / (kSkinnyM * kSkinnyBO);
+  const int span = bn / kSkinnyParts;            // its share of each block
+  const int o0 = blockIdx.x * kSkinnyBO;
+  float acc = 0.f;
+
+  for (int b = 0; b < N / bn; ++b) {
+    __syncthreads();
+    stage_x<T, kSkinnyM, kSkinnyThreads>(x, xs, M, N, bn, ld, 0, b);
+    decode_block<T, kSkinnyBO, kSkinnyThreads>(bitmap, packed, offsets, ws,
+                                               O, N, K, bn, ld, o0, b);
+    __syncthreads();
+    const float* xrow = xs + m * ld + part * span;
+    const float* wrow = ws + r * ld + part * span;
+#pragma unroll 8
+    for (int kk = 0; kk < span; ++kk) acc = fmaf(xrow[kk], wrow[kk], acc);
+  }
+  // sum the parts in a fixed order
+  __syncthreads();
+  float* red = xs;                   // [kSkinnyParts][64], over xs and ws
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < kSkinnyM * kSkinnyBO) {
+    float sum = 0.f;
+#pragma unroll
+    for (int p = 0; p < kSkinnyParts; ++p)
+      sum += red[p * kSkinnyM * kSkinnyBO + threadIdx.x];
+    const int o = o0 + r;
+    if (m < M && o < O) y[(size_t)m * O + o] = sum;
+  }
+}
+
+template <typename T>
+int launch(const void* x, const int8_t* bitmap, const void* packed,
+           const int* offsets, float* y, int M, int O, int N, int K, int bn,
+           cudaStream_t s) {
+  const bool skinny = M <= kSkinnyM;
+  const int bm = skinny ? kSkinnyM : kWideBM;
+  const int bo = skinny ? kSkinnyBO : kWideBO;
+  const int floats = (bm + bo) * (bn + 4);
+  const int smem = (skinny && floats < kSkinnyThreads ? kSkinnyThreads
+                                                      : floats) *
+                   (int)sizeof(float);
+  auto kernel = skinny ? bitmap_spmm_skinny_kernel<T>
+                       : bitmap_spmm_wide_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (M == 0 || O == 0) return 0;
+  const dim3 grid((O + bo - 1) / bo, skinny ? 1 : (M + bm - 1) / bm);
+  kernel<<<grid, skinny ? kSkinnyThreads : kWideThreads, smem, s>>>(
+      static_cast<const T*>(x), bitmap, static_cast<const T*>(packed),
+      offsets, y, M, O, N, K, bn);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (x and packed share it).  y is f32
+// [M, O].  bn a multiple of 4 in [4, 128] dividing N; K >= 1.  Returns the
+// cudaError_t of the launch (0 on success).
+int bitmap_spmm(const void* x, const int8_t* bitmap, const void* packed,
+                const int* offsets, float* y, int M, int O, int N, int K,
+                int bn, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M < 0 || O < 0 || N < 0 || K < 1 || bn < 4 || bn > kMaxBn ||
+      bn % 4 || N % bn)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, bitmap, packed, offsets, y, M, O, N, K,
+                                 bn, s);
+  return launch<float>(x, bitmap, packed, offsets, y, M, O, N, K, bn, s);
+}
+
+const char* bitmap_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -17,6 +17,9 @@ eager fallbacks `balanced_spmm` / `balanced_spmm_batched`:
                           takes the gather formulation.
 * ``impl="xla_gather"`` — gather + rank-3 reduction (``[M, O, K]`` buffer).
 
+`bitmap_spmm` runs the bitmap-compressed format (`bitmap_spmm` module):
+``cuda`` the hand-written kernel, ``xla`` the densify + matmul oracle.
+
 A tiled encoding on an eager rung (a quantized plan keeps the tiled format
 on every sparse rung, for its scales) runs the tiled twins: gather +
 reduction with the block scale factored out of the slot sum up to
@@ -37,6 +40,8 @@ import torch.nn.functional as F
 from . import ref
 from .balanced_spmm import (tiled_balanced_spmm, tiled_balanced_spmm_batched,
                             tiled_balanced_spmm_skinny)
+from .bitmap_spmm import bitmap_encode
+from .bitmap_spmm import bitmap_spmm as bitmap_spmm_kernel
 from .tile_format import (TiledBalanced, dequantize_values, leaf_perm,
                           tiled_to_dense, unpack_int4)
 
@@ -104,30 +109,55 @@ def _tiled_kb_est(n: int, k: int, bn: int) -> int:
     return max(8, min(k, bn, _round_up(int(k * bn / max(n, 1) * 1.5), 8)))
 
 
+def _bitmap_footprint(bm: int, bo: int, bn: int, k: int, itemsize: int) -> int:
+    """The reference model's per-step bytes of the bitmap kernel: x tile +
+    int8 bitmap block + the row block's whole packed run ``[bo, K]`` +
+    offsets column + decoded f32 tile + f32 accumulator."""
+    return (bm * bn * itemsize + bo * bn + bo * k * itemsize + bo * 4
+            + bo * bn * 4 + bm * bo * 4)
+
+
 @functools.lru_cache(maxsize=512)
 def choose_blocks(m: int, o: int, n: int, k: int, *, itemsize: int = 4,
-                  vmem_budget: int = _VMEM_BUDGET,
+                  vmem_budget: int = _VMEM_BUDGET, kind: str = "tiled",
+                  bn: int | None = None,
                   w_bytes: float | None = None) -> BlockChoice:
     """Pick (bm, bo, bn) with the reference's static model: start from
     128s shrunk toward small dims, then halve the largest footprint share
-    until the double-buffered footprint fits the budget.  ``w_bytes``
-    narrows the modeled value slot of a quantized encoding."""
+    until the double-buffered footprint fits the budget.  ``kind``
+    "tiled" estimates KB from the balanced invariant, "bitmap" takes ``k``
+    as the packed width; ``bn`` given pins the column block (the bitmap
+    offsets bake it in), so only bm and bo may shrink.  ``w_bytes`` narrows
+    the modeled value slot of a quantized encoding."""
     bm = _pick_block(m, 128)
     bo = _pick_block(o, 128)
-    bn = _pick_block(n, 128)
+    bn_fixed = bn is not None
+    if not bn_fixed:
+        bn = _pick_block(n, 128)
 
     def footprint(bm_, bo_, bn_):
+        if kind == "bitmap":
+            return _bitmap_footprint(bm_, bo_, bn_, k, itemsize)
         return _tiled_footprint(bm_, bo_, bn_, _tiled_kb_est(n, k, bn_),
                                 itemsize, w_bytes)
 
     wb = itemsize if w_bytes is None else w_bytes
     while 2 * footprint(bm, bo, bn) > vmem_budget:
-        shares = {
-            "bm": bm * (bn * itemsize + bo * 4),
-            "bo": bo * (_tiled_kb_est(n, k, bn) * (wb + 4) + bn * 4
-                        + bm * 4),
-            "bn": bn * (bm * itemsize + bo * 4),
-        }
+        # shrink the largest contributor; keep everything >= 8
+        if kind == "bitmap":
+            shares = {
+                "bm": bm * (bn * itemsize + bo * 4),
+                "bo": bo * (bn + k * itemsize + 4 + bn * 4 + bm * 4),
+            }
+        else:
+            shares = {
+                "bm": bm * (bn * itemsize + bo * 4),
+                "bo": bo * (_tiled_kb_est(n, k, bn) * (wb + 4) + bn * 4
+                            + bm * 4),
+                "bn": bn * (bm * itemsize + bo * 4),
+            }
+        if bn_fixed:
+            shares.pop("bn", None)
         dims = {"bm": bm, "bo": bo, "bn": bn}
         for name in sorted(shares, key=shares.get, reverse=True):
             if dims[name] > 8:
@@ -553,6 +583,47 @@ def balanced_spmm_batched(x: Tensor, values: Tensor, indices: Tensor, *,
     return y.reshape(e, *lead, values.shape[-2])
 
 
+# ---------------------------------------------------------------------------
+# bitmap_spmm: y = x @ W.T, W bitmap-compressed
+# ---------------------------------------------------------------------------
+
+def bitmap_spmm(x: Tensor, bitmap: Tensor, packed: Tensor, offsets: Tensor,
+                *, bn: int = 128, impl: str = "cuda") -> Tensor:
+    """Bitmap-compressed matmul (an inference format; not differentiable).
+    ``x``: ``[..., N]`` -> ``[..., O]`` in x's dtype.  ``cuda`` pads M and
+    O to the reference's block choice and runs the kernel (its plain
+    version on a CPU tensor); ``xla`` runs `ref.bitmap_spmm_ref`."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    m, n = x2.shape
+    o = bitmap.shape[0]
+    if impl == "xla":
+        return ref.bitmap_spmm_ref(x2, bitmap, packed).reshape(*lead, o)
+    if impl != "cuda":
+        raise ValueError(f"bitmap_spmm runs impl 'cuda' or 'xla', got "
+                         f"{impl!r}")
+    if n % bn:
+        raise ValueError(f"N = {n} must be a multiple of bn = {bn} (pad N "
+                         "before encoding)")
+    c = choose_blocks(m, o, n, packed.shape[1], itemsize=x.element_size(),
+                      kind="bitmap", bn=bn)
+    mp, op_ = _round_up(m, c.bm), _round_up(o, c.bo)
+    if mp != m:
+        x2 = F.pad(x2, (0, 0, 0, mp - m))
+    if op_ != o:
+        bitmap, packed, offsets = (F.pad(t, (0, 0, 0, op_ - o))
+                                   for t in (bitmap, packed, offsets))
+    y = bitmap_spmm_kernel(x2, bitmap, packed, offsets, bn=bn)
+    return y[:m, :o].to(x.dtype).reshape(*lead, o)
+
+
+def encode_bitmap(w: Tensor, *, bn: int = 128, k: int | None = None):
+    """Dense ``[O, N]`` -> ``(bitmap, packed, offsets)``; N must be a
+    multiple of ``bn``."""
+    return bitmap_encode(w, bn, k=k)
+
+
 __all__ = ["balanced_spmm", "balanced_spmm_batched", "tiled_spmm",
-           "tiled_spmm_batched", "choose_blocks", "BlockChoice", "SKINNY_M",
+           "tiled_spmm_batched", "bitmap_spmm", "encode_bitmap",
+           "choose_blocks", "BlockChoice", "SKINNY_M",
            "GATHER_M", "QUANT_WBYTES", "TILED_IMPLS", "bucket_m"]

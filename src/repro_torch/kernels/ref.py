@@ -35,3 +35,20 @@ def tiled_balanced_spmm_ref(x: Tensor, tb: TiledBalanced) -> Tensor:
     """y = x @ W.T for W in the tile-local format (densify + dot)."""
     w = tiled_to_dense(tb)
     return (x[:, :tb.n_in].float() @ w.float().T).to(x.dtype)
+
+
+def bitmap_dense(bitmap: Tensor, packed: Tensor) -> Tensor:
+    """Densify a bitmap-compressed matrix: bitmap ``[O, N]`` {0, 1},
+    packed ``[O, K]`` rows of nonzero values in raster order (anything
+    past a row's count is padding)."""
+    nz_rank = torch.cumsum(bitmap.int(), dim=1) - 1
+    nz_rank = nz_rank.clamp(0, packed.shape[1] - 1)
+    gathered = packed.gather(1, nz_rank.long())
+    return torch.where(bitmap != 0, gathered,
+                       gathered.new_zeros(())).to(packed.dtype)
+
+
+def bitmap_spmm_ref(x: Tensor, bitmap: Tensor, packed: Tensor) -> Tensor:
+    """y = x @ W.T for W bitmap-compressed [O, N] (densify + dot)."""
+    w = bitmap_dense(bitmap, packed)
+    return (x.float() @ w.float().T).to(x.dtype)

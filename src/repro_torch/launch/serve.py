@@ -4,7 +4,10 @@ weights — counterpart of `repro.launch.serve` (dense and moe families).
 ``python -m repro_torch.launch.serve --arch olmo-1b --sparsity 0.5`` or
 ``--arch deepseek-moe-16b`` (on the GPU; add ``--smoke --device cpu`` for
 the small config on a CPU); ``--quant int8|int4`` serves block-quantized
-encodings through the quant kernels.
+encodings through the quant kernels; ``--traffic`` serves a seeded
+Poisson request stream through the continuous-batching runtime
+(`serving/`) against the static batch loop, after a paged-vs-contiguous
+parity gate held at exactly 0.0.
 
 One offline pass (`engine.plan.plan_model`) balanced-prunes every
 projection (and every routed expert), picks the per-layer dataflow mode
@@ -22,6 +25,7 @@ import json
 import pathlib
 import time
 
+import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config, get_smoke
@@ -29,7 +33,7 @@ from ..core.compression import compressed_bits
 from ..device import resolve_device
 from ..engine import execute as engine_execute
 from ..engine import plan as engine_plan
-from ..kernels import balanced_spmm
+from ..kernels import balanced_spmm, kv_cache_update
 from ..kernels.ops import SKINNY_M
 from ..kernels.tile_format import QUANT_MODES, TiledBalanced
 from ..models import build_model
@@ -141,7 +145,115 @@ def kernels_reached(plan, m_prefill: int, m_decode: int) -> set:
     return need
 
 
-def main(argv=None) -> dict:
+def traffic_mode(bundle, serve_params, cfg, args) -> dict:
+    """``--traffic``: the continuous-batching runtime under a seeded
+    Poisson arrival scenario, A/B'd against the static batch loop at
+    equal load, plus the paged-vs-contiguous bitwise parity gate.
+
+    Returns ``continuous`` / ``static`` metric blocks (p50/p99 latency,
+    TTFT, sustained tok/s) and ``parity_max_abs_diff``, which must be 0.0:
+    the paged pool is a copy-exact rearrangement of the contiguous cache
+    (see serving/paged_kv.py).  Raises if it is not.
+    """
+    from ..serving import ServingEngine, contiguous_engine
+    from ..serving import traffic as tr
+    rng = np.random.default_rng(args.seed)
+    prompt_lens = (args.prompt_len // 2, args.prompt_len)
+    gen_steps = (max(args.gen_steps // 4, 2), args.gen_steps)
+    reqs = tr.make_requests(args.requests, rng, vocab=cfg.vocab_size,
+                            prompt_lens=prompt_lens, gen_steps=gen_steps)
+    arrivals = tr.poisson_arrivals(len(reqs), args.rate, rng)
+    ps = args.page_size
+    budget = max(r["prompt"].shape[0] + r["max_new_tokens"] - 1
+                 for r in reqs)
+    view_pages = -(-budget // ps)
+    max_len = view_pages * ps        # shared padded width -> exact parity
+    slots = args.slots
+
+    shared_steps: dict = {}      # step functions shared across paged engines
+
+    def paged(**kw):
+        return ServingEngine(bundle, serve_params,
+                             num_pages=slots * view_pages + 1, page_size=ps,
+                             max_slots=slots, max_pages_per_slot=view_pages,
+                             prefill_chunk=args.prefill_chunk,
+                             step_cache=shared_steps, **kw)
+
+    # chunk widths this scenario can produce: full prefill chunks, each
+    # prompt length's remainder chunk, and single-token decode
+    pc = args.prefill_chunk
+    widths = {1} | {pc for p in prompt_lens if p >= pc} \
+        | {p % pc for p in prompt_lens if p % pc} \
+        | {p for p in prompt_lens if p < pc}
+
+    # -- parity gate: replay a slice through both cache structures ---------
+    n_par = min(len(reqs), 2 * slots)
+    diff = 0.0
+    traces = {}
+    for mk in ("paged", "contig"):
+        eng = paged(record_logits=True) if mk == "paged" else \
+            contiguous_engine(bundle, serve_params, max_slots=slots,
+                              max_len=max_len,
+                              prefill_chunk=args.prefill_chunk,
+                              record_logits=True)
+        for r in reqs[:n_par]:
+            eng.submit(r["prompt"], r["max_new_tokens"])
+        eng.run()
+        traces[mk] = eng.logits_trace
+    for rid, rows in traces["paged"].items():
+        ref = traces["contig"][rid]
+        if len(rows) != len(ref):
+            raise AssertionError(f"rid {rid} step count diverged")
+        diff = max(diff, max(float(np.max(np.abs(a - b)))
+                             for a, b in zip(rows, ref)))
+    if diff != 0.0:
+        raise AssertionError(f"paged KV diverged from the contiguous cache: "
+                             f"max|dlogit|={diff}")
+    print(f"[serve/traffic] paged-vs-contiguous parity over {n_par} "
+          f"requests: max |dlogit| = {diff} (gate: exact)")
+
+    # -- equal-load A/B: continuous runtime vs the static batch loop -------
+    # both sides warm up off the timed path: the engine runs every (batch
+    # bucket, chunk width) step, the static loop a prefill and a decode
+    # step per prompt length
+    eng = paged()
+    n_fns = eng.warmup(chunk_widths=widths)
+    print(f"[serve/traffic] warmed {n_fns} step fns "
+          f"(buckets x chunk widths {sorted(widths)})")
+    with torch.no_grad():
+        for p in prompt_lens:
+            wtoks = torch.zeros((slots, p), dtype=torch.long,
+                                device=bundle.device)
+            _, pfc = bundle.prefill(serve_params, {"tokens": wtoks})
+            cache = merge_prefill_cache(bundle.init_cache(slots, max_len),
+                                        pfc)
+            lg, _ = bundle.decode_step(
+                serve_params, {"tokens": wtoks[:, :1],
+                               "cache_len": torch.full(
+                                   (slots,), p, dtype=torch.long,
+                                   device=bundle.device)}, cache)
+            lg.cpu()
+    cont = tr.run_continuous(eng, reqs, arrivals)
+    static = tr.run_static(bundle, serve_params, reqs, arrivals,
+                           batch=slots, max_len=max_len)
+    for name, m in (("continuous", cont), ("static", static)):
+        print(f"[serve/traffic/{name}] {m['sustained_tok_per_s']:.1f} tok/s "
+              f"sustained; latency p50={m['latency_s']['p50']:.3f}s "
+              f"p99={m['latency_s']['p99']:.3f}s; "
+              f"ttft p50={m['ttft_s']['p50']:.3f}s "
+              f"p99={m['ttft_s']['p99']:.3f}s")
+    return {"scenario": {"requests": args.requests, "rate_per_s": args.rate,
+                         "seed": args.seed, "prompt_lens": list(prompt_lens),
+                         "gen_steps": list(gen_steps), "page_size": ps,
+                         "slots": slots, "prefill_chunk": args.prefill_chunk,
+                         "max_len": max_len},
+            "parity_max_abs_diff": diff, "parity_requests": n_par,
+            "continuous": cont, "static": static,
+            "speedup_sustained": cont["sustained_tok_per_s"]
+            / max(static["sustained_tok_per_s"], 1e-9)}
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default="olmo-1b")
     ap.add_argument("--smoke", action="store_true")
@@ -169,18 +281,50 @@ def main(argv=None) -> dict:
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--report", default=None,
                     help="write the serve report to this JSON file")
-    args = ap.parse_args(argv)
+    ap.add_argument("--traffic", action="store_true",
+                    help="continuous-batching serving under a seeded "
+                         "Poisson arrival scenario (serving/): paged-KV "
+                         "runtime vs the static batch loop at equal load, "
+                         "plus the paged-vs-contiguous exact parity gate")
+    ap.add_argument("--requests", type=int, default=12,
+                    help="traffic: number of requests in the scenario")
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="traffic: Poisson arrival rate (req/s)")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="traffic: KV pool page size (tokens per page)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="traffic: live-request slots (max batch)")
+    ap.add_argument("--prefill-chunk", type=int, default=8,
+                    help="traffic: prompt tokens cached per prefill tick")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="traffic: scenario seed (arrivals + shapes)")
+    return ap
 
-    device = resolve_device(args.device)
-    # exact f32 matmuls for the dense yardstick and the masked-dense reference
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+
+def config(args: argparse.Namespace):
+    """The model config the arguments name: the published or smoke
+    config with sparse serving on, depth cut to ``--n-layers``."""
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, sparse_serving=True)
     if args.n_layers is not None:
         if not 0 < args.n_layers <= cfg.n_layers:
-            ap.error(f"--n-layers must be in [1, {cfg.n_layers}]")
+            raise ValueError(f"--n-layers must be in [1, {cfg.n_layers}]")
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    return run(args, config(args))
+
+
+def run(args: argparse.Namespace, cfg) -> dict:
+    """Serve ``cfg`` as the parsed arguments say (`main` with a config it
+    does not build itself, e.g. ``cache_update="scatter"``)."""
+    device = resolve_device(args.device)
+    # exact f32 matmuls for the dense yardstick and the masked-dense reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     bundle = build_model(cfg, device)
     params = bundle.init(0)
     gen = torch.Generator().manual_seed(1)
@@ -239,7 +383,12 @@ def main(argv=None) -> dict:
 
     # ---- throughput (warm-up first; clocks read after a synchronize) -----
     results: dict = {}
-    for mode, p in (("dense", params), ("sparse", sparse_params)):
+    if args.traffic:
+        # the continuous-batching runtime (serving/) under Poisson load,
+        # served from the plan-carrying params
+        results["traffic"] = traffic_mode(bundle, sparse_params, cfg, args)
+    for mode, p in () if args.traffic else (("dense", params),
+                                            ("sparse", sparse_params)):
         greedy_generate(bundle, p, prompt, 1, max_len)
         _sync(device)
         t0 = time.monotonic()
@@ -251,9 +400,11 @@ def main(argv=None) -> dict:
                          "sample": toks[0, :8].tolist()}
         print(f"[serve/{mode}] {tps:.1f} tok/s ({dt:.3f} s for "
               f"{args.gen_steps} steps x batch {args.batch})")
-    launches = dict(balanced_spmm.LAUNCHES)
-    reached = sorted(kernels_reached(plan, args.batch * args.prompt_len,
-                                     args.batch))
+    launches = {**balanced_spmm.LAUNCHES, **kv_cache_update.LAUNCHES}
+    reached = kernels_reached(plan, args.batch * args.prompt_len, args.batch)
+    if cfg.cache_update == "scatter":
+        reached.add("kv_cache_update")
+    reached = sorted(reached)
     if device.type == "cuda":
         missing = [k for k in reached if launches[k] == 0]
         if missing:

@@ -4,9 +4,11 @@ experts) — counterpart of those families of `repro.models.transformer`.
 
 Layer parameters are stacked on a leading L axis, in the reference's
 layout (``[L, n_in, n_out]``), and walked with a Python loop.  The KV cache
-uses the plane layout ``[L, B*KH, Smax, dh]`` (plane ``b * KH + h``) and
-decode writes new rows with the reference's ``cache_update="mask"`` select:
-exact (one-hot products), and never out of range.
+uses the plane layout ``[L, B*KH, Smax, dh]`` (plane ``b * KH + h``).
+Decode writes new rows as ``cfg.cache_update`` says, as the reference does:
+``"mask"`` rewrites the whole cache with a one-hot select (exact, and
+never out of range), ``"scatter"`` writes only the new rows, in place,
+through the `kernels.kv_cache_update` kernel.  The two are bitwise equal.
 
 Sense integration: with ``cfg.sparse_serving`` and a plan attached
 (``params["sparse_plan"]``), prefill *and* decode run every planned
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels.kv_cache_update import kv_cache_write_chunk, to_planes
 from .api import ModelBundle, planned_proj as _proj, serving_plan
 from .layers import (apply_rope, causal_attention, decode_attention_planes,
                      layer_norm, rms_norm)
@@ -39,12 +42,6 @@ def _norm(cfg: ModelConfig, x: Tensor, gamma: Tensor | None) -> Tensor:
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
-
-
-def to_planes(kv: Tensor) -> Tensor:
-    """``[B, S, KH, dh]`` -> plane layout ``[B*KH, S, dh]``."""
-    b, s, kh, dh = kv.shape
-    return kv.permute(0, 2, 1, 3).reshape(b * kh, s, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -119,22 +116,30 @@ def _attn(cfg: ModelConfig, lp, h: Tensor, positions: Tensor,
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     if kv_override is not None:
-        if cfg.cache_update != "mask":
-            raise ValueError(f"cache_update={cfg.cache_update!r}: only the "
-                             "'mask' write is ported")
         k_cache, v_cache, clen = kv_override
         k_t = to_planes(k).to(k_cache.dtype)                # [B*KH, s, dh]
         v_t = to_planes(v).to(v_cache.dtype)
-        smax = k_cache.shape[1]
-        rows = clen.repeat_interleave(nkv)[:, None] \
-            + torch.arange(s, device=h.device)[None, :]
-        oh = rows[:, :, None] == torch.arange(smax, device=h.device)
-        written = oh.any(dim=1)[..., None]                  # [B*KH, Smax, 1]
-        ohf = oh.to(k_cache.dtype)
-        k_cache = torch.where(written,
-                              torch.einsum("pcs,pcd->psd", ohf, k_t), k_cache)
-        v_cache = torch.where(written,
-                              torch.einsum("pcs,pcd->psd", ohf, v_t), v_cache)
+        pos_rep = clen.repeat_interleave(nkv)               # [B*KH]
+        if cfg.cache_update == "scatter":
+            # row-sized write, in place: O(B*KH*s*dh) bytes instead of a
+            # rewrite of the whole cache
+            k_cache = kv_cache_write_chunk(k_cache, k_t, pos_rep)
+            v_cache = kv_cache_write_chunk(v_cache, v_t, pos_rep)
+        elif cfg.cache_update == "mask":
+            # the one-hot einsum is exact (products with 1.0 and 0.0), so
+            # this and the scatter write are bitwise identical
+            smax = k_cache.shape[1]
+            rows = pos_rep[:, None] + torch.arange(s, device=h.device)[None, :]
+            oh = rows[:, :, None] == torch.arange(smax, device=h.device)
+            written = oh.any(dim=1)[..., None]              # [B*KH, Smax, 1]
+            ohf = oh.to(k_cache.dtype)
+            k_cache = torch.where(
+                written, torch.einsum("pcs,pcd->psd", ohf, k_t), k_cache)
+            v_cache = torch.where(
+                written, torch.einsum("pcs,pcd->psd", ohf, v_t), v_cache)
+        else:
+            raise ValueError(f"cache_update must be 'mask' or 'scatter', got "
+                             f"{cfg.cache_update!r}")
         o = decode_attention_planes(q, k_cache.to(cd), v_cache.to(cd), clen)
         kv_out = (k_cache, v_cache)
     else:
@@ -348,7 +353,11 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
 
     def decode_step(params, batch, cache):
         """One step of ``s >= 1`` tokens per sequence: s == 1 is classic
-        decode, s > 1 a chunk attending to the cached prefix."""
+        decode, s > 1 a chunk attending to the cached prefix.  With
+        ``cache_update="scatter"`` the new rows are written into ``cache``
+        in place and that same dict is returned: the cache passed in is
+        consumed.  With ``"mask"`` a new cache is returned and the one
+        passed in is left as it was."""
         tokens, clen = batch["tokens"], batch["cache_len"]
         b, s = tokens.shape
         positions = clen[:, None] + torch.arange(s, device=device)[None, :]
@@ -361,6 +370,8 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
                 plan_layers=plp)
             ks.append(kc)
             vs.append(vc)
+        if cfg.cache_update == "scatter":
+            return _logits(params, h), cache
         return _logits(params, h), {"k": torch.stack(ks),
                                     "v": torch.stack(vs)}
 

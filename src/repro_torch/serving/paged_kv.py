@@ -1,0 +1,124 @@
+"""Device-side paged KV pool: plane-layout pages + gather/scatter views —
+counterpart of `repro.serving.paged_kv`.
+
+The pool generalizes the contiguous plane cache (``models/*.init_cache``:
+``[L, B*KH, Smax, dh]``) by cutting the row axis into fixed-size pages:
+
+    pool[k|v] : [L, num_pages * KH, page_size, dh]
+
+Pool plane ``page * KH + h`` holds kv-head ``h``'s rows of one page — the
+same plane-per-(owner, head) rule as the contiguous cache, with *page* as
+the owner instead of *sequence*.  A request's logical position ``t`` lives
+at page ``table[slot, t // page_size]``, row ``t % page_size``
+(`serving.pages`).
+
+A batch step never indexes pages inside the model.  Instead the engine
+
+1. **gathers** each live slot's pages into a contiguous plane view
+   ``[L, B*KH, V*page_size, dh]`` (a copy — bitwise identical to the
+   cache a contiguous run would hold),
+2. runs the unmodified ``bundle.decode_step`` on the view (which, with
+   ``cache_update="scatter"``, writes its new rows into the view through
+   the `kernels.kv_cache_update` kernel), and
+3. **extracts** the rows the step wrote (``clen .. clen+C-1`` per
+   sequence) and scatters exactly those back into the pool.
+
+Copies and row moves are value-exact, so paged serving's logits are
+*bitwise equal* to a contiguous-cache run of the same padded width.  A
+contiguous cache is the degenerate configuration ``page_size == max_len``
+(one page per request).
+
+The reference's ``paged_pool_specs`` (the pool's placement on a TPU mesh)
+is not ported: on one GPU the pool is one tensor per leaf on that card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .pages import NULL_PAGE, PageTable
+
+Tensor = torch.Tensor
+
+
+def init_pool(n_layers: int, num_pages: int, n_kv_heads: int,
+              page_size: int, head_dim: int, dtype=torch.bfloat16,
+              device=None) -> dict:
+    shape = (n_layers, num_pages * n_kv_heads, page_size, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Host-side index building (numpy; identical to the reference's)
+# ---------------------------------------------------------------------------
+
+def gather_planes(pt: PageTable, slots, kh: int, view_pages: int) -> np.ndarray:
+    """``[B*KH, V]`` pool-plane ids backing each view plane's pages.
+
+    ``slots`` may contain -1 entries (batch padding): they gather the null
+    page.  View plane ``b*KH + h`` page ``j`` comes from pool plane
+    ``table[slot_b, j] * KH + h``.
+    """
+    b = len(slots)
+    pages = np.full((b, view_pages), NULL_PAGE, np.int32)
+    for i, s in enumerate(slots):
+        if s >= 0:
+            pages[i] = pt.table[s, :view_pages]
+    planes = pages[:, None, :] * kh \
+        + np.arange(kh, dtype=np.int32)[None, :, None]
+    return planes.reshape(b * kh, view_pages).astype(np.int32)
+
+
+def scatter_indices(pt: PageTable, slots, clen, kh: int,
+                    chunk: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pool (plane, row) targets for the ``chunk`` rows written at
+    positions ``clen[i] .. clen[i]+chunk-1`` of each slot.
+
+    Both arrays are ``[B*KH, chunk]``.  Padding slots (-1) and positions
+    past a slot's mapped pages target the null page (harmless garbage).
+    """
+    b, ps = len(slots), pt.page_size
+    planes = np.full((b, kh, chunk), NULL_PAGE * kh, np.int64)
+    rows = np.zeros((b, kh, chunk), np.int64)
+    for i, s in enumerate(slots):
+        if s < 0:
+            continue
+        t = int(clen[i]) + np.arange(chunk)
+        page = pt.table[s, t // ps]
+        planes[i] = page[None, :] * kh + np.arange(kh)[:, None]
+        rows[i] = np.broadcast_to(t % ps, (kh, chunk))
+    return (planes.reshape(b * kh, chunk).astype(np.int32),
+            rows.reshape(b * kh, chunk).astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# Device-side view ops
+# ---------------------------------------------------------------------------
+
+def gather_view(pool_leaf: Tensor, planes: Tensor) -> Tensor:
+    """``[L, P, ps, dh]`` pool + ``[Bkh, V]`` plane ids ->
+    ``[L, Bkh, V*ps, dh]`` contiguous plane view (a copy)."""
+    l, _, ps, dh = pool_leaf.shape
+    bkh, v = planes.shape
+    view = pool_leaf[:, planes.long()]               # [L, Bkh, V, ps, dh]
+    return view.reshape(l, bkh, v * ps, dh)
+
+
+def extract_rows(view_leaf: Tensor, clen_rep: Tensor, chunk: int) -> Tensor:
+    """Rows ``clen_rep[p] .. +chunk-1`` of each view plane:
+    ``[L, Bkh, W, dh]`` -> ``[L, Bkh, chunk, dh]``."""
+    l, bkh, _, dh = view_leaf.shape
+    rows = clen_rep.long()[:, None] + torch.arange(
+        chunk, device=view_leaf.device)[None, :]                 # [Bkh, C]
+    return view_leaf.gather(2, rows[None, :, :, None].expand(l, bkh, chunk,
+                                                             dh))
+
+
+def scatter_rows(pool_leaf: Tensor, rows_val: Tensor, planes: Tensor,
+                 row_ids: Tensor) -> Tensor:
+    """Write ``rows_val`` ``[L, Bkh, C, dh]`` at pool ``(planes, row_ids)``
+    (both ``[Bkh, C]``), in place; returns ``pool_leaf``."""
+    pool_leaf[:, planes.long(), row_ids.long()] = \
+        rows_val.to(pool_leaf.dtype)
+    return pool_leaf

@@ -9,14 +9,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
-             (one nvcc per source, all started together);
+             (one nvcc per source, all started together); the SASS of the
+             three spmm libraries must hold HGMMA (the bf16 wide kernels'
+             wgmma);
 3. kernels — each kernel against its plain PyTorch version on the card,
              unquantized and block-quantized (int8, int4: the ``_q``
              kernels): the 2-D kernels at the olmo-1b projection shapes
              (and a zero-count-block, a ragged-O/M, a ragged-O through
              `ops` and a packed encoding), the batched expert kernel at
              the deepseek-moe-16b expert shapes (E = 64, M = 8 and 16; and
-             a ragged-O and a zero-count-block encoding), held at the f32
+             a ragged-O and a zero-count-block encoding); the wide
+             kernels (and the bitmap one) also at M = 16, 24, 32, 64 and
+             256 (every token tile of the tensor-core kernel) and at column
+             blocks of 32 and 20, and two bf16 calls bitwise equal at a
+             shape that splits the column blocks; all held at the f32
              tolerance (both sides are f32 sums of the same products); each
              timed beside its plain version, a library yardstick on the
              (dequantized) masked dense weight (``torch.matmul`` /
@@ -27,8 +33,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              launch counts are zeroed just before and read just after.
              Then the same parity at float32 compute, gated end to end, and
              a `torch.profiler` trace of one sparse generation (device busy
-             share, kernels by device time) with the wall time per call
-             of one planned projection beside the dense matmul's;
+             share, kernels by device time, the wide kernels by name: the
+             bf16 prefill must run the tensor-core kernel and never the FMA
+             wide one) with the wall time per call of one planned
+             projection beside the dense matmul's;
 5. bitmap  — the bitmap format's public entry (``ops.encode_bitmap`` +
              ``ops.bitmap_spmm``) over olmo-1b's seven projections at the
              prefill and decode M, counts zeroed just before and read just
@@ -42,7 +50,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              config (the reference's default scenario): paged-vs-contiguous
              parity exactly 0.0 (gated inside `traffic_mode`), continuous and
              static metrics, the kv, wide and skinny launch counts; then a
-             `torch.profiler` trace of the continuous engine serving a batch;
+             `torch.profiler` trace of the continuous engine serving a batch
+             (the same wide-kernel check);
 8. quant   — ``serve --quant int8`` at full olmo-1b width: parity gate at
              5e-2 against the dequantized reference, only the ``_q``
              kernels launch; a profile;
@@ -79,6 +88,12 @@ SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192))   # (O, N): olmo-1b
 SPARSITY = 0.5
 WIDE_M = 128                 # prefill GEMM M: batch 4 x prompt 32
 SKINNY_MS = (1, 4, 8)        # decode batches (the kernel's tile is 8 rows)
+# the wide kernels' other M: every token tile of the tensor-core kernel
+# (32, 64, 128) and ragged ones; column blocks other than the plan's 128
+WIDE_MS = (16, 24, 32, 64, 256)
+NARROW_BNS = (32, 20)
+# the sources whose bf16 wide kernels run wgmma
+TC_SOURCES = ("balanced_spmm", "balanced_spmm_q", "bitmap_spmm")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # a kernel and its plain version both return the f32 sum of the same
 # products (bf16 x bf16 is exact in f32), so they are held at the f32
@@ -199,6 +214,23 @@ def compare(torch, worst: dict, name: str, got, want, tol: float,
     worst[name] = max(worst.get(name, 0.0), diff)
 
 
+def deterministic(torch, name: str, fn, n: int, what: str) -> None:
+    """Two calls of the bf16 wide kernel ``fn`` on one x of WIDE_M rows
+    and ``n`` columns at a shape that splits its column blocks must be
+    bitwise equal (the split partials are summed in a fixed order)."""
+    from repro_torch.kernels import balanced_spmm as bs
+    x = torch.randn((WIDE_M, n), device=DEVICE).to(torch.bfloat16)
+    a, b = fn(x), fn(x)
+    torch.cuda.synchronize()
+    same = torch.equal(a, b)
+    log(f"check {name:27s} {what + ' two calls bitwise':38s} splits "
+        f"{bs.wide_splits(WIDE_M, 2048, n // 128)} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: two calls on one input differ at "
+                             f"{what}")
+
+
 def bound(tb, x, m: int, y_numel: int, dname: str) -> dict:
     """The least time the card could take for ``y = x @ decode(tb)^T``
     (batched or not, ``m`` rows of x per weight): the larger of the bytes
@@ -214,9 +246,10 @@ def bound(tb, x, m: int, y_numel: int, dname: str) -> dict:
 
 
 def make_encoding(torch, o: int, n: int, dtype, gen, *, empty_half=False,
-                  pack=False, quant="none"):
+                  pack=False, quant="none", bn: int = 128):
     """A balanced-pruned random [o, n] weight at SPARSITY, encoded as the
-    plan encodes it (bn = 128), block-quantized when ``quant`` says so:
+    plan encodes it (column blocks of ``bn``, 128 as the plan's),
+    block-quantized when ``quant`` says so:
     ``(tb, the masked dense weight, dequantized)``.  ``empty_half`` keeps
     every row's nonzeros in the first half of the columns (zero-count,
     zero-scale blocks in the rest); ``pack`` applies the column-combining
@@ -239,8 +272,8 @@ def make_encoding(torch, o: int, n: int, dtype, gen, *, empty_half=False,
         order = torch.argsort(pidx, dim=1, stable=True)
         idx, vals = pidx.gather(1, order), vals.gather(1, order)
         n_enc = perm.shape[0]
-    tb = tf.encode_tiled(vals, idx, n_enc, bn=128)
-    tb = tf.TiledBalanced(tb.values, tb.indices, tb.counts, n_in=n, bn=128,
+    tb = tf.encode_tiled(vals, idx, n_enc, bn=bn)
+    tb = tf.TiledBalanced(tb.values, tb.indices, tb.counts, n_in=n, bn=bn,
                           perm=perm)
     if quant == "none":
         return tb, w * mask
@@ -320,6 +353,25 @@ def check_kernels(torch):
             check(name, ops.tiled_spmm(x, tb).float(),
                   ref.tiled_balanced_spmm_ref(x, tb).float(), TOL[dname],
                   f"{quant} {dname} packed M={m} KB={tb.kb}")
+        # the wide kernel at every token tile and ragged M, and at column
+        # blocks of 32 and 20 (K padded to 16; 20 takes narrower copies)
+        tb, _ = enc(2048, 2048)
+        for m in WIDE_MS:
+            x = torch.randn((m, 2048), generator=gen, device=DEVICE).to(dtype)
+            check(wide, bs.tiled_balanced_spmm(x, tb, bm=8, bo=8),
+                  bs.tiled_balanced_spmm_plain(x, tb), KERNEL_TOL,
+                  f"{quant} {dname} M={m} O=2048 N=2048")
+        for bn in NARROW_BNS:
+            tb, _ = enc(2048, 100 * bn, bn=bn)
+            x = torch.randn((WIDE_M, 100 * bn), generator=gen,
+                            device=DEVICE).to(dtype)
+            check(wide, bs.tiled_balanced_spmm(x, tb),
+                  bs.tiled_balanced_spmm_plain(x, tb), KERNEL_TOL,
+                  f"{quant} {dname} bn={bn} KB={tb.kb} N={100 * bn}")
+        if dtype == torch.bfloat16:
+            deterministic(torch, wide, lambda x, tb=enc(2048, 2048)[0]:
+                          bs.tiled_balanced_spmm(x, tb), 2048,
+                          f"{quant} O=2048 N=2048")
     return rows, worst
 
 
@@ -394,6 +446,13 @@ def check_batched(torch, worst: dict) -> list:
                 for i in range(8)])
             check(ops.tiled_spmm_batched(x, tb).float(), want.float(),
                   TOL[dname], f"{quant} {dname} ragged E=8 M={m} O=1404")
+        tb, _ = enc(8, 1408, 2048)
+        for m in (24, 32):            # the wide branch's other token tiles
+            x = torch.randn((8, m, 2048), generator=gen,
+                            device=DEVICE).to(dtype)
+            check(bs.tiled_balanced_spmm_batched(x, tb, bm=8, bo=8),
+                  bs.tiled_balanced_spmm_batched_plain(x, tb), KERNEL_TOL,
+                  f"{quant} {dname} E=8 M={m} O=1408 N=2048")
         tb, _ = enc(8, 1408, 2048, empty_half=True)
         for m in EXPERT_MS:
             x = torch.randn((8, m, 2048), generator=gen,
@@ -472,10 +531,25 @@ def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
            "steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "busy_share": busy_ms / wall_ms,
            "top": [{"kernel": name[:80], "count": n, "ms": ms}
-                   for name, (n, ms) in top]}
+                   for name, (n, ms) in top],
+           "wide": wide_kernels(by_name)}
     if arch == "olmo-1b":
         out["per_call_us"] = per_call_us(torch, params, plan, torch.bfloat16)
     return out
+
+
+def wide_kernels(by_name: dict) -> list:
+    """The wide kernels of a bf16 profile, by name with count and device
+    ms: the tensor-core kernel (``tc_spmm_kernel``) must be among them and
+    the FMA wide kernels (f32 only) must not."""
+    wide = [{"kernel": name, "count": n, "ms": ms}
+            for name, (n, ms) in by_name.items()
+            if "tc_spmm_kernel" in name or "spmm_wide_kernel" in name]
+    if not any("tc_spmm_kernel" in w["kernel"] for w in wide) or any(
+            "spmm_wide_kernel" in w["kernel"] for w in wide):
+        raise AssertionError(f"a bf16 prefill did not run the tensor-core "
+                             f"wide kernel alone: {wide}")
+    return wide
 
 
 def per_call_us(torch, params, plan, cd, calls: int = 200) -> dict:
@@ -583,6 +657,27 @@ def check_bitmap(torch, worst: dict) -> list:
                 rows.append(row)
                 log("time  " + json.dumps(row))
             del tb, w_masked, enc
+        # every token tile and ragged M; column blocks of 32 and 20; two
+        # calls bitwise equal at a split shape (bf16)
+        _, w = make_encoding(torch, 2048, 2048, dtype, gen)
+        enc = bmk.bitmap_encode(w, 128)
+        for m in WIDE_MS:
+            x = torch.randn((m, 2048), generator=gen, device=DEVICE).to(dtype)
+            check(bmk.bitmap_spmm(x, *enc, bn=128),
+                  bmk.bitmap_spmm_plain(x, *enc, bn=128),
+                  f"{dname} M={m} O=2048 N=2048")
+        if dtype == torch.bfloat16:
+            deterministic(torch, "bitmap_spmm",
+                          lambda x: bmk.bitmap_spmm(x, *enc, bn=128), 2048,
+                          "O=2048 N=2048")
+        for bn in NARROW_BNS:
+            _, w = make_encoding(torch, 2048, 100 * bn, dtype, gen, bn=bn)
+            enc = bmk.bitmap_encode(w, bn)
+            x = torch.randn((WIDE_M, 100 * bn), generator=gen,
+                            device=DEVICE).to(dtype)
+            check(bmk.bitmap_spmm(x, *enc, bn=bn),
+                  bmk.bitmap_spmm_plain(x, *enc, bn=bn),
+                  f"{dname} bn={bn} N={100 * bn}")
         # all-zero rows, an all-zero matrix (K = 1), ragged O and M
         _, w = make_encoding(torch, 2004, 2048, dtype, gen)
         w[::7] = 0
@@ -818,7 +913,8 @@ def profile_traffic(torch, serve) -> dict:
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
             "top": [{"kernel": name[:80], "count": n, "ms": ms}
-                    for name, (n, ms) in top]}
+                    for name, (n, ms) in top],
+            "wide": wide_kernels(by_name)}
 
 
 def main() -> int:
@@ -850,6 +946,17 @@ def main() -> int:
             if "registers" in line or "spill" in line \
                     or "Compiling entry" in line:
                 log(f"ptxas {stem}: {line.strip()}")
+    # the wide kernels' products run on the tensor cores: wgmma is HGMMA
+    # in the SASS
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    for stem in TC_SOURCES:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[stem])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        log(f"sass {stem}: {hgmma} HGMMA instructions")
+        if not hgmma:
+            raise AssertionError(f"no HGMMA in the SASS of {stem}")
 
     # 3. kernels vs plain versions (launches here are not the main path's)
     torch.backends.cuda.matmul.allow_tf32 = False

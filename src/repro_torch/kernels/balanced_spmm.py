@@ -19,7 +19,12 @@ under the ``_q`` names of `LAUNCHES`; it dequantizes each slot on chip
 right before the decode.
 
 They compute ``y[M, O] = x[M, NB*bn] @ decode(W)^T`` (per expert for the
-batched one) in f32 and return the f32 accumulator (the caller casts).  On
+batched one) in f32 and return the f32 accumulator (the caller casts).  A
+bf16 wide call (and a batched one past `SKINNY_MAX_M`) runs the
+tensor-core kernel (``csrc/tc_spmm.cuh``): `wide_splits` picks how many
+parts its column blocks split into, and the wrapper allocates the
+partials' workspace (`split_workspace`); float32 keeps the FMA kernels
+(`tensor_core_route`).  On
 a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs `tiled_balanced_spmm_plain` / `tiled_balanced_spmm_batched_plain`.
 There is no fallback from the kernel to the plain version.  W is an
@@ -33,6 +38,7 @@ give each kernel's bound on an H100 and what its design does about it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -64,11 +70,72 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_VALUES = {"int8": (torch.int8, 1), "int4": (torch.uint8, 2)}
 SKINNY_MAX_M = 8
 MAX_BN = 128      # widest column block (and block capacity) the kernels take
+# the tensor-core wide kernel (bf16 x): 64 output rows (O) per CTA, a token
+# tile of 32, 64 or 128 rows of x (`token_tile`), at most 64 splits of NB
+TC_BO = 64
+TC_MAX_SPLITS = 64
+H100_SMS = 132
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def tensor_core_route(dtype: torch.dtype, m: int) -> bool:
+    """Whether a wide call at M = ``m`` runs the tensor-core kernel and may
+    split: bf16 above `SKINNY_MAX_M` (the batched and bitmap entries take
+    their skinny kernel below it; the 2-D wide entry runs the tensor cores
+    at any bf16 M, with one split below it).  float32 keeps the FMA
+    kernels, whose sums hold the 1e-4 f32 bar (TF32 products would not)."""
+    return dtype == torch.bfloat16 and m > SKINNY_MAX_M
+
+
+def token_tile(m: int) -> int:
+    """The tensor-core kernel's token tile for ``m`` rows of x (the C
+    entry picks the same)."""
+    return 32 if m <= 32 else 64 if m <= 64 else 128
+
+
+def wide_splits(m: int, o: int, nb: int, *, experts: int = 1,
+                sms: int = H100_SMS) -> int:
+    """How many parts the tensor-core kernel splits the NB column blocks
+    into: the largest divisor ``s`` of NB (at most `TC_MAX_SPLITS`) whose
+    ``experts x O-tiles x M-tiles x s`` CTAs still run in one wave on
+    ``sms`` SMs, one CTA each (a CTA holds up to 200 KB of shared memory,
+    so an SM runs one), and 1 when the tiles alone fill the card.  A
+    second wave would pay every CTA's prologue and epilogue again.  Each
+    part writes a partial sum that a second pass adds in part order, so
+    the result does not depend on the split's timing."""
+    tiles = experts * -(-o // TC_BO) * -(-m // token_tile(m))
+    best = 1
+    for s in range(1, min(nb, TC_MAX_SPLITS) + 1):
+        if nb % s == 0 and tiles * s <= sms:
+            best = s
+    return best
+
+
+def workspace_numel(m: int, o: int, splits: int, experts: int = 1) -> int:
+    """Floats of the split partials' workspace (none for one split)."""
+    return 0 if splits == 1 else splits * experts * m * o
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_workspace(x: Tensor, m: int, o: int, nb: int,
+                    experts: int = 1) -> tuple[int, Tensor | None]:
+    """``(splits, workspace)`` of a wide-kernel call on ``x``'s device: one
+    split and no workspace off the tensor-core route."""
+    if not tensor_core_route(x.dtype, m):
+        return 1, None
+    splits = wide_splits(m, o, nb, experts=experts,
+                         sms=_sms(x.device.index or 0))
+    n = workspace_numel(m, o, splits, experts)
+    return splits, (torch.empty(n, dtype=torch.float32, device=x.device)
+                    if n else None)
 
 
 def _slot_values(tb: TiledBalanced) -> Tensor:
@@ -111,12 +178,14 @@ def _lib(stem: str) -> ctypes.CDLL:
                 continue
             quant = name.endswith("_q")
             # x, values, indices, [scales,] y; [E,] M, O, NB, KB, bn,
-            # dtype, [wfmt]; stream
+            # dtype, [wfmt]; [ws, splits: not skinny]; stream
             n_ptr = 5 if quant else 4
             n_int = 6 + ("batched" in name) + quant
+            split = [] if "skinny" in name else [ctypes.c_void_p,
+                                                 ctypes.c_int]
             f = getattr(lib, fn)
             f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-                + [ctypes.c_void_p]
+                + split + [ctypes.c_void_p]
             f.restype = ctypes.c_int
         err = getattr(lib, _ERROR_FN[stem])
         err.argtypes = [ctypes.c_int]
@@ -171,12 +240,16 @@ def _launch(name: str, x: Tensor, tb: TiledBalanced) -> Tensor:
     stem, fn = _C_FN[name]
     lib = _lib(stem)
     experts = (x.shape[0],) if batched else ()
+    split = ()
+    if "skinny" not in name:
+        splits, ws = split_workspace(x, m, o, nb, *experts)
+        split = (0 if ws is None else ws.data_ptr(), splits)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn)(
             x.data_ptr(), *(t.data_ptr() for t in ptrs), y.data_ptr(),
             *experts, m, o, nb, kb, tb.bn, _DTYPES[x.dtype],
-            *((wfmt,) if quant else ()), stream)
+            *((wfmt,) if quant else ()), *split, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{getattr(lib, _ERROR_FN[stem])(err).decode()}")

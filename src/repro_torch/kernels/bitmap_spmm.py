@@ -13,8 +13,10 @@ nonzeros before each column block.  Element ``(r, c)`` of column block
           including c) - 1, clipped to [0, K)
     w   = packed[r, pos] if bitmap[r, c] != 0 else 0
 
-* `bitmap_spmm` <- ``bitmap_spmm_pallas``: kernel ``bitmap_spmm_wide`` /
-  ``bitmap_spmm_skinny`` (M <= 8) in ``csrc/bitmap_spmm.cu``.
+* `bitmap_spmm` <- ``bitmap_spmm_pallas``: entry ``bitmap_spmm`` in
+  ``csrc/bitmap_spmm.cu``; M > 8 in bf16 runs the tensor-core kernel,
+  split as the tiled one (`balanced_spmm.split_workspace`), float32 the
+  FMA wide kernel, M <= 8 the skinny one.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs `bitmap_spmm_plain`.  The source note in
@@ -27,6 +29,7 @@ import ctypes
 import torch
 
 from . import _build
+from .balanced_spmm import split_workspace
 
 Tensor = torch.Tensor
 
@@ -115,9 +118,11 @@ def _check(x: Tensor, bitmap: Tensor, packed: Tensor, offsets: Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bitmap_spmm")
     if not getattr(lib, "_typed", False):
-        # x, bitmap, packed, offsets, y; M, O, N, K, bn, dtype; stream
+        # x, bitmap, packed, offsets, y; M, O, N, K, bn, dtype; ws,
+        # splits; stream
         lib.bitmap_spmm.argtypes = [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p]
         lib.bitmap_spmm.restype = ctypes.c_int
         lib.bitmap_error_string.argtypes = [ctypes.c_int]
         lib.bitmap_error_string.restype = ctypes.c_char_p
@@ -145,12 +150,14 @@ def _launch(x: Tensor, bitmap: Tensor, packed: Tensor, offsets: Tensor,
     x, bitmap, packed, offsets = (t.contiguous()
                                   for t in (x, bitmap, packed, offsets))
     y = torch.empty((m, o), dtype=torch.float32, device=x.device)
+    splits, ws = split_workspace(x, m, o, n // bn)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.bitmap_spmm(x.data_ptr(), bitmap.data_ptr(),
                               packed.data_ptr(), offsets.data_ptr(),
                               y.data_ptr(), m, o, n, k, bn, _DTYPES[x.dtype],
+                              0 if ws is None else ws.data_ptr(), splits,
                               stream)
     if err:
         raise RuntimeError(f"bitmap_spmm kernel launch failed: "

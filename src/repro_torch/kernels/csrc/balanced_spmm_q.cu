@@ -35,12 +35,26 @@
 // The int32 index word is most of those bytes, so quantization saves a
 // sixth (int8) or a quarter (int4) of the unquantized kernels' bytes.
 //
-// Design: the templates of tiled_spmm.cuh with a value policy.  A slot's
-// load reads one byte (int8) or the byte that holds its nibble (int4; two
-// lanes read the same byte) and, once per row and block, the scale; they
-// stay raw in registers until the decode, which writes float(q) * scale
-// into the f32 tile.  Everything else (tiles, the prefetch of block b+1,
-// the f32 FMA product) is balanced_spmm.cu's.
+// Design: the templates of tiled_spmm.cuh with a value policy.
+//  * bf16 x, wide (tiled_spmm_wide_q, tiled_spmm_batched_q at M > 8): the
+//    tensor-core kernel of tc_spmm.cuh (balanced_spmm.cu's note).  Each
+//    stage also copies the 64 rows' scales of the block; the decode reads
+//    a lane's 4 slots as one 4-byte (int8) or 2-byte (int4) load and stores
+//    q itself in bf16 (|q| <= 127 is exact; int4 sign-extends the low
+//    nibble for the even slot as (n ^ 8) - 8).  The block's product goes to
+//    a per-block f32 accumulator (wgmma scale-d = 0 on its first k-step) and
+//    then y += scale[o, b] * that sum, one fma: the factoring of ops.py's
+//    _tiled_gather_spmm.  Rounding q * scale to bf16 instead would change
+//    the numbers.  A zero-scale block's q are 0: they decode to exact
+//    zeros.
+//  * float32 x keeps the FMA template (TF32 would miss the f32 bar, as in
+//    balanced_spmm.cu), and the skinny kernels are the FMA ones: a slot's
+//    load reads one byte (int8) or the byte that holds its nibble (int4;
+//    two lanes read the same byte) and, once per row and block, the scale;
+//    they stay raw in registers until the decode, which writes
+//    float(q) * scale into the f32 tile.
+// What bounds the bf16 wide kernel: the same as balanced_spmm.cu's (the
+// stored slots, the decode); fewer value bytes, the same index words.
 #include "tiled_spmm.cuh"
 
 using namespace tiled_spmm;
@@ -50,37 +64,39 @@ namespace {
 // dtype: 0 = float32, 1 = bfloat16 x; wfmt: 1 = int8, 2 = int4.
 template <template <typename, typename> class Launch>
 int dispatch(int dtype, int wfmt, const void* x, const void* vals,
-             const int* idx, const float* scales, float* y, int E, int M,
-             int O, int NB, int KB, int bn, cudaStream_t s) {
+             const int* idx, const float* scales, float* y, float* ws,
+             int splits, int E, int M, int O, int NB, int KB, int bn,
+             cudaStream_t s) {
   if (wfmt != 1 && wfmt != 2) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (wfmt == 1)
-      return Launch<__nv_bfloat16, Int8Values>::run(x, vals, idx, scales, y,
-                                                    E, M, O, NB, KB, bn, s);
-    return Launch<__nv_bfloat16, Int4Values>::run(x, vals, idx, scales, y, E,
-                                                  M, O, NB, KB, bn, s);
+      return Launch<__nv_bfloat16, Int8Values>::run(
+          x, vals, idx, scales, y, ws, splits, E, M, O, NB, KB, bn, s);
+    return Launch<__nv_bfloat16, Int4Values>::run(
+        x, vals, idx, scales, y, ws, splits, E, M, O, NB, KB, bn, s);
   }
   if (wfmt == 1)
-    return Launch<float, Int8Values>::run(x, vals, idx, scales, y, E, M, O,
-                                          NB, KB, bn, s);
-  return Launch<float, Int4Values>::run(x, vals, idx, scales, y, E, M, O, NB,
-                                        KB, bn, s);
+    return Launch<float, Int8Values>::run(x, vals, idx, scales, y, ws, splits,
+                                          E, M, O, NB, KB, bn, s);
+  return Launch<float, Int4Values>::run(x, vals, idx, scales, y, ws, splits,
+                                        E, M, O, NB, KB, bn, s);
 }
 
 template <typename T, typename W>
 struct Wide {
   static int run(const void* x, const void* v, const int* i, const float* sc,
-                 float* y, int E, int M, int O, int NB, int KB, int bn,
-                 cudaStream_t s) {
-    return launch_wide<T, W, false>(x, v, i, sc, y, E, M, O, NB, KB, bn, s);
+                 float* y, float* ws, int splits, int E, int M, int O, int NB,
+                 int KB, int bn, cudaStream_t s) {
+    return launch_wide_any<T, W, false>(x, v, i, sc, y, ws, splits, E, M, O,
+                                        NB, KB, bn, s);
   }
 };
 
 template <typename T, typename W>
 struct Skinny {
   static int run(const void* x, const void* v, const int* i, const float* sc,
-                 float* y, int E, int M, int O, int NB, int KB, int bn,
-                 cudaStream_t s) {
+                 float* y, float*, int, int E, int M, int O, int NB, int KB,
+                 int bn, cudaStream_t s) {
     return launch_skinny<T, W, false>(x, v, i, sc, y, E, M, O, NB, KB, bn, s);
   }
 };
@@ -88,9 +104,10 @@ struct Skinny {
 template <typename T, typename W>
 struct Batched {
   static int run(const void* x, const void* v, const int* i, const float* sc,
-                 float* y, int E, int M, int O, int NB, int KB, int bn,
-                 cudaStream_t s) {
-    return launch_batched<T, W>(x, v, i, sc, y, E, M, O, NB, KB, bn, s);
+                 float* y, float* ws, int splits, int E, int M, int O, int NB,
+                 int KB, int bn, cudaStream_t s) {
+    return launch_batched<T, W>(x, v, i, sc, y, ws, splits, E, M, O, NB, KB,
+                                bn, s);
   }
 };
 
@@ -99,29 +116,34 @@ struct Batched {
 extern "C" {
 
 // x [M, NB*bn] (dtype), values (wfmt), indices, scales [O, NB]; y f32
-// [M, O].  Returns the cudaError_t of the launch (0 on success).
+// [M, O]; ws splits x M x O floats (null for one split).  Returns the
+// cudaError_t of the launch (0 on success).
 int tiled_spmm_wide_q(const void* x, const void* vals, const int* idx,
                       const float* scales, float* y, int M, int O, int NB,
-                      int KB, int bn, int dtype, int wfmt, void* stream) {
-  return dispatch<Wide>(dtype, wfmt, x, vals, idx, scales, y, 1, M, O, NB, KB,
-                        bn, static_cast<cudaStream_t>(stream));
+                      int KB, int bn, int dtype, int wfmt, float* ws,
+                      int splits, void* stream) {
+  return dispatch<Wide>(dtype, wfmt, x, vals, idx, scales, y, ws, splits, 1,
+                        M, O, NB, KB, bn, static_cast<cudaStream_t>(stream));
 }
 
 int tiled_spmm_skinny_q(const void* x, const void* vals, const int* idx,
                         const float* scales, float* y, int M, int O, int NB,
                         int KB, int bn, int dtype, int wfmt, void* stream) {
-  return dispatch<Skinny>(dtype, wfmt, x, vals, idx, scales, y, 1, M, O, NB,
-                          KB, bn, static_cast<cudaStream_t>(stream));
+  return dispatch<Skinny>(dtype, wfmt, x, vals, idx, scales, y, nullptr, 1, 1,
+                          M, O, NB, KB, bn,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // x [E, M, NB*bn], values [E, O, NB, KB or ceil(KB/2)], indices
-// [E, O, NB, KB], scales [E, O, NB], y f32 [E, M, O].
+// [E, O, NB, KB], scales [E, O, NB], y f32 [E, M, O]; ws splits x E x M x O
+// floats (the wide branch only).
 int tiled_spmm_batched_q(const void* x, const void* vals, const int* idx,
                          const float* scales, float* y, int E, int M, int O,
                          int NB, int KB, int bn, int dtype, int wfmt,
-                         void* stream) {
-  return dispatch<Batched>(dtype, wfmt, x, vals, idx, scales, y, E, M, O, NB,
-                           KB, bn, static_cast<cudaStream_t>(stream));
+                         float* ws, int splits, void* stream) {
+  return dispatch<Batched>(dtype, wfmt, x, vals, idx, scales, y, ws, splits,
+                           E, M, O, NB, KB, bn,
+                           static_cast<cudaStream_t>(stream));
 }
 
 const char* spmm_q_error_string(int err) {

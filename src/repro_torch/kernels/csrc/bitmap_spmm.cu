@@ -3,9 +3,10 @@
 // src/repro_torch/kernels/_build.py; the wrapper lives in
 // src/repro_torch/kernels/bitmap_spmm.py.
 //
-// Replaces the Pallas TPU kernel in src/repro/kernels/bitmap_spmm.py:
-//   bitmap_spmm_wide / bitmap_spmm_skinny (M <= 8) <- bitmap_spmm_pallas
-//   (_kernel).
+// Replaces the Pallas TPU kernel in src/repro/kernels/bitmap_spmm.py,
+// bitmap_spmm_pallas (_kernel), with the entry bitmap_spmm: M > 8 in bf16
+// the tensor-core kernel tc::tc_spmm_kernel<BitmapTc>, in float32
+// bitmap_spmm_wide_kernel; M <= 8 bitmap_spmm_skinny_kernel.
 //
 // W [O, N] is (bitmap int8 [O, N], packed [O, K] in the activation dtype,
 // offsets int32 [O, N / bn]): element (r, c) of column block nb is
@@ -17,21 +18,38 @@
 // element of W), the packed nonzeros and the offsets once: at olmo-1b's
 // 8192 x 2048, sparsity 0.5, bf16, 16.8 + 16.8 + 0.5 MB, about 0.010 ms at
 // 3.35 TB/s, so both decode (M = 8) and prefill (M = 128) are bound by
-// device-memory bytes; the product itself runs on the f32 FMA pipe over the
-// decoded tile, zeros included.
+// device-memory bytes.
 //
-// Design (right and simple first; wgmma, TMA and a bit-packed map are later
-// work):
-//  * The TPU grid's sequential column-block axis becomes a loop inside the
-//    CTA; one CTA owns one output tile and nothing carries between CTAs.
+// bf16 x, M > 8: the tensor-core kernel of tc_spmm.cuh (tiles, stages,
+// TMA-loaded x, split-K with its fixed-order sum: balanced_spmm.cu's note)
+// with the BitmapTc decoder below.
 //  * The Pallas kernel stages a row block's whole packed run [bo, K] in
 //    VMEM; at olmo-1b (K = 1024 bf16, 128 rows) that is 256 KB, over the
-//    227 KB a CTA may have.  Here each row's nonzeros of a block are read
-//    from device memory where they start, at offsets[r, nb]: one warp per
-//    row, lanes over the block's columns in chunks of 32, the in-block rank
-//    of a set bit from a warp ballot (__popc(mask & lanemask_lt) plus the
-//    counts of the chunks before it), so the set bits of a chunk read
-//    consecutive packed elements.
+//    227 KB a CTA may have.  Here a stage holds, per row of the CTA's 64,
+//    the block's bitmap bytes, its offset, and a window of the packed row:
+//    min(bn, K - c0) elements from c0 = offsets[r, b] clipped to [0, K),
+//    which hold every element the block can read (a position is the offset
+//    plus a rank below bn, clipped to [0, K)).  All of it is copied with
+//    cp.async one iteration ahead; the offsets a stage needs are loaded
+//    into registers a stage earlier still, so no copy waits on another.
+//  * The decode: a lane owns 4 consecutive columns, reads their 4 bitmap
+//    bytes at once, ranks its set bits with 4 warp ballots, reads their
+//    packed values from the window and writes the 4 columns (value or 0)
+//    with one 8-byte store into the swizzled bf16 tile, so no zeroing pass.
+//  What bounds it now: as the tiled kernel, the bytes it copies (the
+//  window is up to bn elements, about twice the block's nonzeros at
+//  sparsity 0.5) and the decode that the product does not hide.
+//
+// float32 x, M > 8, keeps the FMA kernel (TF32 would miss the f32 bar, see
+// balanced_spmm.cu), and M <= 8 takes the FMA skinny kernel:
+//  * The TPU grid's sequential column-block axis becomes a loop inside the
+//    CTA; one CTA owns one output tile and nothing carries between CTAs.
+//  * Each row's nonzeros of a block are read from device memory where they
+//    start, at offsets[r, nb]: one warp per row, lanes over the block's
+//    columns in chunks of 32, the in-block rank of a set bit from a warp
+//    ballot (__popc(mask & lanemask_lt) plus the counts of the chunks
+//    before it), so the set bits of a chunk read consecutive packed
+//    elements.
 //  * Per column block: stage the x slice in shared memory (as f32), decode
 //    the [BO, bn] tile into shared memory (f32; every element is written,
 //    zeros included, so no separate zeroing pass), sync, accumulate the
@@ -48,6 +66,10 @@
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tc_spmm.cuh"
 
 namespace {
 
@@ -236,6 +258,167 @@ bitmap_spmm_skinny_kernel(const T* __restrict__ x,
   }
 }
 
+// ---- wide on the tensor cores (bf16 x) -----------------------------------
+// The bitmap decoder of tc_spmm.cuh's mainloop.  A stage holds, for the
+// CTA's 64 rows, the block's bitmap bytes ([64][bn], rows padded to 16
+// bytes), their offsets, and each row's packed window: the elements
+// [c0, c0 + min(bn, K - c0)) from c0 = offsets[r, b] clipped to [0, K),
+// which hold every nonzero of the row's block, copied as the 16-byte pieces
+// that cover them (pieces that leave the packed array go by 2-byte
+// loads).  The offsets a stage needs are in registers one load ahead (a
+// thread per row), so no copy waits on another.  The decode is the FMA
+// kernel's rank by ballot, reading the window in shared memory; a position
+// outside the window (only an offset outside [0, K) gives one) reads the
+// packed array itself.  Every column < bn of a row < O is written (the
+// value or 0).
+struct BitmapTc {
+  static constexpr bool kScaled = false;
+  static constexpr int kPieces = 17;         // 16-byte pieces of a window
+  static constexpr int kWin = kPieces * 16;
+  struct Params {
+    const int8_t* bitmap;
+    const __nv_bfloat16* packed;
+    const int* offsets;
+    int K;
+    int bw;                                  // piece bytes of a bitmap run
+  };
+  struct Prefetch {
+    int b = -1;                              // the block `off` belongs to
+    int off = 0;                             // offsets[o0 + tid, b]
+  };
+  __host__ __device__ static int pitch(int bn) { return (bn + 15) & ~15; }
+  __host__ __device__ static int raw_bytes(const Params&, int bn) {
+    return tc::kBO * (pitch(bn) + 8 + kWin);
+  }
+  __device__ static Params at_expert(Params d, const tc::Problem&, int) {
+    return d;
+  }
+  // The window of a row from offset off: its first element c0 (off
+  // clipped to [0, K)) and length min(bn, K - c0).  Every position the
+  // decode reads, off + rank clipped to [0, K) with rank < bn, lies in it.
+  __device__ static void window(const Params& d, int off, int bn, int& c0,
+                                int& len) {
+    c0 = off < 0 ? 0 : (off >= d.K ? d.K - 1 : off);
+    len = d.K - c0 < bn ? d.K - c0 : bn;
+  }
+  __device__ static void load(const Params& d, const tc::Problem& p,
+                              uint8_t* raw, int o0, int b, Prefetch& pre) {
+    const size_t n = (size_t)p.NB * p.bn;
+    int2* meta = reinterpret_cast<int2*>(raw + tc::kBO * pitch(p.bn));
+    uint8_t* win = raw + tc::kBO * (pitch(p.bn) + 8);
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(d.packed);
+    const uintptr_t hi = lo + (size_t)p.O * d.K * 2;
+    const int t = threadIdx.x;
+    if (t < tc::kBO && o0 + t < p.O) {
+      // the row's offset, and where element `at` of its window sits:
+      // win + wb + 2 at
+      const int off = pre.b == b ? pre.off
+                                 : d.offsets[(size_t)(o0 + t) * p.NB + b];
+      int c0, len;
+      window(d, off, p.bn, c0, len);
+      const int lead = (int)((lo + ((size_t)(o0 + t) * d.K + c0) * 2) & 15);
+      meta[t] = make_int2(off, t * kWin + lead - 2 * c0);
+    }
+    tc::copy_rows(raw, pitch(p.bn), p.bn, d.bw, [&](int r) -> const uint8_t* {
+      const int o = o0 + r;
+      return o < p.O ? reinterpret_cast<const uint8_t*>(
+                           d.bitmap + (size_t)o * n + (size_t)b * p.bn)
+                     : nullptr;
+    });
+    __syncthreads();                         // meta -> every thread
+    for (int i = t; i < tc::kBO * kPieces; i += tc::kThreads) {
+      const int r = i / kPieces;
+      const int o = o0 + r;
+      if (o >= p.O) continue;
+      int c0, len;
+      window(d, meta[r].x, p.bn, c0, len);
+      const uintptr_t a0 = lo + ((size_t)o * d.K + c0) * 2;
+      const uintptr_t g = (a0 & ~(uintptr_t)15) + (i % kPieces) * 16;
+      if (g >= a0 + len * 2) continue;
+      uint8_t* dst = win + r * kWin + (i % kPieces) * 16;
+      if (g >= lo && g + 16 <= hi) {
+        tc::copy_piece(dst, reinterpret_cast<const uint8_t*>(g), 16);
+      } else {
+        for (int k = 0; k < 16; k += 2)
+          if (g + k >= lo && g + k < hi)
+            *reinterpret_cast<uint16_t*>(dst + k) =
+                *reinterpret_cast<const uint16_t*>(g + k);
+      }
+    }
+    if (t < tc::kBO && o0 + t < p.O && b + 1 < p.NB) {
+      pre.off = d.offsets[(size_t)(o0 + t) * p.NB + b + 1];
+      pre.b = b + 1;
+    }
+  }
+  // The warp's 8 rows; a lane owns 4 consecutive columns (bn is a
+  // multiple of 4): one 4-byte read of their bitmap bytes, their ranks from
+  // 4 ballots (the set bits before column 4 l + t: those of lanes below in
+  // every byte, then this lane's bytes below t), 4 window reads, one 8-byte
+  // store of the 4 decoded columns.  Each phase runs over the 8 rows, so
+  // its reads are in flight together.  A position clipped to [0, K) always
+  // lies in the row's window (see window), so nothing reads device memory.
+  __device__ static void decode(const Params& d, const tc::Problem& p,
+                                const uint8_t* raw, uint8_t* wt, int o0) {
+    constexpr int kRows = tc::kRowsPerWarp;
+    const int warp = threadIdx.x / kLanes;
+    const int lane = threadIdx.x % kLanes;
+    const unsigned below = (1u << lane) - 1u;
+    const int2* meta =
+        reinterpret_cast<const int2*>(raw + tc::kBO * pitch(p.bn));
+    const uint8_t* win = raw + tc::kBO * (pitch(p.bn) + 8);
+    const int r0 = warp * kRows;
+    const int c = 4 * lane;                  // this lane's first column
+    const bool mine = c < p.bn;
+    uint32_t bits[kRows];
+    int2 m[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      bits[i] = mine ? *reinterpret_cast<const uint32_t*>(
+                           raw + (r0 + i) * pitch(p.bn) + c)
+                     : 0u;
+      m[i] = meta[r0 + i];
+    }
+    uint2 out[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const bool live = o0 + r0 + i < p.O;   // warp-uniform
+      int pos = m[i].x;                      // + set bits before the lane
+      bool set[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        set[t] = live && ((bits[i] >> (8 * t)) & 0xFF) != 0;
+        pos += __popc(__ballot_sync(0xffffffffu, set[t]) & below);
+      }
+      uint32_t h[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int at = pos < 0 ? 0 : (pos >= d.K ? d.K - 1 : pos);
+        h[t] = set[t] ? *reinterpret_cast<const uint16_t*>(win + m[i].y +
+                                                           2 * at)
+                      : 0u;
+        pos += set[t];
+      }
+      out[i] = make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = r0 + i;
+      if (o0 + r >= p.O || !mine) continue;  // rows past O stay zero
+      *reinterpret_cast<uint2*>(wt + tc::swizzled(r, c, tc::kBO)) = out[i];
+    }
+  }
+};
+
+int launch_tc(const void* x, const int8_t* bitmap, const void* packed,
+              const int* offsets, float* y, float* ws, int splits, int M,
+              int O, int N, int K, int bn, cudaStream_t s) {
+  const BitmapTc::Params dp{bitmap, static_cast<const __nv_bfloat16*>(packed),
+                            offsets, K, tc::piece_bytes(bitmap, bn)};
+  const tc::Problem p{static_cast<const __nv_bfloat16*>(x), y, ws, 1, M, O,
+                      N / bn, bn, splits, tc::piece_bytes(x, bn * 2)};
+  return tc::launch<BitmapTc>(p, dp, s);
+}
+
 template <typename T>
 int launch(const void* x, const int8_t* bitmap, const void* packed,
            const int* offsets, float* y, int M, int O, int N, int K, int bn,
@@ -247,8 +430,10 @@ int launch(const void* x, const int8_t* bitmap, const void* packed,
   const int smem = (skinny && floats < kSkinnyThreads ? kSkinnyThreads
                                                       : floats) *
                    (int)sizeof(float);
-  auto kernel = skinny ? bitmap_spmm_skinny_kernel<T>
-                       : bitmap_spmm_wide_kernel<T>;
+  // bf16 past the skinny M runs the tensor-core kernel (launch_tc)
+  auto kernel = bitmap_spmm_skinny_kernel<T>;
+  if constexpr (std::is_same<T, float>::value)
+    if (!skinny) kernel = bitmap_spmm_wide_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -265,15 +450,22 @@ int launch(const void* x, const int8_t* bitmap, const void* packed,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x and packed share it).  y is f32
-// [M, O].  bn a multiple of 4 in [4, 128] dividing N; K >= 1.  Returns the
+// [M, O].  bn a multiple of 4 in [4, 128] dividing N; K >= 1.  M <= 8
+// takes the skinny kernel; wider M at bf16 the tensor-core kernel, split
+// over `splits` with a workspace ws of splits x M x O floats (null for one
+// split), at float32 the FMA wide kernel (splits 1).  Returns the
 // cudaError_t of the launch (0 on success).
 int bitmap_spmm(const void* x, const int8_t* bitmap, const void* packed,
                 const int* offsets, float* y, int M, int O, int N, int K,
-                int bn, int dtype, void* stream) {
+                int bn, int dtype, float* ws, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 0 || O < 0 || N < 0 || K < 1 || bn < 4 || bn > kMaxBn ||
       bn % 4 || N % bn)
     return (int)cudaErrorInvalidValue;
+  if (M > kSkinnyM && dtype == 1)
+    return launch_tc(x, bitmap, packed, offsets, y, ws, splits, M, O, N, K,
+                     bn, s);
+  if (splits != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, bitmap, packed, offsets, y, M, O, N, K,
                                  bn, s);

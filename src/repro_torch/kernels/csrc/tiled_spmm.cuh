@@ -1,6 +1,8 @@
 // The tiled balanced-sparse x dense matmul kernels, y = x @ decode(W)^T,
 // as templates shared by balanced_spmm.cu (values in the activation dtype)
-// and balanced_spmm_q.cu (block-quantized int8 / int4 values).  The
+// and balanced_spmm_q.cu (block-quantized int8 / int4 values): the FMA
+// templates (wide for float32 x, skinny, batched skinny) and the decoder of
+// the tensor-core mainloop (tc_spmm.cuh) that bf16 wide calls take.  The
 // design, the bounds and what each entry replaces are in those files'
 // header notes; this file holds the code they share.
 //
@@ -12,7 +14,9 @@
 //                   nibble of byte i and 2i+1 the high one, sign-extended
 //                   as (n ^ 8) - 8, decoded as float(q) * scale.
 // float(q) * scale is one f32 multiply of exact operands: the same f32
-// the reference's dequantize_values computes, bit for bit.
+// the reference's dequantize_values computes, bit for bit.  The
+// tensor-core decoder stores q itself in bf16 (|q| <= 127 is exact) and
+// the mainloop scales the block's sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +24,10 @@
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tc_spmm.cuh"
 
 namespace tiled_spmm {
 
@@ -351,16 +359,201 @@ int launch_skinny(const void* x, const void* vals, const int* idx,
                       NB, KB, bn);
 }
 
+// ---- wide on the tensor cores (bf16 x) -----------------------------------
+// The tiled balanced decoder of tc_spmm.cuh's mainloop.  A stage holds the
+// block's staged encodings of the CTA's 64 rows: indices [64][KB] int32,
+// values [64][width(KB)] raw, rows padded to 16 bytes, and (quantized) the
+// 64 scales.  The decode zeroes the warp's 8 rows of the bf16 tile, then a
+// lane takes 4 consecutive slots of a row (one 16-byte index load, one
+// value load) and stores each slot's value (q for a quantized policy: the
+// scale is applied to the block's sum) at its swizzled column; slots that
+// decode to 0 (pad slots, zero-scale blocks' q = 0), slots past KB and
+// columns outside [0, bn) never store.
+template <typename W>
+struct BalancedTc {
+  using Raw = typename W::Raw;
+  static constexpr bool kScaled = W::kScaled;
+  struct Params {
+    const Raw* vals;
+    const int* idx;
+    const float* scales;
+    int KB;
+    int vw, iw;                              // piece bytes of the runs
+  };
+  struct Prefetch {};
+  __host__ __device__ static int vbytes(int kb) {
+    return W::width(kb) * (int)sizeof(Raw);
+  }
+  __host__ __device__ static int ipitch(int kb) { return (kb * 4 + 15) & ~15; }
+  __host__ __device__ static int vpitch(int kb) {
+    return (vbytes(kb) + 15) & ~15;
+  }
+  __host__ __device__ static int raw_bytes(const Params& d, int) {
+    return tc::kBO * (ipitch(d.KB) + vpitch(d.KB)) +
+           (kScaled ? tc::kBO * 4 : 0);
+  }
+  __device__ static Params at_expert(Params d, const tc::Problem& p, int e) {
+    const size_t rows = (size_t)e * p.O * p.NB;
+    d.vals += rows * W::width(d.KB);
+    d.idx += rows * d.KB;
+    if (kScaled) d.scales += rows;
+    return d;
+  }
+  __device__ static void load(const Params& d, const tc::Problem& p,
+                              uint8_t* raw, int o0, int b, Prefetch&) {
+    const int kb = d.KB;
+    const int vb = vbytes(kb);
+    uint8_t* rv = raw + tc::kBO * ipitch(kb);
+    tc::copy_rows(raw, ipitch(kb), kb * 4, d.iw,
+                  [&](int r) -> const uint8_t* {
+                    const int o = o0 + r;
+                    return o < p.O ? reinterpret_cast<const uint8_t*>(
+                                         d.idx + ((size_t)o * p.NB + b) * kb)
+                                   : nullptr;
+                  });
+    tc::copy_rows(rv, vpitch(kb), vb, d.vw, [&](int r) -> const uint8_t* {
+      const int o = o0 + r;
+      return o < p.O ? reinterpret_cast<const uint8_t*>(d.vals) +
+                           ((size_t)o * p.NB + b) * vb
+                     : nullptr;
+    });
+    if (kScaled && threadIdx.x < tc::kBO && o0 + (int)threadIdx.x < p.O)
+      tc::copy_piece(rv + tc::kBO * vpitch(kb) + threadIdx.x * 4,
+                     reinterpret_cast<const uint8_t*>(
+                         d.scales + (size_t)(o0 + threadIdx.x) * p.NB + b),
+                     4);
+  }
+  __device__ static float scale(const Params& d, const uint8_t* raw, int r) {
+    return reinterpret_cast<const float*>(
+        raw + tc::kBO * (ipitch(d.KB) + vpitch(d.KB)))[r];
+  }
+  // The raw values of slots 4q .. 4q+3 of a staged value row, and their
+  // decode to bf16 bits (q, not q * scale; 0 for a slot that decodes to
+  // 0).  No conversion instruction: a bf16 value keeps its bits, and an
+  // integer q is exact as 12582912 + q in f32, whose top half is bf16(q)
+  // once 12582912 is taken off.
+  using Quad = typename std::conditional<
+      sizeof(Raw) == 2, uint2,
+      typename std::conditional<std::is_same<W, Int8Values>::value, uint32_t,
+                                uint16_t>::type>::type;
+  __device__ static Quad quad(const uint8_t* vrow, int q) {
+    return reinterpret_cast<const Quad*>(vrow)[q];
+  }
+  __device__ static uint32_t int_bits(int q) {
+    return __float_as_uint(__int_as_float(0x4B400000 + q) - 12582912.f) >>
+           16;
+  }
+  __device__ static void unpack(Quad u, uint32_t (&h)[4]) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if constexpr (sizeof(Raw) == 2) {
+        const uint32_t w = ((t < 2 ? u.x : u.y) >> (16 * (t & 1))) & 0xFFFF;
+        h[t] = (w & 0x7FFF) ? w : 0u;        // +-0 decode to nothing
+      } else if constexpr (std::is_same<W, Int8Values>::value) {
+        h[t] = int_bits((int)(int8_t)(u >> (8 * t)));
+      } else {
+        h[t] = int_bits((int)(((u >> (4 * t)) & 0xF) ^ 8) - 8);
+      }
+    }
+  }
+  // The warp's 8 rows: their staged slots are read first (one 16-byte
+  // index load and one value load a row), then the rows are zeroed and the
+  // slots stored, so the reads are in flight together.
+  __device__ static void decode(const Params& d, const tc::Problem& p,
+                                const uint8_t* raw, uint8_t* wt, int o0) {
+    constexpr int kRows = tc::kRowsPerWarp;
+    const int warp = threadIdx.x / kLanes;
+    const int lane = threadIdx.x % kLanes;
+    const int kb = d.KB;
+    const int r0 = warp * kRows;
+    const int q = lane;                      // KB <= 128: one quad a lane
+    const int nq = kb - 4 * q;               // live slots of the quad
+    const uint8_t* rv = raw + tc::kBO * ipitch(kb);
+    int4 c4[kRows];
+    Quad u[kRows];
+    if (nq > 0) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        c4[i] = reinterpret_cast<const int4*>(raw + (r0 + i) * ipitch(kb))[q];
+        u[i] = quad(rv + (r0 + i) * vpitch(kb), q);
+      }
+    }
+    // zero the rows' 16-byte chunks: 8 a swizzle atom, 1 or 2 atoms
+    const int shift = p.bn > tc::kAtomCols ? 4 : 3;     // log2(chunks)
+    for (int c = lane; c < kRows << shift; c += kLanes) {
+      const int k = c & ((1 << shift) - 1);
+      *reinterpret_cast<uint4*>(wt + (k >> 3) * tc::kBO * 128 +
+                                (r0 + (c >> shift)) * 128 + (k & 7) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+    __syncwarp();
+    if (nq <= 0) return;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = r0 + i;
+      if (o0 + r >= p.O) continue;           // rows past O stay zero
+      uint32_t h[4];
+      unpack(u[i], h);
+      const int cols[4] = {c4[i].x, c4[i].y, c4[i].z, c4[i].w};
+      uint8_t* row = wt + r * 128;
+      const int x16 = (r & 7) << 4;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int c = cols[t];
+        if (t < nq && (unsigned)c < (unsigned)p.bn && h[t] != 0)
+          *reinterpret_cast<uint16_t*>(
+              row + ((c & tc::kAtomCols) << 7) + (((c << 1) & 126) ^ x16)) =
+              (uint16_t)h[t];
+      }
+    }
+  }
+};
+
+template <typename W>
+int launch_wide_tc(const void* x, const void* vals, const int* idx,
+                   const float* scales, float* y, float* ws, int splits,
+                   int E, int M, int O, int NB, int KB, int bn,
+                   cudaStream_t s) {
+  if (!supported(KB, bn)) return (int)cudaErrorInvalidValue;
+  using D = BalancedTc<W>;
+  const typename D::Params dp{
+      static_cast<const typename W::Raw*>(vals), idx, scales, KB,
+      tc::piece_bytes(vals, D::vbytes(KB)), tc::piece_bytes(idx, KB * 4)};
+  const tc::Problem p{static_cast<const __nv_bfloat16*>(x), y, ws, E, M, O,
+                      NB, bn, splits, tc::piece_bytes(x, bn * 2)};
+  return tc::launch<D>(p, dp, s);
+}
+
+// The wide entry: bf16 x takes the tensor-core kernel (split-K over
+// `splits`), float32 x the FMA template (splits must be 1).
+template <typename T, typename W, bool kBatched>
+int launch_wide_any(const void* x, const void* vals, const int* idx,
+                    const float* scales, float* y, float* ws, int splits,
+                    int E, int M, int O, int NB, int KB, int bn,
+                    cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_wide_tc<W>(x, vals, idx, scales, y, ws, splits, E, M, O,
+                             NB, KB, bn, s);
+  } else {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    return launch_wide<T, W, kBatched>(x, vals, idx, scales, y, E, M, O, NB,
+                                       KB, bn, s);
+  }
+}
+
 // The expert grid: the skinny tile for per-expert M <= 8, else the wide one.
 template <typename T, typename W>
 int launch_batched(const void* x, const void* vals, const int* idx,
-                   const float* scales, float* y, int E, int M, int O, int NB,
-                   int KB, int bn, cudaStream_t s) {
-  if (M <= kSkinnyM)
+                   const float* scales, float* y, float* ws, int splits,
+                   int E, int M, int O, int NB, int KB, int bn,
+                   cudaStream_t s) {
+  if (M <= kSkinnyM) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
     return launch_skinny<T, W, true>(x, vals, idx, scales, y, E, M, O, NB,
                                      KB, bn, s);
-  return launch_wide<T, W, true>(x, vals, idx, scales, y, E, M, O, NB, KB,
-                                 bn, s);
+  }
+  return launch_wide_any<T, W, true>(x, vals, idx, scales, y, ws, splits, E,
+                                     M, O, NB, KB, bn, s);
 }
 
 }  // namespace tiled_spmm

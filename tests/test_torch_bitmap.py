@@ -192,3 +192,48 @@ def test_cuda_bitmap_kernel_matches_plain():
                 np.testing.assert_allclose(got.cpu().numpy(),
                                            want.cpu().numpy(), rtol=1e-4,
                                            atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [16, 32, 128])
+@pytest.mark.parametrize("o,n", [(2048, 2048), (8192, 2048), (2048, 8192)])
+def test_bitmap_split_choice(o, n, m):
+    """The bitmap kernel's wide branch takes the tiled kernels' split of
+    its N / bn column blocks: at olmo-1b's projection shapes it divides
+    them and fills between half and all of one wave of the H100's 132 SMs
+    (one CTA each)."""
+    from repro_torch.kernels import balanced_spmm as bs
+    nb = n // 128
+    s = bs.wide_splits(m, o, nb)
+    ctas = -(-o // bs.TC_BO) * -(-m // bs.token_tile(m)) * s
+    assert nb % s == 0
+    assert bs.H100_SMS // 2 < ctas <= bs.H100_SMS
+    x = torch.zeros((m, n), dtype=torch.float32)
+    assert bs.split_workspace(x, m, o, nb) == (1, None)   # f32: FMA kernel
+
+
+@pytest.mark.cuda
+def test_cuda_bitmap_tensor_cores():
+    """The bf16 wide branch (tensor cores) at ragged M (16, 24, 32, 64,
+    256), bn 128, 32 and 20, against the plain version at 1e-4; two calls
+    at a split shape bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel runs only on the card)")
+    rng = np.random.default_rng(1)
+    for o, n, bn in ((196, 1024, 128), (130, 640, 32), (70, 400, 20)):
+        w = torch.from_numpy(_weight(o + bn, o, n, 0.5, zero_rows=(3,))).to(
+            torch.bfloat16).cuda()
+        enc = bm.bitmap_encode(w, bn)
+        for m in (16, 24, 32, 64, 256):
+            x = torch.from_numpy(rng.standard_normal((m, n)).astype(
+                np.float32)).to(torch.bfloat16).cuda()
+            got = bm.bitmap_spmm(x, *enc, bn=bn)
+            np.testing.assert_allclose(
+                got.cpu().numpy(),
+                bm.bitmap_spmm_plain(x, *enc, bn=bn).cpu().numpy(),
+                rtol=1e-4, atol=1e-4)
+    w = torch.from_numpy(_weight(9, 256, 2048, 0.5)).to(torch.bfloat16).cuda()
+    enc = bm.bitmap_encode(w, 128)
+    x = torch.from_numpy(rng.standard_normal((128, 2048)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    assert torch.equal(bm.bitmap_spmm(x, *enc, bn=128),
+                       bm.bitmap_spmm(x, *enc, bn=128))

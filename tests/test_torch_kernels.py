@@ -459,3 +459,138 @@ def test_ref_oracles_match(pack):
         _close(getattr(ref, name)(x, vals, idx),
                getattr(ref_ref, name)(xj, jnp.asarray(vals.numpy()),
                                       jnp.asarray(idx.numpy())), "float32")
+
+
+# ---- the tensor-core wide kernel's host-side split choice ------------------
+# (O, N) of olmo-1b's seven projections per layer and deepseek-moe-16b's
+# attention, shared-expert and routed-expert (E = 64) projections
+_OLMO = {"wq": (2048, 2048), "wk": (2048, 2048), "wv": (2048, 2048),
+         "wo": (2048, 2048), "w_gate": (8192, 2048), "w_up": (8192, 2048),
+         "w_down": (2048, 8192)}
+_MOE = {"attn": (2048, 2048, 1), "shared_up": (2816, 2048, 1),
+        "shared_down": (2048, 2816, 1), "expert_up": (1408, 2048, 64),
+        "expert_down": (2048, 1408, 64)}
+_SPLIT_SHAPES = [(name, o, n, 1) for name, (o, n) in _OLMO.items()] + \
+    [(name, o, n, e) for name, (o, n, e) in _MOE.items()]
+
+
+@pytest.mark.parametrize("m", [16, 32, 128])
+@pytest.mark.parametrize("name,o,n,experts", _SPLIT_SHAPES)
+def test_wide_splits_fill_the_card(name, o, n, experts, m):
+    """The split divides NB and is the largest that keeps the CTAs within
+    one wave of the H100's 132 SMs (one CTA each); no split when the tiles
+    alone fill the card; the partials' workspace sized to match."""
+    nb = -(-n // 128)
+    s = bs.wide_splits(m, o, nb, experts=experts)
+    tiles = experts * -(-o // bs.TC_BO) * -(-m // bs.token_tile(m))
+    assert nb % s == 0 and 1 <= s <= bs.TC_MAX_SPLITS
+    divisors = [d for d in range(1, min(nb, bs.TC_MAX_SPLITS) + 1)
+                if nb % d == 0]
+    if tiles >= bs.H100_SMS:
+        assert s == 1
+    else:
+        assert tiles * s <= bs.H100_SMS
+        assert all(tiles * d > bs.H100_SMS for d in divisors if d > s)
+    want = 0 if s == 1 else s * experts * m * o
+    assert bs.workspace_numel(m, o, s, experts) == want
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 128, 256])
+def test_float32_never_takes_tensor_cores(m):
+    """float32 x keeps the FMA kernels at every M (one split, no
+    workspace); bf16 takes the tensor cores above the skinny M only; the
+    token tile follows M."""
+    assert not bs.tensor_core_route(torch.float32, m)
+    assert bs.tensor_core_route(torch.bfloat16, m) == (m > bs.SKINNY_MAX_M)
+    x = torch.zeros((m, 256), dtype=torch.float32)
+    assert bs.split_workspace(x, m, 64, 2) == (1, None)
+    assert bs.token_tile(m) == (32 if m <= 32 else 64 if m <= 64 else 128)
+
+
+def _cuda_tb(rng, o, n, k, bn, quant="none", kb=None):
+    """A balanced random [o, n] weight with k nonzeros a row, bf16, encoded
+    on the card with column blocks of ``bn`` (capacity ``kb`` if given),
+    quantized as ``quant`` says."""
+    idx = np.sort(np.stack([rng.choice(n, size=k, replace=False)
+                            for _ in range(o)]), axis=1).astype(np.int64)
+    vals = (rng.standard_normal((o, k)) / np.sqrt(k)).astype(np.float32)
+    tb = tf.encode_tiled(torch.from_numpy(vals).to(torch.bfloat16).cuda(),
+                         torch.from_numpy(idx).cuda(), n, bn=bn, kb=kb)
+    return tb if quant == "none" else tf.quantize_tiled(tb, quant)
+
+
+def _bf16_x(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_cuda_wide_ragged_m(quant):
+    """The tensor-core wide kernel (and its batched branch) at every token
+    tile and ragged M (16, 24, 32, 64, 256; the batched branch at 16 and
+    24), against the plain version at the f32 tolerance, one launch per
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels run only on the card)")
+    rng = np.random.default_rng(11)
+    name = "tiled_balanced_spmm" + ("" if quant == "none" else "_q")
+    tb = _cuda_tb(rng, 320, 1024, 512, 128, quant)
+    for m in (16, 24, 32, 64, 256):
+        x = _bf16_x(rng, (m, 1024))
+        before = bs.LAUNCHES[name]
+        got = bs.tiled_balanced_spmm(x, tb, bm=8, bo=64)
+        torch.cuda.synchronize()
+        assert bs.LAUNCHES[name] == before + 1
+        np.testing.assert_allclose(
+            got.cpu().numpy(), bs.tiled_balanced_spmm_plain(x, tb).cpu().numpy(),
+            rtol=1e-4, atol=1e-4)
+    tb = _cuda_tb(rng, 4 * 192, 1024, 512, 128, quant)
+    lead = lambda t: None if t is None else t.reshape(4, 192, *t.shape[1:])  # noqa: E731,E501
+    tbe = tf.TiledBalanced(lead(tb.values), lead(tb.indices), lead(tb.counts),
+                           n_in=1024, bn=128, scales=lead(tb.scales),
+                           quant=tb.quant)
+    for m in (16, 24):
+        x = _bf16_x(rng, (4, m, 1024))
+        got = bs.tiled_balanced_spmm_batched(x, tbe, bm=8, bo=64)
+        np.testing.assert_allclose(
+            got.cpu().numpy(),
+            bs.tiled_balanced_spmm_batched_plain(x, tbe).cpu().numpy(),
+            rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [32, 20])
+def test_cuda_wide_narrow_blocks(bn):
+    """Column blocks of 32 and 20 (K padded to 16 with zeros; 20 takes
+    narrower copies) and an odd KB, every value policy, bf16, against the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels run only on the card)")
+    rng = np.random.default_rng(12 + bn)
+    n = 20 * bn
+    for quant in ("none", "int8", "int4"):
+        for kb in (None, bn - 1):             # bn - 1: an odd KB
+            tb = _cuda_tb(rng, 200, n, n // 4, bn, quant, kb=kb)
+            for m in (40, 128):
+                x = _bf16_x(rng, (m, n))
+                np.testing.assert_allclose(
+                    bs.tiled_balanced_spmm(x, tb, bm=8, bo=8).cpu().numpy(),
+                    bs.tiled_balanced_spmm_plain(x, tb).cpu().numpy(),
+                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_deterministic():
+    """At a shape that splits NB, two calls of each bf16 wide kernel on the
+    same input are bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels run only on the card)")
+    rng = np.random.default_rng(13)
+    x = _bf16_x(rng, (128, 2048))
+    assert bs.wide_splits(128, 256, 16) > 1
+    for quant in ("none", "int8", "int4"):
+        tb = _cuda_tb(rng, 256, 2048, 1024, 128, quant)
+        a = bs.tiled_balanced_spmm(x, tb, bm=8, bo=8)
+        b = bs.tiled_balanced_spmm(x, tb, bm=8, bo=8)
+        assert torch.equal(a, b)

@@ -15,28 +15,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. kernels — each kernel against its plain PyTorch version on the card,
              unquantized and block-quantized (int8, int4: the ``_q``
              kernels): the 2-D kernels at the olmo-1b projection shapes
-             (and a zero-count-block, a ragged-O/M, a ragged-O through
-             `ops` and a packed encoding), the batched expert kernel at
-             the deepseek-moe-16b expert shapes (E = 64, M = 8 and 16; and
-             a ragged-O and a zero-count-block encoding); the wide
-             kernels (and the bitmap one) also at M = 16, 24, 32, 64 and
-             256 (every token tile of the tensor-core kernel) and at column
-             blocks of 32 and 20, and two bf16 calls bitwise equal at a
-             shape that splits the column blocks; all held at the f32
-             tolerance (both sides are f32 sums of the same products); each
-             timed beside its plain version, a library yardstick on the
+             (skinny at M = 1, 2, 3, 4, 5, 8; and a zero-count-block, a
+             ragged-O/M, a ragged-O through `ops` and a packed encoding),
+             the batched expert kernel at the deepseek-moe-16b expert
+             shapes (E = 64, M = 8 and 16; every skinny M at E = 8; and a
+             ragged-O and a zero-count-block encoding); the wide kernels
+             (and the bitmap one) also at M = 16, 24, 32, 64 and 256 (every
+             token tile of the tensor-core kernel) and at column blocks of
+             32 and 20, and two bf16 calls bitwise equal at a shape that
+             splits the column blocks; the skinny kernels (2-D, batched,
+             bitmap) also at column blocks of 32 and 20, at N = 1408 and
+             past the resident x (N = 16384), with two bf16 calls bitwise
+             equal and y[:3] of an M = 8 call bitwise equal to an M = 3
+             call; the batched kernel with x zero in all but 24 of 64
+             experts (exact +0.0 there); all held at the f32 tolerance
+             (both sides are f32 sums of the same products); each timed
+             (after a device-side spin that outlasts the wrapper's host
+             path) beside its plain version, a library yardstick on the
              (dequantized) masked dense weight (``torch.matmul`` /
              ``torch.bmm``) and the card's bound for the same work (the
-             live slots only: pad slots carry none);
+             live slots only: pad slots and empty experts carry none);
 4. serve   — the port's serving entry point at full olmo-1b width: plan,
              sparse-vs-masked-dense prefill parity, greedy decode; the
              launch counts are zeroed just before and read just after.
              Then the same parity at float32 compute, gated end to end, and
              a `torch.profiler` trace of one sparse generation (device busy
-             share, kernels by device time, the wide kernels by name: the
-             bf16 prefill must run the tensor-core kernel and never the FMA
-             wide one) with the wall time per call of one planned
-             projection beside the dense matmul's;
+             share, kernels by device time, the wide and skinny kernels by
+             name: bf16 must run the tensor-core wide kernel and the skinny
+             streamer, never the FMA wide or skinny ones) with the wall
+             time per call of one planned projection beside the dense
+             matmul's;
 5. bitmap  — the bitmap format's public entry (``ops.encode_bitmap`` +
              ``ops.bitmap_spmm``) over olmo-1b's seven projections at the
              prefill and decode M, counts zeroed just before and read just
@@ -87,7 +95,14 @@ DEVICE = "cuda"
 SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192))   # (O, N): olmo-1b
 SPARSITY = 0.5
 WIDE_M = 128                 # prefill GEMM M: batch 4 x prompt 32
-SKINNY_MS = (1, 4, 8)        # decode batches (the kernel's tile is 8 rows)
+# decode batches: every M of the streamer's two x layouts (kM = 4, 8)
+SKINNY_MS = (1, 2, 3, 4, 5, 8)
+# the skinny kernels' column blocks other than the plan's 128, the
+# deepseek-moe-16b w_down shape (N = 1408: int8 / int4 value runs that are
+# not 16-byte aligned) and an N past the resident x (two column ranges)
+SKINNY_EDGE_SHAPES = ((2048, 1408), (1024, 16384))
+# decode batch 4 x top-6: at most 24 of the 64 experts hold a token
+LIVE_EXPERTS = 24
 # the wide kernels' other M: every token tile of the tensor-core kernel
 # (32, 64, 128) and ragged ones; column blocks other than the plan's 128
 WIDE_MS = (16, 24, 32, 64, 256)
@@ -102,6 +117,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 KERNEL_TOL = TOL["float32"]
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+# the timer's device-side spin before each start event: 4e6 SM cycles,
+# about 2 ms at the H100's 1.98 GHz boost clock
+SPIN_CYCLES = 4_000_000
 QUANTS = ("none", "int8", "int4")
 CSRC = "src/repro_torch/kernels/csrc/"
 REF = "src/repro/kernels/balanced_spmm.py:"
@@ -149,7 +167,7 @@ QUANT_ARGS = SERVE_ARGS + ["--quant", "int8"]
 MOE_QUANT_ARGS = MOE_ARGS + ["--quant", "int4"]
 # the bitmap kernel: M of prefill (batch 4 x prompt 32) and decode (batch 4,
 # 8 in the kernel phase: its tile)
-BITMAP_MS = (8, 128)
+BITMAP_MS = (4, 8, 128)
 # olmo-1b's seven projections (O, N) per layer, the bitmap path's weights
 OLMO_PROJECTIONS = {"wq": (2048, 2048), "wk": (2048, 2048),
                     "wv": (2048, 2048), "wo": (2048, 2048),
@@ -177,15 +195,17 @@ def log(msg: str) -> None:
 def time_ms(torch, fn, *, flush, warmup: int = 3, runs: int = 25) -> float:
     """Median CUDA-event time of ``fn`` over ``runs`` calls after warm-up,
     with the L2 cache overwritten before each call (the main path finds
-    the weights cold: a decode step streams gigabytes).  All runs are
-    enqueued before one synchronize: while the card clears ``flush``, the
-    host enqueues the next call, so the events time the device's work and
-    not the host's launch overhead."""
+    the weights cold: a decode step streams gigabytes).  Before each start
+    event the card is held in a device-side spin (`torch.cuda._sleep`,
+    about 2 ms, longer than any wrapper's host path), so the host has
+    enqueued ``fn``'s work before the start event runs: the events time
+    the device's work, never a wrapper's host time."""
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(runs):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -229,6 +249,24 @@ def deterministic(torch, name: str, fn, n: int, what: str) -> None:
     if not same:
         raise AssertionError(f"{name}: two calls on one input differ at "
                              f"{what}")
+
+
+def skinny_bitwise(torch, name: str, fn, x, what: str) -> None:
+    """Two calls of the skinny kernel ``fn`` on ``x`` (8 rows) must be
+    bitwise equal, and rows 0-2 of that call bitwise equal to a call on
+    ``x[:3]``: each output's summation order depends on the encoding
+    alone, not on M, the grid or the timing."""
+    a, b = fn(x), fn(x)
+    c = fn(x[..., :3, :].contiguous())
+    torch.cuda.synchronize()
+    same, rows = torch.equal(a, b), torch.equal(a[..., :3, :], c)
+    log(f"check {name:27s} {what + ' bitwise, rows':38s} two calls "
+        f"{'ok' if same else 'FAIL'}, y[:3] of M=8 == M=3 "
+        f"{'ok' if rows else 'FAIL'}")
+    if not (same and rows):
+        raise AssertionError(f"{name}: skinny calls not bitwise stable at "
+                             f"{what} (two calls equal {same}, rows "
+                             f"independent {rows})")
 
 
 def bound(tb, x, m: int, y_numel: int, dname: str) -> dict:
@@ -314,8 +352,8 @@ def check_kernels(torch):
                 plain = lambda: bs.tiled_balanced_spmm_plain(x, tb)  # noqa: E731,E501
                 check(name, kern(), plain(), KERNEL_TOL,
                       f"{quant} {dname} M={m} O={o} N={n} KB={tb.kb}")
-                if m not in (WIDE_M, 8):
-                    continue       # timed at the shapes the main path runs
+                if m not in (WIDE_M, 8, 4):
+                    continue       # timed at the table's M and the served 4
                 wd = w_masked.to(dtype)
                 library = lambda: torch.matmul(x, wd.T)  # noqa: E731
                 row = {"name": name, "quant": quant, "dtype": dname, "M": m,
@@ -372,6 +410,30 @@ def check_kernels(torch):
             deterministic(torch, wide, lambda x, tb=enc(2048, 2048)[0]:
                           bs.tiled_balanced_spmm(x, tb), 2048,
                           f"{quant} O=2048 N=2048")
+        # the skinny kernel at column blocks of 32 and 20, at N = 1408
+        # (unaligned quantized value runs) and past the resident x; two
+        # calls and M = 3 vs 8 bitwise (bf16: the streamer)
+        edges = [(enc(512, 100 * bn, bn=bn)[0], f"bn={bn} N={100 * bn}")
+                 for bn in NARROW_BNS]
+        edges += [(enc(o, n)[0], f"O={o} N={n}")
+                  for o, n in SKINNY_EDGE_SHAPES]
+        for tb, what in edges:
+            for m in (3, 8):
+                x = torch.randn((m, tb.nb * tb.bn), generator=gen,
+                                device=DEVICE).to(dtype)
+                check(skinny, bs.tiled_balanced_spmm_skinny(x, tb),
+                      bs.tiled_balanced_spmm_plain(x, tb), KERNEL_TOL,
+                      f"{quant} {dname} M={m} {what}")
+            if dtype == torch.bfloat16:
+                skinny_bitwise(torch, skinny, lambda x, tb=tb:
+                               bs.tiled_balanced_spmm_skinny(x, tb), x,
+                               f"{quant} {what}")
+        if dtype == torch.bfloat16:
+            tb = enc(8192, 2048)[0]
+            x = torch.randn((8, 2048), generator=gen, device=DEVICE).to(dtype)
+            skinny_bitwise(torch, skinny, lambda x:
+                           bs.tiled_balanced_spmm_skinny(x, tb), x,
+                           f"{quant} O=8192 N=2048")
     return rows, worst
 
 
@@ -460,7 +522,77 @@ def check_batched(torch, worst: dict) -> list:
             check(bs.tiled_balanced_spmm_batched(x, tb, bm=8, bo=8),
                   bs.tiled_balanced_spmm_batched_plain(x, tb), KERNEL_TOL,
                   f"{quant} {dname} zero-count blocks M={m}")
+        # the skinny branch at every decode M, at N = 1408 (we_down:
+        # unaligned quantized runs) and past the resident x; bitwise stable
+        for o, n in ((1408, 2048), (2048, 1408), (256, 16384)):
+            tb, _ = enc(8, o, n)
+            for m in SKINNY_MS:
+                x = torch.randn((8, m, n), generator=gen,
+                                device=DEVICE).to(dtype)
+                check(bs.tiled_balanced_spmm_batched(x, tb, bm=1, bo=8),
+                      bs.tiled_balanced_spmm_batched_plain(x, tb),
+                      KERNEL_TOL, f"{quant} {dname} E=8 M={m} O={o} N={n}")
+            if dtype == torch.bfloat16:
+                skinny_bitwise(torch, name, lambda x, tb=tb:
+                               bs.tiled_balanced_spmm_batched(x, tb, bm=1,
+                                                              bo=8),
+                               x, f"{quant} E=8 O={o} N={n}")
+        if dtype == torch.bfloat16:
+            rows += empty_experts(torch, worst, name, quant, dtype, gen,
+                                  flush)
     return rows
+
+
+def empty_experts(torch, worst: dict, name: str, quant: str, dtype, gen,
+                  flush) -> list:
+    """The batched skinny kernel at deepseek-moe-16b's decode: E = 64
+    experts whose x is zero but for LIVE_EXPERTS of them (batch 4, top-6).
+    The empty experts' y must be exactly +0.0 (their CTAs read no weight),
+    the rest must match the plain version; timed beside the plain version,
+    ``torch.bmm`` and a bound that counts the live experts' bytes only (the
+    work these inputs need)."""
+    from repro_torch.kernels import balanced_spmm as bs
+    dname = str(dtype).removeprefix("torch.")
+    out = []
+    for o, n in EXPERT_SHAPES:
+        tb, w_masked = make_expert_encoding(torch, EXPERTS, o, n, dtype, gen,
+                                            quant=quant)
+        wd = w_masked.to(dtype)
+        m = EXPERT_MS[0]
+        x = torch.randn((EXPERTS, m, n), generator=gen,
+                        device=DEVICE).to(dtype)
+        live = torch.randperm(EXPERTS, generator=torch.Generator().manual_seed(
+            o))[:LIVE_EXPERTS].to(DEVICE)
+        dead = torch.ones(EXPERTS, dtype=torch.bool, device=DEVICE)
+        dead[live] = False
+        x[dead] = 0
+        kern = lambda: bs.tiled_balanced_spmm_batched(x, tb, bm=8, bo=8)  # noqa: E731,E501
+        plain = lambda: bs.tiled_balanced_spmm_batched_plain(x, tb)  # noqa: E731,E501
+        got, want = kern(), plain()
+        zero = bool((got[dead] == 0).all()) and not bool(
+            torch.signbit(got[dead]).any())
+        log(f"check {name:27s} {f'{quant} empty experts O={o} N={n}':38s} "
+            f"{EXPERTS - LIVE_EXPERTS} experts +0.0 "
+            f"{'ok' if zero else 'FAIL'}")
+        if not zero:
+            raise AssertionError(f"{name}: an empty expert's y is not +0.0")
+        compare(torch, worst, name, got, want, KERNEL_TOL,
+                f"{quant} {dname} {LIVE_EXPERTS} live of E={EXPERTS} O={o}")
+        sub = type(tb)(tb.values[live], tb.indices[live], tb.counts[live],
+                       n_in=tb.n_in, bn=tb.bn,
+                       scales=None if tb.scales is None else tb.scales[live],
+                       quant=tb.quant)
+        row = {"name": name, "quant": quant, "dtype": dname, "E": EXPERTS,
+               "live_experts": LIVE_EXPERTS, "M": m, "O": o, "N": n,
+               "KB": tb.kb, "ms": time_ms(torch, kern, flush=flush),
+               "plain_ms": time_ms(torch, plain, flush=flush),
+               "library_ms": time_ms(torch, lambda: torch.bmm(
+                   x, wd.transpose(1, 2)), flush=flush),
+               **bound(sub, x[live], m, EXPERTS * m * o, dname)}
+        out.append(row)
+        log("time  " + json.dumps(row))
+        del tb, w_masked, wd
+    return out
 
 
 def full_width(torch, compute_dtype: str, arch: str = "olmo-1b",
@@ -532,10 +664,24 @@ def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
            "busy_share": busy_ms / wall_ms,
            "top": [{"kernel": name[:80], "count": n, "ms": ms}
                    for name, (n, ms) in top],
-           "wide": wide_kernels(by_name)}
+           "wide": wide_kernels(by_name), "skinny": skinny_kernels(by_name)}
     if arch == "olmo-1b":
         out["per_call_us"] = per_call_us(torch, params, plan, torch.bfloat16)
     return out
+
+
+def skinny_kernels(by_name: dict) -> list:
+    """The skinny (decode) kernels of a bf16 profile, by name with count
+    and device ms: the weight streamer (``skinny_stream_kernel``) must be
+    among them and the FMA skinny kernels (float32 only) must not."""
+    skinny = [{"kernel": name, "count": n, "ms": ms}
+              for name, (n, ms) in by_name.items()
+              if "skinny" in name]
+    if not any("skinny_stream_kernel" in k["kernel"] for k in skinny) or any(
+            "spmm_skinny_kernel" in k["kernel"] for k in skinny):
+        raise AssertionError(f"a bf16 decode did not run the skinny "
+                             f"streamer alone: {skinny}")
+    return skinny
 
 
 def wide_kernels(by_name: dict) -> list:
@@ -661,6 +807,16 @@ def check_bitmap(torch, worst: dict) -> list:
         # calls bitwise equal at a split shape (bf16)
         _, w = make_encoding(torch, 2048, 2048, dtype, gen)
         enc = bmk.bitmap_encode(w, 128)
+        for m in (1, 3):              # the skinny kernel's other decode M
+            x = torch.randn((m, 2048), generator=gen, device=DEVICE).to(dtype)
+            check(bmk.bitmap_spmm(x, *enc, bn=128),
+                  bmk.bitmap_spmm_plain(x, *enc, bn=128),
+                  f"{dname} M={m} O=2048 N=2048")
+        if dtype == torch.bfloat16:
+            x = torch.randn((8, 2048), generator=gen, device=DEVICE).to(dtype)
+            skinny_bitwise(torch, "bitmap_spmm", lambda x:
+                           bmk.bitmap_spmm(x, *enc, bn=128), x,
+                           "O=2048 N=2048")
         for m in WIDE_MS:
             x = torch.randn((m, 2048), generator=gen, device=DEVICE).to(dtype)
             check(bmk.bitmap_spmm(x, *enc, bn=128),
@@ -673,11 +829,25 @@ def check_bitmap(torch, worst: dict) -> list:
         for bn in NARROW_BNS:
             _, w = make_encoding(torch, 2048, 100 * bn, dtype, gen, bn=bn)
             enc = bmk.bitmap_encode(w, bn)
-            x = torch.randn((WIDE_M, 100 * bn), generator=gen,
-                            device=DEVICE).to(dtype)
-            check(bmk.bitmap_spmm(x, *enc, bn=bn),
-                  bmk.bitmap_spmm_plain(x, *enc, bn=bn),
-                  f"{dname} bn={bn} N={100 * bn}")
+            for m in (WIDE_M, 3):
+                x = torch.randn((m, 100 * bn), generator=gen,
+                                device=DEVICE).to(dtype)
+                check(bmk.bitmap_spmm(x, *enc, bn=bn),
+                      bmk.bitmap_spmm_plain(x, *enc, bn=bn),
+                      f"{dname} M={m} bn={bn} N={100 * bn}")
+        # past the resident x: two column ranges
+        o, n = SKINNY_EDGE_SHAPES[-1]
+        _, w = make_encoding(torch, o, n, dtype, gen)
+        enc = bmk.bitmap_encode(w, 128)
+        for m in (3, 8):
+            x = torch.randn((m, n), generator=gen, device=DEVICE).to(dtype)
+            check(bmk.bitmap_spmm(x, *enc, bn=128),
+                  bmk.bitmap_spmm_plain(x, *enc, bn=128),
+                  f"{dname} M={m} O={o} N={n}")
+        if dtype == torch.bfloat16:
+            skinny_bitwise(torch, "bitmap_spmm", lambda x:
+                           bmk.bitmap_spmm(x, *enc, bn=128), x,
+                           f"O={o} N={n}")
         # all-zero rows, an all-zero matrix (K = 1), ragged O and M
         _, w = make_encoding(torch, 2004, 2048, dtype, gen)
         w[::7] = 0
@@ -914,7 +1084,7 @@ def profile_traffic(torch, serve) -> dict:
             "busy_share": busy_ms / wall_ms,
             "top": [{"kernel": name[:80], "count": n, "ms": ms}
                     for name, (n, ms) in top],
-            "wide": wide_kernels(by_name)}
+            "wide": wide_kernels(by_name), "skinny": skinny_kernels(by_name)}
 
 
 def main() -> int:
@@ -1051,7 +1221,8 @@ def main() -> int:
                 m, shape = (8 if "skinny" in name else WIDE_M), SHAPES[1]
             row = next(r for r in rows if r["name"] == name and r["M"] == m
                        and (r["O"], r["N"]) == shape and r["quant"] == quant
-                       and r["dtype"] == "bfloat16")
+                       and r["dtype"] == "bfloat16"
+                       and "live_experts" not in r)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "quant": quant,
                         "launches": sum(p[name] for p in paths.values()),

@@ -6,7 +6,8 @@ Counterpart of `repro.kernels.balanced_spmm` (Pallas TPU kernels):
 * `tiled_balanced_spmm`        <- ``tiled_balanced_spmm_pallas`` (prefill,
   wide M), kernel ``tiled_spmm_wide`` in ``csrc/balanced_spmm.cu``;
 * `tiled_balanced_spmm_skinny` <- ``tiled_balanced_spmm_skinny_pallas``
-  (decode, M <= 8), kernel ``tiled_spmm_skinny``;
+  (decode, M <= 8), kernel ``tiled_spmm_skinny`` (bf16: the weight
+  streamer of ``csrc/skinny_spmm.cuh``, `stream_route`);
 * `tiled_balanced_spmm_batched` <- ``tiled_balanced_spmm_batched_pallas``
   (the MoE experts, one launch over the expert grid), kernel
   ``tiled_spmm_batched``.
@@ -24,7 +25,10 @@ bf16 wide call (and a batched one past `SKINNY_MAX_M`) runs the
 tensor-core kernel (``csrc/tc_spmm.cuh``): `wide_splits` picks how many
 parts its column blocks split into, and the wrapper allocates the
 partials' workspace (`split_workspace`); float32 keeps the FMA kernels
-(`tensor_core_route`).  On
+(`tensor_core_route`).  A bf16 skinny call (and a batched one up to
+`SKINNY_MAX_M`) streams each block's live prefix (its counts, passed to the
+kernel) past an x held in shared memory (`stream_route`,
+`stream_x_ranges`).  On
 a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs `tiled_balanced_spmm_plain` / `tiled_balanced_spmm_batched_plain`.
 There is no fallback from the kernel to the plain version.  W is an
@@ -75,6 +79,11 @@ MAX_BN = 128      # widest column block (and block capacity) the kernels take
 TC_BO = 64
 TC_MAX_SPLITS = 64
 H100_SMS = 132
+# the skinny weight streamer (bf16, M <= 8; csrc/skinny_spmm.cuh): 8 warps
+# a CTA, each with a ring of 3 stages, a 16-byte header per staged block,
+# at most 227 KB of shared memory a CTA
+STREAM_WARPS, STREAM_STAGES, STREAM_HEADER = 8, 3, 16
+STREAM_SMEM = 232448
 
 
 def reset_launches() -> None:
@@ -95,6 +104,46 @@ def token_tile(m: int) -> int:
     """The tensor-core kernel's token tile for ``m`` rows of x (the C
     entry picks the same)."""
     return 32 if m <= 32 else 64 if m <= 64 else 128
+
+
+def stream_route(dtype: torch.dtype, m: int) -> bool:
+    """Whether a skinny call (the 2-D skinny entry, the batched one at
+    ``m <= SKINNY_MAX_M``; the bitmap one likewise) runs the weight
+    streamer of ``csrc/skinny_spmm.cuh``: bf16 only.  float32 keeps the FMA
+    skinny templates (the f32 parity gates' route: its x at 4 bytes a value
+    would not stay resident at N = 8192)."""
+    return dtype == torch.bfloat16 and m <= SKINNY_MAX_M
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def stream_block_bytes(kb: int, quant: str = "none") -> int:
+    """The shared-memory bytes of one staged column block in the
+    streamer's ring (the tiled decoder): KB index words and the bytes of KB
+    values, each padded to 16 bytes."""
+    vbytes = {"none": 2 * kb, "int8": kb, "int4": (kb + 1) // 2}[quant]
+    return _round16(4 * kb) + _round16(vbytes)
+
+
+def stream_x_ranges(n: int, bn: int, block_bytes: int) -> int:
+    """How many column ranges the streamer takes x in (its C launch picks
+    the same): one while x, at 8 bf16 rows, fits beside the rings of
+    one-block stages (`STREAM_WARPS` x `STREAM_STAGES` stages of
+    ``STREAM_HEADER + block_bytes``) in a CTA's `STREAM_SMEM` bytes, else
+    ranges of a multiple of 32 blocks.  It depends on the encoding alone,
+    so a row's summation order is the same at every M."""
+    cap = STREAM_SMEM - STREAM_WARPS * STREAM_STAGES * (STREAM_HEADER
+                                                        + block_bytes)
+    nb = n // bn
+    if nb * bn * 16 <= cap:
+        return 1
+    rb = cap // (bn * 16) // 32 * 32
+    if rb < 32:
+        raise ValueError(f"the skinny streamer cannot hold 32 blocks of "
+                         f"bn={bn} beside its rings")
+    return -(-nb // rb)
 
 
 def wide_splits(m: int, o: int, nb: int, *, experts: int = 1,
@@ -170,6 +219,12 @@ def tiled_balanced_spmm_batched_plain(x: Tensor, tb: TiledBalanced) -> Tensor:
     return torch.bmm(x.float(), w.transpose(1, 2))
 
 
+def _takes_counts(name: str) -> bool:
+    """Whether C entry ``name`` takes the per-block live counts: the skinny
+    and batched ones, whose bf16 route streams each block's live prefix."""
+    return "skinny" in name or "batched" in name
+
+
 def _lib(stem: str) -> ctypes.CDLL:
     lib = _build.load(stem)
     if not getattr(lib, "_typed", False):
@@ -177,9 +232,10 @@ def _lib(stem: str) -> ctypes.CDLL:
             if src != stem:
                 continue
             quant = name.endswith("_q")
-            # x, values, indices, [scales,] y; [E,] M, O, NB, KB, bn,
-            # dtype, [wfmt]; [ws, splits: not skinny]; stream
-            n_ptr = 5 if quant else 4
+            # x, values, indices, [counts: skinny and batched,] [scales,]
+            # y; [E,] M, O, NB, KB, bn, dtype, [wfmt]; [ws, splits: not
+            # skinny]; stream
+            n_ptr = 4 + quant + _takes_counts(name)
             n_int = 6 + ("batched" in name) + quant
             split = [] if "skinny" in name else [ctypes.c_void_p,
                                                  ctypes.c_int]
@@ -218,10 +274,17 @@ def _launch(name: str, x: Tensor, tb: TiledBalanced) -> Tensor:
     if tb.indices.dtype != torch.int32:
         raise TypeError(f"{name}: indices must be int32, got "
                         f"{tb.indices.dtype}")
-    tensors = (x, tb.values, tb.indices) + ((tb.scales,) if quant else ())
+    counts = _takes_counts(name)
+    if counts and (tb.counts.dtype != torch.int32 or tuple(tb.counts.shape)
+                   != tuple(tb.indices.shape[:-1])):
+        raise ValueError(f"{name}: counts must be int32 "
+                         f"{tuple(tb.indices.shape[:-1])}, got "
+                         f"{tb.counts.dtype} {tuple(tb.counts.shape)}")
+    tensors = (x, tb.values, tb.indices) + ((tb.counts,) if counts else ()) \
+        + ((tb.scales,) if quant else ())
     if any(t.device != x.device for t in tensors):
-        raise ValueError(f"{name}: x, values, indices (and scales) must "
-                         "share one CUDA device")
+        raise ValueError(f"{name}: x, values, indices (counts, scales) "
+                         "must share one CUDA device")
     batched = name.startswith("tiled_balanced_spmm_batched")
     m = x.shape[-2]
     o, nb, kb = tb.indices.shape[-3:]

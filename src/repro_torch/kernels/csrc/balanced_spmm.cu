@@ -56,10 +56,35 @@
 //  from L2, and decodes on the CUDA cores; the decode is the part of each
 //  block that the product and the copies do not hide.
 //
-// float32 x keeps the FMA template (tiled_spmm_wide_kernel): TF32 wgmma
-// would round x and the weights to 10-bit mantissas, past the 1e-4 bar
-// that the f32 kernel checks and the f32 end-to-end parity gate hold.  It
-// and the skinny (decode) kernels:
+// bf16 skinny (tiled_spmm_skinny, and tiled_spmm_batched at M <= 8): the
+// weight streamer of skinny_spmm.cuh with the BalancedStream decoder of
+// tiled_spmm.cuh.
+//  * x stays resident in shared memory (32 KB at N = 2048, 128 KB at
+//    olmo-1b's w_down N = 8192; past about 13K columns, column ranges);
+//    each warp owns whole rows and streams each (row, block)'s live prefix
+//    (counts[o, b] slots of indices and values; the C entries take the
+//    counts) through a private 3-stage cp.async ring, 66 KB of stored
+//    slots in flight per SM at N = 2048, and gathers x's column per slot: no
+//    dense tile, no zeroing, no pad slot read.  The product is f32 FMAs per
+//    slot and row of x, reduced across the warp in a fixed order.
+//  * Pad slots are value 0 and index 0 (encode_tiled, and quantize_tiled,
+//    keep them so; tests/test_torch_*.py hold the port's and the
+//    reference's encodings to it), so reading the live prefix alone is
+//    exact.
+//  * The batched entry skips empty experts: a CTA whose expert's x is all
+//    zero writes +0.0 and reads no weight (exact for finite weights; a NaN
+//    or Inf weight of an empty expert gives NaN in the plain version and 0
+//    here).  At deepseek-moe-16b's decode, batch 4 x top-6, at most 24 of
+//    the 64 experts hold a token.
+//  What bounds it now: instruction issue (skinny_spmm.cuh's note): at
+//  8192 x 2048, M = 8 it runs 3.0x its byte bound, 2.1x torch.matmul; the
+//  expert grid with every expert live 2.3x its bound, 2.7x torch.bmm.
+//
+// float32 x keeps the FMA templates (tiled_spmm_wide_kernel,
+// tiled_spmm_skinny_kernel): TF32 wgmma would round x and the weights to
+// 10-bit mantissas, past the 1e-4 bar that the f32 kernels check and the
+// f32 end-to-end parity gate hold, and a float32 x at N = 8192 (256 KB)
+// does not stay resident.  They:
 //  * The TPU grid's sequential NB axis becomes a loop inside the CTA; one
 //    CTA owns one output tile and nothing carries between CTAs.
 //  * Per column block: stage the x slice in shared memory (as f32), zero a
@@ -76,19 +101,16 @@
 //    at least one CTA per SM; row strides of bn + 4 floats keep the float4
 //    reads and the decode's scattered stores free of bank conflicts.
 //
-// The batched (MoE expert) kernel is the same tile shapes with the expert
-// as the grid's z axis: each CTA offsets x [E, M, NB*bn], the encodings
-// [E, O, NB, KB] and y [E, M, O] by its expert.  The host takes the 8-row
-// skinny tile when the per-expert M (the capacity) is <= 8, the wide path
-// otherwise (in bf16 the tensor-core kernel, TN = 32 at the prefill
-// capacity 16).  What bounds it: the encodings of all E experts are read
-// once per call (the capacity buffer holds every expert, empty or not), so
-// it is bound by device-memory bytes at both capacities.  At
+// The batched (MoE expert) kernels take the expert as a grid axis: each
+// CTA offsets x [E, M, NB*bn], the encodings [E, O, NB, KB] and y
+// [E, M, O] by its expert.  The host takes the skinny route when the
+// per-expert M (the capacity) is <= 8, the wide one otherwise (in bf16 the
+// tensor-core kernel, TN = 32 at the prefill capacity 16).  What bounds
+// it: device-memory bytes, the live slots of the live experts.  At
 // deepseek-moe-16b's decode, E = 64, O x N = 1408 x 2048, sparsity 0.5,
-// M = 8, the work needs the live slots and the per-block counts: 64 x 1408
-// x 1024 x 6 B + 64 x 1408 x 16 x 4 B = 559 MB, 0.17 ms at 3.35 TB/s.  This
-// kernel reads every stored slot, pads included: at KB = 88, 64 x 1408 x 16
-// x 88 x 6 B = 761 MB.
+// M = 8, with every expert live the work needs the live slots and the
+// per-block counts: 64 x 1408 x 1024 x 6 B + 64 x 1408 x 16 x 4 B = 559
+// MB, 0.17 ms at 3.35 TB/s; with 24 live experts, 0.064 ms.
 #include "tiled_spmm.cuh"
 
 using namespace tiled_spmm;
@@ -110,28 +132,32 @@ int tiled_spmm_wide(const void* x, const void* vals, const int* idx, float* y,
       x, vals, idx, nullptr, y, ws, splits, 1, M, O, NB, KB, bn, s);
 }
 
+// counts int32 [O, NB]: a block's live slots (the bf16 route reads only
+// those; float32 ignores them).
 int tiled_spmm_skinny(const void* x, const void* vals, const int* idx,
-                      float* y, int M, int O, int NB, int KB, int bn,
-                      int dtype, void* stream) {
+                      const int* counts, float* y, int M, int O, int NB,
+                      int KB, int bn, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_skinny<__nv_bfloat16, FloatValues<__nv_bfloat16>, false>(
-        x, vals, idx, nullptr, y, 1, M, O, NB, KB, bn, s);
-  return launch_skinny<float, FloatValues<float>, false>(
-      x, vals, idx, nullptr, y, 1, M, O, NB, KB, bn, s);
+    return launch_skinny_any<__nv_bfloat16, FloatValues<__nv_bfloat16>,
+                             false>(x, vals, idx, counts, nullptr, y, 1, M, O,
+                                    NB, KB, bn, s);
+  return launch_skinny_any<float, FloatValues<float>, false>(
+      x, vals, idx, counts, nullptr, y, 1, M, O, NB, KB, bn, s);
 }
 
-// x [E, M, NB*bn], values / indices [E, O, NB, KB], y f32 [E, M, O]; ws
-// splits x E x M x O floats (the wide branch only).
+// x [E, M, NB*bn], values / indices [E, O, NB, KB], counts [E, O, NB], y
+// f32 [E, M, O]; ws splits x E x M x O floats (the wide branch only).
 int tiled_spmm_batched(const void* x, const void* vals, const int* idx,
-                       float* y, int E, int M, int O, int NB, int KB, int bn,
-                       int dtype, float* ws, int splits, void* stream) {
+                       const int* counts, float* y, int E, int M, int O,
+                       int NB, int KB, int bn, int dtype, float* ws,
+                       int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_batched<__nv_bfloat16, FloatValues<__nv_bfloat16>>(
-        x, vals, idx, nullptr, y, ws, splits, E, M, O, NB, KB, bn, s);
+        x, vals, idx, counts, nullptr, y, ws, splits, E, M, O, NB, KB, bn, s);
   return launch_batched<float, FloatValues<float>>(
-      x, vals, idx, nullptr, y, ws, splits, E, M, O, NB, KB, bn, s);
+      x, vals, idx, counts, nullptr, y, ws, splits, E, M, O, NB, KB, bn, s);
 }
 
 const char* spmm_error_string(int err) {

@@ -47,14 +47,28 @@
 //    _tiled_gather_spmm.  Rounding q * scale to bf16 instead would change
 //    the numbers.  A zero-scale block's q are 0: they decode to exact
 //    zeros.
-//  * float32 x keeps the FMA template (TF32 would miss the f32 bar, as in
-//    balanced_spmm.cu), and the skinny kernels are the FMA ones: a slot's
-//    load reads one byte (int8) or the byte that holds its nibble (int4;
-//    two lanes read the same byte) and, once per row and block, the scale;
-//    they stay raw in registers until the decode, which writes
-//    float(q) * scale into the f32 tile.
+//  * bf16 x, skinny (tiled_spmm_skinny_q, tiled_spmm_batched_q at M <= 8):
+//    the weight streamer of skinny_spmm.cuh (balanced_spmm.cu's note).  A
+//    block's live prefix is its first counts[o, b] index words and the
+//    bytes that hold its first counts[o, b] values (int4: ceil(count / 2)
+//    bytes), each rounded up to the copy piece; the scale rides in the
+//    lanes' registers with the count.  A value run that is not 16-byte
+//    aligned (deepseek-moe-16b's we_down at N = 1408: an int8 row run of
+//    968 bytes, an int4 one of 484, scales of 44) takes 8-, 4-, 2- or
+//    1-byte pieces, never reading past the run.  Each slot decodes to
+//    float(q) * scale, int4 picking its nibble as (n ^ 8) - 8, and a slot
+//    that decodes to 0 adds nothing; empty experts exit as in
+//    balanced_spmm.cu.
+//  * float32 x keeps the FMA templates (TF32 would miss the f32 bar, as in
+//    balanced_spmm.cu): a slot's load reads one byte (int8) or the byte
+//    that holds its nibble (int4; two lanes read the same byte) and, once
+//    per row and block, the scale; they stay raw in registers until the
+//    decode, which writes float(q) * scale into the f32 tile.
 // What bounds the bf16 wide kernel: the same as balanced_spmm.cu's (the
-// stored slots, the decode); fewer value bytes, the same index words.
+// stored slots, the decode); fewer value bytes, the same index words.  The
+// bf16 skinny ones: instruction issue, as balanced_spmm.cu's (8192 x 2048
+// int8, M = 8: 3.6x its byte bound; the int4 expert grid, every expert
+// live: 3.1x).
 #include "tiled_spmm.cuh"
 
 using namespace tiled_spmm;
@@ -64,29 +78,30 @@ namespace {
 // dtype: 0 = float32, 1 = bfloat16 x; wfmt: 1 = int8, 2 = int4.
 template <template <typename, typename> class Launch>
 int dispatch(int dtype, int wfmt, const void* x, const void* vals,
-             const int* idx, const float* scales, float* y, float* ws,
-             int splits, int E, int M, int O, int NB, int KB, int bn,
-             cudaStream_t s) {
+             const int* idx, const int* counts, const float* scales,
+             float* y, float* ws, int splits, int E, int M, int O, int NB,
+             int KB, int bn, cudaStream_t s) {
   if (wfmt != 1 && wfmt != 2) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (wfmt == 1)
       return Launch<__nv_bfloat16, Int8Values>::run(
-          x, vals, idx, scales, y, ws, splits, E, M, O, NB, KB, bn, s);
+          x, vals, idx, counts, scales, y, ws, splits, E, M, O, NB, KB, bn,
+          s);
     return Launch<__nv_bfloat16, Int4Values>::run(
-        x, vals, idx, scales, y, ws, splits, E, M, O, NB, KB, bn, s);
+        x, vals, idx, counts, scales, y, ws, splits, E, M, O, NB, KB, bn, s);
   }
   if (wfmt == 1)
-    return Launch<float, Int8Values>::run(x, vals, idx, scales, y, ws, splits,
-                                          E, M, O, NB, KB, bn, s);
-  return Launch<float, Int4Values>::run(x, vals, idx, scales, y, ws, splits,
-                                        E, M, O, NB, KB, bn, s);
+    return Launch<float, Int8Values>::run(x, vals, idx, counts, scales, y, ws,
+                                          splits, E, M, O, NB, KB, bn, s);
+  return Launch<float, Int4Values>::run(x, vals, idx, counts, scales, y, ws,
+                                        splits, E, M, O, NB, KB, bn, s);
 }
 
 template <typename T, typename W>
 struct Wide {
-  static int run(const void* x, const void* v, const int* i, const float* sc,
-                 float* y, float* ws, int splits, int E, int M, int O, int NB,
-                 int KB, int bn, cudaStream_t s) {
+  static int run(const void* x, const void* v, const int* i, const int*,
+                 const float* sc, float* y, float* ws, int splits, int E,
+                 int M, int O, int NB, int KB, int bn, cudaStream_t s) {
     return launch_wide_any<T, W, false>(x, v, i, sc, y, ws, splits, E, M, O,
                                         NB, KB, bn, s);
   }
@@ -94,20 +109,21 @@ struct Wide {
 
 template <typename T, typename W>
 struct Skinny {
-  static int run(const void* x, const void* v, const int* i, const float* sc,
-                 float* y, float*, int, int E, int M, int O, int NB, int KB,
-                 int bn, cudaStream_t s) {
-    return launch_skinny<T, W, false>(x, v, i, sc, y, E, M, O, NB, KB, bn, s);
+  static int run(const void* x, const void* v, const int* i, const int* c,
+                 const float* sc, float* y, float*, int, int E, int M, int O,
+                 int NB, int KB, int bn, cudaStream_t s) {
+    return launch_skinny_any<T, W, false>(x, v, i, c, sc, y, E, M, O, NB, KB,
+                                          bn, s);
   }
 };
 
 template <typename T, typename W>
 struct Batched {
-  static int run(const void* x, const void* v, const int* i, const float* sc,
-                 float* y, float* ws, int splits, int E, int M, int O, int NB,
-                 int KB, int bn, cudaStream_t s) {
-    return launch_batched<T, W>(x, v, i, sc, y, ws, splits, E, M, O, NB, KB,
-                                bn, s);
+  static int run(const void* x, const void* v, const int* i, const int* c,
+                 const float* sc, float* y, float* ws, int splits, int E,
+                 int M, int O, int NB, int KB, int bn, cudaStream_t s) {
+    return launch_batched<T, W>(x, v, i, c, sc, y, ws, splits, E, M, O, NB,
+                                KB, bn, s);
   }
 };
 
@@ -122,27 +138,31 @@ int tiled_spmm_wide_q(const void* x, const void* vals, const int* idx,
                       const float* scales, float* y, int M, int O, int NB,
                       int KB, int bn, int dtype, int wfmt, float* ws,
                       int splits, void* stream) {
-  return dispatch<Wide>(dtype, wfmt, x, vals, idx, scales, y, ws, splits, 1,
-                        M, O, NB, KB, bn, static_cast<cudaStream_t>(stream));
+  return dispatch<Wide>(dtype, wfmt, x, vals, idx, nullptr, scales, y, ws,
+                        splits, 1, M, O, NB, KB, bn,
+                        static_cast<cudaStream_t>(stream));
 }
 
+// counts int32 [O, NB] (see tiled_spmm_skinny).
 int tiled_spmm_skinny_q(const void* x, const void* vals, const int* idx,
-                        const float* scales, float* y, int M, int O, int NB,
-                        int KB, int bn, int dtype, int wfmt, void* stream) {
-  return dispatch<Skinny>(dtype, wfmt, x, vals, idx, scales, y, nullptr, 1, 1,
-                          M, O, NB, KB, bn,
+                        const int* counts, const float* scales, float* y,
+                        int M, int O, int NB, int KB, int bn, int dtype,
+                        int wfmt, void* stream) {
+  return dispatch<Skinny>(dtype, wfmt, x, vals, idx, counts, scales, y,
+                          nullptr, 1, 1, M, O, NB, KB, bn,
                           static_cast<cudaStream_t>(stream));
 }
 
 // x [E, M, NB*bn], values [E, O, NB, KB or ceil(KB/2)], indices
-// [E, O, NB, KB], scales [E, O, NB], y f32 [E, M, O]; ws splits x E x M x O
-// floats (the wide branch only).
+// [E, O, NB, KB], counts and scales [E, O, NB], y f32 [E, M, O]; ws
+// splits x E x M x O floats (the wide branch only).
 int tiled_spmm_batched_q(const void* x, const void* vals, const int* idx,
-                         const float* scales, float* y, int E, int M, int O,
-                         int NB, int KB, int bn, int dtype, int wfmt,
-                         float* ws, int splits, void* stream) {
-  return dispatch<Batched>(dtype, wfmt, x, vals, idx, scales, y, ws, splits,
-                           E, M, O, NB, KB, bn,
+                         const int* counts, const float* scales, float* y,
+                         int E, int M, int O, int NB, int KB, int bn,
+                         int dtype, int wfmt, float* ws, int splits,
+                         void* stream) {
+  return dispatch<Batched>(dtype, wfmt, x, vals, idx, counts, scales, y, ws,
+                           splits, E, M, O, NB, KB, bn,
                            static_cast<cudaStream_t>(stream));
 }
 

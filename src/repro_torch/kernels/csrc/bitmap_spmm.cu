@@ -4,9 +4,10 @@
 // src/repro_torch/kernels/bitmap_spmm.py.
 //
 // Replaces the Pallas TPU kernel in src/repro/kernels/bitmap_spmm.py,
-// bitmap_spmm_pallas (_kernel), with the entry bitmap_spmm: M > 8 in bf16
-// the tensor-core kernel tc::tc_spmm_kernel<BitmapTc>, in float32
-// bitmap_spmm_wide_kernel; M <= 8 bitmap_spmm_skinny_kernel.
+// bitmap_spmm_pallas (_kernel), with the entry bitmap_spmm: in bf16, M > 8
+// the tensor-core kernel tc::tc_spmm_kernel<BitmapTc> and M <= 8 the
+// weight streamer sk::skinny_stream_kernel<BitmapStream>; in float32
+// bitmap_spmm_wide_kernel and bitmap_spmm_skinny_kernel (FMA).
 //
 // W [O, N] is (bitmap int8 [O, N], packed [O, K] in the activation dtype,
 // offsets int32 [O, N / bn]): element (r, c) of column block nb is
@@ -40,8 +41,17 @@
 //  window is up to bn elements, about twice the block's nonzeros at
 //  sparsity 0.5) and the decode that the product does not hide.
 //
-// float32 x, M > 8, keeps the FMA kernel (TF32 would miss the f32 bar, see
-// balanced_spmm.cu), and M <= 8 takes the FMA skinny kernel:
+// bf16 x, M <= 8: the weight streamer of skinny_spmm.cuh with the
+// BitmapStream decoder below (balanced_spmm.cu's note).  A staged block is
+// the block's bitmap bytes and its window of packed elements, from its
+// offset to the next block's (the block's nonzeros), so the stream reads
+// about the bound's bytes.  What bounds it now: instruction issue, more so
+// than the tiled streamer's (4 ballots and 4 predicated slots a lane per
+// block, half of them unset at sparsity 0.5): 8192 x 2048, M = 8, 7.1x its
+// byte bound.
+//
+// float32 x keeps the FMA kernels (TF32 would miss the f32 bar, see
+// balanced_spmm.cu), M > 8 the wide one and M <= 8 the skinny one:
 //  * The TPU grid's sequential column-block axis becomes a loop inside the
 //    CTA; one CTA owns one output tile and nothing carries between CTAs.
 //  * Each row's nonzeros of a block are read from device memory where they
@@ -67,8 +77,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <type_traits>
 
+#include "skinny_spmm.cuh"
 #include "tc_spmm.cuh"
 
 namespace {
@@ -409,6 +419,145 @@ struct BitmapTc {
   }
 };
 
+// ---- skinny (decode) for bf16 x: the weight streamer -------------------
+// The bitmap decoder of skinny_spmm.cuh's mainloop.  An item is a group of
+// G column blocks of one row; a staged block holds the block's bn bitmap
+// bytes and its window of packed elements, packed[r, c0 .. c0 + len) with
+// c0 = offsets[r, b] clipped to [0, K) and len = offsets[r, b + 1] - c0
+// (the block's nonzeros; K - c0 for the row's last block and bn for the
+// last block of a 32-block segment, whose next offset is not in the lanes'
+// registers), at most min(bn, K - c0), copied as the 16-byte pieces that
+// cover it (pieces that leave the packed array go by 2-byte loads); its
+// header the offset, c0, len and the window's first byte.  32 / G lanes
+// copy a block.  The decode takes a block at a time: a lane owns 4
+// consecutive columns, reads their bitmap bytes at once, ranks its set
+// bits with 4 warp ballots (the set bits of lanes below in each byte
+// position, then its own bytes below), and for each set column reads the
+// packed value at position offset + rank clipped to [0, K): from the
+// window, or (only an offset that disagrees with the bitmap puts it
+// outside) from device memory.
+struct BitmapStream {
+  struct Params {
+    const int8_t* bitmap;
+    const __nv_bfloat16* packed;
+    const int* offsets;
+    int K;
+    int bw;                                  // piece bytes of a bitmap run
+  };
+  __host__ __device__ static int window(int bn) {
+    return sk::round16(2 * bn) + 16;
+  }
+  static int block_bytes(const Params&, int bn) {
+    return sk::round16(bn) + window(bn);
+  }
+  __device__ static Params at_expert(Params d, const sk::Problem&, int) {
+    return d;
+  }
+  __device__ static sk::Meta load_meta(const Params& d, const sk::Problem& p,
+                                       int o, int b) {
+    return {__ldg(d.offsets + (size_t)o * p.NB + b), 0};
+  }
+  __device__ static void issue(const Params& d, const sk::Problem& p,
+                               uint8_t* stage, int o, int b0, int n,
+                               const sk::Meta& cur) {
+    const int lane = threadIdx.x % kLanes;
+    const int per = kLanes >> (__ffs(p.G) - 1);   // lanes a block
+    const int g = lane >> (__ffs(per) - 1);
+    const int r = lane & (per - 1);
+    const int b = b0 + g;
+    const int off = __shfl_sync(0xffffffffu, cur.a, b & (sk::kSeg - 1));
+    const int nx = __shfl_sync(0xffffffffu, cur.a, (b + 1) & (sk::kSeg - 1));
+    if (g >= n) return;
+    const int c0 = off < 0 ? 0 : (off >= d.K ? d.K - 1 : off);
+    int len = d.K - c0 < p.bn ? d.K - c0 : p.bn;
+    if (b + 1 < p.NB && ((b + 1) & (sk::kSeg - 1)) != 0) {
+      const int live = nx - c0;
+      len = live < 0 ? 0 : (live < len ? live : len);
+    }
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(d.packed);
+    const uintptr_t hi = lo + (size_t)p.O * d.K * 2;
+    const uintptr_t a0 = lo + ((size_t)o * d.K + c0) * 2;
+    const uintptr_t g0 = a0 & ~(uintptr_t)15;
+    const int nw = len > 0 ? (int)((a0 + 2 * len - g0 + 15) / 16) : 0;
+    if (r == 0)
+      *reinterpret_cast<int4*>(stage + g * sk::kHeader) =
+          make_int4(off, c0, len, (int)(a0 & 15));
+    uint8_t* db = stage + p.G * sk::kHeader + g * p.block_bytes;
+    uint8_t* dw = db + sk::round16(p.bn);
+    sk::copy_pieces(db,
+                    reinterpret_cast<const uint8_t*>(
+                        d.bitmap + (size_t)o * p.NB * p.bn + (size_t)b * p.bn),
+                    p.bn / d.bw, r, per, d.bw);
+    for (int i = r; i < nw; i += per) {
+      const uintptr_t src = g0 + 16 * i;
+      uint8_t* dst = dw + 16 * i;
+      if (src >= lo && src + 16 <= hi) {
+        tc::copy_piece(dst, reinterpret_cast<const uint8_t*>(src), 16);
+      } else {
+        for (int k = 0; k < 16; k += 2)
+          if (src + k >= lo && src + k < hi)
+            *reinterpret_cast<uint16_t*>(dst + k) =
+                *reinterpret_cast<const uint16_t*>(src + k);
+      }
+    }
+  }
+  template <int kM>
+  __device__ static void compute(const Params& d, const sk::Problem& p,
+                                 const uint8_t* stage, int o, int n,
+                                 const uint8_t* xs, int col0,
+                                 float (&acc)[kM]) {
+    const int lane = threadIdx.x % kLanes;
+    const unsigned below = (1u << lane) - 1u;
+    const int c = 4 * lane;                  // this lane's first column
+    for (int g = 0; g < n; ++g) {
+      // off, c0, len, the window's first byte
+      const int4 h = *reinterpret_cast<const int4*>(stage + g * sk::kHeader);
+      const uint8_t* blk = stage + p.G * sk::kHeader + g * p.block_bytes;
+      const uint8_t* win = blk + sk::round16(p.bn) + h.w;
+      const int cb = col0 + g * p.bn;
+      const uint32_t bits =
+          c < p.bn ? *reinterpret_cast<const uint32_t*>(blk + c) : 0u;
+      bool set[4];
+      int pos = h.x;                         // + set bits before the lane
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        set[t] = ((bits >> (8 * t)) & 0xFF) != 0;
+        pos += __popc(__ballot_sync(0xffffffffu, set[t]) & below);
+      }
+      float v[4];
+      sk::XCol<kM> xc[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        v[t] = 0.f;
+        if (!set[t]) continue;
+        const int at = pos < 0 ? 0 : (pos >= d.K ? d.K - 1 : pos);
+        ++pos;
+        v[t] = at >= h.y && at < h.y + h.z
+                   ? __uint_as_float(
+                         (uint32_t)*reinterpret_cast<const uint16_t*>(
+                             win + 2 * (at - h.y))
+                         << 16)
+                   : __bfloat162float(d.packed[(size_t)o * d.K + at]);
+        xc[t] = sk::x_column<kM>(xs, cb + c + t);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (v[t] != 0.f) sk::fma_column<kM>(xc[t], v[t], acc);
+    }
+  }
+};
+
+int launch_stream(const void* x, const int8_t* bitmap, const void* packed,
+                  const int* offsets, float* y, int M, int O, int N, int K,
+                  int bn, cudaStream_t s) {
+  const BitmapStream::Params d{bitmap,
+                               static_cast<const __nv_bfloat16*>(packed),
+                               offsets, K, tc::piece_bytes(bitmap, bn)};
+  const sk::Problem p{static_cast<const __nv_bfloat16*>(x), y, 1, M, O,
+                      N / bn, bn, 0, 0, 0};
+  return sk::launch<BitmapStream, false>(p, d, s);
+}
+
 int launch_tc(const void* x, const int8_t* bitmap, const void* packed,
               const int* offsets, float* y, float* ws, int splits, int M,
               int O, int N, int K, int bn, cudaStream_t s) {
@@ -419,10 +568,10 @@ int launch_tc(const void* x, const int8_t* bitmap, const void* packed,
   return tc::launch<BitmapTc>(p, dp, s);
 }
 
-template <typename T>
-int launch(const void* x, const int8_t* bitmap, const void* packed,
-           const int* offsets, float* y, int M, int O, int N, int K, int bn,
-           cudaStream_t s) {
+// float32 x: the FMA kernels.
+int launch_fma(const void* x, const int8_t* bitmap, const void* packed,
+               const int* offsets, float* y, int M, int O, int N, int K,
+               int bn, cudaStream_t s) {
   const bool skinny = M <= kSkinnyM;
   const int bm = skinny ? kSkinnyM : kWideBM;
   const int bo = skinny ? kSkinnyBO : kWideBO;
@@ -430,18 +579,16 @@ int launch(const void* x, const int8_t* bitmap, const void* packed,
   const int smem = (skinny && floats < kSkinnyThreads ? kSkinnyThreads
                                                       : floats) *
                    (int)sizeof(float);
-  // bf16 past the skinny M runs the tensor-core kernel (launch_tc)
-  auto kernel = bitmap_spmm_skinny_kernel<T>;
-  if constexpr (std::is_same<T, float>::value)
-    if (!skinny) kernel = bitmap_spmm_wide_kernel<T>;
+  auto kernel = skinny ? bitmap_spmm_skinny_kernel<float>
+                      : bitmap_spmm_wide_kernel<float>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (M == 0 || O == 0) return 0;
   const dim3 grid((O + bo - 1) / bo, skinny ? 1 : (M + bm - 1) / bm);
   kernel<<<grid, skinny ? kSkinnyThreads : kWideThreads, smem, s>>>(
-      static_cast<const T*>(x), bitmap, static_cast<const T*>(packed),
-      offsets, y, M, O, N, K, bn);
+      static_cast<const float*>(x), bitmap,
+      static_cast<const float*>(packed), offsets, y, M, O, N, K, bn);
   return (int)cudaGetLastError();
 }
 
@@ -450,11 +597,11 @@ int launch(const void* x, const int8_t* bitmap, const void* packed,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x and packed share it).  y is f32
-// [M, O].  bn a multiple of 4 in [4, 128] dividing N; K >= 1.  M <= 8
-// takes the skinny kernel; wider M at bf16 the tensor-core kernel, split
-// over `splits` with a workspace ws of splits x M x O floats (null for one
-// split), at float32 the FMA wide kernel (splits 1).  Returns the
-// cudaError_t of the launch (0 on success).
+// [M, O].  bn a multiple of 4 in [4, 128] dividing N; K >= 1.  At bf16,
+// M <= 8 takes the weight streamer and wider M the tensor-core kernel,
+// split over `splits` with a workspace ws of splits x M x O floats (null
+// for one split); at float32 the FMA skinny or wide kernel (splits 1).
+// Returns the cudaError_t of the launch (0 on success).
 int bitmap_spmm(const void* x, const int8_t* bitmap, const void* packed,
                 const int* offsets, float* y, int M, int O, int N, int K,
                 int bn, int dtype, float* ws, int splits, void* stream) {
@@ -467,9 +614,8 @@ int bitmap_spmm(const void* x, const int8_t* bitmap, const void* packed,
                      bn, s);
   if (splits != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, bitmap, packed, offsets, y, M, O, N, K,
-                                 bn, s);
-  return launch<float>(x, bitmap, packed, offsets, y, M, O, N, K, bn, s);
+    return launch_stream(x, bitmap, packed, offsets, y, M, O, N, K, bn, s);
+  return launch_fma(x, bitmap, packed, offsets, y, M, O, N, K, bn, s);
 }
 
 const char* bitmap_error_string(int err) {

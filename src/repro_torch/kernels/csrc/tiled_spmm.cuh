@@ -1,10 +1,12 @@
 // The tiled balanced-sparse x dense matmul kernels, y = x @ decode(W)^T,
 // as templates shared by balanced_spmm.cu (values in the activation dtype)
 // and balanced_spmm_q.cu (block-quantized int8 / int4 values): the FMA
-// templates (wide for float32 x, skinny, batched skinny) and the decoder of
-// the tensor-core mainloop (tc_spmm.cuh) that bf16 wide calls take.  The
-// design, the bounds and what each entry replaces are in those files'
-// header notes; this file holds the code they share.
+// templates that float32 x takes (wide, skinny, batched skinny), the
+// decoder of the tensor-core mainloop (tc_spmm.cuh) that bf16 wide calls
+// take, and the decoder of the weight streamer (skinny_spmm.cuh) that bf16
+// skinny calls take (the 2-D skinny entries, and the batched ones at
+// M <= 8).  The design, the bounds and what each entry replaces are in
+// those files' header notes; this file holds the code they share.
 //
 // A value policy W says how a slot's value is stored and decoded:
 //   FloatValues<T>  values[.., O, NB, KB] in T, decoded as float(v);
@@ -14,9 +16,10 @@
 //                   nibble of byte i and 2i+1 the high one, sign-extended
 //                   as (n ^ 8) - 8, decoded as float(q) * scale.
 // float(q) * scale is one f32 multiply of exact operands: the same f32
-// the reference's dequantize_values computes, bit for bit.  The
-// tensor-core decoder stores q itself in bf16 (|q| <= 127 is exact) and
-// the mainloop scales the block's sum.
+// the reference's dequantize_values computes, bit for bit (the FMA
+// templates and the streamer use it per slot).  The tensor-core decoder
+// stores q itself in bf16 (|q| <= 127 is exact) and the mainloop scales
+// the block's sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +30,7 @@
 
 #include <type_traits>
 
+#include "skinny_spmm.cuh"
 #include "tc_spmm.cuh"
 
 namespace tiled_spmm {
@@ -541,16 +545,173 @@ int launch_wide_any(const void* x, const void* vals, const int* idx,
   }
 }
 
-// The expert grid: the skinny tile for per-expert M <= 8, else the wide one.
+// ---- skinny (decode) for bf16 x: the weight streamer -------------------
+// The tiled balanced decoder of skinny_spmm.cuh's mainloop.  An item is a
+// group of G column blocks of one row; a staged block holds the live
+// prefix of the block's indices (counts[o, b] int32 words) and of its
+// values (the bytes that hold slots [0, count)), each rounded up to the
+// copy piece, and its header the count and (quantized) the scale: slots
+// from the count on are pads (value 0, index 0) and are neither read nor
+// used.  32 / G lanes copy a block.  The decode takes a block at a time:
+// lane l takes slots l, l + 32, ... (KB <= 128: at most 4), loads all its
+// slots' indices and values, then their x columns, then decodes each value
+// (float(q) * scale for a quantized policy, bit for bit dequantize_values)
+// and, unless its column is outside [0, bn) or it decodes to 0, adds
+// x[:, column] * value into its accumulators.
+template <typename W>
+struct BalancedStream {
+  using Raw = typename W::Raw;
+  struct Params {
+    const Raw* vals;
+    const int* idx;
+    const int* counts;
+    const float* scales;
+    int KB;
+    int iw, vw;                              // piece bytes of the runs
+  };
+  __host__ __device__ static int vbytes(int kb) {
+    return W::width(kb) * (int)sizeof(Raw);
+  }
+  __host__ __device__ static int ipitch(int kb) { return sk::round16(kb * 4); }
+  static int block_bytes(const Params& d, int) {
+    return ipitch(d.KB) + sk::round16(vbytes(d.KB));
+  }
+  __device__ static Params at_expert(Params d, const sk::Problem& p, int e) {
+    const size_t rows = (size_t)e * p.O * p.NB;
+    d.vals += rows * W::width(d.KB);
+    d.idx += rows * d.KB;
+    d.counts += rows;
+    if (W::kScaled) d.scales += rows;
+    return d;
+  }
+  __device__ static sk::Meta load_meta(const Params& d, const sk::Problem& p,
+                                       int o, int b) {
+    const size_t at = (size_t)o * p.NB + b;
+    return {__ldg(d.counts + at),
+            W::kScaled ? __float_as_int(__ldg(d.scales + at)) : 0};
+  }
+  __device__ static void issue(const Params& d, const sk::Problem& p,
+                               uint8_t* stage, int o, int b0, int n,
+                               const sk::Meta& cur) {
+    const int lane = threadIdx.x % kLanes;
+    const int per = kLanes >> (__ffs(p.G) - 1);   // lanes a block
+    const int g = lane >> (__ffs(per) - 1);
+    const int r = lane & (per - 1);
+    const int b = b0 + g;
+    int cnt = __shfl_sync(0xffffffffu, cur.a, b & (sk::kSeg - 1));
+    const int f = __shfl_sync(0xffffffffu, cur.f, b & (sk::kSeg - 1));
+    if (g >= n) return;
+    cnt = cnt < 0 ? 0 : (cnt > d.KB ? d.KB : cnt);
+    if (r == 0)
+      *reinterpret_cast<int2*>(stage + g * sk::kHeader) = make_int2(cnt, f);
+    const size_t blk = (size_t)o * p.NB + b;
+    uint8_t* di = stage + p.G * sk::kHeader + g * p.block_bytes;
+    // the prefix rounded up to whole pieces stays inside the block's run
+    // (a piece width divides the run's bytes)
+    sk::copy_pieces(di, reinterpret_cast<const uint8_t*>(d.idx + blk * d.KB),
+                    (cnt * 4 + d.iw - 1) >> (__ffs(d.iw) - 1), r, per, d.iw);
+    sk::copy_pieces(
+        di + ipitch(d.KB),
+        reinterpret_cast<const uint8_t*>(d.vals) + blk * vbytes(d.KB),
+        (vbytes(cnt) + d.vw - 1) >> (__ffs(d.vw) - 1), r, per, d.vw);
+  }
+  // U slots a lane (lane, lane + 32, ...; U = ceil(count / 32), the same
+  // for the warp): their indices and values, then their x columns, then
+  // the products.
+  template <int kM, int U>
+  __device__ static void slots(const int* ci, const Raw* cv, int cnt,
+                               float scale, const uint8_t* xs, int col0,
+                               int bn, float (&acc)[kM]) {
+    const int lane = threadIdx.x % kLanes;
+    int c[U];
+    Raw raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = lane + kLanes * u;
+      const bool live = j < cnt;
+      c[u] = live ? ci[j] : -1;
+      raw[u] = live ? cv[W::byte_of(j)] : Raw(0.f);
+    }
+    sk::XCol<kM> xc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if ((unsigned)c[u] < (unsigned)bn)
+        xc[u] = sk::x_column<kM>(xs, col0 + c[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float v = W::decode(raw[u], lane + kLanes * u, scale);
+      if ((unsigned)c[u] < (unsigned)bn && v != 0.f)
+        sk::fma_column<kM>(xc[u], v, acc);
+    }
+  }
+  template <int kM>
+  __device__ static void compute(const Params& d, const sk::Problem& p,
+                                 const uint8_t* stage, int, int n,
+                                 const uint8_t* xs, int col0,
+                                 float (&acc)[kM]) {
+    for (int g = 0; g < n; ++g) {
+      const int2 h = *reinterpret_cast<const int2*>(stage + g * sk::kHeader);
+      const uint8_t* blk = stage + p.G * sk::kHeader + g * p.block_bytes;
+      const int* ci = reinterpret_cast<const int*>(blk);
+      const Raw* cv = reinterpret_cast<const Raw*>(blk + ipitch(d.KB));
+      const float scale = __int_as_float(h.y);
+      const int cb = col0 + g * p.bn;
+      switch ((h.x + kLanes - 1) / kLanes) {   // KB <= 128: at most 4
+        case 0: break;
+        case 1: slots<kM, 1>(ci, cv, h.x, scale, xs, cb, p.bn, acc); break;
+        case 2: slots<kM, 2>(ci, cv, h.x, scale, xs, cb, p.bn, acc); break;
+        case 3: slots<kM, 3>(ci, cv, h.x, scale, xs, cb, p.bn, acc); break;
+        default: slots<kM, 4>(ci, cv, h.x, scale, xs, cb, p.bn, acc);
+      }
+    }
+  }
+};
+
+template <typename W, bool kBatched>
+int launch_skinny_stream(const void* x, const void* vals, const int* idx,
+                         const int* counts, const float* scales, float* y,
+                         int E, int M, int O, int NB, int KB, int bn,
+                         cudaStream_t s) {
+  if (!supported(KB, bn) || counts == nullptr || E > kMaxExperts)
+    return (int)cudaErrorInvalidValue;
+  using D = BalancedStream<W>;
+  const typename D::Params d{static_cast<const typename W::Raw*>(vals), idx,
+                             counts, scales, KB,
+                             tc::piece_bytes(idx, (size_t)KB * 4),
+                             tc::piece_bytes(vals, D::vbytes(KB))};
+  const sk::Problem p{static_cast<const __nv_bfloat16*>(x), y, E, M, O, NB,
+                      bn, 0, 0, 0};
+  return sk::launch<D, kBatched>(p, d, s);
+}
+
+// The skinny entry: bf16 x takes the weight streamer, float32 x the FMA
+// template (the f32 parity gates' route; its x is twice as wide and N =
+// 8192 would not stay resident).
+template <typename T, typename W, bool kBatched>
+int launch_skinny_any(const void* x, const void* vals, const int* idx,
+                      const int* counts, const float* scales, float* y,
+                      int E, int M, int O, int NB, int KB, int bn,
+                      cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_skinny_stream<W, kBatched>(x, vals, idx, counts, scales, y,
+                                             E, M, O, NB, KB, bn, s);
+  } else {
+    return launch_skinny<T, W, kBatched>(x, vals, idx, scales, y, E, M, O,
+                                         NB, KB, bn, s);
+  }
+}
+
+// The expert grid: the skinny route for per-expert M <= 8, else the wide
+// one.
 template <typename T, typename W>
 int launch_batched(const void* x, const void* vals, const int* idx,
-                   const float* scales, float* y, float* ws, int splits,
-                   int E, int M, int O, int NB, int KB, int bn,
-                   cudaStream_t s) {
+                   const int* counts, const float* scales, float* y,
+                   float* ws, int splits, int E, int M, int O, int NB, int KB,
+                   int bn, cudaStream_t s) {
   if (M <= kSkinnyM) {
     if (splits != 1) return (int)cudaErrorInvalidValue;
-    return launch_skinny<T, W, true>(x, vals, idx, scales, y, E, M, O, NB,
-                                     KB, bn, s);
+    return launch_skinny_any<T, W, true>(x, vals, idx, counts, scales, y, E,
+                                         M, O, NB, KB, bn, s);
   }
   return launch_wide_any<T, W, true>(x, vals, idx, scales, y, ws, splits, E,
                                      M, O, NB, KB, bn, s);

@@ -237,3 +237,30 @@ def test_cuda_bitmap_tensor_cores():
         np.float32)).to(torch.bfloat16).cuda()
     assert torch.equal(bm.bitmap_spmm(x, *enc, bn=128),
                        bm.bitmap_spmm(x, *enc, bn=128))
+
+
+@pytest.mark.cuda
+def test_cuda_bitmap_skinny_streamer():
+    """The bf16 skinny branch (the weight streamer) at M = 1, 3, 8, bn 128,
+    32 and 20, an all-zero row, and past the resident x (N = 16384),
+    against the plain version at 1e-4; two calls bitwise equal and y[:3]
+    of an M = 8 call bitwise equal to an M = 3 call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel runs only on the card)")
+    rng = np.random.default_rng(2)
+    for o, n, bn in ((196, 1024, 128), (130, 640, 32), (70, 400, 20),
+                     (64, 16384, 128)):
+        w = torch.from_numpy(_weight(o + bn, o, n, 0.5, zero_rows=(3,))).to(
+            torch.bfloat16).cuda()
+        enc = bm.bitmap_encode(w, bn)
+        for m in (1, 3, 8):
+            x = torch.from_numpy(rng.standard_normal((m, n)).astype(
+                np.float32)).to(torch.bfloat16).cuda()
+            got = bm.bitmap_spmm(x, *enc, bn=bn)
+            np.testing.assert_allclose(
+                got.cpu().numpy(),
+                bm.bitmap_spmm_plain(x, *enc, bn=bn).cpu().numpy(),
+                rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, bm.bitmap_spmm(x, *enc, bn=bn))
+        assert torch.equal(got[:3], bm.bitmap_spmm(x[:3].contiguous(), *enc,
+                                                   bn=bn))

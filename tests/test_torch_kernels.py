@@ -594,3 +594,130 @@ def test_cuda_wide_deterministic():
         a = bs.tiled_balanced_spmm(x, tb, bm=8, bo=8)
         b = bs.tiled_balanced_spmm(x, tb, bm=8, bo=8)
         assert torch.equal(a, b)
+
+
+def _pads_are_zero(values, indices, counts):
+    """Every slot from its block's live count on is a pad: value 0, index
+    0 (the bf16 skinny kernels read only each block's live prefix).  At
+    least one pad must exist, so the check is not vacuous."""
+    values = np.asarray(values, np.float32)
+    indices, counts = np.asarray(indices), np.asarray(counts)
+    pad = np.arange(indices.shape[-1]) >= counts[..., None]
+    assert pad.any()
+    assert (values[pad] == 0).all()
+    assert (indices[pad] == 0).all()
+
+
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_live_prefix_premise(pack, dtype):
+    """`encode_tiled` (plain and column-packed) leaves every slot past its
+    block's count at value 0 and index 0, in the port's encoding (made by
+    the port's encoder from the numpy input) and in the reference's arrays
+    from the same input, and the two agree."""
+    rng = np.random.default_rng(21)
+    o, n, k, bn = 96, 512, 200, 128
+    _, ref = _pair(rng, o, n, k, dtype, pack=pack, bn=bn)
+    # the port's own encoder on the slots the reference encoded
+    nb, kb = ref.indices.shape[1:]
+    cols = (np.arange(nb)[:, None] * bn + np.asarray(ref.indices)).reshape(
+        o, -1)
+    live = (np.arange(kb) < np.asarray(ref.counts)[..., None]).reshape(o, -1)
+    idx = np.stack([c[m] for c, m in zip(cols, live)]).astype(np.int64)
+    vals = np.stack([v[m] for v, m in zip(
+        np.asarray(ref.values, np.float32).reshape(o, -1), live)])
+    got = tf.encode_tiled(torch.from_numpy(vals).to(getattr(torch, dtype)),
+                          torch.from_numpy(idx), nb * bn, bn=bn)
+    _pads_are_zero(_np(got.values), got.indices.numpy(), got.counts.numpy())
+    _pads_are_zero(ref.values, ref.indices, ref.counts)
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(ref.indices))
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(ref.counts))
+
+
+# olmo-1b's seven projections (N, O) and deepseek-moe-16b's expert ones at
+# sparsity 0.5: KB = 88 (the olmo-1b plan) and 96 (the expert stacks)
+_STREAM_SHAPES = [("olmo-1b wq/wk/wv/wo", 2048, 88),
+                  ("olmo-1b w_gate/w_up", 2048, 88),
+                  ("olmo-1b w_down", 8192, 88),
+                  ("deepseek we_gate/we_up", 2048, 96),
+                  ("deepseek we_down", 1408, 96)]
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("name,n,kb", _STREAM_SHAPES)
+def test_stream_keeps_x_resident(name, n, kb, quant):
+    """The skinny streamer's host-side choice: at olmo-1b's and
+    deepseek-moe-16b's shapes the whole x stays resident (one column
+    range), every value policy; past it (N = 16384, 32768) x goes in
+    ranges of a multiple of 32 blocks; the choice depends on the encoding
+    alone (not on M)."""
+    bb = bs.stream_block_bytes(kb, quant)
+    assert bb % 16 == 0 and bb >= 4 * kb
+    assert bs.stream_x_ranges(n, 128, bb) == 1
+    assert bs.stream_x_ranges(16384, 128, bb) == 2
+    assert bs.stream_x_ranges(32768, 128, bb) == 3
+    assert bs.stream_x_ranges(100 * 20, 20, bs.stream_block_bytes(20)) == 1
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 16])
+def test_float32_never_streams(m):
+    """Only bf16 at M <= 8 takes the weight streamer; float32 keeps the FMA
+    skinny templates at every M, and M > 8 is the wide route."""
+    assert not bs.stream_route(torch.float32, m)
+    assert bs.stream_route(torch.bfloat16, m) == (m <= bs.SKINNY_MAX_M)
+    assert not (bs.stream_route(torch.bfloat16, m)
+                and bs.tensor_core_route(torch.bfloat16, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_cuda_skinny_streamer(quant):
+    """The bf16 skinny streamer against the plain version at every decode
+    M, at column blocks of 128, 32 and 20, at N = 1408 (value runs that are
+    not 16-byte aligned at int8 / int4) and past the resident x (N =
+    16384); two calls bitwise equal and y[:3] of an M = 8 call bitwise
+    equal to an M = 3 call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels run only on the card)")
+    rng = np.random.default_rng(31)
+    for o, n, bn in ((512, 2048, 128), (256, 1408, 128), (128, 16384, 128),
+                     (200, 640, 32), (200, 400, 20)):
+        tb = _cuda_tb(rng, o, n, n // 2, bn, quant)
+        for m in (1, 2, 3, 4, 5, 8):
+            x = _bf16_x(rng, (m, n))
+            np.testing.assert_allclose(
+                bs.tiled_balanced_spmm_skinny(x, tb, bo=8).cpu().numpy(),
+                bs.tiled_balanced_spmm_plain(x, tb).cpu().numpy(),
+                rtol=1e-4, atol=1e-4)
+        a = bs.tiled_balanced_spmm_skinny(x, tb, bo=8)
+        assert torch.equal(a, bs.tiled_balanced_spmm_skinny(x, tb, bo=8))
+        assert torch.equal(a[:3], bs.tiled_balanced_spmm_skinny(
+            x[:3].contiguous(), tb, bo=8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_cuda_batched_empty_experts(quant):
+    """The batched skinny streamer with x zero in 10 of 16 experts: exact
+    +0.0 there, the plain version elsewhere, at every decode M."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels run only on the card)")
+    rng = np.random.default_rng(32)
+    e, o, n = 16, 256, 1024
+    tb = _cuda_tb(rng, e * o, n, n // 2, 128, quant)
+    lead = lambda t: t.reshape(e, o, *t.shape[1:])  # noqa: E731
+    tbe = tf.TiledBalanced(lead(tb.values), lead(tb.indices),
+                           lead(tb.counts), n_in=n, bn=128,
+                           scales=None if tb.scales is None
+                           else lead(tb.scales), quant=tb.quant)
+    dead = torch.from_numpy(rng.permutation(e)[:10]).cuda()
+    for m in (1, 3, 4, 8):
+        x = _bf16_x(rng, (e, m, n))
+        x[dead] = 0
+        got = bs.tiled_balanced_spmm_batched(x, tbe, bm=1, bo=8)
+        assert bool((got[dead] == 0).all())
+        assert not bool(torch.signbit(got[dead]).any())
+        np.testing.assert_allclose(
+            got.cpu().numpy(),
+            bs.tiled_balanced_spmm_batched_plain(x, tbe).cpu().numpy(),
+            rtol=1e-4, atol=1e-4)

@@ -340,3 +340,66 @@ def test_kernels_reached_follow_the_plan():
         "tiled_balanced_spmm", "tiled_balanced_spmm_skinny",
         "tiled_balanced_spmm_batched"}
     assert serve.kernels_reached(_plans("bfloat16", "xla")[0], 64, 4) == set()
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_expert_stacks_keep_pads_zero(wide):
+    """The planned expert stacks ``[L, E, O, NB, KB]`` keep the premise the
+    bf16 skinny kernels rely on (they read each block's live prefix): every
+    slot from its block's count on is value 0 and index 0, in the port's
+    plan and in the reference's."""
+    got, want = _plans("bfloat16", "cuda", wide)
+    for nm in ("we_gate", "we_up", "we_down"):
+        for w in (got.layers[nm].weights, want.layers[nm].weights):
+            values = np.asarray(_np(w.values) if hasattr(w.values, "numpy")
+                                else np.asarray(w.values, np.float32))
+            indices = np.asarray(w.indices)
+            counts = np.asarray(w.counts)
+            pad = np.arange(indices.shape[-1]) >= counts[..., None]
+            # the smoke experts' blocks are full; the wide variant's are not
+            assert pad.any() or not wide, nm
+            assert (values[pad] == 0).all() and (indices[pad] == 0).all()
+
+
+@pytest.mark.parametrize("planned", [False, True])
+def test_unchosen_experts_see_zero_inputs(monkeypatch, planned):
+    """At deepseek-moe-16b smoke, a decode step of batch 4 (four tokens):
+    every expert no token chose gets an all-zero input to we_gate and we_up
+    and so to we_down (silu(0) * 0 = 0), and the combine reads none of its
+    output rows (garbage written there leaves y bitwise unchanged).  This
+    is why the batched skinny kernel may write +0 for an expert whose x is
+    all zero and read none of its weights."""
+    _, cfg, _, params = _params("float32")
+    got_plan, _ = _plans("float32", "cuda")
+    plan_layers = got_plan.per_layer[1] if planned else None
+    xt = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (4, cfg.d_model)).astype(np.float32))
+    seen = {}
+    real = tr._expert_proj
+
+    def record(lp, pl, name, x, cd):
+        seen[name] = x.clone()
+        return real(lp, pl, name, x, cd)
+
+    monkeypatch.setattr(tr, "_expert_proj", record)
+    y, _, (_, eidx) = tr._moe_tokens(cfg, _layer(params, 1), xt,
+                                     plan_layers=plan_layers)
+    chosen = set(eidx.reshape(-1).tolist())
+    idle = [e for e in range(cfg.n_experts) if e not in chosen]
+    assert idle                                   # the premise is exercised
+    for nm in ("we_gate", "we_up", "we_down"):
+        assert seen[nm].shape[0] == cfg.n_experts
+        assert bool((seen[nm][idle] == 0).all()), nm
+        assert bool(seen[nm][sorted(chosen)].abs().sum() > 0), nm
+
+    def garbage(lp, pl, name, x, cd):
+        out = real(lp, pl, name, x, cd)
+        if name == "we_down":
+            out = out.clone()
+            out[idle] = 1e3
+        return out
+
+    monkeypatch.setattr(tr, "_expert_proj", garbage)
+    y2, _, _ = tr._moe_tokens(cfg, _layer(params, 1), xt,
+                              plan_layers=plan_layers)
+    assert torch.equal(y, y2)

@@ -434,3 +434,25 @@ def test_serve_quant_smoke_cpu(arch, impl, quant):
             (arch == "deepseek-moe-16b")
     else:
         assert reached == set()
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("stack", [None, (2, 3)])
+def test_quantized_pads_are_zero(quant, stack):
+    """`quantize_tiled` keeps the live-prefix premise that the bf16 skinny
+    kernels rely on: every slot from its block's count on is value 0 (the
+    int4 nibble too, unpacked) and index 0, in the port's encoding and in
+    the reference's from the same numpy input, plain and expert-stacked."""
+    got, ref = _quant_pair(np.random.default_rng(41), quant, o=48, n=96,
+                           k=40, stack=stack)
+    for lib, tb in ((tf, got), (ref_tf, ref)):
+        values = tb.values if quant == "int8" \
+            else lib.unpack_int4(tb.values, tb.indices.shape[-1])
+        values = np.asarray(values.numpy() if lib is tf else values)
+        indices = np.asarray(tb.indices.numpy() if lib is tf
+                             else tb.indices)
+        counts = np.asarray(tb.counts.numpy() if lib is tf else tb.counts)
+        pad = np.arange(indices.shape[-1]) >= counts[..., None]
+        assert pad.any()
+        assert (values[pad] == 0).all() and (indices[pad] == 0).all()
+    _eq(got.values, ref.values)

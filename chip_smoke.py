@@ -69,7 +69,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
              memory, float32 end-to-end parity, a profile; then
              ``serve --quant int4`` (the same launch count for the batched
              quant kernel), with its peak device memory;
-10. result — one JSON line of per-kernel numbers, then the ok line.
+10. result — one JSON line of per-kernel numbers (the batched kernel's
+             also at the prefill capacity, M = 16; the kv kernel's beside
+             the launch floor: an empty kernel under the same timer), then
+             the ok line.
+
+The Sense CNN path runs right after phase 3, each phase fatal as above:
+
+11. conv kernels — the wide and skinny kernels against their plain
+             versions at 1e-4, both dtypes, at the GEMMs of the CNN path:
+             smallcnn's im2col chunks (N = 27, 144, 288; O = 16, 32, 64)
+             and fc1 / fc2 (O = 10, also through `ops`, padded to 16) at
+             M = 256 and 4, and the im2col GEMMs of VGG-16 conv1_1,
+             conv3_1, conv5_3 (N = 4608), ResNet-50 conv1 (7x7 stride 2)
+             and s3b0_3x3 (M = 784) and GoogleNet inc3a_3x3r (O = 96);
+             two bf16 calls bitwise equal at a split shape;
+12. smallcnn — the small CNN (img 32, channels 16/32/64, fc_hidden 256,
+             seed-0 weights, convs pruned 0.5, fc 0.8) planned on the card
+             and run at batch 256 and 4 in bf16 and f32: logits against the
+             masked-dense reference (2e-2 / 1e-4), the wide and skinny
+             launches equal to one per im2col chunk and fc call, every
+             sparse conv dispatch in `STATS`; the bf16 forward timed beside
+             its masked-dense one;
+13. paper layers — every conv and fc layer of AlexNet, VGG-16, ResNet-50
+             and GoogleNet (`network_layers(net, "sense")`) at batch 1,
+             bf16, pruned at Tab. V's Sense ratios, through
+             `build_layer_plan` and `apply_conv` / `apply_fc`: each held at
+             2e-2 against the masked dense conv / matmul, the launches
+             counted, each timed beside cuDNN / cuBLAS and the byte and
+             FLOP bounds, summed per network; VGG-16's pass profiled.
 
 The kernels phase also holds the bitmap kernel against its plain version
 and the tiled kernel on the same pruned weight at olmo-1b's projection
@@ -121,6 +149,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 # about 2 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 4_000_000
 QUANTS = ("none", "int8", "int4")
+# the wrappers' skinny threshold (`kernels.ops.SKINNY_M`)
+SKINNY_M = 8
 CSRC = "src/repro_torch/kernels/csrc/"
 REF = "src/repro/kernels/balanced_spmm.py:"
 REF_BITMAP = "src/repro/kernels/bitmap_spmm.py:51"
@@ -187,25 +217,49 @@ TRAFFIC_ARGS = ["--arch", "olmo-1b", "--traffic", "--requests", "12",
                 "--prefill-chunk", "8", "--seed", "0", "--prompt-len", "32",
                 "--gen-steps", "32", "--sparsity", str(SPARSITY)]
 
+# the Sense CNN path (phases 11-13): smallcnn at its own config, balanced-
+# pruned as examples/adaptive_dataflow.py prunes (convs 0.5, fc 0.8), at a
+# wide batch (every GEMM on the wide kernels) and a decode-sized one (fc on
+# the skinny streamer)
+CNN_BATCHES = (256, 4)
+CNN_SPARSITY = {"conv": 0.5, "fc": 0.8}
+# the reference's im2col chunk budget (kernels/sparse_conv.py) and the conv
+# plans' GEMM M hint (engine.plan.plan_smallcnn's)
+CHUNK_ELEMS = 1 << 21
+CONV_M_HINT = 4096
+# paper layers (network, name in `network_layers`) whose im2col GEMMs the
+# kernel phase checks: VGG-16 conv1_1, conv3_1 and conv5_3, ResNet-50's
+# 7x7 stride-2 conv1 and a stage-3 3x3, GoogleNet's inc3a 3x3 reduce
+PAPER_GEMMS = (("vgg16", "conv1"), ("vgg16", "conv5"), ("vgg16", "conv13"),
+               ("resnet50", "conv1"), ("resnet50", "s3b0_3x3"),
+               ("googlenet", "inc3a_3x3r"))
+# paper_layers' timer: fewer runs (about 140 layers, each timed twice)
+PAPER_RUNS = 10
+# SM cycles per ms at the H100's 1.98 GHz boost clock (the timer's spin)
+CYCLES_PER_MS = 1_980_000
+
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def time_ms(torch, fn, *, flush, warmup: int = 3, runs: int = 25) -> float:
+def time_ms(torch, fn, *, flush, warmup: int = 3, runs: int = 25,
+            spin: int = SPIN_CYCLES) -> float:
     """Median CUDA-event time of ``fn`` over ``runs`` calls after warm-up,
     with the L2 cache overwritten before each call (the main path finds
     the weights cold: a decode step streams gigabytes).  Before each start
-    event the card is held in a device-side spin (`torch.cuda._sleep`,
-    about 2 ms, longer than any wrapper's host path), so the host has
-    enqueued ``fn``'s work before the start event runs: the events time
-    the device's work, never a wrapper's host time."""
+    event the card is held in a device-side spin (`torch.cuda._sleep` of
+    ``spin`` SM cycles, by default about 2 ms, longer than any wrapper's
+    host path; a caller whose ``fn`` enqueues for longer passes a longer
+    spin), so the host has enqueued ``fn``'s work before the start event
+    runs: the events time the device's work, never a wrapper's host
+    time."""
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(runs):
         flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -632,6 +686,22 @@ def full_width_f32_parity(torch, serve, arch: str = "olmo-1b",
         tol=TOL["float32"])
 
 
+def device_kernels(prof) -> tuple:
+    """A `torch.profiler` trace of the card's activity: ``(by_name, busy
+    ms, top)`` with ``by_name`` kernel name -> (launches, device ms) and
+    ``top`` the ten kernels of most device time."""
+    from torch.autograd import DeviceType
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            n, ms = by_name.get(evt.name, (0, 0.0))
+            by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return (by_name, sum(ms for _, ms in by_name.values()),
+            [{"kernel": name[:80], "count": n, "ms": ms}
+             for name, (n, ms) in top])
+
+
 def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
                      n_layers: int | None = None,
                      quant: str = "none") -> dict:
@@ -639,7 +709,6 @@ def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
     width (bf16; one prefill and ``steps`` decode steps): the device's
     busy share of the wall time and the kernels by total device time,
     from a `torch.profiler` trace of the card's activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     bundle, params, plan, prompt = full_width(torch, "bfloat16", arch,
                                               n_layers, quant)
@@ -652,18 +721,11 @@ def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
         serve.greedy_generate(bundle, sparse, prompt, steps, max_len)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    by_name: dict = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            n, ms = by_name.get(evt.name, (0, 0.0))
-            by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(ms for _, ms in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    by_name, busy_ms, top = device_kernels(prof)
     out = {"arch": arch, "quant": quant, "layers": bundle.cfg.n_layers,
            "steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "busy_share": busy_ms / wall_ms,
-           "top": [{"kernel": name[:80], "count": n, "ms": ms}
-                   for name, (n, ms) in top],
+           "top": top,
            "wide": wide_kernels(by_name), "skinny": skinny_kernels(by_name)}
     if arch == "olmo-1b":
         out["per_call_us"] = per_call_us(torch, params, plan, torch.bfloat16)
@@ -1038,7 +1100,6 @@ def profile_traffic(torch, serve) -> dict:
     `torch.profiler`: ticks, wall time, the device's busy share and the
     kernels by device time."""
     import dataclasses
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
@@ -1071,20 +1132,404 @@ def profile_traffic(torch, serve) -> dict:
             ticks += 1
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    by_name: dict = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            n, ms = by_name.get(evt.name, (0, 0.0))
-            by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(ms for _, ms in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    by_name, busy_ms, top = device_kernels(prof)
     return {"ticks": ticks, "tokens": sum(len(r.out_tokens)
                                           for r in eng.sched.done),
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
-            "top": [{"kernel": name[:80], "count": n, "ms": ms}
-                    for name, (n, ms) in top],
+            "top": top,
             "wide": wide_kernels(by_name), "skinny": skinny_kernels(by_name)}
+
+
+def conv_chunks(b: int, ho: int, wo: int, feat: int) -> list:
+    """Output rows per im2col chunk of a conv at batch ``b`` (the rule of
+    `kernels.sparse_conv.sparse_conv2d` at the reference's budget): one
+    wide-kernel launch each."""
+    rows = max(1, CHUNK_ELEMS // max(b * wo * feat, 1))
+    return [min(rows, ho - r0) for r0 in range(0, ho, rows)]
+
+
+def host_spin(torch, fn) -> int:
+    """A timer spin (SM cycles) at least three times ``fn``'s host enqueue
+    time and never below `SPIN_CYCLES`: a chunked conv enqueues a few
+    kernels per chunk from Python, longer than the default spin."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    host_ms = (time.monotonic() - t0) * 1e3
+    torch.cuda.synchronize()
+    return max(SPIN_CYCLES, int(3 * host_ms * CYCLES_PER_MS))
+
+
+def launch_floor_ms(torch, flush) -> float:
+    """The event time of an empty kernel under `time_ms`
+    (`torch.cuda._sleep(0)`: one thread that exits at once): the least any
+    one-launch kernel can measure on this timer, row 8's launch floor."""
+    return time_ms(torch, lambda: torch.cuda._sleep(0), flush=flush)
+
+
+def prune_plan(torch, name: str, w, *, layer_spec=None, m_hint: int,
+               stride: int = 1, padding="SAME"):
+    """``w`` balanced-pruned at `CNN_SPARSITY` of its kind (conv per
+    kernel, fc per row) and planned as the path plans it
+    (`engine.plan.build_layer_plan`, the CUDA rung on the card):
+    ``(plan, masked dense weight)``."""
+    from repro_torch.core.pruning import balanced_prune_conv, \
+        balanced_prune_rows
+    from repro_torch.engine.plan import build_layer_plan
+    conv = w.ndim == 4
+    prune = balanced_prune_conv if conv else balanced_prune_rows
+    wm, mask = prune(w, CNN_SPARSITY["conv" if conv else "fc"])
+    lp = build_layer_plan(name, w, mask=mask, layer_spec=layer_spec,
+                          m_hint=m_hint, stride=stride, conv_padding=padding)
+    if lp.spec.impl != "cuda":
+        raise AssertionError(f"{name} planned {lp.spec.impl}, not cuda")
+    return lp, wm
+
+
+def check_conv_kernels(torch, worst: dict) -> None:
+    """Phase 11: the wide and skinny kernels (rows 1 and 2) against their
+    plain versions at 1e-4 on the GEMMs of the CNN path, both dtypes:
+    smallcnn's three im2col GEMMs (every distinct chunk M at batch 256 and
+    4) and fc1 / fc2 (O = 10; then through `ops.tiled_spmm`, which pads it
+    to 16) at M = 256 and 4; the im2col GEMMs of VGG-16 conv1_1 (N = 27),
+    conv3_1 and conv5_3 (N = 4608), ResNet-50 conv1 (7x7 stride 2) and
+    s3b0_3x3 (M = 784) and GoogleNet inc3a_3x3r (O = 96) at batch 1; and two
+    bf16 calls bitwise equal at a shape that splits the column blocks."""
+    from repro_torch.kernels import balanced_spmm as bs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import cnn
+    from repro_torch.models.cnn import network_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    cfg = cnn.SmallCNNConfig()
+    gemms = []                       # (label, [M...], O, Ci, k) of convs
+    hw, cin = cfg.img, 3
+    for i, cout in enumerate(cfg.channels):
+        ms = sorted({b * r * hw for b in CNN_BATCHES
+                     for r in conv_chunks(b, hw, hw, cin * cfg.kernel ** 2)})
+        gemms.append((f"smallcnn conv{i}", ms, cout, cin, cfg.kernel))
+        hw, cin = hw // 2, cout
+    for net, name in PAPER_GEMMS:
+        ls = next(ls for ls in network_layers(net, "sense")
+                  if ls.name == name)
+        feat = ls.c_i * ls.h_k * ls.w_k
+        ms = sorted({r * ls.w_o for r in conv_chunks(1, ls.h_o, ls.w_o,
+                                                     feat)})
+        gemms.append((f"{net} {name}", ms, ls.c_o, ls.c_i, ls.h_k))
+    feat = cfg.channels[-1] * (cfg.img // 2 ** len(cfg.channels)) ** 2
+    fcs = (("smallcnn fc1", cfg.fc_hidden, feat),
+           ("smallcnn fc2", cfg.n_classes, cfg.fc_hidden))
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        cases = []
+        for label, ms, o, ci, k in gemms:
+            w = (torch.randn((o, ci, k, k), generator=gen, device=DEVICE)
+                 / (ci * k * k) ** 0.5).to(dtype)
+            cases.append((label, ms, prune_plan(torch, label, w,
+                                                m_hint=CONV_M_HINT)[0]))
+        for label, o, n in fcs:
+            w = (torch.randn((o, n), generator=gen, device=DEVICE)
+                 / n ** 0.5).to(dtype)
+            cases.append((label, CNN_BATCHES, prune_plan(
+                torch, label, w, m_hint=CONV_M_HINT)[0]))
+        for label, ms, lp in cases:
+            tb = lp.weights
+            for m in ms:
+                x = torch.randn((m, tb.nb * tb.bn), generator=gen,
+                                device=DEVICE).to(dtype)
+                if m > SKINNY_M:
+                    name, got = "tiled_balanced_spmm", \
+                        bs.tiled_balanced_spmm(x, tb, bm=1, bo=1)
+                else:
+                    name, got = "tiled_balanced_spmm_skinny", \
+                        bs.tiled_balanced_spmm_skinny(x, tb, bo=1)
+                what = (f"{dname} {label} M={m} O={tb.n_out} "
+                        f"N={lp.spec.n_in} bn={tb.bn} KB={tb.kb}")
+                compare(torch, worst, name, got,
+                        bs.tiled_balanced_spmm_plain(x, tb), KERNEL_TOL, what)
+                if tb.n_out % 16:       # through ops: O padded to 16
+                    xs = x[:, :tb.n_in]
+                    compare(torch, worst, name, ops.tiled_spmm(xs, tb).float(),
+                            ref.tiled_balanced_spmm_ref(xs, tb).float(),
+                            TOL[dname], what + " ops")
+        if dtype == torch.bfloat16:
+            label, ms, lp = next(c for c in cases if c[0].endswith("conv13"))
+            tb = lp.weights
+            x = torch.randn((ms[0], tb.nb * tb.bn), generator=gen,
+                            device=DEVICE).to(dtype)
+            a = bs.tiled_balanced_spmm(x, tb, bm=1, bo=1)
+            b = bs.tiled_balanced_spmm(x, tb, bm=1, bo=1)
+            torch.cuda.synchronize()
+            splits = bs.wide_splits(ms[0], tb.n_out, tb.nb)
+            same = torch.equal(a, b)
+            log(f"check {'tiled_balanced_spmm':27s} {label} M={ms[0]} two "
+                f"calls bitwise, splits {splits} {'ok' if same else 'FAIL'}")
+            if not same or splits < 2:
+                raise AssertionError(f"{label}: two calls differ (or no "
+                                     f"split: {splits})")
+
+
+def smallcnn_dense(torch, cfg, plan, x):
+    """The masked-dense reference of a smallcnn plan: ``F.conv2d`` and a
+    matmul on each layer's `LayerPlan.dense_weights()` in x's dtype, the
+    same ReLU, 2x2 max-pool and (H, W, C) flattening."""
+    import torch.nn.functional as F
+    h = x.permute(0, 3, 1, 2)
+    for i in range(len(cfg.channels)):
+        lp = plan.layers[f"conv{i}"]
+        w = lp.dense_weights().reshape(lp.spec.n_out, -1, lp.spec.hk,
+                                       lp.spec.wk).to(x.dtype)
+        h = F.max_pool2d(torch.relu(F.conv2d(h, w, padding=cfg.kernel // 2)),
+                         2)
+    h = h.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    h = torch.relu(h @ plan.layers["fc1"].dense_weights().to(x.dtype).T)
+    return h @ plan.layers["fc2"].dense_weights().to(x.dtype).T
+
+
+def cnn_path(torch) -> dict:
+    """Phase 12: the small CNN at its own config (img 32, channels
+    16/32/64, fc_hidden 256; random weights from seed 0, convs pruned 0.5
+    per kernel, fc1 and fc2 0.8 per row), planned on the card
+    (`plan_smallcnn`: every layer on the CUDA kernels) and run by
+    `smallcnn_apply` at batch 256 (every GEMM wide: one launch per im2col
+    chunk) and 4 (fc on the skinny streamer), in bf16 and f32, with the
+    launch counts zeroed just before and read just after.  Logits are held
+    against the masked-dense reference at the dtype's tolerance; the
+    launches must equal the chunk rule's count and `STATS` must count each
+    sparse conv dispatch.  Then the batch-256 bf16 forward is timed beside
+    its masked-dense reference (cuDNN and cuBLAS)."""
+    from repro_torch.core.pruning import balanced_prune_conv, \
+        balanced_prune_rows
+    from repro_torch.engine import execute
+    from repro_torch.engine.plan import plan_smallcnn
+    from repro_torch.models import cnn
+    cfg = cnn.SmallCNNConfig()
+    params = cnn.smallcnn_init(cfg, torch.Generator(
+        device=DEVICE).manual_seed(0))
+    masks = {}
+    for nm, w in params.items():
+        conv = w.ndim == 4
+        prune = balanced_prune_conv if conv else balanced_prune_rows
+        params[nm], masks[nm] = prune(w, CNN_SPARSITY["conv" if conv
+                                                      else "fc"])
+    x = torch.randn((max(CNN_BATCHES), cfg.img, cfg.img, 3), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(1))
+    plans = {}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        t0 = time.monotonic()
+        plan = plan_smallcnn(cfg, {k: v.to(dt) for k, v in params.items()},
+                             {k: v.to(dt) for k, v in masks.items()})
+        torch.cuda.synchronize()
+        plans[dname] = plan
+        log(f"smallcnn {dname} plan {time.monotonic() - t0:.2f} s: "
+            f"{plan.impl_mix()}, KB "
+            f"{ {k: lp.spec.block_k for k, lp in plan.layers.items()} }, "
+            f"packed {[k for k, lp in plan.layers.items() if lp.spec.packed]}")
+    wide = skinny = 0
+    for b in CNN_BATCHES:
+        hw, cin = cfg.img, 3
+        for cout in cfg.channels:
+            wide += len(conv_chunks(b, hw, hw, cin * cfg.kernel ** 2))
+            hw, cin = hw // 2, cout
+        if b > SKINNY_M:
+            wide += 2
+        else:
+            skinny += 2
+    want_counts = {"tiled_balanced_spmm": wide * len(plans),
+                   "tiled_balanced_spmm_skinny": skinny * len(plans)}
+    reset_launches()
+    execute.reset_stats()
+    outs = {}
+    with torch.no_grad():
+        for dname, plan in plans.items():
+            for b in CNN_BATCHES:
+                outs[(dname, b)] = cnn.smallcnn_apply(
+                    cfg, None, x[:b].to(getattr(torch, dname)), plan=plan)
+    torch.cuda.synchronize()
+    counts = launches()
+    stats = execute.stats()
+    log(f"smallcnn launches {json.dumps(counts)}; STATS {json.dumps(stats)}")
+    other = {k: v for k, v in counts.items() if v and k not in want_counts}
+    if any(counts[k] != v for k, v in want_counts.items()) or other:
+        raise AssertionError(f"smallcnn launched {counts}, expected "
+                             f"{want_counts} and nothing else")
+    n_fwd = len(plans) * len(CNN_BATCHES)
+    if stats.get("sparse_conv") != len(cfg.channels) * n_fwd \
+            or stats.get("balanced_spmm") != (len(cfg.channels) + 2) * n_fwd:
+        raise AssertionError(f"smallcnn STATS {stats}: expected "
+                             f"{len(cfg.channels) * n_fwd} sparse convs")
+    with torch.no_grad():
+        for (dname, b), y in outs.items():
+            want = smallcnn_dense(torch, cfg, plans[dname],
+                                  x[:b].to(getattr(torch, dname)))
+            tol = TOL[dname]
+            err = (y.float() - want.float()).abs()
+            ok = tuple(y.shape) == (b, cfg.n_classes) and bool(
+                torch.isfinite(y).all()) and bool(
+                (err <= tol + tol * want.float().abs()).all())
+            log(f"check smallcnn {dname} batch {b}: logits vs masked dense "
+                f"max|diff| {float(err.max()):.3e} (tol {tol:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"smallcnn {dname} batch {b} logits "
+                                     f"differ from the masked-dense "
+                                     f"reference: {float(err.max())}")
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    b = max(CNN_BATCHES)
+    xb = x[:b].to(torch.bfloat16)
+    plan = plans["bfloat16"]
+    with torch.no_grad():
+        fwd = lambda: cnn.smallcnn_apply(cfg, None, xb, plan=plan)  # noqa: E731,E501
+        dense = lambda: smallcnn_dense(torch, cfg, plan, xb)  # noqa: E731
+        timing = {"batch": b,
+                  "ms": time_ms(torch, fwd, flush=flush,
+                                spin=host_spin(torch, fwd)),
+                  "masked_dense_ms": time_ms(torch, dense, flush=flush,
+                                             spin=host_spin(torch, dense))}
+    log(f"smallcnn bf16 forward {json.dumps(timing)}")
+    return counts
+
+
+def profile_layers(torch, apply, layers) -> dict:
+    """One pass over ``layers`` (after a warm pass) under `torch.profiler`:
+    wall time, the device's busy share and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        for ls, lp, _, x, _ in layers:
+            apply(ls, lp, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for ls, lp, _, x, _ in layers:
+                apply(ls, lp, x)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    by_name, busy_ms, top = device_kernels(prof)
+    return {"layers": len(layers), "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "top": top, "wide": wide_kernels(by_name)}
+
+
+def paper_layers(torch) -> dict:
+    """Phase 13: every conv and fc layer of `network_layers(net, "sense")`
+    for the four paper networks at batch 1, bf16: random weights
+    balanced-pruned at Tab. V's Sense ratios (conv 0.5 per kernel, fc 0.8
+    per row), planned by `build_layer_plan` and run by `apply_conv` /
+    `apply_fc` on a random NHWC input of the layer's shape, with the launch
+    counts zeroed just before each network's pass and read just after
+    (one wide launch per im2col chunk, one skinny per fc); each output held
+    at 2e-2 against ``F.conv2d`` / a matmul on the masked weight.  Then
+    each layer is timed (`time_ms`, its spin raised above the layer's host
+    enqueue time) beside ``F.conv2d`` on the masked dense weight (cuDNN,
+    channels-last) or ``torch.matmul`` (cuBLAS), and two bounds: the bytes
+    (input, im2col patches written and read once, the live encoding, the
+    output) over the memory rate, and the dense-tile FLOPs (M x O x the
+    padded N, what the tensor-core kernel multiplies) over the bf16 peak.
+    VGG-16's pass is profiled.  Returns the launches summed over the
+    networks' passes."""
+    import torch.nn.functional as F
+    from repro_torch.engine.execute import apply_conv, apply_fc
+    from repro_torch.models.cnn import PAPER_NETWORKS, network_layers
+
+    def apply(ls, lp, x):
+        return apply_conv(x, lp) if ls.kind == "conv" else apply_fc(x, lp)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    bf = torch.bfloat16
+    total: dict = {}
+    tol = TOL["bfloat16"]
+    for net in PAPER_NETWORKS:
+        layers = []
+        want_counts = {"tiled_balanced_spmm": 0,
+                       "tiled_balanced_spmm_skinny": 0}
+        for ls in network_layers(net, "sense"):
+            conv = ls.kind == "conv"
+            shape = (ls.c_o, ls.c_i, ls.h_k, ls.w_k) if conv \
+                else (ls.c_o, ls.c_i)
+            fan = ls.c_i * (ls.h_k * ls.w_k if conv else 1)
+            w = (torch.randn(shape, generator=gen, device=DEVICE)
+                 / fan ** 0.5).to(bf)
+            lp, wm = prune_plan(torch, ls.name, w, layer_spec=ls,
+                                m_hint=CONV_M_HINT if conv else 128,
+                                stride=ls.stride, padding=ls.padding)
+            xs = (1, ls.h_i, ls.w_i, ls.c_i) if conv else (1, ls.c_i)
+            x = torch.randn(xs, generator=gen, device=DEVICE).to(bf)
+            chunks = conv_chunks(1, ls.h_o, ls.w_o, fan) if conv else [1]
+            want_counts["tiled_balanced_spmm" if conv
+                        else "tiled_balanced_spmm_skinny"] += len(chunks)
+            layers.append((ls, lp, wm, x, len(chunks)))
+        reset_launches()
+        with torch.no_grad():
+            ys = [apply(ls, lp, x) for ls, lp, _, x, _ in layers]
+        torch.cuda.synchronize()
+        counts = launches()
+        other = {k: v for k, v in counts.items()
+                 if v and k not in want_counts}
+        if any(counts[k] != v for k, v in want_counts.items()) or other:
+            raise AssertionError(f"{net} layers launched {counts}, expected "
+                                 f"{want_counts} and nothing else")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        rows = []
+        with torch.no_grad():
+            for (ls, lp, wm, x, n_chunks), y in zip(layers, ys):
+                conv = ls.kind == "conv"
+                if conv:
+                    want = F.conv2d(x.permute(0, 3, 1, 2).float(), wm.float(),
+                                    stride=ls.stride, padding=ls.padding
+                                    ).permute(0, 2, 3, 1)
+                    xc = x.permute(0, 3, 1, 2)           # channels-last
+                    wc = wm.contiguous(memory_format=torch.channels_last)
+                    library = lambda xc=xc, wc=wc, ls=ls: F.conv2d(  # noqa: E731,E501
+                        xc, wc, stride=ls.stride, padding=ls.padding)
+                else:
+                    want = x.float() @ wm.float().T
+                    library = lambda x=x, wm=wm: torch.matmul(x, wm.T)  # noqa: E731,E501
+                err = (y.float() - want).abs()
+                ok = tuple(y.shape) == tuple(want.shape) and bool(
+                    torch.isfinite(y).all()) and bool(
+                    (err <= tol + tol * want.abs()).all())
+                if not ok:
+                    raise AssertionError(f"{net} {ls.name}: the planned "
+                                         f"layer differs from the masked "
+                                         f"dense one: {float(err.max())}")
+                tb = lp.weights
+                m = ls.h_o * ls.w_o if conv else 1
+                n = lp.spec.n_in
+                nbytes = (x.numel() * 2 + (2 * m * n * 2 if conv else 0)
+                          + tb.live_nbytes() + m * ls.c_o * 2)
+                fn = lambda ls=ls, lp=lp, x=x: apply(ls, lp, x)  # noqa: E731
+                rows.append({
+                    "layer": ls.name, "kind": ls.kind, "M": m, "O": ls.c_o,
+                    "N": n, "bn": tb.bn, "KB": tb.kb, "chunks": n_chunks,
+                    "ms": time_ms(torch, fn, flush=flush, warmup=2,
+                                  runs=PAPER_RUNS, spin=host_spin(torch, fn)),
+                    "library_ms": time_ms(torch, library, flush=flush,
+                                          warmup=2, runs=PAPER_RUNS),
+                    "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "flops_ms": 2 * m * ls.c_o * tb.nb * tb.bn
+                    / PEAK_FLOPS["bfloat16"] * 1e3,
+                    "max_abs_err": float(err.max())})
+        for row in rows:
+            log(f"paper {net} " + json.dumps(row))
+        conv_rows = [r for r in rows if r["kind"] == "conv"]
+        summary = {"net": net, "layers": len(rows), "conv": len(conv_rows),
+                   "sparse_ms": sum(r["ms"] for r in rows),
+                   "library_ms": sum(r["library_ms"] for r in rows),
+                   "bytes_bound_ms": sum(r["bytes_ms"] for r in rows),
+                   "flops_bound_ms": sum(r["flops_ms"] for r in rows),
+                   "conv_sparse_ms": sum(r["ms"] for r in conv_rows),
+                   "conv_library_ms": sum(r["library_ms"] for r in conv_rows),
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        log(f"paper layers {json.dumps(summary)}")
+        if net == "vgg16":
+            log("vgg16 profile " + json.dumps(profile_layers(torch, apply,
+                                                             layers)))
+        del layers, ys
+    return total
 
 
 def main() -> int:
@@ -1135,9 +1580,24 @@ def main() -> int:
     rows += check_batched(torch, worst)
     rows += check_bitmap(torch, worst)
     rows += check_kv(torch, worst)
+    floor_ms = launch_floor_ms(torch, torch.empty(256 * 1024 * 1024 // 4,
+                                                  device=DEVICE))
+    log(f"launch floor (an empty kernel under the timer) {floor_ms:.4f} ms")
+    # 11. rows 1 and 2 at the CNN path's GEMM shapes
+    check_conv_kernels(torch, worst)
+
+    # 12-13. the Sense CNN path (smallcnn), then the paper networks' layers:
+    # counts zeroed just before each pass, read just after
+    t0 = time.monotonic()
+    paths = {"smallcnn": cnn_path(torch)}
+    log(f"smallcnn path {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    paths["paper layers"] = paper_layers(torch)
+    log(f"paper layers {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     # 4. the olmo-1b path: counts zeroed just before, read just after
-    paths = {"olmo-1b": serve_path(torch, serve, "olmo-1b", SERVE_ARGS)}
+    paths["olmo-1b"] = serve_path(torch, serve, "olmo-1b", SERVE_ARGS)
     parity_f32 = full_width_f32_parity(torch, serve)
     log(f"float32 compute, full width, end to end: {json.dumps(parity_f32)}")
     log(f"profile {json.dumps(profile_generate(torch, serve))}")
@@ -1233,6 +1693,16 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+        if name == "tiled_balanced_spmm_batched":
+            # the wide branch at the served prefill capacity
+            wide = next(r for r in rows if r["name"] == name
+                        and r["M"] == EXPERT_MS[-1]
+                        and (r["O"], r["N"]) == shape and r["quant"] == quant
+                        and r["dtype"] == "bfloat16")
+            kernels[-1]["prefill"] = {k: wide[k] for k in (
+                "M", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if name == "kv_cache_update":
+            kernels[-1]["launch_floor_ms"] = floor_ms
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

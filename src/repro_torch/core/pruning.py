@@ -45,6 +45,39 @@ def balanced_prune_rows(w: Tensor, sparsity: float) -> Tuple[Tensor, Tensor]:
     return w * mask, mask
 
 
+def balanced_prune_conv(w: Tensor, sparsity: float) -> Tuple[Tensor, Tensor]:
+    """Prune conv weights ``[Co, Ci, Hk, Wk]`` per kernel (per output
+    channel): every kernel keeps exactly ``K = keep_count(Ci*Hk*Wk)``
+    elements, flattened in (Ci, Hk, Wk) order (Fig.5/Fig.6)."""
+    if w.ndim != 4:
+        raise ValueError(f"expected 4-D conv weights, got shape "
+                         f"{tuple(w.shape)}")
+    pruned, mask = balanced_prune_rows(w.reshape(w.shape[0], -1), sparsity)
+    return pruned.reshape(w.shape), mask.reshape(w.shape)
+
+
+def random_prune(w: Tensor, sparsity: float, *,
+                 generator: torch.Generator | None = None,
+                 by_magnitude: bool = True) -> Tuple[Tensor, Tensor]:
+    """Unstructured pruning for FC layers (paper §III-D, after EIE [19]).
+
+    ``by_magnitude=True`` keeps the globally largest-|w| fraction, ties to
+    the lower flat index (the reference's stable sort); ``False`` keeps a
+    uniformly random subset drawn from ``generator`` (ablation baseline).
+    Returns ``(pruned_weights, mask)`` with the mask in w's dtype."""
+    k = keep_count(w.numel(), sparsity)
+    if by_magnitude:
+        scores = w.abs().reshape(-1)
+    else:
+        if generator is None:
+            raise ValueError("generator required for random (non-magnitude) "
+                             "pruning")
+        scores = torch.rand(w.numel(), generator=generator,
+                            device=generator.device).to(w.device)
+    mask = topk_mask(scores, k).reshape(w.shape).to(w.dtype)
+    return w * mask, mask
+
+
 @dataclasses.dataclass
 class BalancedSparse:
     """K-nonzeros-per-row representation of a pruned ``[out, in]`` matrix:
@@ -107,3 +140,16 @@ def nonzero_columns(mask: Tensor, k: int) -> Tensor:
     balanced bool mask ``[..., rows, n]``."""
     return torch.argsort((~mask).to(torch.uint8), dim=-1,
                          stable=True)[..., :k]
+
+
+def nze_counts(x: Tensor, axis: int | tuple = -1) -> Tensor:
+    """Nonzero-element counts along ``axis`` (the paper's N_NZE*)."""
+    return (x != 0).to(torch.int32).sum(dim=axis, dtype=torch.int32)
+
+
+def load_imbalance(nze) -> float:
+    """max/mean NZE ratio: 1.0 == perfectly balanced (Sense's invariant)."""
+    nze = torch.as_tensor(nze).to(torch.float32)
+    mean = nze.mean()
+    return float(torch.where(mean > 0, nze.max() / mean.clamp(min=1e-9),
+                             torch.ones((), device=nze.device)))

@@ -6,7 +6,10 @@ pre-encoded `kernels.ops.tiled_spmm` at the plan's blocks (decode-shaped
 ones when M is skinny), the other eager-rung plans the flat
 `kernels.ops.balanced_spmm`, dense layers a plain matmul on the masked
 weights; `apply_expert_fc` does the same for the MoE experts, every expert
-in one dispatch.  `STATS` counts balanced-sparse dispatches per call
+in one dispatch; `apply_conv` runs a planned convolution (the sparse ones
+through the chunked im2col GEMM of `kernels.sparse_conv`, the dense ones
+through ``F.conv2d`` on the masked weight).  `STATS` counts balanced-sparse
+dispatches per call
 (PyTorch runs eagerly, so this is per execution, not per trace);
 `launch/serve.py` asserts on it that the sparse path really ran.
 """
@@ -15,10 +18,13 @@ from __future__ import annotations
 import collections
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
+from ..kernels.sparse_conv import _pad_nhwc, _resolve_padding
+from ..kernels.sparse_conv import sparse_conv2d as _sparse_conv2d
 from ..kernels.tile_format import TiledBalanced
-from .plan import LayerPlan
+from .plan import LayerPlan, ModelPlan
 
 Tensor = torch.Tensor
 
@@ -102,4 +108,58 @@ def apply_expert_fc(x: Tensor, lp: LayerPlan) -> Tensor:
                                             n_in=spec.n_in, impl=spec.impl)
 
 
-__all__ = ["apply_fc", "apply_expert_fc", "stats", "reset_stats", "STATS"]
+def apply_conv(x: Tensor, lp: LayerPlan) -> Tensor:
+    """NHWC convolution ``[B, H, W, Ci] -> [B, Ho, Wo, Co]`` for a planned
+    conv layer: a dense plan convolves the masked 4-D weight (``F.conv2d``
+    in x's dtype, NCHW views of the NHWC tensors); a sparse plan lowers to
+    the chunked im2col + balanced GEMM of `kernels.sparse_conv.sparse_conv2d`
+    with the plan's encoding: `kernels.ops.tiled_spmm` at the plan's blocks
+    on a tiled one, the flat `kernels.ops.balanced_spmm` otherwise.  Counts
+    ``sparse_conv`` (or ``dense_conv``) in `STATS`."""
+    spec = lp.spec
+    if spec.impl == "dense":
+        STATS["dense_conv"] += 1
+        w = lp.weights.to(x.dtype)
+        xp = _pad_nhwc(x, *_resolve_padding(x.shape[1], x.shape[2], spec.hk,
+                                            spec.wk, spec.stride,
+                                            spec.conv_padding))
+        y = F.conv2d(xp.permute(0, 3, 1, 2), w, stride=spec.stride)
+        return y.permute(0, 2, 3, 1)
+    _count_dispatch(spec, "sparse_conv")
+    if isinstance(lp.weights, TiledBalanced):
+        tb = lp.weights
+        blk = spec.blocks
+
+        def matmul_fn(flat, values, indices, n_in):
+            return kernel_ops.tiled_spmm(flat, tb, block_m=blk.bm,
+                                         block_o=blk.bo, impl=spec.impl)
+        vals, idx = tb.values, tb.indices
+    else:
+        sp = lp.weights
+
+        def matmul_fn(flat, values, indices, n_in):
+            return kernel_ops.balanced_spmm(flat, values, indices,
+                                            n_in=n_in, impl=spec.impl,
+                                            block_k=spec.block_k)
+        vals, idx = sp.values, sp.indices
+    return _sparse_conv2d(x, vals, idx, spec.n_in, hk=spec.hk, wk=spec.wk,
+                          stride=spec.stride, padding=spec.conv_padding,
+                          matmul_fn=matmul_fn)
+
+
+def apply_layer(x: Tensor, lp: LayerPlan) -> Tensor:
+    """Spec-directed dispatch: conv plans expect NHWC, expert plans
+    ``[E, ..., N]``, fc plans ``[..., N]``."""
+    if lp.spec.kind == "conv":
+        return apply_conv(x, lp)
+    if lp.spec.experts:
+        return apply_expert_fc(x, lp)
+    return apply_fc(x, lp)
+
+
+def apply_named(x: Tensor, plan: ModelPlan, name: str) -> Tensor:
+    return apply_layer(x, plan.layers[name])
+
+
+__all__ = ["apply_fc", "apply_expert_fc", "apply_conv", "apply_layer",
+           "apply_named", "stats", "reset_stats", "STATS"]

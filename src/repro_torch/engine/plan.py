@@ -1,6 +1,11 @@
 """Layer-plan construction — counterpart of `repro.engine.plan` at the
 latency objective.
 
+`build_layer_plan` plans one fc (``[O, N]``) or conv (``[Co, Ci, Hk, Wk]``)
+weight from its pruning mask; `plan_smallcnn` plans the executable small
+CNN with it; `plan_transformer` / `plan_model` plan the served transformers'
+stacked projections.
+
 One offline pass fixes every per-layer execution decision: the dataflow
 mode (§V-C `choose_dataflow`), the kernel impl (§VI-F thresholds), the
 block sizes (`kernels.ops.choose_blocks`) and the weights pre-encoded to
@@ -37,12 +42,9 @@ from ..kernels.tile_format import (_KB_ROUND, QUANT_MODES, _round_up,
                                    TiledBalanced, encode_tiled, invert_perm,
                                    max_block_count, pack_columns,
                                    quantize_tiled, tiled_to_dense)
+from ..launch.cost_model import IMPL_LADDER
 
 Tensor = torch.Tensor
-
-# the impl ladder, most specialized first (the reference's IMPL_LADDER with
-# the hand-kernel rung named after its backend)
-IMPL_LADDER = ("cuda", "xla", "xla_gather", "dense")
 
 # The projection families the planner prunes: every entry is a stacked
 # [L, n_in, n_out] (or [L, E, n_in, n_out] for the MoE expert tensors) leaf
@@ -63,6 +65,16 @@ def _chunks(rows: int, width: int):
     return [slice(i, min(i + step, rows)) for i in range(0, rows, step)]
 
 
+def balanced_mask_k(mask2d: Tensor) -> int | None:
+    """Per-row NZE count if the mask ``[O, N]`` is load-balanced, else
+    None."""
+    counts = (mask2d != 0).sum(dim=1)
+    if counts.numel() and bool((counts == counts[0]).all()) \
+            and int(counts[0]) > 0:
+        return int(counts[0])
+    return None
+
+
 def mask_block_k(mask2d: Tensor, bn: int = 128) -> int:
     """Max per-(row, bn-block) NZE count of a concrete mask ``[O, N]``."""
     o, n = mask2d.shape
@@ -79,7 +91,7 @@ def mask_block_k(mask2d: Tensor, bn: int = 128) -> int:
 class PlanSpec:
     """The static half of a LayerPlan."""
     name: str
-    kind: str                       # "fc"
+    kind: str                       # "fc" | "conv"
     impl: str                       # cuda | xla | xla_gather | dense
     mode: str                       # RIF | RWF | ON_CHIP
     n_in: int
@@ -91,6 +103,10 @@ class PlanSpec:
     d_mem_bits: int
     i_mem_bits: int
     w_mem_bits: int
+    hk: int = 1                     # conv geometry (kind == "conv")
+    wk: int = 1
+    stride: int = 1
+    conv_padding: Any = "SAME"      # "SAME" | "VALID" | int
     experts: int = 0
     m_hint: int = 0                 # prefill GEMM M ``blocks`` was chosen at
     decode_m: int = 0               # decode GEMM M of ``blocks_decode``
@@ -114,8 +130,9 @@ class LayerPlan:
     weights: Any
 
     def dense_weights(self) -> Tensor:
-        """Densify back to ``[..., O, N]`` — the masked-dense reference this
-        plan must match."""
+        """Densify back to ``[..., O, N]`` (the stored ``[Co, Ci, Hk, Wk]``
+        of a dense conv plan) — the masked-dense reference this plan must
+        match."""
         w = self.weights
         if isinstance(w, TiledBalanced):
             return tiled_to_dense(w)
@@ -353,6 +370,181 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
     return LayerPlan(spec=spec, weights=weights)
 
 
+def build_layer_plan(name: str, w: Tensor, *, mask: Tensor | None = None,
+                     layer_spec: LayerSpec | None = None, m_hint: int = 128,
+                     impl: str | None = None, ifm_sparsity: float = 0.0,
+                     weight_buffer_bits: int | None = None, stride: int = 1,
+                     conv_padding: Any = "SAME",
+                     quant: str = "none") -> LayerPlan:
+    """Derive one LayerPlan from a dense weight (output-major ``[O, N]`` for
+    fc, ``[Co, Ci, Hk, Wk]`` for conv) and an optional pruning mask (else
+    the weight's own nonzero pattern), at the latency objective: the
+    reference's `build_layer_plan` with ``tune="off"`` and its defaults for
+    the rest (decode M 4, packing on, the weight's dtype).
+
+    The §V-C dataflow mode comes from ``layer_spec`` (an fc spec of the
+    weight's shape when None) at the pattern's sparsity; ``impl`` overrides
+    the §VI-F policy but degrades to "dense" when the pattern is not
+    balanced (the mask is still applied).  ``m_hint`` is the GEMM M the
+    prefill `BlockChoice` is resolved at (the decode one at M = 4); a
+    ``cuda`` fc layer is column-packed when that shrinks KB; ``quant``
+    block-quantizes a sparse encoding.  Built on the weight's device.
+    """
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, "
+                         f"got {quant!r}")
+    decode_m = 4
+    kind = "conv" if w.ndim == 4 else "fc"
+    hk = wk = 1
+    if w.ndim == 4:
+        co, _, hk, wk = w.shape
+        w2 = w.reshape(co, -1)
+        mask2 = mask.reshape(co, -1) if mask is not None else None
+    elif w.ndim == 2:
+        w2, mask2 = w, mask
+    else:
+        raise ValueError(f"expected 2-D or 4-D weights, got "
+                         f"{tuple(w.shape)}")
+    o, n = w2.shape
+    masked2 = w2 * mask2 if mask2 is not None else w2
+    pattern = (mask2 if mask2 is not None else w2) != 0
+    k = balanced_mask_k(pattern)
+    balanced = k is not None and k < n
+    w_sparsity = 1.0 - (k / n) if balanced \
+        else 1.0 - int(pattern.sum()) / pattern.numel()
+
+    # -- dataflow mode (§V-C) ----------------------------------------------
+    if layer_spec is None:
+        layer_spec = LayerSpec(name=name, kind="fc", c_i=n, c_o=o)
+    layer_spec = dataclasses.replace(layer_spec, w_sparsity=w_sparsity,
+                                     ifm_sparsity=ifm_sparsity)
+    flow = choose_dataflow(layer_spec, weight_buffer_bits=weight_buffer_bits)
+
+    # -- kernel impl (§VI-F) + blocks + encoding ----------------------------
+    if impl is None:
+        impl = default_impl(balanced=balanced, w_sparsity=w_sparsity,
+                            ifm_sparsity=ifm_sparsity, device=w.device)
+    elif impl not in IMPL_LADDER:
+        raise ValueError(f"impl must be one of {IMPL_LADDER}, got {impl!r}")
+    elif impl != "dense" and not balanced:
+        impl = "dense"
+    dt = w2.dtype
+    blocks = blocks_decode = None
+    block_k = 0
+    packed = False
+    pack_kb: Tuple = ()
+    if impl == "dense":
+        # conv keeps the 4-D layout apply_conv convolves with
+        masked = (w * mask if mask is not None else w) if w.ndim == 4 \
+            else masked2
+        weights: Any = masked.to(dt)
+        k = n
+        quant = "none"
+    else:
+        w_bytes = kernel_ops.QUANT_WBYTES[quant]
+        blocks = kernel_ops.choose_blocks(kernel_ops.bucket_m(m_hint), o, n,
+                                          k, itemsize=dt.itemsize,
+                                          w_bytes=w_bytes)
+        blocks_decode = kernel_ops.choose_blocks(
+            kernel_ops.bucket_m(decode_m), o, n, k, itemsize=dt.itemsize,
+            w_bytes=w_bytes)
+        idx = nonzero_columns(pattern, k)               # ascending [O, K]
+        vals = masked2.gather(1, idx).to(dt)
+        idx = idx.to(torch.int32)
+        block_k = max(_KB_ROUND,
+                      _round_up(mask_block_k(pattern, bn=blocks.bn),
+                                _KB_ROUND))
+        if impl == "cuda" or quant != "none":
+            n_enc, perm = n, None
+            if impl == "cuda" and kind == "fc":
+                pidx, pvals, block_k, n_enc, perm, pack_kb = _maybe_pack(
+                    idx[None], vals[None], pattern, n, blocks.bn, block_k)
+                idx, vals = pidx[0], pvals[0]
+            tb = encode_tiled(vals, idx, n_enc, bn=blocks.bn, kb=block_k)
+            weights = TiledBalanced(tb.values, tb.indices, tb.counts,
+                                    n_in=n, bn=blocks.bn, perm=perm)
+            packed = perm is not None
+            if quant != "none":
+                weights = quantize_tiled(weights, quant)
+        else:
+            weights = BalancedSparse(vals, idx, n)
+
+    spec = PlanSpec(name=name, kind=kind, impl=impl, mode=flow.mode,
+                    n_in=n, n_out=o, k=int(k), block_k=block_k,
+                    blocks=blocks, w_sparsity=float(w_sparsity),
+                    d_mem_bits=int(flow.d_mem_bits),
+                    i_mem_bits=int(flow.i_mem), w_mem_bits=int(flow.w_mem),
+                    hk=hk, wk=wk, stride=stride, conv_padding=conv_padding,
+                    m_hint=int(m_hint), decode_m=int(decode_m),
+                    blocks_decode=blocks_decode, packed=packed,
+                    pack_kb=pack_kb, quant=quant)
+    return LayerPlan(spec=spec, weights=weights)
+
+
+def plan_from_balanced(sp: BalancedSparse, *, name: str = "adhoc",
+                       impl: str = "cuda", block_k: int | None = None,
+                       m_hint: int = 128,
+                       ifm_sparsity: float = 0.0) -> LayerPlan:
+    """Wrap an existing flat BalancedSparse as a single-layer plan (the
+    `core.sparse_ops` delegation path): ``cuda`` encodes it to the tile
+    format (KB ``block_k`` rounded up to 8, else measured), the eager rungs
+    keep it flat."""
+    o, k = sp.values.shape
+    n = sp.n_in
+    blocks = kernel_ops.choose_blocks(kernel_ops.bucket_m(m_hint), o, n, k,
+                                      itemsize=sp.values.element_size())
+    if impl == "cuda":
+        if block_k is None:
+            block_k = max_block_count(sp.indices, n, blocks.bn)
+        else:
+            block_k = max(_KB_ROUND, _round_up(block_k, _KB_ROUND))
+        weights: Any = encode_tiled(sp.values, sp.indices, n, bn=blocks.bn,
+                                    kb=block_k)
+    else:
+        weights = sp
+    w_sparsity = 1.0 - k / n
+    flow = choose_dataflow(LayerSpec(name=name, kind="fc", c_i=n, c_o=o,
+                                     w_sparsity=w_sparsity,
+                                     ifm_sparsity=ifm_sparsity))
+    spec = PlanSpec(name=name, kind="fc", impl=impl, mode=flow.mode,
+                    n_in=n, n_out=o, k=k, block_k=block_k or 0,
+                    blocks=blocks, w_sparsity=w_sparsity,
+                    d_mem_bits=int(flow.d_mem_bits),
+                    i_mem_bits=int(flow.i_mem), w_mem_bits=int(flow.w_mem))
+    return LayerPlan(spec=spec, weights=weights)
+
+
+def plan_smallcnn(cfg, params: dict, masks: dict | None = None, *,
+                  impl: str | None = None, ifm_sparsity: float = 0.0,
+                  weight_buffer_bits: int | None = None,
+                  m_hint: int = 4096, quant: str = "none") -> ModelPlan:
+    """One offline pass over the small CNN (`models.cnn`): conv layers with
+    balanced masks go through the sparse conv path, balanced fc masks
+    through the balanced GEMM, everything else stays dense (mask still
+    applied).  Built on the params' device, in their dtype."""
+    masks = masks or {}
+    layers: Dict[str, LayerPlan] = {}
+    img, cin = cfg.img, 3
+    for i, cout in enumerate(cfg.channels):
+        name = f"conv{i}"
+        hw = img // (2 ** i)
+        geom = LayerSpec(name=name, kind="conv", h_i=hw, w_i=hw, c_i=cin,
+                         c_o=cout, h_k=cfg.kernel, w_k=cfg.kernel, stride=1,
+                         padding=cfg.kernel // 2)
+        layers[name] = build_layer_plan(
+            name, params[name], mask=masks.get(name), layer_spec=geom,
+            m_hint=m_hint, impl=impl, ifm_sparsity=ifm_sparsity,
+            weight_buffer_bits=weight_buffer_bits, conv_padding="SAME",
+            quant=quant)
+        cin = cout
+    for name in ("fc1", "fc2"):
+        layers[name] = build_layer_plan(
+            name, params[name], mask=masks.get(name), m_hint=m_hint,
+            impl=impl, ifm_sparsity=ifm_sparsity,
+            weight_buffer_bits=weight_buffer_bits, quant=quant)
+    return ModelPlan(layers=layers, meta=(("model", "smallcnn"),))
+
+
 def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
                      impl: str | None = None, include_mlp: bool = True,
                      m_hint: int | None = None, decode_m: int | None = None,
@@ -414,6 +606,8 @@ def masked_dense_params(params: dict, plan: ModelPlan) -> dict:
 
 
 __all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "IMPL_LADDER",
-           "default_impl", "mask_block_k", "plan_transformer", "plan_model",
+           "default_impl", "balanced_mask_k", "mask_block_k",
+           "build_layer_plan", "plan_from_balanced", "plan_smallcnn",
+           "plan_transformer", "plan_model",
            "masked_dense_params", "ATTN_PROJ_NAMES", "MLP_PROJ_NAMES",
            "MOE_SHARED_NAMES", "MOE_EXPERT_NAMES"]

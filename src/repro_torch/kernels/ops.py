@@ -11,7 +11,10 @@ eager fallbacks `balanced_spmm` / `balanced_spmm_batched`:
                           kernels (`balanced_spmm`); skinny M (<= `SKINNY_M`)
                           routes to the decode kernel, a block-quantized
                           encoding to the quant kernels.  CPU tensors run
-                          the kernels' plain version.
+                          the kernels' plain version.  The flat
+                          `balanced_spmm` takes this rung too, its weight
+                          encoded at `choose_blocks`' bn behind a
+                          per-weight cache (`_encode_cached`).
 * ``impl="xla"``        — eager densify (gather-only, per-row searchsorted
                           into the ascending indices) + one matmul; skinny M
                           takes the gather formulation.
@@ -31,8 +34,10 @@ indices must be ascending within each row.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -42,8 +47,9 @@ from .balanced_spmm import (tiled_balanced_spmm, tiled_balanced_spmm_batched,
                             tiled_balanced_spmm_skinny)
 from .bitmap_spmm import bitmap_encode
 from .bitmap_spmm import bitmap_spmm as bitmap_spmm_kernel
-from .tile_format import (TiledBalanced, dequantize_values, leaf_perm,
-                          tiled_to_dense, unpack_int4)
+from .tile_format import (TiledBalanced, dequantize_values, encode_tiled,
+                          leaf_perm, max_block_count, tiled_to_dense,
+                          unpack_int4)
 
 Tensor = torch.Tensor
 
@@ -196,22 +202,123 @@ def _balanced_spmm_xla(x: Tensor, values: Tensor, indices: Tensor,
     return (x.float() @ w.float().T).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Tile-format encoding cache of the flat ``cuda`` rung (keyed per weight)
+# ---------------------------------------------------------------------------
+
+# A key holds the source tensors' ids and version counters (an in-place
+# update bumps the version, so it misses); the entry holds weak references
+# to the sources, checked on every hit, whose finalizers evict the entry
+# when a source dies, so a recycled id never hits a stale encoding and a
+# training loop making fresh weights every step pins nothing.  A bounded
+# FIFO caps it either way (the reference's `_ENC_CACHE` / `_KB_CACHE`).
+_ENC_CACHE: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_ENC_CACHE_MAX = 64
+_KB_CACHE: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+
+
+def _weight_key(*tensors: Tensor) -> tuple:
+    return tuple((id(t), t._version) for t in tensors)
+
+
+def _cache_put(cache, key, entry, *sources: Tensor) -> None:
+    def evict(_ref, cache=cache, key=key):
+        cache.pop(key, None)
+    cache[key] = (tuple(weakref.ref(t, evict) for t in sources), entry)
+    while len(cache) > _ENC_CACHE_MAX:
+        cache.popitem(last=False)
+
+
+def _cache_get(cache, key, *sources: Tensor):
+    hit = cache.get(key)
+    if hit is None:
+        return None
+    refs, entry = hit
+    if any(r() is not t for r, t in zip(refs, sources)):
+        cache.pop(key, None)       # the id now names another tensor
+        return None
+    cache.move_to_end(key)
+    return entry
+
+
+def _encode_cached(values: Tensor, indices: Tensor, n_in: int, bn: int,
+                   kb: int, dtype: torch.dtype) -> TiledBalanced:
+    """`encode_tiled` of a flat weight (values cast to ``dtype``), cached
+    per (values, indices) pair while both live unchanged."""
+    key = _weight_key(values, indices) + (n_in, bn, kb, dtype)
+    tb = _cache_get(_ENC_CACHE, key, values, indices)
+    if tb is None:
+        tb = encode_tiled(values.detach().to(dtype), indices, n_in, bn=bn,
+                          kb=kb)
+        _cache_put(_ENC_CACHE, key, tb, values, indices)
+    return tb
+
+
+def _static_kb(values: Tensor, indices: Tensor, n_in: int, bn: int,
+               block_k: int | None) -> int:
+    """Static per-block capacity: the caller's hint (rounded up to 8), else
+    measured from the indices, cached per indices tensor so repeated calls
+    on one weight do not read the indices back to the host again."""
+    if block_k is not None:
+        return max(8, _round_up(block_k, 8))
+    key = _weight_key(indices) + (n_in, bn)
+    kb = _cache_get(_KB_CACHE, key, indices)
+    if kb is None:
+        kb = max_block_count(indices, n_in, bn)
+        _cache_put(_KB_CACHE, key, kb, indices)
+    return kb
+
+
+class _BalancedSpmmCuda(torch.autograd.Function):
+    """The flat weight's ``cuda`` rung: cached tile encoding, then the
+    wide or skinny kernel; backward as the reference's ``_balanced_bwd``
+    (``dx = dy @ W`` on the gather-densified weight, ``dvalues[o, j] =
+    sum_m dy[m, o] x[m, idx[o, j]]``)."""
+
+    @staticmethod
+    def forward(ctx, x, values, indices, n_in, bm, bo, bn, kb):
+        ctx.save_for_backward(x, values, indices)
+        ctx.n_in = n_in
+        tb = _encode_cached(values, indices, n_in, bn, kb, x.dtype)
+        return _pad_and_run_tiled(x, tb, bm, bo,
+                                  skinny=x.shape[0] <= SKINNY_M)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, values, indices = ctx.saved_tensors
+        w = _densify_gather(values, indices, ctx.n_in)
+        dx = (dy.float() @ w.float()).to(x.dtype)
+        xg = x[:, indices.long()].float()                     # [M, O, K]
+        dvals = torch.einsum("mo,mok->ok", dy.float(), xg).to(values.dtype)
+        return dx, dvals, None, None, None, None, None, None
+
+
 def balanced_spmm(x: Tensor, values: Tensor, indices: Tensor, *, n_in: int,
-                  impl: str = "xla") -> Tensor:
+                  impl: str = "xla", block_k: int | None = None) -> Tensor:
     """Balanced-sparse matmul on *flat-format* weights (``values[O, K]``,
-    ascending ``indices[O, K]`` over ``n_in`` columns): the ladder's eager
-    rungs ``xla`` / ``xla_gather``.  ``x``: ``[..., N]`` -> ``[..., O]``;
-    differentiable through autograd."""
+    ascending ``indices[O, K]`` over ``n_in`` columns).  ``x``: ``[..., N]``
+    -> ``[..., O]``; differentiable through autograd.
+
+    ``cuda`` is the ad-hoc kernel entry: the weight is encoded to
+    `TiledBalanced` at `choose_blocks`' bn (KB ``block_k``, else measured)
+    behind the per-weight cache, then runs the wide or (M <= `SKINNY_M`)
+    skinny kernel.  Plan-driven callers use the pre-encoded `tiled_spmm`.
+    ``xla`` / ``xla_gather`` are the eager rungs."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if impl == "xla":
+    if impl == "cuda":
+        c = choose_blocks(x2.shape[0], values.shape[0], n_in,
+                          values.shape[1], itemsize=x.element_size())
+        kb = _static_kb(values, indices, n_in, c.bn, block_k)
+        y = _BalancedSpmmCuda.apply(x2, values, indices, n_in, c.bm, c.bo,
+                                    c.bn, kb)
+    elif impl == "xla":
         y = _balanced_spmm_xla(x2, values, indices, n_in)
     elif impl == "xla_gather":
         y = ref.balanced_spmm_gather(x2, values, indices)
     else:
-        raise ValueError(f"balanced_spmm runs impl 'xla' or 'xla_gather' "
-                         f"(the 'cuda' rung takes a TiledBalanced via "
-                         f"tiled_spmm), got {impl!r}")
+        raise ValueError(f"balanced_spmm runs impl 'cuda', 'xla' or "
+                         f"'xla_gather', got {impl!r}")
     return y.reshape(*lead, values.shape[0])
 
 

@@ -5,7 +5,9 @@ result is cast to the activation dtype, as the reference's
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from .sparse_conv import _pad_nhwc, _resolve_padding
 from .tile_format import TiledBalanced, tiled_to_dense
 
 Tensor = torch.Tensor
@@ -52,3 +54,15 @@ def bitmap_spmm_ref(x: Tensor, bitmap: Tensor, packed: Tensor) -> Tensor:
     """y = x @ W.T for W bitmap-compressed [O, N] (densify + dot)."""
     w = bitmap_dense(bitmap, packed)
     return (x.float() @ w.float().T).to(x.dtype)
+
+
+def sparse_conv2d_ref(x: Tensor, w_dense: Tensor, *, stride: int = 1,
+                      padding: str | int = "SAME") -> Tensor:
+    """Dense conv oracle: x [B,H,W,Ci], w [Hk,Wk,Ci,Co] -> [B,Ho,Wo,Co]
+    (f32 products and sums, cast to x's dtype)."""
+    hk, wk = w_dense.shape[:2]
+    xp = _pad_nhwc(x, *_resolve_padding(x.shape[1], x.shape[2], hk, wk,
+                                        stride, padding))
+    y = F.conv2d(xp.permute(0, 3, 1, 2).float(),
+                 w_dense.permute(3, 2, 0, 1).float(), stride=stride)
+    return y.permute(0, 2, 3, 1).to(x.dtype)

@@ -335,6 +335,16 @@ def tiled_to_flat(tb: TiledBalanced):
     return flat_vals, flat_idx.to(torch.int32)
 
 
+def block_imbalance(tb: TiledBalanced) -> float:
+    """KB padding slack: capacity / mean block count (1.0 == no waste).
+
+    Balanced pruning keeps this near 1 + O(sqrt(NB/K)); large values mean
+    the block width ``bn`` is too fine for the row's nonzero budget.
+    """
+    mean = float(tb.counts.to(torch.float32).mean())
+    return tb.kb / max(mean, 1e-9)
+
+
 def tiled_storage_bits(tb: TiledBalanced, *, elem_bits: int = 16,
                        count_bits: int = 16) -> int:
     """Storage of the format as the reference models it (values + local

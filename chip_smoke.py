@@ -99,6 +99,26 @@ The Sense CNN path runs right after phase 3, each phase fatal as above:
              counted, each timed beside cuDNN / cuBLAS and the byte and
              FLOP bounds, summed per network; VGG-16's pass profiled.
 
+Then the training paths, each fatal as above:
+
+14. cnn train — the Fig. 5 prune -> retrain flow through
+             `examples/torch_train_sparse_cnn.py` at smallcnn's full config,
+             batch 64, f32, 300 dense and 150 retraining steps: the
+             ``cuda`` rung's loss and gradients at 1e-4 against the eager
+             ``xla`` rung on one batch, through a plan built in the loss
+             and through the retraining step's `TrainPlan` (also with
+             fc1 / fc2 balanced); after every retraining step the
+             pruned positions exactly 0.0, K nonzeros in every conv kernel
+             and one tiled launch per im2col chunk of the forward; final
+             accuracy within 0.05 of dense; the backward and the update
+             launch no spmm kernel; a batch-4 step (fc balanced) launches
+             the skinny kernel; ms per step beside the masked-dense twin
+             and a `torch.profiler` split of one step;
+15. lm train — `launch.train` at full olmo-1b width, 2 layers, batch 8,
+             seq 128, 3 steps: finite loss and grad norm, the final
+             checkpoint verified, a resumed run bitwise equal to the
+             uninterrupted one, peak device memory and ms per step.
+
 The kernels phase also holds the bitmap kernel against its plain version
 and the tiled kernel on the same pruned weight at olmo-1b's projection
 shapes, and the kv kernel bitwise against its plain version at P = 64
@@ -111,6 +131,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -237,6 +258,19 @@ PAPER_GEMMS = (("vgg16", "conv1"), ("vgg16", "conv5"), ("vgg16", "conv13"),
 PAPER_RUNS = 10
 # SM cycles per ms at the H100's 1.98 GHz boost clock (the timer's spin)
 CYCLES_PER_MS = 1_980_000
+# the training paths (phases 14-15): the reference example's Fig. 5 flow at
+# smallcnn's own config (batch 64, 300 dense + 150 retraining steps; its
+# accuracy runs `cnn.EVAL_BATCHES` batches), a decode-sized step for the
+# skinny kernel, the runs of the step timer; then olmo-1b at full width, depth cut so that the
+# forced final checkpoint (f32 params and both AdamW moments) is ~3 GB
+CNN_TRAIN_BATCH = 64
+CNN_TRAIN_STEPS = (300, 150)
+SKINNY_TRAIN_BATCH = 4
+TRAIN_STEP_RUNS = 20
+LM_TRAIN_LAYERS = 2
+LM_TRAIN_STEPS = 3
+LM_TRAIN_ARGS = ["--arch", "olmo-1b", "--n-layers", str(LM_TRAIN_LAYERS),
+                 "--batch", "8", "--seq", "128"]
 
 
 def log(msg: str) -> None:
@@ -1532,6 +1566,356 @@ def paper_layers(torch) -> dict:
     return total
 
 
+def load_example(name: str):
+    """The example script ``examples/<name>.py`` as a module: the entry
+    point a user runs, driven here as a user would run it."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_parts(prof) -> dict:
+    """Device ms of a profiled train step by part: each kernel is charged
+    to the host range that launched it (its CPU ancestors in the trace):
+    ``train.forward`` (the tiled kernels apart), the backward's autograd
+    functions (the im2col's ``UnfoldBackward``, the GEMMs, the rest) and
+    ``train.optimizer``; with the backward's device ms per autograd
+    function."""
+    from torch.autograd import DeviceType
+    parts: dict = {}
+    by_fn: dict = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        names, e = [], evt
+        while e is not None:
+            names.append(e.name)
+            e = e.cpu_parent
+        bwd = next((n for n in names
+                    if n.startswith("autograd::engine::evaluate_function")),
+                   None)
+        for k in evt.kernels:
+            ms = k.duration / 1e3
+            if "train.optimizer" in names:
+                part = "optimizer"
+            elif bwd is not None:
+                if "Unfold" in bwd:
+                    part = "im2col backward"
+                elif "gemm" in k.name.lower():
+                    part = "backward matmuls"
+                else:
+                    part = "backward other"
+                fn = bwd.split(":")[-1].strip()
+                by_fn[fn] = by_fn.get(fn, 0.0) + ms
+            elif "train.forward" in names:
+                part = "forward tiled kernels" if "spmm" in k.name \
+                    else "forward other"
+            else:
+                part = "unattributed"
+            parts[part] = parts.get(part, 0.0) + ms
+    return {"parts_ms": parts, "backward_by_function_ms": dict(
+        sorted(by_fn.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def cnn_train(torch) -> dict:
+    """Phase 14: the paper's prune -> retrain flow (Fig. 5) through its
+    entry point, `examples/torch_train_sparse_cnn.py`, at smallcnn's full
+    config, batch 64, f32: 300 dense steps, balanced pruning (convs 0.5
+    per kernel, fc 0.8 by magnitude, so dense), 150 masked retraining
+    steps.  First, on one fixed batch, the loss and every gradient leaf of
+    the ``cuda`` rung (the tiled kernels forward) are held at 1e-4 against
+    the eager ``xla`` rung, both on the card: through a plan built in the
+    loss, and through the `TrainPlan` that the retraining steps run, with
+    these masks and with fc1 / fc2 balanced-pruned (0.8 per row).  The
+    counts are zeroed just before the flow and read just after; after
+    every retraining step every pruned position must be exactly 0.0,
+    every conv kernel must hold
+    exactly K nonzeros, and the step must have launched the tiled kernel
+    once per im2col chunk of the forward and nothing else.  The example
+    fails unless the final sparse accuracy is within 0.05 of the dense
+    one.  Then one step with the counts read after the forward and after
+    the update (the backward and the optimizer launch no spmm kernel); one
+    step at batch 4 with fc1 / fc2 balanced-pruned (0.8 per row), which
+    must launch the skinny kernel for them; the median wall ms per
+    retraining step beside its masked-dense twin (``impl="dense"``:
+    ``F.conv2d`` on the masked weight) and both steps' device ms under the
+    timer; and a `torch.profiler` split of one sparse step.  Returns the
+    flow's launches."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.pruning import balanced_prune_rows
+    from repro_torch.data import SyntheticImageData
+    from repro_torch.engine.plan import TrainPlan, plan_smallcnn
+    from repro_torch.models import cnn
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   apply_masks, value_and_grad)
+    example = load_example("torch_train_sparse_cnn")
+    cfg = cnn.SmallCNNConfig()
+    b = CNN_TRAIN_BATCH
+    data = SyntheticImageData(batch=b, device=DEVICE)
+    n_chunks = 0
+    hw, cin = cfg.img, 3
+    for cout in cfg.channels:
+        n_chunks += len(conv_chunks(b, hw, hw, cin * cfg.kernel ** 2))
+        hw, cin = hw // 2, cout
+
+    # the example's pruning of seed-0 weights
+    params = cnn.smallcnn_init(cfg, torch.Generator(
+        device=DEVICE).manual_seed(0))
+    masks = {}
+    for i in range(len(cfg.channels)):
+        _, masks[f"conv{i}"] = example.balanced_prune_conv(
+            params[f"conv{i}"], 0.5)
+    for name in ("fc1", "fc2"):
+        _, masks[name] = example.random_prune(params[name], 0.8)
+    params = apply_masks(params, masks)
+    batch = data.batch_at(0)
+
+    # gradients: the cuda rung against the eager xla rung on one batch,
+    # through a plan built in the loss and through the retraining step's
+    # `TrainPlan`; the latter also with fc1 / fc2 balanced-pruned (0.8 per
+    # row: the skinny step's masks), so that every layer is a tiled one
+    smasks = dict(masks)
+    for name in ("fc1", "fc2"):
+        _, smasks[name] = balanced_prune_rows(params[name], 0.8)
+    sparams = apply_masks(params, smasks)
+    worst: dict = {}
+    for what, p0, mk in (("", params, masks),
+                         (" (balanced fc)", sparams, smasks)):
+        rloss, rg = value_and_grad(
+            lambda p, mk=mk: cnn.smallcnn_loss(cfg, p, batch, masks=mk,
+                                               impl="xla"), p0)
+        tp = TrainPlan(plan_smallcnn(cfg, p0, mk, impl="cuda"), mk)
+        runs = {"TrainPlan": lambda p, mk=mk, tp=tp: cnn.smallcnn_loss(
+            cfg, p, batch, masks=mk, plan=tp(p))}
+        if mk is masks:
+            runs["plan in the loss"] = lambda p: cnn.smallcnn_loss(
+                cfg, p, batch, masks=masks, impl="cuda")
+        for how, fn in runs.items():
+            loss, g = value_and_grad(fn, p0)
+            compare(torch, worst, "cnn train grads", loss, rloss,
+                    TOL["float32"], f"loss, cuda ({how}{what}) vs xla rung")
+            for nm in p0:
+                compare(torch, worst, "cnn train grads", g[nm], rg[nm],
+                        TOL["float32"],
+                        f"d{nm}, cuda ({how}{what}) vs xla rung")
+
+    # the flow, checked after every retraining step; its evaluations run
+    # `cnn.EVAL_BATCHES` batches each through the pruned plan (the dense
+    # ones launch none)
+    seen = {"steps": 0, "last": cnn.EVAL_BATCHES * n_chunks}
+
+    def check_step(s, p, loss, flow_masks):
+        now = launches()
+        step = {k: v for k, v in now.items() if v}
+        step["tiled_balanced_spmm"] -= seen["last"]
+        if step != {"tiled_balanced_spmm": n_chunks} \
+                or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"retrain step {s} launched {step}, "
+                                 f"expected {n_chunks} tiled launches; "
+                                 f"loss {float(loss)}")
+        seen["last"] = now["tiled_balanced_spmm"]
+        for nm, m in flow_masks.items():
+            if bool((p[nm][m == 0] != 0).any()):
+                raise AssertionError(f"retrain step {s}: a pruned weight "
+                                     f"of {nm} is not 0.0")
+        for i in range(len(cfg.channels)):
+            m = flow_masks[f"conv{i}"]
+            k = (m.reshape(m.shape[0], -1) != 0).sum(dim=1)
+            w = p[f"conv{i}"]
+            nz = (w.reshape(w.shape[0], -1) != 0).sum(dim=1)
+            if not (bool((k == k[0]).all()) and torch.equal(nz, k)):
+                raise AssertionError(f"retrain step {s}: conv{i} kernels "
+                                     f"hold {nz.tolist()} nonzeros, masks "
+                                     f"{k.tolist()}")
+        seen["steps"] += 1
+
+    reset_launches()
+    t0 = time.monotonic()
+    res = example.run(device=DEVICE, steps=CNN_TRAIN_STEPS[0],
+                      retrain_steps=CNN_TRAIN_STEPS[1],
+                      on_retrain_step=check_step, log=log)
+    torch.cuda.synchronize()
+    counts = launches()
+    flow_s = time.monotonic() - t0
+    want = (2 * cnn.EVAL_BATCHES + CNN_TRAIN_STEPS[1]) * n_chunks
+    if seen["steps"] != CNN_TRAIN_STEPS[1] \
+            or counts["tiled_balanced_spmm"] != want:
+        raise AssertionError(f"checked {seen['steps']} retrain steps; "
+                             f"launches {counts}, expected {want} tiled")
+    log(f"cnn train flow {flow_s:.1f} s: accuracy dense "
+        f"{res['acc_dense']:.3f}, pruned {res['acc_pruned']:.3f}, final "
+        f"{res['acc_final']:.3f}; systolic speedup "
+        f"{res['systolic_speedup']:.2f}x; launches {json.dumps(counts)}")
+
+    # one step: the forward's launches, then the backward's and the update's
+    opt = AdamWConfig(lr=3e-4, warmup_steps=20,
+                      total_steps=CNN_TRAIN_STEPS[1], weight_decay=0.01)
+    state = adamw_init(params)
+    plans = {impl: TrainPlan(plan_smallcnn(cfg, params, masks, impl=impl),
+                             masks) for impl in ("cuda", "dense")}
+
+    def step(impl):
+        def loss_fn(p):
+            with record_function("train.forward"):
+                out = cnn.smallcnn_loss(cfg, p, batch, masks=masks,
+                                        impl=impl, plan=plans[impl](p))
+            marks.append(launches()["tiled_balanced_spmm"])
+            return out
+        with record_function("train.grad"):
+            loss, grads = value_and_grad(loss_fn, params)
+        with record_function("train.optimizer"):
+            p, s, _ = adamw_update(opt, params, grads, state)
+            p = apply_masks(p, masks)
+        return p, s, loss
+
+    marks = []
+    reset_launches()
+    step("cuda")
+    torch.cuda.synchronize()
+    after = {k: v for k, v in launches().items() if v}
+    if marks != [n_chunks] or after != {"tiled_balanced_spmm": n_chunks}:
+        raise AssertionError(f"one retrain step: {marks} tiled launches "
+                             f"after the forward, {after} after the update "
+                             f"(expected {n_chunks} and no other)")
+
+    # the skinny kernel: batch 4, fc1 / fc2 balanced-pruned
+    sb = SyntheticImageData(batch=SKINNY_TRAIN_BATCH, device=DEVICE)
+    tp = TrainPlan(plan_smallcnn(cfg, sparams, smasks), smasks)
+    reset_launches()
+    cnn.smallcnn_train_step(cfg, sparams, adamw_init(sparams), sb.batch_at(0),
+                            opt, masks=smasks, plan=tp)
+    torch.cuda.synchronize()
+    skinny = {k: v for k, v in launches().items() if v}
+    if skinny != {"tiled_balanced_spmm": len(cfg.channels),
+                  "tiled_balanced_spmm_skinny": 2}:
+        raise AssertionError(f"the batch-{SKINNY_TRAIN_BATCH} step launched "
+                             f"{skinny}: expected one wide launch a conv "
+                             "and one skinny for each of fc1, fc2")
+
+    # times: wall ms per step (host clock, synchronized), then device ms
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    timing = {"batch": b}
+    for impl in ("cuda", "dense"):
+        walls = []
+        for _ in range(3 + TRAIN_STEP_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            step(impl)
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+        fn = lambda impl=impl: step(impl)  # noqa: E731
+        timing[impl] = {
+            "wall_ms": statistics.median(walls[3:]),
+            "device_ms": time_ms(torch, fn, flush=flush, warmup=2,
+                                 runs=TRAIN_STEP_RUNS,
+                                 spin=host_spin(torch, fn))}
+    marks.clear()
+
+    # one sparse step under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step("cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    # the kernels only: the host ranges also show on the device's timeline
+    parts = kernel_parts(prof)
+    busy_ms = sum(parts["parts_ms"].values())
+    top = [k for k in device_kernels(prof)[2]
+           if not k["kernel"].startswith("train.")]
+    split = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+             "busy_share": busy_ms / wall_ms, **parts, "top": top[:6]}
+    log(f"cnn train step {json.dumps(timing)}")
+    log(f"cnn train step profile {json.dumps(split)}")
+    # the path's launches: the flow's and the batch-4 step's
+    return {k: v + skinny.get(k, 0) for k, v in counts.items()}
+
+
+def lm_train(torch) -> dict:
+    """Phase 15: `launch.train` at full olmo-1b width (d_model 2048, d_ff
+    8192, vocab 50304), depth cut to `LM_TRAIN_LAYERS`, batch 8, seq 128,
+    `LM_TRAIN_STEPS` steps (f32 params, bf16 compute, AdamW, every step
+    logged) into a temporary checkpoint directory, deleted afterwards:
+    loss and grad norm finite at every step, the forced final checkpoint
+    passes `verify_checkpoint`, the peak device memory and the ms per
+    step (the trainer's clock, taken after the card finished the step).
+    Then the same run stopped one step short and resumed (``--resume``)
+    must reach the uninterrupted run's params and optimizer state, bitwise
+    (every step is in the 20-step warmup, so the learning rate does not
+    depend on the run's length)."""
+    import tempfile
+    from repro_torch.checkpoint import latest_step, verify_checkpoint
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten_with_paths
+
+    def run(ckpt_dir, steps, *extra):
+        args = train.build_parser().parse_args(
+            LM_TRAIN_ARGS + ["--steps", str(steps), "--ckpt-dir", ckpt_dir,
+                             *extra])
+        trainer = train.build_trainer(args)
+        trainer.cfg.log_every = 1
+        res = train.run(args, trainer)
+        torch.cuda.synchronize()
+        return res, trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full, resumed = f"{tmp}/full", f"{tmp}/resumed"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res, trainer = run(full, LM_TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        run_s = time.monotonic() - t0
+        log_ = trainer.metrics_log
+        if res["status"] != "done" or len(log_) != LM_TRAIN_STEPS or not all(
+                math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                for m in log_):
+            raise AssertionError(f"lm train: {res}, log {log_}")
+        t1 = time.monotonic()
+        problems = verify_checkpoint(full, LM_TRAIN_STEPS)
+        verify_s = time.monotonic() - t1
+        if latest_step(full) != LM_TRAIN_STEPS or problems:
+            raise AssertionError(f"lm train checkpoint: latest "
+                                 f"{latest_step(full)}, {problems}")
+        want = [t for _, t in flatten_with_paths(
+            {"params": trainer.params, "opt": trainer.opt_state})]
+        names = [p for p, _ in flatten_with_paths(
+            {"params": trainer.params, "opt": trainer.opt_state})]
+        n_params = sum(t.numel() for _, t in flatten_with_paths(
+            trainer.params))
+        del trainer
+        torch.cuda.empty_cache()
+        run(resumed, LM_TRAIN_STEPS - 1)
+        torch.cuda.empty_cache()
+        res2, again = run(resumed, LM_TRAIN_STEPS, "--resume")
+        got = [t for _, t in flatten_with_paths(
+            {"params": again.params, "opt": again.opt_state})]
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(got, want))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+        if res2["status"] != "done" or not bitwise:
+            differ = [p for p, a, b in zip(names, got, want)
+                      if not torch.equal(a, b)]
+            raise AssertionError(f"lm train: the resumed run differs from "
+                                 f"the uninterrupted one by {diff} in "
+                                 f"{differ} ({res2})")
+        ckpt_bytes = sum(f.stat().st_size for f in pathlib.Path(
+            full).rglob("*") if f.is_file())
+    out = {"arch": "olmo-1b", "layers": LM_TRAIN_LAYERS,
+           "params": n_params, "steps": LM_TRAIN_STEPS,
+           "loss": [m["loss"] for m in log_],
+           "grad_norm": [m["grad_norm"] for m in log_],
+           "step_ms": [m["step_time_s"] * 1e3 for m in log_],
+           "run_s": run_s, "verify_s": verify_s,
+           "peak_memory_gib": peak / 2**30, "checkpoint_bytes": ckpt_bytes,
+           "resume_bitwise": bitwise}
+    log(f"lm train {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1594,6 +1978,16 @@ def main() -> int:
     t0 = time.monotonic()
     paths["paper layers"] = paper_layers(torch)
     log(f"paper layers {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 14-15. the training paths: the CNN prune -> retrain flow (counts
+    # zeroed just before, read just after), then the LM trainer
+    t0 = time.monotonic()
+    paths["cnn train"] = cnn_train(torch)
+    log(f"cnn train {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    lm_train(torch)
+    log(f"lm train {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 4. the olmo-1b path: counts zeroed just before, read just after

@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of the Sense balanced-sparse serving stack.
+"""PyTorch/CUDA port of the Sense balanced-sparse stack: serving, the
+paper's CNN path and its prune -> retrain training.
 
 The JAX package `repro` is the reference; this package mirrors its module
-layout (``configs/ core/ kernels/ engine/ models/ launch/``) so each
-counterpart is easy to find.  It imports torch, numpy and the standard
+layout (``configs/ core/ kernels/ engine/ models/ optim/ data/
+checkpoint/ runtime/ launch/``) so each counterpart is easy to find.  It imports torch, numpy and the standard
 library only — never jax, never `repro`.
 
 The Pallas kernels of the reference become hand-written CUDA kernels

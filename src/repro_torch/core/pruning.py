@@ -9,7 +9,7 @@ reference's on identical inputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -140,6 +140,54 @@ def nonzero_columns(mask: Tensor, k: int) -> Tensor:
     balanced bool mask ``[..., rows, n]``."""
     return torch.argsort((~mask).to(torch.uint8), dim=-1,
                          stable=True)[..., :k]
+
+
+# ---------------------------------------------------------------------------
+# Iterative prune -> retrain flow (paper Fig. 5)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PruneScheduleResult:
+    params: object
+    masks: object
+    history: list  # (sparsity, eval_metric) per iteration
+    final_sparsity: float
+
+
+def iterative_prune_retrain(
+    params,
+    *,
+    target_sparsity: float,
+    n_stages: int,
+    prune_fn: Callable,          # (params, sparsity) -> (params, masks)
+    retrain_fn: Callable,        # (params, masks) -> params   (mask-preserving)
+    eval_fn: Callable,           # (params) -> float            (higher better)
+    accuracy_floor: float | None = None,
+) -> PruneScheduleResult:
+    """Gradual prune -> retrain -> test loop of Fig. 5.
+
+    Sparsity ramps with the cubic schedule of Zhu & Gupta from 0 to
+    ``target_sparsity`` over ``n_stages``.  After each stage the model is
+    retrained with the masks held fixed and evaluated; if ``accuracy_floor``
+    is given and the metric drops below it, the loop stops and returns the
+    last acceptable stage (the paper: "testify if the accuracy drops out of
+    boundary ... otherwise save the final pruned weights").
+    """
+    history = []
+    best = (params, None, 0.0)
+    for stage in range(1, n_stages + 1):
+        frac = stage / n_stages
+        sparsity = target_sparsity * (1.0 - (1.0 - frac) ** 3)
+        pruned, masks = prune_fn(params, sparsity)
+        pruned = retrain_fn(pruned, masks)
+        metric = float(eval_fn(pruned))
+        history.append((sparsity, metric))
+        if accuracy_floor is not None and metric < accuracy_floor:
+            break
+        params, best = pruned, (pruned, masks, sparsity)
+    final_params, final_masks, final_sparsity = best
+    return PruneScheduleResult(params=final_params, masks=final_masks,
+                               history=history, final_sparsity=final_sparsity)
 
 
 def nze_counts(x: Tensor, axis: int | tuple = -1) -> Tensor:

@@ -545,6 +545,70 @@ def plan_smallcnn(cfg, params: dict, masks: dict | None = None, *,
     return ModelPlan(layers=layers, meta=(("model", "smallcnn"),))
 
 
+def _slot_sources(lp: LayerPlan):
+    """Where each stored value slot of a sparse plan's encoding reads the
+    layer's output-major ``[O, N]`` weight: ``(flat positions, live-slot
+    mask)`` shaped as the stored values; pad slots (slot >= count) point at
+    position 0 and are masked off (the flat format has none: mask None).
+    None for a dense plan."""
+    w, n = lp.weights, lp.spec.n_in
+    if isinstance(w, TiledBalanced):
+        if w.quant != "none" or w.indices.ndim != 3:
+            raise ValueError(f"{lp.spec.name}: only an unquantized, "
+                             "unstacked tiled encoding re-gathers its values")
+        o, nb, kb = w.indices.shape
+        dev = w.indices.device
+        cols = (torch.arange(nb, device=dev)[None, :, None] * w.bn
+                + w.indices.long())
+        if w.perm is not None:                   # packed -> original column
+            cols = w.perm.long()[cols]
+        live = torch.arange(kb, device=dev) < w.counts[..., None]
+        cols = torch.where(live, cols, 0)
+        return torch.arange(o, device=dev)[:, None, None] * n + cols, live
+    if isinstance(w, BalancedSparse):
+        o = w.indices.shape[0]
+        return (torch.arange(o, device=w.indices.device)[:, None] * n
+                + w.indices.long()), None
+    return None
+
+
+class TrainPlan:
+    """A `ModelPlan` frozen at one mask set, for training: the structure
+    (pattern, indices, counts, packing perm, blocks, impl, mode) is built
+    once; each call re-reads only the stored values from the live weights,
+    ``(w * mask)`` at each slot's source position (pad slots exactly 0),
+    so a train step does no pattern analysis and no host sync.  The result
+    is array-equal to a fresh `plan_smallcnn` / `build_layer_plan` of the
+    same weights and masks (the reference builds its plan once per trace
+    with concrete masks and traced values: the same semantics), and
+    differentiable: autograd carries each value's gradient back to its
+    dense weight through the gather.  Quantized plans do not train."""
+
+    def __init__(self, plan: ModelPlan, masks: dict | None = None):
+        self.plan = plan
+        self.masks = masks or {}
+        self.sources = {nm: _slot_sources(lp)
+                        for nm, lp in plan.layers.items()}
+
+    def __call__(self, params: dict) -> ModelPlan:
+        layers = {}
+        for nm, lp in self.plan.layers.items():
+            w, mask = params[nm], self.masks.get(nm)
+            masked = w * mask if mask is not None else w
+            src = self.sources[nm]
+            old = lp.weights
+            if src is None:
+                weights: Any = masked.to(old.dtype).reshape(old.shape)
+            else:
+                pos, live = src
+                vals = masked.reshape(-1)[pos].to(old.values.dtype)
+                if live is not None:
+                    vals = torch.where(live, vals, vals.new_zeros(()))
+                weights = dataclasses.replace(old, values=vals)
+            layers[nm] = LayerPlan(spec=lp.spec, weights=weights)
+        return ModelPlan(layers=layers, meta=self.plan.meta)
+
+
 def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
                      impl: str | None = None, include_mlp: bool = True,
                      m_hint: int | None = None, decode_m: int | None = None,
@@ -605,7 +669,7 @@ def masked_dense_params(params: dict, plan: ModelPlan) -> dict:
     return {**params, "blocks": blocks}
 
 
-__all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "IMPL_LADDER",
+__all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "TrainPlan", "IMPL_LADDER",
            "default_impl", "balanced_mask_k", "mask_block_k",
            "build_layer_plan", "plan_from_balanced", "plan_smallcnn",
            "plan_transformer", "plan_model",

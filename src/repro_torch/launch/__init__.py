@@ -1,1 +1,1 @@
-"""Entry points (`serve`)."""
+"""Entry points (`serve`, `train`)."""

@@ -5,6 +5,7 @@ families this package serves (dense and moe).
 tensors:
 
 * ``init(seed) -> params``                  (stacked ``[L, ...]`` layers)
+* ``train_loss(params, batch) -> loss``     (0-d f32, differentiable)
 * ``prefill(params, batch) -> (logits_last, cache)``
 * ``decode_step(params, batch, cache) -> (logits, cache)``
 * ``init_cache(batch, max_len) -> cache``   (plane layout ``[L, B*KH, S, dh]``)
@@ -32,6 +33,7 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     init: Callable[[int], Any]
+    train_loss: Callable[[Any, Batch], Any]
     prefill: Callable[[Any, Batch], tuple]
     decode_step: Callable[[Any, Batch, Any], tuple]
     init_cache: Callable[[int, int], Any]

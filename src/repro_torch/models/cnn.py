@@ -8,10 +8,15 @@ ResNet-50, GoogleNet at ImageNet scale.  `TAB5_SPARSITY` encodes Tab.V's
 sparsity ratios per accelerator (zero fractions; a few cells are ambiguous
 in the source scan and marked approximate in DESIGN.md §7).
 
-The small CNN runs forward only here: conv layers with balanced masks go
-through the chunked im2col + CUDA balanced GEMM, balanced fc masks through
-the balanced GEMM (`engine.plan.plan_smallcnn` decides, `engine.execute`
-runs).  Its input is NHWC ``[B, H, W, 3]``, as in the reference.
+The small CNN runs forward and backward: conv layers with balanced masks
+go through the chunked im2col + CUDA balanced GEMM, balanced fc masks
+through the balanced GEMM (`engine.plan.plan_smallcnn` decides,
+`engine.execute` runs), and autograd carries the gradients back through
+the kernels' autograd Functions, the im2col and the plan's value gather
+to the dense weights.  `smallcnn_train_step` is the mask-preserving AdamW
+step of the paper's prune -> retrain flow (Fig. 5), `smallcnn_train` its
+loop over a `engine.plan.TrainPlan` built once per mask set.  The input is
+NHWC ``[B, H, W, 3]``, as in the reference.
 """
 from __future__ import annotations
 
@@ -183,7 +188,7 @@ PAPER_NETWORKS = ("alexnet", "vgg16", "resnet50", "googlenet")
 
 
 # ---------------------------------------------------------------------------
-# Executable small CNN (forward only)
+# Executable small CNN (forward, loss, mask-preserving training)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -244,8 +249,77 @@ def smallcnn_apply(cfg: SmallCNNConfig, params: dict, x: Tensor, *,
 
 
 def smallcnn_loss(cfg: SmallCNNConfig, params: dict, batch: dict, *,
-                  masks: dict | None = None) -> Tensor:
-    """Mean cross-entropy of the logits against ``batch["label"]``."""
-    logits = smallcnn_apply(cfg, params, batch["image"], masks=masks)
+                  masks: dict | None = None, impl: str | None = None,
+                  plan=None) -> Tensor:
+    """Mean cross-entropy of the logits against ``batch["label"]``
+    (differentiable in ``params``; with ``plan``, through its values)."""
+    logits = smallcnn_apply(cfg, params, batch["image"], masks=masks,
+                            impl=impl, plan=plan)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(1, batch["label"].long()[:, None]).mean()
+
+
+def smallcnn_train_step(cfg: SmallCNNConfig, params: dict, state: dict,
+                        batch: dict, opt_cfg, *, masks: dict | None = None,
+                        plan=None, impl: str | None = None) -> tuple:
+    """One mask-preserving AdamW step (the reference example's step):
+    loss and gradients by autograd, `optim.adamw_update`, then the masks
+    re-applied.  ``plan`` is an `engine.plan.TrainPlan` of these masks
+    (built once; each step re-gathers its values from ``params``), else
+    the plan is built in the loss.  Returns ``(params, state, loss)``."""
+    from ..optim import adamw_update, apply_masks, value_and_grad
+
+    def loss_fn(p):
+        return smallcnn_loss(cfg, p, batch, masks=masks, impl=impl,
+                             plan=None if plan is None else plan(p))
+    loss, grads = value_and_grad(loss_fn, params)
+    params, state, _ = adamw_update(opt_cfg, params, grads, state)
+    if masks is not None:
+        params = apply_masks(params, masks)
+    return params, state, loss
+
+
+def smallcnn_train(cfg: SmallCNNConfig, params: dict, data, steps: int, *,
+                   masks: dict | None = None, lr: float = 1e-3,
+                   start_step: int = 0, on_step=None, log=print) -> dict:
+    """The reference example's training loop: AdamW (warmup 20, cosine to
+    ``steps``, weight decay 0.01) from fresh moments on ``data.batch_at(
+    start_step + s)``, masks re-applied after every step, the plan's
+    structure built once (`engine.plan.TrainPlan`).  ``on_step(s, params,
+    loss)`` is called after each step; the loss is logged five times."""
+    from ..engine.plan import TrainPlan, plan_smallcnn
+    from ..optim import AdamWConfig, adamw_init
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=20, total_steps=steps,
+                          weight_decay=0.01)
+    state = adamw_init(params)
+    with torch.no_grad():
+        plan = TrainPlan(plan_smallcnn(cfg, params, masks), masks)
+    for s in range(steps):
+        params, state, loss = smallcnn_train_step(
+            cfg, params, state, data.batch_at(start_step + s), opt_cfg,
+            masks=masks, plan=plan)
+        if on_step is not None:
+            on_step(s, params, loss)
+        if (s + 1) % max(steps // 5, 1) == 0:
+            log(f"    step {s + 1:4d} loss {float(loss):.4f}")
+    return params
+
+
+# batches of one `smallcnn_accuracy` evaluation (the reference example's)
+EVAL_BATCHES = 10
+
+
+@torch.no_grad()
+def smallcnn_accuracy(cfg: SmallCNNConfig, params: dict, data, *,
+                      masks: dict | None = None) -> float:
+    """Accuracy over ``data.batch_at(10_000 + i)``, i < `EVAL_BATCHES`,
+    the plan built once for the fixed weights."""
+    from ..engine.plan import plan_smallcnn
+    plan = plan_smallcnn(cfg, params, masks)
+    correct = total = 0
+    for i in range(EVAL_BATCHES):
+        b = data.batch_at(10_000 + i)
+        logits = smallcnn_apply(cfg, params, b["image"], plan=plan)
+        correct += int((logits.argmax(-1) == b["label"]).sum())
+        total += b["label"].shape[0]
+    return correct / total

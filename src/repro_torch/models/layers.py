@@ -1,15 +1,39 @@
-"""Shared model primitives — counterpart of `repro.models.layers` (norms,
-RoPE, prefill and decode attention).  Scores, softmax and the value sum run
+"""Shared model primitives — counterpart of `repro.models.layers` (init
+helpers, norms, RoPE, prefill and decode attention, the projections and
+MLPs, and the chunked LM loss).  Scores, softmax and the value sum run
 in f32 and the result is cast back to the activation dtype, as the
 reference's ``preferred_element_type=f32`` einsums do.  Masks select with
 `torch.where`, never multiply (0 * NaN would poison the output)."""
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, n_in: int, n_out: int,
+               dtype=torch.float32) -> Tensor:
+    """``[n_in, n_out]`` unit normals over sqrt(n_in), drawn from
+    ``generator`` on its device."""
+    w = torch.randn((n_in, n_out), generator=generator,
+                    device=generator.device)
+    return (w * (1.0 / math.sqrt(n_in))).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, dim: int,
+               dtype=torch.float32) -> Tensor:
+    w = torch.randn((vocab, dim), generator=generator,
+                    device=generator.device)
+    return (w * 0.02).to(dtype)
 
 
 def rms_norm(x: Tensor, gamma: Tensor | None, *, eps: float = 1e-6) -> Tensor:
@@ -93,3 +117,74 @@ def decode_attention_planes(q: Tensor, k_planes: Tensor, v_planes: Tensor,
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v4)
     return out.permute(0, 3, 1, 2, 4).reshape(b, c, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Projections and MLPs
+# ---------------------------------------------------------------------------
+
+def sparse_linear(x: Tensor, sp, *, impl: str = "cuda",
+                  block_k: int | None = None) -> Tensor:
+    """Balanced-sparse projection ``y = x @ W.T``: ``sp`` is an
+    `engine.plan.LayerPlan` (the plan-driven path; ``impl`` / ``block_k``
+    are ignored) or a flat `core.pruning.BalancedSparse` (the ad-hoc kernel
+    path); `core.sparse_ops.sparse_matmul` dispatches."""
+    from ..core.sparse_ops import sparse_matmul
+    return sparse_matmul(x, sp, impl=impl, block_k=block_k)
+
+
+def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: Tensor, w_in: Tensor, w_out: Tensor) -> Tensor:
+    return F.gelu(x @ w_in, approximate="tanh") @ w_out
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(xc: Tensor, emb: Tensor, lc: Tensor, mc: Tensor,
+              z_loss: float) -> Tensor:
+    """Summed NLL + z-loss of one sequence chunk, logits in f32."""
+    logits = torch.einsum("bsd,vd->bsv", xc.float(), emb.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc.long()[..., None])[..., 0]
+    return ((lse - gold) * mc + z_loss * lse.square() * mc).sum()
+
+
+def chunked_cross_entropy(x: Tensor, emb: Tensor, labels: Tensor, *,
+                          chunk: int = 512, z_loss: float = 1e-4,
+                          mask: Tensor | None = None) -> Tensor:
+    """Mean next-token cross-entropy without holding ``[B, S, V]`` logits:
+    x ``[B, S, D]`` final hidden states, emb ``[V, D]`` (tied softmax
+    weights), labels ``[B, S]``.  Runs over S in ``chunk`` pieces, each
+    recomputed in the backward (`torch.utils.checkpoint`), so no chunk's
+    logits are kept for it; ``z_loss`` is the logit-norm stabilizer."""
+    b, s, d = x.shape
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    ms = torch.ones((b, s), dtype=torch.float32, device=x.device) \
+        if mask is None else mask.float()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(0, s, chunk):
+        sl = slice(j, j + chunk)
+        loss_sum = loss_sum + checkpoint(_ce_chunk, x[:, sl], emb,
+                                         labels[:, sl], ms[:, sl], z_loss,
+                                         use_reentrant=False)
+    return loss_sum / ms.sum().clamp(min=1.0)
+
+
+def causal_lm_labels(tokens: Tensor, pad_id: int = -1) -> Tuple[Tensor,
+                                                                Tensor]:
+    """Shift tokens for next-token prediction; returns ``(labels, mask)``
+    (the mask f32, 0 at the last position and at ``pad_id`` labels)."""
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask[:, -1] = 0.0
+    if pad_id >= 0:
+        mask = mask * (labels != pad_id)
+    return labels, mask

@@ -10,6 +10,12 @@ Decode writes new rows as ``cfg.cache_update`` says, as the reference does:
 never out of range), ``"scatter"`` writes only the new rows, in place,
 through the `kernels.kv_cache_update` kernel.  The two are bitwise equal.
 
+Training: ``train_loss`` is the mean next-token cross-entropy (chunked
+over the sequence, z-loss included) plus ``router_aux_weight`` times the
+MoE blocks' summed load-balancing loss, through dense projections (no
+serving plan), each block recomputed in the backward when ``cfg.remat``
+(`torch.utils.checkpoint`, the reference's ``jax.checkpoint``).
+
 Sense integration: with ``cfg.sparse_serving`` and a plan attached
 (``params["sparse_plan"]``), prefill *and* decode run every planned
 projection through `engine.execute.apply_fc` — the CUDA kernels on a GPU —
@@ -23,11 +29,13 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.kv_cache_update import kv_cache_write_chunk, to_planes
 from .api import ModelBundle, planned_proj as _proj, serving_plan
-from .layers import (apply_rope, causal_attention, decode_attention_planes,
+from .layers import (apply_rope, causal_attention, causal_lm_labels,
+                     chunked_cross_entropy, decode_attention_planes,
                      layer_norm, rms_norm)
 
 Tensor = torch.Tensor
@@ -331,6 +339,30 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
         h = _norm(cfg, h, params["final_norm"])
         return h[:, -1].float() @ params["embed"].float().T
 
+    def _train_block(h, lp, positions):
+        h, _, aux, _ = _block(cfg, h, lp, positions)
+        return h, torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+
+    def train_loss(params, batch):
+        tokens = batch["tokens"].long()
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        h = params["embed"][tokens].to(cd)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(cfg.n_layers):
+            lp = {nm: w[i] for nm, w in params["blocks"].items()}
+            if cfg.remat:
+                h, a = checkpoint(_train_block, h, lp, positions,
+                                  use_reentrant=False)
+            else:
+                h, a = _train_block(h, lp, positions)
+            aux = aux + a
+        h = _norm(cfg, h, params["final_norm"])
+        labels, mask = causal_lm_labels(tokens)
+        loss = chunked_cross_entropy(h, params["embed"], labels,
+                                     chunk=min(cfg.loss_chunk, s), mask=mask)
+        return loss + cfg.router_aux_weight * aux
+
     def prefill(params, batch):
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -375,5 +407,6 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
         return _logits(params, h), {"k": torch.stack(ks),
                                     "v": torch.stack(vs)}
 
-    return ModelBundle(cfg=cfg, device=device, init=init, prefill=prefill,
+    return ModelBundle(cfg=cfg, device=device, init=init,
+                       train_loss=train_loss, prefill=prefill,
                        decode_step=decode_step, init_cache=init_cache)

@@ -119,6 +119,41 @@ Then the training paths, each fatal as above:
              checkpoint verified, a resumed run bitwise equal to the
              uninterrupted one, peak device memory and ms per step.
 
+Then planning and robustness at full olmo-1b width (bf16, sparsity 0.5,
+batch 4, prompt 32), after phase 9, each fatal as above:
+
+16. tune — ``serve --tune sweep`` into a fresh temporary cache: every
+             key's candidates timed on the card (each key's candidates,
+             the static pick's time and the winner's printed), none
+             quarantined, every key naming the card; then ``--tune
+             cached`` on that cache (every sparse layer ``cached``, the
+             cache untouched, the parity gate and every reached kernel
+             launched; tok/s beside ``--tune off``, the two alternated
+             three runs each, a record) and on an empty cache (blocks
+             equal to ``--tune off``'s);
+17. guard — ``serve --guard`` on olmo-1b and on deepseek-moe-16b at
+             `MOE_LAYERS`: no ladder event, no quarantine, no
+             ``degraded_dispatch``, and the serving launches (the guard's
+             subtracted) equal to phases 4 and 9's; ``serve --guard
+             --inject-nan`` on olmo-1b and on ``--quant int8``: one NaN
+             trip, blamed on the injected layer, which alone goes dense;
+             the MoE NaN drill on an expert layer through
+             `serve.guarded_generate`, blaming the same layers with the
+             kernels and with their plain versions; `harden_plan` under a
+             forced ``cuda`` failure: every layer ``cuda`` -> ``xla``, and
+             a greedy pass on that plan launches no tiled kernel and ticks
+             ``degraded_dispatch`` on every dispatch;
+18. objective — olmo-1b planned under every objective on the modeled
+             ``zcu102`` and ``edge-64k`` profiles: mode / impl mix and the
+             cost summary, and after one prefill and one decode step each
+             layer's dispatches (`execute.bytes_stats`) two per layer of
+             the model and its counted weight bytes equal to its cost
+             tag's ``w_stream_bytes`` x dispatches (a dispatch-count and
+             bookkeeping check: both byte counts are host arithmetic over
+             the same stored tensors, no measured traffic); then ``serve
+             --objective dram --deployment edge-64k`` through its parity
+             gate.
+
 The kernels phase also holds the bitmap kernel against its plain version
 and the tiled kernel on the same pruned weight at olmo-1b's projection
 shapes, and the kv kernel bitwise against its plain version at P = 64
@@ -130,6 +165,7 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -269,6 +305,12 @@ SKINNY_TRAIN_BATCH = 4
 TRAIN_STEP_RUNS = 20
 LM_TRAIN_LAYERS = 2
 LM_TRAIN_STEPS = 3
+# planning and robustness (phases 16-18): the guarded NaN runs at fewer
+# decode steps (their checks are the guard's, not throughput); the plan
+# objectives on two modeled deployment profiles
+GUARD_NAN_ARGS = ["--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
+                  "--gen-steps", "8", "--sparsity", str(SPARSITY)]
+OBJECTIVE_DEPLOYMENTS = ("zcu102", "edge-64k")
 LM_TRAIN_ARGS = ["--arch", "olmo-1b", "--n-layers", str(LM_TRAIN_LAYERS),
                  "--batch", "8", "--seq", "128"]
 
@@ -1916,8 +1958,319 @@ def lm_train(torch) -> dict:
     return out
 
 
+def tune_phase(torch, serve, tune_off: dict, paths: dict) -> None:
+    """16. ``serve --tune sweep`` into a fresh cache (every key's
+    candidates timed on the card: none may be quarantined, every key names
+    the card), then ``--tune cached`` on it (every layer ``cached``,
+    nothing timed, the parity gate, every reached kernel launched; tok/s
+    beside ``--tune off``, three runs of each alternated), then ``--tune
+    cached`` on an empty cache (blocks equal ``--tune off``'s)."""
+    import tempfile
+    from repro_torch.kernels import autotune
+    card = f"|cuda:{torch.cuda.get_device_name(0)}|"
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = pathlib.Path(tmp) / "tune.json"
+        label = "olmo-1b tune sweep"
+        paths[label], swept = serve_run(
+            torch, serve, label,
+            SERVE_ARGS + ["--tune", "sweep", "--tune-cache", str(cache)])
+        entries = autotune.load_cache(cache)
+        shapes = set(OLMO_PROJECTIONS.values())
+        if len(entries) != 2 * len(shapes):
+            raise AssertionError(f"the sweep wrote {len(entries)} keys, "
+                                 f"expected {2 * len(shapes)}")
+        for key, e in sorted(entries.items()):
+            if card not in key:
+                raise AssertionError(f"cache key {key} does not name the "
+                                     f"card")
+            if e.get("quarantined"):
+                raise AssertionError(f"the sweep quarantined candidates of "
+                                     f"{key}: {e['quarantined']}")
+            cands = ", ".join(f"({c['bm']},{c['bo']},{c['bn']}) "
+                              f"{c['time_s'] * 1e3:.4f}"
+                              for c in e["candidates"])
+            log(f"tune {key}: static ms {e['static_time_s'] * 1e3:.4f}, "
+                f"winner ({e['bm']},{e['bo']},{e['bn']}) ms "
+                f"{e['time_s'] * 1e3:.4f}; candidates (bm,bo,bn) ms: "
+                f"{cands}")
+        tune = swept["plan"]["tune"]
+        log(f"tune sweep: plan (sweep included) "
+            f"{swept['plan']['plan_build_s']:.2f} s, sources "
+            f"{tune['sources']}, deltas {tune['deltas']}")
+        stat = cache.stat()
+        label = "olmo-1b tune cached"
+        paths[label], cached = serve_run(
+            torch, serve, label,
+            SERVE_ARGS + ["--tune", "cached", "--tune-cache", str(cache)])
+        n_sparse = cached["plan"]["sparse_layers"]
+        stats = cached["plan"]["engine_stats"]
+        if cached["plan"]["tune"]["sources"] != {"cached": n_sparse} \
+                or stats.get("tuned_blocks") != stats["balanced_spmm"]:
+            raise AssertionError(f"a cached build did not take every block "
+                                 f"from the cache: {cached['plan']['tune']}")
+        if (cache.stat().st_mtime_ns, cache.stat().st_size) != \
+                (stat.st_mtime_ns, stat.st_size):
+            raise AssertionError("a cached build wrote the cache")
+        # tok/s of --tune cached beside --tune off, alternated (off,
+        # cached, cached, off after the two runs above) for their spread:
+        # a record, not a gate
+        toks = {"off": [tune_off], "cached": [cached]}
+        for mode in ("off", "cached", "cached", "off"):
+            _, res = serve_run(
+                torch, serve, f"olmo-1b tune {mode} (repeat)",
+                SERVE_ARGS + ["--tune", mode, "--tune-cache", str(cache)])
+            toks[mode].append(res)
+        for mode, runs in toks.items():
+            for k in ("sparse", "dense"):
+                v = [r[k]["tokens_per_s"] for r in runs]
+                log(f"tune {mode}: {k} tok/s {v} (median "
+                    f"{statistics.median(v)}, range {min(v)}-{max(v)}; a "
+                    f"record, not a gate)")
+        empty = pathlib.Path(tmp) / "empty.json"
+        label = "olmo-1b tune empty cache"
+        paths[label], cold = serve_run(
+            torch, serve, label,
+            SERVE_ARGS + ["--tune", "cached", "--tune-cache", str(empty)])
+        if cold["plan"]["blocks"] != tune_off["plan"]["blocks"] \
+                or cold["plan"]["tune"]["sources"] != {"static": n_sparse} \
+                or empty.exists():
+            raise AssertionError(f"--tune cached on an empty cache: blocks "
+                                 f"{cold['plan']['blocks']} vs --tune off "
+                                 f"{tune_off['plan']['blocks']}")
+
+
+def guard_clean(torch, serve, label: str, args: list, want: dict,
+                paths: dict) -> None:
+    """``serve --guard`` on a clean plan: no ladder event, no quarantine,
+    no degraded dispatch, and the serving path's own launches (the guard's
+    subtracted) equal to ``want``, the unguarded path's."""
+    paths[label], res = serve_run(torch, serve, label, args + ["--guard"])
+    g = res["guard"]
+    if g["degradations"] or g["events"] or g["quarantined"] \
+            or g["degraded_mix"] \
+            or res["plan"]["engine_stats"].get("degraded_dispatch"):
+        raise AssertionError(f"a clean plan degraded under --guard: {g}")
+    main = {k: v - g["kernel_launches"].get(k, 0)
+            for k, v in paths[label].items()}
+    if main != want:
+        raise AssertionError(f"{label}: the serving launches {main} differ "
+                             f"from the unguarded path's {want}")
+    log(f"{label}: validated {g['validated_layers']} layers, no degradation;"
+        f" guard {g['seconds']:.2f} s, its launches "
+        f"{ {k: v for k, v in g['kernel_launches'].items() if v} }")
+
+
+def guard_nan(torch, serve, label: str, args: list, vocab: int,
+              paths: dict) -> None:
+    """``serve --guard --inject-nan``: exactly one NaN trip, blamed on the
+    injected layer, which alone is quarantined to dense; the guarded pass's
+    tokens are real ids; the parity gate passes on the repaired plan."""
+    paths[label], res = serve_run(torch, serve, label,
+                                  args + ["--guard", "--inject-nan"])
+    g = res["guard"]
+    trips = [e for e in g["events"] if e["event"] == "nan_trip"]
+    if len(g["events"]) != 1 or len(trips) != 1 or not trips[0][
+            "attributable"] or trips[0]["poisoned_layers"] != [g["injected"]] \
+            or g["quarantined"] != [g["injected"]] \
+            or g["degraded_mix"] != {"cuda->dense": 1} \
+            or not all(0 <= t < vocab for t in g["sample"]):
+        raise AssertionError(f"{label}: the NaN guard did not blame and "
+                             f"quarantine the injected layer alone: {g}")
+    log(f"{label}: injected {g['injected']}, trip {trips[0]}, quarantined "
+        f"{g['quarantined']}, guard {g['seconds']:.2f} s")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The 2-D and batched kernel entries of `kernels.ops` swapped for their
+    plain versions (CUDA tensors included) while the context lasts."""
+    from repro_torch.kernels import balanced_spmm as bs
+    from repro_torch.kernels import ops
+    saved = (ops.tiled_balanced_spmm, ops.tiled_balanced_spmm_skinny,
+             ops.tiled_balanced_spmm_batched)
+    ops.tiled_balanced_spmm = \
+        lambda x, tb, **_: bs.tiled_balanced_spmm_plain(x, tb)
+    ops.tiled_balanced_spmm_skinny = \
+        lambda x, tb, **_: bs.tiled_balanced_spmm_plain(x, tb)
+    ops.tiled_balanced_spmm_batched = \
+        lambda x, tb, **_: bs.tiled_balanced_spmm_batched_plain(x, tb)
+    try:
+        yield
+    finally:
+        (ops.tiled_balanced_spmm, ops.tiled_balanced_spmm_skinny,
+         ops.tiled_balanced_spmm_batched) = saved
+
+
+def guard_moe_nan(torch, serve) -> None:
+    """The MoE NaN drill through `serve.guarded_generate` on an expert
+    layer (every expert's values NaN): the batched skinny kernel writes
+    +0.0 for an expert no token routes to, where its plain version would
+    give NaN, so the blamed layers are held equal to those of the same
+    pass through the plain versions."""
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.testing import faults
+    bundle, params, plan, prompt = full_width(torch, "bfloat16",
+                                              "deepseek-moe-16b", MOE_LAYERS)
+    ref_blocks = engine_plan.masked_dense_params(params, plan)["blocks"]
+    poisoned, name = faults.inject_nan_output(plan, layer="we_gate")
+    max_len = prompt.shape[1] + 2
+    reset_launches()
+    _, kern, events = serve.guarded_generate(bundle, poisoned, params, prompt,
+                                             2, max_len,
+                                             ref_blocks=ref_blocks)
+    torch.cuda.synchronize()
+    if not launches()["tiled_balanced_spmm_batched"]:
+        raise AssertionError("the MoE NaN drill never ran the batched "
+                             "kernel")
+    with plain_kernels():
+        _, plain, events_plain = serve.guarded_generate(
+            bundle, poisoned, params, prompt, 2, max_len,
+            ref_blocks=ref_blocks)
+    if kern.quarantined() != (name,) or plain.quarantined() != (name,) \
+            or events != events_plain:
+        raise AssertionError(f"MoE NaN drill: kernels blame "
+                             f"{kern.quarantined()} {events}, plain versions "
+                             f"{plain.quarantined()} {events_plain}")
+    log(f"moe NaN drill on {name}: kernels and plain versions both blame "
+        f"{list(kern.quarantined())}; events {events}")
+
+
+def guard_forced(torch, serve) -> None:
+    """`harden_plan` under a forced ``cuda`` failure on the full-width
+    olmo-1b plan: every layer moves ``cuda`` -> ``xla`` (events printed);
+    a serve pass on that plan launches no tiled kernel and ticks
+    ``degraded_dispatch`` on every dispatch."""
+    from repro_torch.engine import execute, guard
+    from repro_torch.testing import faults
+    bundle, params, plan, prompt = full_width(torch, "bfloat16")
+    t0 = time.monotonic()
+    with faults.force_impl_failure("cuda"):
+        hardened, events = guard.harden_plan(plan)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    for e in events:
+        log(f"forced cuda failure: {e.layer} {e.from_impl} -> {e.to_impl} "
+            f"({e.action}: {e.reason[:100]})")
+    moved = {e.layer for e in events if e.action == "demoted"}
+    if moved != set(plan.layers) or hardened.impl_mix() != {
+            "xla": len(plan.layers)} or any(
+            e.from_impl != "cuda" for e in events):
+        raise AssertionError(f"the forced cuda failure did not move every "
+                             f"layer to xla: {hardened.impl_mix()}")
+    reset_launches()
+    execute.reset_stats()
+    steps = 4
+    serve.greedy_generate(bundle, {**params, "sparse_plan": hardened},
+                          prompt, steps, prompt.shape[1] + steps)
+    torch.cuda.synchronize()
+    counts, stats = launches(), execute.stats()
+    tiled = {k: v for k, v in counts.items() if k.startswith("tiled_") and v}
+    if tiled or not stats.get("balanced_spmm") \
+            or stats.get("degraded_dispatch") != stats["balanced_spmm"]:
+        raise AssertionError(f"the demoted plan launched {tiled} or did not "
+                             f"tick degraded_dispatch on every dispatch: "
+                             f"{stats}")
+    log(f"forced cuda failure: harden {secs:.2f} s, {len(events)} events; "
+        f"a greedy pass of {steps} steps launched no tiled kernel, "
+        f"degraded_dispatch {stats['degraded_dispatch']} of "
+        f"{stats['balanced_spmm']} dispatches")
+
+
+def guard_phase(torch, serve, olmo: dict, moe: dict, paths: dict) -> None:
+    """17. the guard: clean ``--guard`` runs (olmo-1b, the MoE), the NaN
+    drills (olmo-1b, int8, and the MoE against its plain versions), and
+    the forced ``cuda`` failure."""
+    from repro_torch.configs import get_config
+    guard_clean(torch, serve, "olmo-1b guard", SERVE_ARGS, olmo, paths)
+    torch.cuda.empty_cache()
+    guard_clean(torch, serve, "deepseek-moe-16b guard", MOE_ARGS, moe, paths)
+    torch.cuda.empty_cache()
+    vocab = get_config("olmo-1b").vocab_size
+    guard_nan(torch, serve, "olmo-1b guard nan", GUARD_NAN_ARGS, vocab,
+              paths)
+    guard_nan(torch, serve, "olmo-1b int8 guard nan",
+              GUARD_NAN_ARGS + ["--quant", "int8"], vocab, paths)
+    torch.cuda.empty_cache()
+    guard_moe_nan(torch, serve)
+    torch.cuda.empty_cache()
+    guard_forced(torch, serve)
+    torch.cuda.empty_cache()
+
+
+def objective_phase(torch, serve, paths: dict) -> None:
+    """18. olmo-1b at full width planned under every objective on two
+    modeled deployment profiles: the mode and impl mix and the cost
+    summary; after one prefill and one decode step every layer was
+    dispatched twice per layer of the model and its counted weight bytes
+    equal its tag's ``w_stream_bytes`` x dispatches (a dispatch-count and
+    bookkeeping check: both sides are host arithmetic over the same stored
+    tensors, not a measurement of traffic).  Then ``serve --objective dram
+    --deployment edge-64k`` through its parity gate."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.engine import execute
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.launch import cost_model
+    from repro_torch.models import build_model
+    from repro_torch.models.api import merge_prefill_cache
+    cfg = dataclasses.replace(get_config("olmo-1b"), sparse_serving=True)
+    bundle = build_model(cfg, DEVICE)
+    params = bundle.init(0)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(DEVICE)
+    for dep in OBJECTIVE_DEPLOYMENTS:
+        for objective in cost_model.OBJECTIVES:
+            t0 = time.monotonic()
+            plan = engine_plan.plan_model(cfg, params, sparsity=SPARSITY,
+                                          m_hint=128, objective=objective,
+                                          deployment=dep)
+            torch.cuda.synchronize()
+            build_s = time.monotonic() - t0
+            sparse = {**params, "sparse_plan": plan}
+            execute.reset_stats()
+            with torch.no_grad():
+                lg, pfc = bundle.prefill(sparse, {"tokens": prompt})
+                bundle.decode_step(
+                    sparse, {"tokens": lg.argmax(-1)[:, None],
+                             "cache_len": torch.full((4,), 32,
+                                                     device=DEVICE)},
+                    merge_prefill_cache(bundle.init_cache(4, 33), pfc))
+            torch.cuda.synchronize()
+            counted = execute.bytes_stats()
+            for nm, lp in plan.layers.items():
+                c = counted[nm]
+                if c["dispatches"] != 2 * cfg.n_layers or \
+                        c["bytes_weights"] != \
+                        lp.spec.cost.w_stream_bytes * c["dispatches"]:
+                    raise AssertionError(
+                        f"{objective}/{dep} {nm}: counted {c}, tag "
+                        f"{lp.spec.cost}")
+            cs = plan.cost_summary()
+            log(f"objective {objective} on {dep} (modeled): plan "
+                f"{build_s:.2f} s, modes {plan.mode_mix()}, impls "
+                f"{plan.impl_mix()}; DRAM {cs['total_dram_bytes']:.6e} B, "
+                f"energy {cs['total_energy_pj']:.6e} pJ, weight stream "
+                f"{cs['total_w_stream_bytes']} B; bytes_stats == tag x "
+                f"dispatches for all {len(plan.layers)} layers")
+            del plan, sparse
+    del bundle, params
+    torch.cuda.empty_cache()
+    label = "olmo-1b objective dram edge-64k"
+    paths[label], res = serve_run(
+        torch, serve, label,
+        SERVE_ARGS + ["--objective", "dram", "--deployment", "edge-64k"])
+    cs = res["plan"]["cost"]
+    if (cs["objective"], cs["deployment"]) != ("dram", "edge-64k"):
+        raise AssertionError(f"the served plan's cost summary: {cs}")
+    log(f"{label}: modes {res['plan']['mode_mix']}, impls "
+        f"{res['plan']['impl_mix']}, modeled DRAM "
+        f"{cs['total_dram_bytes']:.6e} B")
+
+
 def main() -> int:
     import torch
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1991,7 +2344,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. the olmo-1b path: counts zeroed just before, read just after
-    paths["olmo-1b"] = serve_path(torch, serve, "olmo-1b", SERVE_ARGS)
+    paths["olmo-1b"], tune_off = serve_run(torch, serve, "olmo-1b",
+                                           SERVE_ARGS)
     parity_f32 = full_width_f32_parity(torch, serve)
     log(f"float32 compute, full width, end to end: {json.dumps(parity_f32)}")
     log(f"profile {json.dumps(profile_generate(torch, serve))}")
@@ -2003,7 +2357,8 @@ def main() -> int:
     # path, then the serve entry point, the same way
     scatter_vs_mask(torch)
     label = "olmo-1b scatter"
-    paths[label] = serve_path(torch, serve, label, SERVE_ARGS, "scatter")
+    paths[label], _ = serve_run(torch, serve, label, SERVE_ARGS,
+                                 "scatter")
     if paths[label]["kv_cache_update"] != SCATTER_KV_LAUNCHES:
         raise AssertionError(f"kv_cache_update launched "
                              f"{paths[label]['kv_cache_update']} times on "
@@ -2017,7 +2372,8 @@ def main() -> int:
 
     # 7. the continuous-batching runtime on the scatter config, the same way
     label = "olmo-1b traffic"
-    paths[label] = serve_path(torch, serve, label, TRAFFIC_ARGS, "scatter")
+    paths[label], _ = serve_run(torch, serve, label, TRAFFIC_ARGS,
+                                 "scatter")
     quiet = [k for k in ("kv_cache_update", "tiled_balanced_spmm",
                          "tiled_balanced_spmm_skinny")
              if paths[label][k] == 0]
@@ -2026,8 +2382,8 @@ def main() -> int:
     log("traffic profile " + json.dumps(profile_traffic(torch, serve)))
 
     # 8. the olmo-1b int8 path, the same way
-    paths["olmo-1b int8"] = serve_path(torch, serve, "olmo-1b int8",
-                                       QUANT_ARGS)
+    paths["olmo-1b int8"], _ = serve_run(torch, serve, "olmo-1b int8",
+                                         QUANT_ARGS)
     log("int8 profile " + json.dumps(profile_generate(torch, serve,
                                                       quant="int8")))
 
@@ -2039,7 +2395,7 @@ def main() -> int:
              "tiled_balanced_spmm_batched_q")):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        paths[label] = serve_path(torch, serve, label, args)
+        paths[label], _ = serve_run(torch, serve, label, args)
         if paths[label][batched] != want:
             raise AssertionError(f"{batched} launched "
                                  f"{paths[label][batched]} times on the "
@@ -2059,6 +2415,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         log("moe profile " + json.dumps(profile_generate(
             torch, serve, arch="deepseek-moe-16b", n_layers=MOE_LAYERS)))
+    torch.cuda.empty_cache()
+
+    # 16-18. planning and robustness at full width, each path's counts
+    # zeroed just before and read just after
+    for name, phase in (
+            ("16. tune", lambda: tune_phase(torch, serve, tune_off, paths)),
+            ("17. guard", lambda: guard_phase(
+                torch, serve, paths["olmo-1b"], paths["deepseek-moe-16b"],
+                paths)),
+            ("18. objective", lambda: objective_phase(torch, serve, paths))):
+        t0 = time.monotonic()
+        phase()
+        torch.cuda.empty_cache()
+        log(f"phase {name}: {time.monotonic() - t0:.1f} s")
 
     # 10. result: launches summed over the paths' runs; each kernel's timed
     # row at bf16, at the quant mode its serve path runs, at the shape its
@@ -2097,6 +2467,7 @@ def main() -> int:
                 "M", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name == "kv_cache_update":
             kernels[-1]["launch_floor_ms"] = floor_ms
+    log(f"all phases {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2104,14 +2475,15 @@ def main() -> int:
     return 0
 
 
-def serve_path(torch, serve, label: str, args: list,
-               cache_update: str | None = None) -> dict:
+def serve_run(torch, serve, label: str, args: list,
+              cache_update: str | None = None) -> tuple:
     """Drive one path through `launch/serve` (``main``, or ``run`` on the
     config ``main`` builds with ``cache_update`` set) with every launch
     count zeroed just before and read just after; fail if a kernel that
     the path's plan reaches never launched, or if a tiled kernel of the
     other format launched (a quantized plan runs only the ``_q`` kernels,
-    an unquantized one none of them)."""
+    an unquantized one none of them).  Returns ``(launch counts, the
+    serve report)``."""
     import dataclasses
     reset_launches()
     t0 = time.monotonic()
@@ -2151,7 +2523,7 @@ def serve_path(torch, serve, label: str, args: list,
     if other:
         raise AssertionError(f"the {label} path launched {other}, kernels of "
                              f"the other weight format")
-    return counts
+    return counts, res
 
 
 if __name__ == "__main__":

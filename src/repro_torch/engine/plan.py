@@ -1,5 +1,4 @@
-"""Layer-plan construction — counterpart of `repro.engine.plan` at the
-latency objective.
+"""Layer-plan construction — counterpart of `repro.engine.plan`.
 
 `build_layer_plan` plans one fc (``[O, N]``) or conv (``[Co, Ci, Hk, Wk]``)
 weight from its pruning mask; `plan_smallcnn` plans the executable small
@@ -8,9 +7,19 @@ stacked projections.
 
 One offline pass fixes every per-layer execution decision: the dataflow
 mode (§V-C `choose_dataflow`), the kernel impl (§VI-F thresholds), the
-block sizes (`kernels.ops.choose_blocks`) and the weights pre-encoded to
-the impl's native format (`TiledBalanced` for the ``cuda`` kernels, flat
-`BalancedSparse` for the eager rungs, masked dense otherwise).
+block sizes (`kernels.autotune.resolve_blocks`: the static
+`kernels.ops.choose_blocks` model, or under ``tune="cached"|"sweep"`` a
+measured choice) and the weights pre-encoded to the impl's native format
+(`TiledBalanced` for the ``cuda`` kernels, flat `BalancedSparse` for the
+eager rungs, masked dense otherwise).
+
+``objective`` / ``deployment`` select the plan objective (the reference's
+DESIGN.md §14): ``"latency"`` keeps the §V-C / §VI-F rules and only
+annotates each spec with its `launch.cost_model.CostTag`; ``"dram"``,
+``"energy"`` and ``"balanced"`` co-optimize the dataflow mode and the impl
+(sparse encoding vs dense stream, never up the ladder) against the cost
+model's accounting for the named deployment profile.  Every tag carries
+the exact stored bytes `engine.execute.bytes_stats` must count.
 
 ``quant`` ("int8" | "int4") block-quantizes every sparse encoding per
 (row, bn-block); a quantized plan keeps the tiled format on every sparse
@@ -37,11 +46,14 @@ from ..core.dataflow import LayerSpec, choose_dataflow
 from ..core.pruning import BalancedSparse, keep_count, nonzero_columns, \
     topk_mask
 from ..core.sparse_ops import SparseLinearSpec
+from ..core.dataflow import ifm_storage_bits
+from ..kernels import autotune
 from ..kernels import ops as kernel_ops
 from ..kernels.tile_format import (_KB_ROUND, QUANT_MODES, _round_up,
                                    TiledBalanced, encode_tiled, invert_perm,
                                    max_block_count, pack_columns,
                                    quantize_tiled, tiled_to_dense)
+from ..launch import cost_model as _cost
 from ..launch.cost_model import IMPL_LADDER
 
 Tensor = torch.Tensor
@@ -108,13 +120,26 @@ class PlanSpec:
     stride: int = 1
     conv_padding: Any = "SAME"      # "SAME" | "VALID" | int
     experts: int = 0
+    tuned: str = "static"           # where ``blocks`` came from: "static"
+                                    # (the model), "cached" (a warm autotune
+                                    # entry), "swept" (measured at build)
+    blocks_static: kernel_ops.BlockChoice | None = None
+                                    # the static model's choice for the
+                                    # same key (None when ``blocks`` is)
+    degraded_from: str = ""         # the impl the planner chose, when the
+                                    # guard ladder demoted or quarantined
+                                    # the layer (`engine.guard`)
     m_hint: int = 0                 # prefill GEMM M ``blocks`` was chosen at
     decode_m: int = 0               # decode GEMM M of ``blocks_decode``
     blocks_decode: kernel_ops.BlockChoice | None = None
     packed: bool = False            # column-combining perm on the encoding
     pack_kb: Tuple = ()             # (kb_unpacked, kb_packed) when packed
     quant: str = "none"
-    cost: Any = None                # cost-model provenance (not ported yet)
+    cost: Any = None                # `launch.cost_model.CostTag`: modeled
+                                    # per-dispatch DRAM / energy / latency at
+                                    # the build objective, and the stored
+                                    # bytes `execute.bytes_stats` counts
+                                    # (None on plan_from_balanced plans)
 
     @property
     def is_sparse(self) -> bool:
@@ -141,14 +166,14 @@ class LayerPlan:
         return w
 
     def nbytes(self) -> int:
-        """Stored bytes of the weights, every stacked layer included."""
-        w = self.weights
-        if isinstance(w, TiledBalanced):
-            return w.nbytes()
-        if isinstance(w, BalancedSparse):
-            return sum(t.numel() * t.element_size()
-                       for t in (w.values, w.indices))
-        return w.numel() * w.element_size()
+        """Stored bytes of the weights, every stacked layer included
+        (`cost_model.pytree_nbytes`), computed once per weights object: a
+        dispatch counts them without walking the encoding again."""
+        hit = self.__dict__.get("_nbytes")
+        if hit is None or hit[0] is not self.weights:
+            hit = (self.weights, _cost.pytree_nbytes(self.weights))
+            self.__dict__["_nbytes"] = hit
+        return hit[1]
 
     def layer(self, i: int) -> "LayerPlan":
         """The plan of stacked layer ``i`` (views of the stacked leaves)."""
@@ -184,6 +209,70 @@ class ModelPlan:
             mix[lp.spec.impl] = mix.get(lp.spec.impl, 0) + 1
         return mix
 
+    def tuned_mix(self) -> Dict[str, int]:
+        """Where each layer's `BlockChoice` came from (static model / warm
+        autotune cache / fresh sweep)."""
+        mix: Dict[str, int] = {}
+        for lp in self.layers.values():
+            mix[lp.spec.tuned] = mix.get(lp.spec.tuned, 0) + 1
+        return mix
+
+    def tune_deltas(self) -> Tuple:
+        """``(name, tuned (bm, bo, bn), static (bm, bo, bn))`` of the layers
+        whose measured choice differs from the static model (`meta` key
+        ``tune_deltas``)."""
+        return dict(self.meta).get("tune_deltas", ())
+
+    def degraded_mix(self) -> Dict[str, int]:
+        """``"<original>-><current>"`` counts of the layers the guard
+        ladder demoted or quarantined (empty: nothing degraded)."""
+        mix: Dict[str, int] = {}
+        for lp in self.layers.values():
+            s = lp.spec
+            if s.degraded_from:
+                key = f"{s.degraded_from}->{s.impl}"
+                mix[key] = mix.get(key, 0) + 1
+        return mix
+
+    def quarantined(self) -> Tuple:
+        """Layers the runtime NaN guard flipped to dense (`meta` key
+        ``quarantined``, stamped by `engine.guard.quarantine_layers`)."""
+        return dict(self.meta).get("quarantined", ())
+
+    def cost_summary(self) -> Dict[str, Any]:
+        """The per-layer `CostTag`s aggregated over the model: per-dispatch
+        figures scale by the stacked-layer count (``w_total_bytes //
+        w_stream_bytes``); layers without a tag count in ``untagged``."""
+        meta = dict(self.meta)
+        out: Dict[str, Any] = {
+            "objective": meta.get("objective", "latency"),
+            "deployment": meta.get("deployment", ""),
+            "total_dram_bytes": 0.0, "total_energy_pj": 0.0,
+            "total_w_stream_bytes": 0, "total_act_bytes": 0,
+            "modes": {}, "untagged": 0, "per_layer": {},
+        }
+        for nm in sorted(self.layers):
+            tag = self.layers[nm].spec.cost
+            if tag is None:
+                out["untagged"] += 1
+                continue
+            if not out["deployment"]:
+                out["deployment"] = tag.deployment
+            n_disp = max(1, tag.w_total_bytes // max(tag.w_stream_bytes, 1))
+            out["total_dram_bytes"] += tag.dram_bits / 8.0 * n_disp
+            out["total_energy_pj"] += tag.energy_pj * n_disp
+            out["total_w_stream_bytes"] += tag.w_stream_bytes * n_disp
+            out["total_act_bytes"] += \
+                (tag.act_in_bytes + tag.act_out_bytes) * n_disp
+            out["modes"][tag.mode] = out["modes"].get(tag.mode, 0) + 1
+            out["per_layer"][nm] = {
+                "mode": tag.mode, "dram_bytes": tag.dram_bits / 8.0,
+                "energy_pj": tag.energy_pj, "latency_s": tag.latency_s,
+                "w_stream_bytes": tag.w_stream_bytes,
+                "dispatches": n_disp,
+            }
+        return out
+
     @property
     def sparse_layer_count(self) -> int:
         return sum(1 for lp in self.layers.values() if lp.spec.is_sparse)
@@ -207,7 +296,11 @@ class ModelPlan:
                          f"{s.block_k:4d} {s.w_sparsity:6.2f} "
                          f"{s.d_mem_bits / 1e3:9.0f}")
         lines.append(f"mode mix {self.mode_mix()}  impl mix "
-                     f"{self.impl_mix()}")
+                     f"{self.impl_mix()}  blocks {self.tuned_mix()}")
+        degraded = self.degraded_mix()
+        if degraded:
+            lines.append(f"degraded {degraded}  quarantined "
+                         f"{list(self.quarantined())}")
         return "\n".join(lines)
 
 
@@ -222,6 +315,165 @@ def default_impl(*, balanced: bool, w_sparsity: float,
     if not balanced or not spec.use_sparse:
         return "dense"
     return "cuda" if torch.device(device).type == "cuda" else "xla"
+
+
+# ---------------------------------------------------------------------------
+# Cost-objective co-optimization (launch.cost_model)
+# ---------------------------------------------------------------------------
+
+def _encoded_format_bits(*, impl: str, n_out: int, n_in: int, k: int,
+                         bn: int, block_k: int, quant: str,
+                         elem_bits: int) -> int:
+    """Format-level weight-stream bits of one encoding candidate."""
+    if impl == "dense":
+        return n_out * n_in * elem_bits
+    if impl == "cuda" or quant != "none":
+        nb = -(-n_in // bn)
+        return _cost.tiled_format_bits(n_out, nb, block_k, bn,
+                                       elem_bits=elem_bits, quant=quant)
+    return _cost.flat_format_bits(n_out, k, n_in, elem_bits=elem_bits)
+
+
+def _evaluate_cost(*, objective: str, dep, layer_spec: LayerSpec | None,
+                   kind: str, m_hint: int, n_in: int, n_out: int, k: int,
+                   w_format_bits: int, quant: str,
+                   elem_bits: int) -> Dict[str, Any]:
+    """Per-mode DRAM bits and energy / latency of one (impl, encoding)
+    candidate: a conv layer streams compressed-bitmap IFMs of its
+    geometry, an fc layer a dense ``[m_hint, N]`` activation block."""
+    if kind == "conv" and layer_spec is not None:
+        i_bits = ifm_storage_bits(layer_spec, elem_bits=elem_bits)
+        o_elems = layer_spec.h_o * layer_spec.w_o * layer_spec.c_o
+        o_bits = o_elems * dep.act_bits
+        psum = o_elems * dep.psum_bits
+        macs = round(layer_spec.macs * (k / max(n_in, 1)))
+    else:
+        i_bits = m_hint * n_in * dep.act_bits
+        o_bits = m_hint * n_out * dep.act_bits
+        psum = m_hint * n_out * dep.psum_bits
+        macs = m_hint * n_out * k
+    per_mode = _cost.mode_dram_bits(i_bits, w_format_bits, o_bits, psum, dep)
+    mode = min(per_mode, key=lambda m: (per_mode[m],
+                                        _cost._MODE_ORDER.index(m)))
+    d = per_mode[mode]
+    energy = _cost.layer_energy_pj(d, macs, dep, quant=quant)
+    lat = _cost.layer_latency_s(d, macs, dep)
+    return {"mode": mode, "per_mode": per_mode, "dram_bits": d,
+            "energy_pj": energy, "latency_s": lat, "macs": macs,
+            "i_bits": i_bits, "o_bits": o_bits,
+            "score": _cost.objective_score(objective, dram_bits=d,
+                                           energy_pj=energy, latency_s=lat)}
+
+
+def _format_bits_of(weights: Any, *, elem_bits: int,
+                    lead_layers: int = 1) -> int:
+    """Per-dispatch format-level bits of an encoding (the leading layer
+    axis divides out; expert axes stay in the dispatch)."""
+    if isinstance(weights, TiledBalanced):
+        o, nb, kb = weights.indices.shape[-3:]
+        g = 1
+        for d in weights.indices.shape[:-3]:
+            g *= int(d)
+        per = _cost.tiled_format_bits(o, nb, kb, weights.bn,
+                                      elem_bits=elem_bits,
+                                      quant=weights.quant)
+    elif isinstance(weights, BalancedSparse):
+        o, k = weights.indices.shape[-2:]
+        g = 1
+        for d in weights.indices.shape[:-2]:
+            g *= int(d)
+        per = _cost.flat_format_bits(o, k, weights.n_in,
+                                     elem_bits=elem_bits)
+    else:                                # dense (fc 2-D, conv 4-D, stacked)
+        g = 1
+        per = int(weights.numel()) * elem_bits
+    return per * g // max(1, lead_layers)
+
+
+def _tag_for(*, objective: str, dep, ev: Dict[str, Any], mode: str,
+             quant: str, weights: Any, lead_layers: int, m_hint: int,
+             n_in: int, n_out: int, itemsize: int) -> "_cost.CostTag":
+    """The provenance record at ``mode`` (the spec's: at the latency
+    objective the §V-C choice, which the deployment's buffers may not
+    admit, then the model's own pick), with the exact stored byte counts
+    `execute.bytes_stats` must reproduce."""
+    d = ev["per_mode"].get(mode, ev["dram_bits"])
+    w_total = _cost.pytree_nbytes(weights)
+    return _cost.CostTag(
+        objective=objective, deployment=dep.name, mode=mode,
+        w_stream_bytes=w_total // max(1, lead_layers),
+        w_total_bytes=w_total,
+        act_in_bytes=m_hint * n_in * itemsize,
+        act_out_bytes=m_hint * n_out * itemsize,
+        dram_bits=int(d),
+        energy_pj=float(_cost.layer_energy_pj(d, ev["macs"], dep,
+                                              quant=quant)),
+        latency_s=float(_cost.layer_latency_s(d, ev["macs"], dep)))
+
+
+def _check_objective(objective: str, deployment: Any):
+    """The deployment profile, after checking the objective's name."""
+    if objective not in _cost.OBJECTIVES:
+        raise ValueError(f"objective must be one of {_cost.OBJECTIVES}, "
+                         f"got {objective!r}")
+    return _cost.get_deployment(deployment)
+
+
+def _prefer_dense(*, objective: str, dep, layer_spec: LayerSpec | None,
+                  kind: str, impl: str, m_hint: int, n_out: int, n_in: int,
+                  k: int, pattern: Tensor, itemsize: int, dtype, quant: str,
+                  elem_bits: int, groups: int = 1) -> bool:
+    """The impl co-optimization of a non-latency objective: whether the
+    dense stream scores better than the sparse encoding at the static
+    block choice (``groups`` encodings per dispatch: the experts).  Format
+    level; packing could only shrink the sparse side, so a sparse win here
+    is conservative.  Never promotes up the ladder."""
+    blk0 = autotune.resolve_blocks(m_hint, n_out, n_in, k, itemsize=itemsize,
+                                   impl=impl, tune="off", dtype=dtype,
+                                   quant=quant).blocks
+    bk0 = max(_KB_ROUND, _round_up(mask_block_k(pattern, bn=blk0.bn),
+                                   _KB_ROUND))
+    ev_s = _evaluate_cost(
+        objective=objective, dep=dep, layer_spec=layer_spec, kind=kind,
+        m_hint=m_hint, n_in=n_in, n_out=n_out, k=k,
+        w_format_bits=groups * _encoded_format_bits(
+            impl=impl, n_out=n_out, n_in=n_in, k=k, bn=blk0.bn,
+            block_k=bk0, quant=quant, elem_bits=elem_bits),
+        quant=quant, elem_bits=elem_bits)
+    ev_d = _evaluate_cost(
+        objective=objective, dep=dep, layer_spec=layer_spec, kind=kind,
+        m_hint=m_hint, n_in=n_in, n_out=n_out, k=n_in,
+        w_format_bits=groups * n_out * n_in * elem_bits, quant="none",
+        elem_bits=elem_bits)
+    return ev_d["score"] < ev_s["score"]
+
+
+def _cost_meta(objective: str, deployment: Any) -> Tuple:
+    """Meta entries of the plan objective; empty at the default (latency,
+    default deployment), as the reference's."""
+    if objective == "latency" and deployment is None:
+        return ()
+    return (("objective", objective),
+            ("deployment", _cost.get_deployment(deployment).name))
+
+
+def _tune_meta(tune: str, layers: Dict[str, "LayerPlan"]) -> Tuple:
+    """Meta entries of the tune policy and the per-layer tuned-vs-static
+    `BlockChoice` deltas."""
+    if tune == "off":
+        return ()
+    deltas = []
+    for nm in sorted(layers):
+        s = layers[nm].spec
+        if s.blocks is None or s.blocks_static is None \
+                or s.tuned == "static":
+            continue
+        stat = s.blocks_static
+        if (s.blocks.bm, s.blocks.bo, s.blocks.bn) != \
+                (stat.bm, stat.bo, stat.bn):
+            deltas.append((nm, (s.blocks.bm, s.blocks.bo, s.blocks.bn),
+                           (stat.bm, stat.bo, stat.bn)))
+    return (("tune", tune), ("tune_deltas", tuple(deltas)))
 
 
 def _maybe_pack(idx: Tensor, vals: Tensor, pattern2: Tensor, n_in: int,
@@ -282,15 +534,23 @@ def _as_dtype(dt) -> torch.dtype:
 
 
 def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
-                  m_hint: int, cd, decode_m: int = 4, pack: bool = True,
-                  quant: str = "none") -> LayerPlan:
+                  m_hint: int, cd, tune: str = "off",
+                  tune_cache: str | None = None, decode_m: int = 4,
+                  pack: bool = True, quant: str = "none",
+                  objective: str = "latency",
+                  deployment: Any = None) -> LayerPlan:
     """Plan one stacked projection ``[*lead, n_in, n_out]``: transpose to
     output-major, cast to the compute dtype (ties break in that dtype, as
     the reference's), balanced-prune each row to K = keep_count(n_in), and
-    encode every slice with one shared BlockChoice / KB (and one shared
-    packing permutation over the pooled pattern, on ``cuda`` only).  A
-    quantized sparse layer is tiled and quantized on every rung; a dense
-    one never quantizes."""
+    encode every slice with one shared BlockChoice / KB (resolved under
+    ``tune``; and one shared packing permutation over the pooled pattern,
+    on ``cuda`` only).  A quantized sparse layer is tiled and quantized on
+    every rung; a dense one never quantizes.  A non-latency ``objective``
+    may flip the layer to the dense stream; the spec's `CostTag` counts
+    one dispatch (one stacked layer, every expert)."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, "
+                         f"got {quant!r}")
     cd = _as_dtype(cd)
     lead = tuple(w.shape[:-2])
     n_in, n_out = w.shape[-2:]
@@ -306,7 +566,18 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
     masks = torch.empty((g, n_out, n_in), dtype=torch.bool, device=w.device)
     for sl in _chunks(g, n_out * n_in):
         masks[sl] = topk_mask(wt[sl], k)
-    blk = blk_dec = None
+    dep = _check_objective(objective, deployment)
+    lead0 = int(lead[0]) if lead else 1       # dispatches per stacked layer
+    elem_bits = cd.itemsize * 8
+    pooled = masks.reshape(g * n_out, n_in)
+    if objective != "latency" and impl_nm != "dense" and _prefer_dense(
+            objective=objective, dep=dep, layer_spec=None, kind="fc",
+            impl=impl_nm, m_hint=m_hint, n_out=n_out, n_in=n_in, k=k,
+            pattern=pooled, itemsize=cd.itemsize, dtype=cd, quant=quant,
+            elem_bits=elem_bits, groups=g // lead0):
+        impl_nm = "dense"
+    blk = blk_dec = blk_static = None
+    tuned = "static"
     block_k = 0
     packed = False
     pack_kb: Tuple = ()
@@ -314,15 +585,16 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
         weights: Any = (wt * masks).reshape(*lead, n_out, n_in)
         quant = "none"
     else:
-        w_bytes = kernel_ops.QUANT_WBYTES[quant]
-        blk = kernel_ops.choose_blocks(kernel_ops.bucket_m(m_hint), n_out,
-                                       n_in, k, itemsize=cd.itemsize,
-                                       w_bytes=w_bytes)
-        blk_dec = kernel_ops.choose_blocks(kernel_ops.bucket_m(decode_m),
-                                           n_out, n_in, k,
-                                           itemsize=cd.itemsize,
-                                           w_bytes=w_bytes)
-        pooled = masks.reshape(g * n_out, n_in)
+        res = autotune.resolve_blocks(m_hint, n_out, n_in, k,
+                                      itemsize=cd.itemsize, impl=impl_nm,
+                                      tune=tune, cache_path=tune_cache,
+                                      dtype=cd, quant=quant, device=w.device)
+        blk, tuned, blk_static = res.blocks, res.source, res.static
+        blk_dec = autotune.resolve_blocks(decode_m, n_out, n_in, k,
+                                          itemsize=cd.itemsize, impl=impl_nm,
+                                          tune=tune, cache_path=tune_cache,
+                                          dtype=cd, quant=quant,
+                                          device=w.device).blocks
         block_k = max(_KB_ROUND,
                       _round_up(mask_block_k(pooled, bn=blk.bn), _KB_ROUND))
         # ascending nonzero columns [g, O, K] and their values
@@ -357,16 +629,29 @@ def _plan_stacked(nm: str, w: Tensor, *, sparsity: float, impl: str | None,
                                      idx.reshape(*lead, n_out, k), n_in)
     flow = choose_dataflow(LayerSpec(name=nm, kind="fc", c_i=n_in,
                                      c_o=n_out, w_sparsity=1.0 - k / n_in))
-    spec = PlanSpec(name=nm, kind="fc", impl=impl_nm, mode=flow.mode,
+    ev = _evaluate_cost(objective=objective, dep=dep, layer_spec=None,
+                        kind="fc", m_hint=m_hint, n_in=n_in, n_out=n_out,
+                        k=k if impl_nm != "dense" else n_in,
+                        w_format_bits=_format_bits_of(weights,
+                                                      elem_bits=elem_bits,
+                                                      lead_layers=lead0),
+                        quant=quant, elem_bits=elem_bits)
+    mode = flow.mode if objective == "latency" else ev["mode"]
+    tag = _tag_for(objective=objective, dep=dep, ev=ev, mode=mode,
+                   quant=quant, weights=weights, lead_layers=lead0,
+                   m_hint=int(m_hint), n_in=n_in, n_out=n_out,
+                   itemsize=cd.itemsize)
+    spec = PlanSpec(name=nm, kind="fc", impl=impl_nm, mode=mode,
                     n_in=n_in, n_out=n_out, k=k, block_k=block_k,
                     blocks=blk, w_sparsity=1.0 - k / n_in,
                     d_mem_bits=int(flow.d_mem_bits) * g,
                     i_mem_bits=int(flow.i_mem) * g,
                     w_mem_bits=int(flow.w_mem) * g,
                     experts=int(lead[1]) if len(lead) > 1 else 0,
+                    tuned=tuned, blocks_static=blk_static,
                     m_hint=int(m_hint), decode_m=int(decode_m),
                     blocks_decode=blk_dec, packed=packed, pack_kb=pack_kb,
-                    quant=quant)
+                    quant=quant, cost=tag)
     return LayerPlan(spec=spec, weights=weights)
 
 
@@ -374,26 +659,31 @@ def build_layer_plan(name: str, w: Tensor, *, mask: Tensor | None = None,
                      layer_spec: LayerSpec | None = None, m_hint: int = 128,
                      impl: str | None = None, ifm_sparsity: float = 0.0,
                      weight_buffer_bits: int | None = None, stride: int = 1,
-                     conv_padding: Any = "SAME",
-                     quant: str = "none") -> LayerPlan:
+                     conv_padding: Any = "SAME", tune: str = "off",
+                     tune_cache: str | None = None, quant: str = "none",
+                     objective: str = "latency",
+                     deployment: Any = None) -> LayerPlan:
     """Derive one LayerPlan from a dense weight (output-major ``[O, N]`` for
     fc, ``[Co, Ci, Hk, Wk]`` for conv) and an optional pruning mask (else
-    the weight's own nonzero pattern), at the latency objective: the
-    reference's `build_layer_plan` with ``tune="off"`` and its defaults for
-    the rest (decode M 4, packing on, the weight's dtype).
+    the weight's own nonzero pattern): the reference's `build_layer_plan`
+    at its defaults for the rest (decode M 4, packing on, the weight's
+    dtype, 16-bit format elements).
 
     The §V-C dataflow mode comes from ``layer_spec`` (an fc spec of the
     weight's shape when None) at the pattern's sparsity; ``impl`` overrides
     the §VI-F policy but degrades to "dense" when the pattern is not
     balanced (the mask is still applied).  ``m_hint`` is the GEMM M the
-    prefill `BlockChoice` is resolved at (the decode one at M = 4); a
-    ``cuda`` fc layer is column-packed when that shrinks KB; ``quant``
-    block-quantizes a sparse encoding.  Built on the weight's device.
+    prefill `BlockChoice` is resolved at (the decode one at M = 4);
+    ``tune`` ("off" | "cached" | "sweep", cache file ``tune_cache``)
+    selects how (`kernels.autotune.resolve_blocks`); a ``cuda`` fc layer
+    is column-packed when that shrinks KB; ``quant`` block-quantizes a
+    sparse encoding; ``objective`` / ``deployment`` select the plan
+    objective (module docstring).  Built on the weight's device.
     """
     if quant not in QUANT_MODES:
         raise ValueError(f"quant must be one of {QUANT_MODES}, "
                          f"got {quant!r}")
-    decode_m = 4
+    decode_m, elem_bits = 4, 16
     kind = "conv" if w.ndim == 4 else "fc"
     hk = wk = 1
     if w.ndim == 4:
@@ -429,7 +719,15 @@ def build_layer_plan(name: str, w: Tensor, *, mask: Tensor | None = None,
     elif impl != "dense" and not balanced:
         impl = "dense"
     dt = w2.dtype
-    blocks = blocks_decode = None
+    dep = _check_objective(objective, deployment)
+    if objective != "latency" and impl != "dense" and _prefer_dense(
+            objective=objective, dep=dep, layer_spec=layer_spec, kind=kind,
+            impl=impl, m_hint=m_hint, n_out=o, n_in=n, k=k, pattern=pattern,
+            itemsize=dt.itemsize, dtype=dt, quant=quant,
+            elem_bits=elem_bits):
+        impl = "dense"
+    blocks = blocks_decode = blocks_static = None
+    tuned = "static"
     block_k = 0
     packed = False
     pack_kb: Tuple = ()
@@ -441,13 +739,15 @@ def build_layer_plan(name: str, w: Tensor, *, mask: Tensor | None = None,
         k = n
         quant = "none"
     else:
-        w_bytes = kernel_ops.QUANT_WBYTES[quant]
-        blocks = kernel_ops.choose_blocks(kernel_ops.bucket_m(m_hint), o, n,
-                                          k, itemsize=dt.itemsize,
-                                          w_bytes=w_bytes)
-        blocks_decode = kernel_ops.choose_blocks(
-            kernel_ops.bucket_m(decode_m), o, n, k, itemsize=dt.itemsize,
-            w_bytes=w_bytes)
+        res = autotune.resolve_blocks(m_hint, o, n, k, itemsize=dt.itemsize,
+                                      impl=impl, tune=tune,
+                                      cache_path=tune_cache, dtype=dt,
+                                      quant=quant, device=w.device)
+        blocks, tuned, blocks_static = res.blocks, res.source, res.static
+        blocks_decode = autotune.resolve_blocks(
+            decode_m, o, n, k, itemsize=dt.itemsize, impl=impl, tune=tune,
+            cache_path=tune_cache, dtype=dt, quant=quant,
+            device=w.device).blocks
         idx = nonzero_columns(pattern, k)               # ascending [O, K]
         vals = masked2.gather(1, idx).to(dt)
         idx = idx.to(torch.int32)
@@ -469,30 +769,47 @@ def build_layer_plan(name: str, w: Tensor, *, mask: Tensor | None = None,
         else:
             weights = BalancedSparse(vals, idx, n)
 
-    spec = PlanSpec(name=name, kind=kind, impl=impl, mode=flow.mode,
+    # -- cost provenance: evaluated on the actual encoding -----------------
+    ev = _evaluate_cost(objective=objective, dep=dep, layer_spec=layer_spec,
+                        kind=kind, m_hint=m_hint, n_in=n, n_out=o, k=int(k),
+                        w_format_bits=_format_bits_of(weights,
+                                                      elem_bits=elem_bits),
+                        quant=quant, elem_bits=elem_bits)
+    mode = flow.mode if objective == "latency" else ev["mode"]
+    tag = _tag_for(objective=objective, dep=dep, ev=ev, mode=mode,
+                   quant=quant, weights=weights, lead_layers=1,
+                   m_hint=int(m_hint), n_in=n, n_out=o, itemsize=dt.itemsize)
+    spec = PlanSpec(name=name, kind=kind, impl=impl, mode=mode,
                     n_in=n, n_out=o, k=int(k), block_k=block_k,
                     blocks=blocks, w_sparsity=float(w_sparsity),
                     d_mem_bits=int(flow.d_mem_bits),
                     i_mem_bits=int(flow.i_mem), w_mem_bits=int(flow.w_mem),
                     hk=hk, wk=wk, stride=stride, conv_padding=conv_padding,
+                    tuned=tuned, blocks_static=blocks_static,
                     m_hint=int(m_hint), decode_m=int(decode_m),
                     blocks_decode=blocks_decode, packed=packed,
-                    pack_kb=pack_kb, quant=quant)
+                    pack_kb=pack_kb, quant=quant, cost=tag)
     return LayerPlan(spec=spec, weights=weights)
 
 
 def plan_from_balanced(sp: BalancedSparse, *, name: str = "adhoc",
                        impl: str = "cuda", block_k: int | None = None,
-                       m_hint: int = 128,
-                       ifm_sparsity: float = 0.0) -> LayerPlan:
+                       m_hint: int = 128, ifm_sparsity: float = 0.0,
+                       tune: str = "off",
+                       tune_cache: str | None = None) -> LayerPlan:
     """Wrap an existing flat BalancedSparse as a single-layer plan (the
     `core.sparse_ops` delegation path): ``cuda`` encodes it to the tile
-    format (KB ``block_k`` rounded up to 8, else measured), the eager rungs
-    keep it flat."""
+    format (KB ``block_k`` rounded up to 8, else measured) at the blocks
+    ``tune`` resolves, the eager rungs keep it flat.  No cost tag (as the
+    reference's)."""
     o, k = sp.values.shape
     n = sp.n_in
-    blocks = kernel_ops.choose_blocks(kernel_ops.bucket_m(m_hint), o, n, k,
-                                      itemsize=sp.values.element_size())
+    res = autotune.resolve_blocks(m_hint, o, n, k,
+                                  itemsize=sp.values.element_size(),
+                                  impl=impl, tune=tune,
+                                  cache_path=tune_cache,
+                                  device=sp.values.device)
+    blocks = res.blocks
     if impl == "cuda":
         if block_k is None:
             block_k = max_block_count(sp.indices, n, blocks.bn)
@@ -510,18 +827,23 @@ def plan_from_balanced(sp: BalancedSparse, *, name: str = "adhoc",
                     n_in=n, n_out=o, k=k, block_k=block_k or 0,
                     blocks=blocks, w_sparsity=w_sparsity,
                     d_mem_bits=int(flow.d_mem_bits),
-                    i_mem_bits=int(flow.i_mem), w_mem_bits=int(flow.w_mem))
+                    i_mem_bits=int(flow.i_mem), w_mem_bits=int(flow.w_mem),
+                    tuned=res.source, blocks_static=res.static)
     return LayerPlan(spec=spec, weights=weights)
 
 
 def plan_smallcnn(cfg, params: dict, masks: dict | None = None, *,
                   impl: str | None = None, ifm_sparsity: float = 0.0,
                   weight_buffer_bits: int | None = None,
-                  m_hint: int = 4096, quant: str = "none") -> ModelPlan:
+                  m_hint: int = 4096, tune: str = "off",
+                  tune_cache: str | None = None, quant: str = "none",
+                  objective: str = "latency",
+                  deployment: Any = None) -> ModelPlan:
     """One offline pass over the small CNN (`models.cnn`): conv layers with
     balanced masks go through the sparse conv path, balanced fc masks
     through the balanced GEMM, everything else stays dense (mask still
-    applied).  Built on the params' device, in their dtype."""
+    applied).  Built on the params' device, in their dtype; ``tune`` and
+    ``objective`` as in `build_layer_plan`."""
     masks = masks or {}
     layers: Dict[str, LayerPlan] = {}
     img, cin = cfg.img, 3
@@ -535,14 +857,19 @@ def plan_smallcnn(cfg, params: dict, masks: dict | None = None, *,
             name, params[name], mask=masks.get(name), layer_spec=geom,
             m_hint=m_hint, impl=impl, ifm_sparsity=ifm_sparsity,
             weight_buffer_bits=weight_buffer_bits, conv_padding="SAME",
-            quant=quant)
+            tune=tune, tune_cache=tune_cache, quant=quant,
+            objective=objective, deployment=deployment)
         cin = cout
     for name in ("fc1", "fc2"):
         layers[name] = build_layer_plan(
             name, params[name], mask=masks.get(name), m_hint=m_hint,
             impl=impl, ifm_sparsity=ifm_sparsity,
-            weight_buffer_bits=weight_buffer_bits, quant=quant)
-    return ModelPlan(layers=layers, meta=(("model", "smallcnn"),))
+            weight_buffer_bits=weight_buffer_bits, tune=tune,
+            tune_cache=tune_cache, quant=quant, objective=objective,
+            deployment=deployment)
+    meta = (("model", "smallcnn"),) + _cost_meta(objective, deployment) \
+        + _tune_meta(tune, layers)
+    return ModelPlan(layers=layers, meta=meta)
 
 
 def _slot_sources(lp: LayerPlan):
@@ -612,14 +939,19 @@ class TrainPlan:
 def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
                      impl: str | None = None, include_mlp: bool = True,
                      m_hint: int | None = None, decode_m: int | None = None,
-                     pack: bool = True, quant: str = "none") -> ModelPlan:
+                     pack: bool = True, tune: str = "off",
+                     tune_cache: str | None = None, quant: str = "none",
+                     objective: str = "latency",
+                     deployment: Any = None) -> ModelPlan:
     """Offline plan for a transformer's stacked projections: attention
     ``[L, n_in, n_out]``, plus the MLP (or, for MoE, the shared experts)
     unless ``include_mlp`` is False.  For MoE the rank-4 expert tensors
     ``[L, E, n_in, n_out]`` get per-expert encodings with one shared
     BlockChoice / KB (`engine.execute.apply_expert_fc` runs them), also
-    only with ``include_mlp``.  ``quant`` ("none" | "int8" | "int4")
-    block-quantizes every sparse encoding.  Built on the params' device."""
+    only with ``include_mlp``.  ``quant`` ("none" | "int8" |
+    "int4") block-quantizes every sparse encoding; ``tune`` / ``tune_cache``
+    select the block policy and ``objective`` / ``deployment`` the plan
+    objective (`build_layer_plan`).  Built on the params' device."""
     if cfg.family not in TRANSFORMER_FAMILIES:
         raise ValueError(f"this package plans the {TRANSFORMER_FAMILIES} "
                          f"families, got {cfg.family!r}")
@@ -638,18 +970,23 @@ def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
                   if n in blocks and blocks[n].ndim == 4]
     layers = {nm: _plan_stacked(nm, blocks[nm], sparsity=sparsity, impl=impl,
                                 m_hint=m_hint or 256, cd=cfg.compute_dtype,
+                                tune=tune, tune_cache=tune_cache,
                                 decode_m=decode_m or 4, pack=pack,
-                                quant=quant)
+                                quant=quant, objective=objective,
+                                deployment=deployment)
               for nm in names}
     meta = (("model", cfg.name), ("sparsity", float(sparsity)),
-            ("n_layers", int(cfg.n_layers)), ("quant", quant))
+            ("n_layers", int(cfg.n_layers)), ("quant", quant)) \
+        + _cost_meta(objective, deployment) + _tune_meta(tune, layers)
     return ModelPlan(layers=layers, meta=meta)
 
 
 def plan_model(cfg, params: dict, **kwargs) -> ModelPlan:
     """Family dispatcher (the reference's ``plan_model``) for the families
     this package serves: dense and moe -> `plan_transformer`, keyword
-    arguments forwarded unchanged."""
+    arguments (``sparsity``, ``impl``, ``m_hint``, ``decode_m``, ``pack``,
+    ``quant``, ``tune``, ``tune_cache``, ``objective``, ``deployment``,
+    ``include_mlp``) forwarded unchanged."""
     if cfg.family in TRANSFORMER_FAMILIES:
         return plan_transformer(cfg, params, **kwargs)
     raise ValueError(f"no planner for family {cfg.family!r} in this "

@@ -79,6 +79,36 @@ def bucket_m(m: int) -> int:
     return 1 << max(int(m) - 1, 0).bit_length()
 
 
+class InjectedKernelFault(RuntimeError):
+    """Raised by an armed fault-injection site (`repro_torch.testing.faults`)."""
+
+
+# Kernel-dispatch fault-injection sites: rung name (``cuda``, ``xla``,
+# ``xla_gather``, and the decode branches ``cuda_decode``, ``xla_decode``)
+# -> predicate(ctx) -> bool.  Armed only by
+# `repro_torch.testing.faults.force_impl_failure`; empty (the default) it
+# costs one falsy dict check per dispatch.
+_FORCED_FAULTS: dict = {}
+
+
+def _fault_trip(site: str, **ctx) -> None:
+    if _FORCED_FAULTS:
+        pred = _FORCED_FAULTS.get(site)
+        if pred is not None and pred(ctx):
+            raise InjectedKernelFault(
+                f"injected kernel fault at impl {site!r} ({ctx})")
+
+
+def _trip(impl: str, skinny: bool, **ctx) -> None:
+    """The fault sites of one dispatch on rung ``impl`` (the reference's
+    sites, checked ahead of the autograd Functions): the rung's own, then,
+    at skinny M, its decode branch (``xla_gather`` has none)."""
+    if _FORCED_FAULTS:
+        _fault_trip(impl, **ctx)
+        if skinny and impl != "xla_gather":
+            _fault_trip(f"{impl}_decode", **ctx)
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -173,6 +203,21 @@ def choose_blocks(m: int, o: int, n: int, k: int, *, itemsize: int = 4,
             break   # everything at the floor; accept the overshoot
         bm, bo, bn = dims["bm"], dims["bo"], dims["bn"]
     return BlockChoice(bm=bm, bo=bo, bn=bn, vmem_bytes=footprint(bm, bo, bn))
+
+
+def halve_blocks(c: BlockChoice, *, kb: int | None = None,
+                 itemsize: int = 4) -> BlockChoice | None:
+    """One retry step of the guard's degradation ladder: halve bm / bo
+    toward the 8-floor; ``bn`` stays (the encoding bakes it in).  None at
+    the floor.  ``kb`` refreshes the modeled footprint (bookkeeping: on the
+    ``cuda`` rung bm and bo set only the wrappers' padding)."""
+    if c.bm <= 8 and c.bo <= 8:
+        return None
+    bm = max(8, c.bm // 2)
+    bo = max(8, c.bo // 2)
+    vmem = _tiled_footprint(bm, bo, c.bn, kb, itemsize) if kb \
+        else c.vmem_bytes
+    return BlockChoice(bm=bm, bo=bo, bn=c.bn, vmem_bytes=vmem)
 
 
 # ---------------------------------------------------------------------------
@@ -306,15 +351,19 @@ def balanced_spmm(x: Tensor, values: Tensor, indices: Tensor, *, n_in: int,
     ``xla`` / ``xla_gather`` are the eager rungs."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    skinny = x2.shape[0] <= SKINNY_M
     if impl == "cuda":
         c = choose_blocks(x2.shape[0], values.shape[0], n_in,
                           values.shape[1], itemsize=x.element_size())
+        _trip("cuda", skinny, bm=c.bm, bo=c.bo, bn=c.bn)
         kb = _static_kb(values, indices, n_in, c.bn, block_k)
         y = _BalancedSpmmCuda.apply(x2, values, indices, n_in, c.bm, c.bo,
                                     c.bn, kb)
     elif impl == "xla":
+        _trip("xla", skinny)
         y = _balanced_spmm_xla(x2, values, indices, n_in)
     elif impl == "xla_gather":
+        _trip("xla_gather", skinny)
         y = ref.balanced_spmm_gather(x2, values, indices)
     else:
         raise ValueError(f"balanced_spmm runs impl 'cuda', 'xla' or "
@@ -512,6 +561,8 @@ def tiled_spmm(x: Tensor, tb: TiledBalanced, *, block_m: int | None = None,
     skinny = m <= SKINNY_M
     bm = _round_up(m, 8) if skinny else _pick_block(m, block_m or 128)
     bo = _pick_block(tb.n_out, block_o or 128)
+    _trip(impl, skinny, **({"bm": bm, "bo": bo, "bn": tb.bn}
+                           if impl == "cuda" else {}))
     if tb.quant == "none" and impl == "cuda":
         y = _TiledSpmm.apply(x2, tb.values, tb.indices, tb.counts, n_eff,
                              tb.bn, bm, bo, skinny)
@@ -640,6 +691,10 @@ def tiled_spmm_batched(x: Tensor, tb: TiledBalanced, *,
     m = x3.shape[1]
     bm = _round_up(m, 8) if m <= SKINNY_M else _pick_block(m, block_m or 128)
     bo = _pick_block(o, block_o or 128)
+    if impl == "cuda":                  # the batched kernel: no decode site
+        _trip("cuda", False, bm=bm, bo=bo, bn=tb.bn, batched=True)
+    else:
+        _trip(impl, m <= SKINNY_M, batched=True)
     if tb.quant == "none" and impl == "cuda":
         y = _TiledSpmmBatched.apply(x3, tb.values, tb.indices, tb.counts,
                                     n_eff, tb.bn, bm, bo)
@@ -675,6 +730,8 @@ def balanced_spmm_batched(x: Tensor, values: Tensor, indices: Tensor, *,
     e = x.shape[0]
     lead = x.shape[1:-1]
     x3 = x.reshape(e, -1, x.shape[-1])
+    if impl in ("xla", "xla_gather"):
+        _trip(impl, x3.shape[1] <= SKINNY_M, batched=True)
     if impl == "xla_gather" or (impl == "xla" and x3.shape[1] <= SKINNY_M):
         y = _batched_gather_spmm(x3, values, indices)
     elif impl == "xla":
@@ -733,4 +790,5 @@ def encode_bitmap(w: Tensor, *, bn: int = 128, k: int | None = None):
 __all__ = ["balanced_spmm", "balanced_spmm_batched", "tiled_spmm",
            "tiled_spmm_batched", "bitmap_spmm", "encode_bitmap",
            "choose_blocks", "BlockChoice", "SKINNY_M",
-           "GATHER_M", "QUANT_WBYTES", "TILED_IMPLS", "bucket_m"]
+           "GATHER_M", "QUANT_WBYTES", "TILED_IMPLS", "bucket_m",
+           "halve_blocks", "InjectedKernelFault"]

@@ -9,9 +9,13 @@ boundary — IFM stream, weight stream (quant-aware byte widths, including
 the int8/int4 tile encodings plus their per-block scales), OFM stream and
 partial-sum spills — plus an Accelergy-style per-component energy model
 (DRAM / on-chip SRAM / MAC; constants documented in DESIGN.md §14 with
-provenance).  The reference's planner also uses it as a plan objective;
-this package's planner does not yet (it plans at the latency objective),
-so here it serves the paper-claims comparisons.
+provenance).  `engine.plan` uses it as a plan objective
+(``plan_model(..., objective=..., deployment=...)``) so dataflow mode and
+impl selection co-optimize per deployment instead of reading storage
+ratios alone; it also serves the paper-claims comparisons.  The
+deployment profiles are models of an accelerator's buffers and DRAM, the
+reference's own; none of their numbers describes the GPU this package
+runs on.
 
 Two deliberately distinct accounting levels (the model-vs-measurement
 contract, DESIGN.md §14):
@@ -22,7 +26,8 @@ contract, DESIGN.md §14):
   decisions and the paper-claims CNN comparison.
 * **stored bytes** — what *this* runtime actually moves: the encoded
   weights' tensor bytes (f32/bf16 values, int32 indices/counts, f32
-  scales, nibble-packed int4), `pytree_nbytes`.
+  scales, nibble-packed int4), `pytree_nbytes`.  Checked **exactly**
+  against the `engine.execute` byte counters (`bytes_stats`).
 
 The tiling that creates reuse is buffer-derived, not PE-array-derived:
 an operand larger than its on-chip buffer streams in ``ceil(size /
@@ -131,10 +136,25 @@ DEPLOYMENTS: Dict[str, DeploymentProfile] = {
     ),
 }
 
+OBJECTIVES = ("latency", "dram", "energy", "balanced")
+
 #: Impl ladder, most specialized first (the reference's, with the
 #: hand-kernel rung named after its backend: ``cuda`` for ``pallas``).
 #: Canonical here; `engine.plan` and `engine.execute` re-export it.
 IMPL_LADDER = ("cuda", "xla", "xla_gather", "dense")
+
+
+def get_deployment(dep: "str | DeploymentProfile | None") -> DeploymentProfile:
+    """A profile by name (``None``: ``zcu102``), or the profile given."""
+    if dep is None:
+        return DEPLOYMENTS["zcu102"]
+    if isinstance(dep, DeploymentProfile):
+        return dep
+    try:
+        return DEPLOYMENTS[dep]
+    except KeyError:
+        raise KeyError(f"unknown deployment {dep!r}; have "
+                       f"{sorted(DEPLOYMENTS)}") from None
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +254,13 @@ def pytree_nbytes(tree: Any) -> int:
     return sum(int(t.numel()) * int(t.element_size()) for t in _leaves(tree))
 
 
+def dispatch_weight_nbytes(weights: Any, lead_layers: int = 1) -> int:
+    """Stored bytes one dispatch streams: the stacked-plan total divided by
+    the leading layer axis (the model runs one layer per dispatch; MoE
+    expert axes stay in the dispatch)."""
+    return pytree_nbytes(weights) // max(1, lead_layers)
+
+
 # ---------------------------------------------------------------------------
 # Layer cost (the provenance record attached to every PlanSpec)
 # ---------------------------------------------------------------------------
@@ -298,6 +325,20 @@ def layer_latency_s(dram_bits: int, macs: int,
     """Roofline estimate: bound by the DRAM stream or the MAC envelope."""
     return max(dram_bits / 8.0 / dep.dram_bytes_per_s,
                macs / dep.peak_macs_per_s)
+
+
+def objective_score(objective: str, *, dram_bits: int, energy_pj: float,
+                    latency_s: float) -> float:
+    """Scalar score an objective minimizes.  ``latency`` is handled by the
+    planner's default path (the §V-C / §VI-F rules) and scored here only
+    for ranking; ``balanced`` is the energy-delay product."""
+    if objective == "dram":
+        return float(dram_bits)
+    if objective == "energy":
+        return energy_pj
+    if objective == "balanced":
+        return energy_pj * latency_s
+    return latency_s
 
 
 # ---------------------------------------------------------------------------
@@ -372,8 +413,10 @@ def adc_reduction(layers: Sequence[LayerSpec], dep: DeploymentProfile, *,
 
 
 __all__ = [
-    "EnergyTable", "DeploymentProfile", "DEPLOYMENTS", "IMPL_LADDER",
-    "mode_dram_bits", "pick_mode", "tiled_format_bits", "flat_format_bits",
-    "pytree_nbytes", "CostTag", "gemm_layer_cost", "layer_energy_pj",
-    "layer_latency_s", "conv_layer_cost", "network_cost", "adc_reduction",
+    "EnergyTable", "DeploymentProfile", "DEPLOYMENTS", "get_deployment",
+    "OBJECTIVES", "IMPL_LADDER", "mode_dram_bits", "pick_mode",
+    "tiled_format_bits", "flat_format_bits", "pytree_nbytes",
+    "dispatch_weight_nbytes", "CostTag", "gemm_layer_cost",
+    "layer_energy_pj", "layer_latency_s", "objective_score",
+    "conv_layer_cost", "network_cost", "adc_reduction",
 ]

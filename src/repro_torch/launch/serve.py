@@ -16,6 +16,19 @@ execute the plan — on a GPU every planned projection runs the hand-written
 CUDA kernels, the routed experts all in one batched launch per projection.
 Reports the plan, a sparse-vs-masked-dense parity check, the dispatch and
 kernel-launch counts, dense vs sparse tokens/s and the weight storage.
+
+``--tune cached|sweep`` (cache file ``--tune-cache``) resolves each
+layer's blocks through the measured autotuner (`kernels.autotune`);
+``--objective dram|energy|balanced`` with ``--deployment`` plans against
+the cost model (`launch.cost_model`), and the report carries the plan's
+cost summary.  ``--guard`` validates the plan strictly, probes every
+layer down the impl ladder (`engine.guard.harden_plan`; every demotion is
+printed, stamped in the plan and reported, and its dispatches tick
+``degraded_dispatch``) and runs one untimed guarded pass that checks the
+logits after the prefill and every decode step, bisecting a NaN to the
+layer that made it and quarantining that layer to dense;
+``--inject-nan`` (only under ``--guard``) poisons one planned layer first.
+Without ``--guard`` nothing of the ladder runs.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ from ..kernels.ops import SKINNY_M
 from ..kernels.tile_format import QUANT_MODES, TiledBalanced
 from ..models import build_model
 from ..models.api import merge_prefill_cache
+from . import cost_model
 
 
 def _sync(device: torch.device) -> None:
@@ -74,6 +88,86 @@ def greedy_generate(bundle, params, prompt: torch.Tensor, steps: int,
             clen = clen + 1
             out.append(toks)
     return torch.cat(out, dim=1)
+
+
+def guarded_generate(bundle, plan, params, prompt: torch.Tensor, steps: int,
+                     max_len: int, *, ref_blocks=None):
+    """One guarded serving pass, the greedy path of `greedy_generate` with
+    the logits checked after the prefill and after every decode step; on a
+    non-finite one, bisect the plan against the dense reference
+    (`engine.guard.locate_poisoned`, its oracle a prefill and one decode
+    step), quarantine the culprit layer(s) to dense (``ref_blocks``: the
+    masked-dense weights in params layout) and restart under the repaired
+    plan.  Returns ``(tokens, plan, events)``.  Untimed: every check is a
+    host sync."""
+    from ..engine import guard as engine_guard
+    if prompt.shape[1] + steps > max_len:
+        raise ValueError(f"KV cache overrun: prompt_len={prompt.shape[1]} "
+                         f"+ steps={steps} > max_len={max_len}")
+    b = prompt.shape[0]
+
+    def finite(t: torch.Tensor) -> bool:
+        return bool(torch.isfinite(t).all())
+
+    def prefill(p):
+        logits, pf_cache = bundle.prefill(p, {"tokens": prompt})
+        cache = merge_prefill_cache(bundle.init_cache(b, max_len), pf_cache)
+        clen = torch.full((b,), prompt.shape[1], dtype=torch.long,
+                          device=prompt.device)
+        return logits, cache, clen
+
+    def eval_finite(cand_plan) -> bool:
+        # a prefill and a decode step: a NaN in a q / k projection can
+        # surface only through the decode's attention
+        p = {**params, "sparse_plan": cand_plan}
+        with torch.no_grad():
+            lg, cache, clen = prefill(p)
+            if not finite(lg):
+                return False
+            lg2, _ = bundle.decode_step(
+                p, {"tokens": lg.argmax(dim=-1)[:, None],
+                    "cache_len": clen}, cache)
+        return finite(lg2)
+
+    events = []
+    for _ in range(4):      # each repair round quarantines >= 1 layer
+        p = {**params, "sparse_plan": plan}
+        tripped_at = None
+        with torch.no_grad():
+            logits, cache, clen = prefill(p)
+            if not finite(logits):
+                tripped_at = "prefill"
+            else:
+                toks = logits.argmax(dim=-1)[:, None]
+                out = [toks]
+                for step in range(steps):
+                    logits, cache = bundle.decode_step(
+                        p, {"tokens": toks, "cache_len": clen}, cache)
+                    if not finite(logits):
+                        tripped_at = f"decode_step_{step}"
+                        break
+                    toks = logits.argmax(dim=-1)[:, None]
+                    clen = clen + 1
+                    out.append(toks)
+        if tripped_at is None:
+            return torch.cat(out, dim=1), plan, events
+        poisoned, attributable = engine_guard.locate_poisoned(
+            plan, eval_finite, ref_blocks=ref_blocks)
+        events.append({"event": "nan_trip", "at": tripped_at,
+                       "poisoned_layers": list(poisoned),
+                       "attributable": attributable})
+        if not attributable or not poisoned:
+            raise engine_guard.GuardError(
+                f"non-finite logits at {tripped_at} not attributable to "
+                f"any planned sparse layer (bisection blamed "
+                f"{list(poisoned)}) — the poison is outside the plan "
+                "(component: model params / dense path)")
+        print(f"[serve/guard] non-finite logits at {tripped_at}; bisection "
+              f"blames {list(poisoned)}; quarantined to dense, restarting "
+              "the guarded pass")
+        plan = engine_guard.quarantine_layers(plan, poisoned, ref_blocks)
+    raise engine_guard.GuardError(
+        "guarded serving did not stabilize after 4 quarantine rounds")
 
 
 def _compare(got: torch.Tensor, want: torch.Tensor, tol: float):
@@ -274,6 +368,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn-only", action="store_true",
                     help="plan only the attention projections, not the MLP "
                          "or the experts")
+    ap.add_argument("--tune", choices=["off", "cached", "sweep"],
+                    default="off",
+                    help="block-choice policy (kernels.autotune): 'cached' "
+                         "uses warm measured winners and falls back to the "
+                         "static model, 'sweep' times the candidates of a "
+                         "missing key on the device and persists the winner")
+    ap.add_argument("--tune-cache", default=None,
+                    help="autotune cache path (default "
+                         "~/.cache/repro_torch/autotune.json or "
+                         "$REPRO_TORCH_AUTOTUNE_CACHE)")
+    ap.add_argument("--guard", action="store_true",
+                    help="guarded execution (engine.guard): validate the "
+                         "plan, probe every layer down the impl ladder, and "
+                         "run one untimed guarded pass whose NaN trip "
+                         "bisects to the poisoned layer and quarantines it "
+                         "to dense")
+    ap.add_argument("--inject-nan", action="store_true",
+                    help="fault injection: poison one planned layer's "
+                         "values with NaN after the parity reference is "
+                         "built (only under --guard)")
+    ap.add_argument("--objective", choices=list(cost_model.OBJECTIVES),
+                    default="latency",
+                    help="plan objective (launch.cost_model): 'latency' "
+                         "keeps the paper's rules and only annotates the "
+                         "cost; 'dram' / 'energy' / 'balanced' co-optimize "
+                         "the dataflow mode and impl for --deployment")
+    ap.add_argument("--deployment", choices=sorted(cost_model.DEPLOYMENTS),
+                    default=None,
+                    help="the modeled deployment profile the objective is "
+                         "evaluated against (default zcu102)")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth to this many layers (default: the "
                          "config's); the widths stay as published")
@@ -314,8 +438,16 @@ def config(args: argparse.Namespace):
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.inject_nan and not args.guard:
+        ap.error("--inject-nan poisons the serving path by design; it is "
+                 "only meaningful (and only safe) under --guard")
     return run(args, config(args))
+
+
+def _launch_counts() -> dict:
+    return {**balanced_spmm.LAUNCHES, **kv_cache_update.LAUNCHES}
 
 
 def run(args: argparse.Namespace, cfg) -> dict:
@@ -339,7 +471,9 @@ def run(args: argparse.Namespace, cfg) -> dict:
         cfg, params, sparsity=args.sparsity,
         impl=None if args.impl == "auto" else args.impl,
         include_mlp=not args.attn_only, m_hint=args.batch * args.prompt_len,
-        quant=args.quant)
+        tune=args.tune, tune_cache=args.tune_cache,
+        quant=args.quant, objective=args.objective,
+        deployment=args.deployment)
     _sync(device)
     plan_s = time.monotonic() - t0
     print(f"[serve] {cfg.name} (family {cfg.family}, quant {args.quant}) on "
@@ -347,11 +481,62 @@ def run(args: argparse.Namespace, cfg) -> dict:
           f"({len(plan.layers)} projection groups x {cfg.n_layers} layers) "
           f"built in {plan_s:.2f} s:")
     print(plan.summary())
+    if args.tune != "off":
+        deltas = plan.tune_deltas()
+        print(f"[serve] tune={args.tune}: block sources {plan.tuned_mix()}; "
+              f"{len(deltas)} tuned choice(s) differ from the static model"
+              + "".join(f"\n[serve]   {nm}: tuned (bm,bo,bn)={t} "
+                        f"static={st}" for nm, t, st in deltas))
     if plan.sparse_layer_count == 0:
         raise RuntimeError("plan produced no sparse-kernel layers — "
                            "sparsity below the §VI-F thresholds?")
+
+    # ---- guarded execution: validate + harden before anything else runs --
+    guard_report = None
+    if args.guard:
+        from ..engine import guard as engine_guard
+        _sync(device)
+        t0 = time.monotonic()
+        before = _launch_counts()
+        report = engine_guard.validate_plan(plan, strict=True)
+        plan, degradations = engine_guard.harden_plan(plan)
+        guard_report = {"validated_layers": len(report.layers),
+                        "degradations": [dataclasses.asdict(d)
+                                         for d in degradations],
+                        "events": []}
+        print(f"[serve/guard] {report.summary()}; ladder: "
+              f"{len(degradations)} event(s)")
+        for d in degradations:
+            print(f"[serve/guard] ladder: {d.layer} {d.from_impl} -> "
+                  f"{d.to_impl} ({d.action}: {d.reason})")
     sparse_params = {**params, "sparse_plan": plan}
     ref_params = engine_plan.masked_dense_params(params, plan)
+
+    # ---- the guarded serving pass (untimed; NaN bisection + quarantine) --
+    if args.guard:
+        if args.inject_nan:
+            from ..testing import faults
+            plan, poisoned_name = faults.inject_nan_output(plan)
+            print(f"[serve/guard] fault injection: poisoned layer "
+                  f"{poisoned_name!r} values with NaN")
+            guard_report["injected"] = poisoned_name
+        toks, plan, events = guarded_generate(
+            bundle, plan, params, prompt, 2, max_len,
+            ref_blocks=ref_params["blocks"])
+        _sync(device)
+        guard_report["events"] = events
+        guard_report["quarantined"] = list(plan.quarantined())
+        # the pass returned: every logit of it was finite
+        guard_report["sample"] = toks[0].tolist()
+        guard_report["seconds"] = time.monotonic() - t0
+        after = _launch_counts()
+        guard_report["kernel_launches"] = {k: after[k] - before[k]
+                                           for k in after}
+        sparse_params = {**params, "sparse_plan": plan}
+        if plan.degraded_mix() or plan.quarantined():
+            print(f"[serve/guard] serving a degraded mix: "
+                  f"{plan.degraded_mix()}; quarantined "
+                  f"{list(plan.quarantined())}")
 
     # ---- correctness: sparse plan == masked dense, on the kernel path -----
     # a quantized plan is held against its dequantized masked-dense
@@ -400,7 +585,7 @@ def run(args: argparse.Namespace, cfg) -> dict:
                          "sample": toks[0, :8].tolist()}
         print(f"[serve/{mode}] {tps:.1f} tok/s ({dt:.3f} s for "
               f"{args.gen_steps} steps x batch {args.batch})")
-    launches = {**balanced_spmm.LAUNCHES, **kv_cache_update.LAUNCHES}
+    launches = _launch_counts()
     reached = kernels_reached(plan, args.batch * args.prompt_len, args.batch)
     if cfg.cache_update == "scatter":
         reached.add("kv_cache_update")
@@ -434,6 +619,13 @@ def run(args: argparse.Namespace, cfg) -> dict:
           f"{enc_bytes / 1e6:.1f} MB vs dense {cfg.compute_dtype} "
           f"{dense_bytes / 1e6:.1f} MB;  mode mix {plan.mode_mix()}  "
           f"impl mix {plan.impl_mix()}")
+    cost = plan.cost_summary()
+    print(f"[serve/cost] objective={cost['objective']} "
+          f"deployment={cost['deployment'] or 'zcu102'} (a modeled "
+          f"profile): DRAM {cost['total_dram_bytes'] / 1e6:.2f} MB, energy "
+          f"{cost['total_energy_pj'] / 1e9:.3f} mJ, weight stream "
+          f"{cost['total_w_stream_bytes'] / 1e6:.2f} MB "
+          f"(modes {cost['modes']})")
     results["plan"] = {
         "model": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
         "quant": args.quant,
@@ -447,7 +639,17 @@ def run(args: argparse.Namespace, cfg) -> dict:
         "kernels_reached": reached,
         "encoded_bytes": enc_bytes, "dense_bytes": dense_bytes,
         "step_weight_bytes": live_bytes,
+        "blocks": {nm: None if lp.spec.blocks is None else
+                   [lp.spec.blocks.bm, lp.spec.blocks.bo, lp.spec.blocks.bn]
+                   for nm, lp in plan.layers.items()},
+        "tune": {"mode": args.tune, "sources": plan.tuned_mix(),
+                 "deltas": [[nm, list(t), list(st)]
+                            for nm, t, st in plan.tune_deltas()]},
+        "cost": cost,
     }
+    if guard_report is not None:
+        guard_report["degraded_mix"] = plan.degraded_mix()
+        results["guard"] = guard_report
     if args.report:
         out = pathlib.Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -81,15 +81,19 @@ def causal_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     """Causal prefill attention, q ``[B, S, H, dh]``, k/v ``[B, S, KH, dh]``
     with H = KH * G (grouped, no KV repetition).  The counterpart of the
     reference's ``blocked_causal_attention`` as one masked softmax: at the
-    serving prompt lengths the ``[S, S]`` scores are small."""
+    serving prompt lengths the ``[S, S]`` scores are small.  As there, a
+    non-finite score (a NaN or Inf q / k) weighs nothing, and a row with
+    no finite score gives zeros: a poisoned q / k projection surfaces in
+    the decode step's attention, not in the prefill's."""
     b, s, h, dh = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, dh).float()
     sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(dh)
     pos = torch.arange(s, device=q.device)
     mask = pos[None, :] <= pos[:, None]                      # [q, k]
-    sc = torch.where(mask, sc, float("-inf"))
+    sc = torch.where(mask & torch.isfinite(sc), sc, float("-inf"))
     p = torch.softmax(sc, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)     # rows with no finite score
     out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 

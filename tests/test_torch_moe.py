@@ -368,7 +368,13 @@ def test_unchosen_experts_see_zero_inputs(monkeypatch, planned):
     and so to we_down (silu(0) * 0 = 0), and the combine reads none of its
     output rows (garbage written there leaves y bitwise unchanged).  This
     is why the batched skinny kernel may write +0 for an expert whose x is
-    all zero and read none of its weights."""
+    all zero and read none of its weights.  The one place this differs
+    from the plain version is a non-finite weight of such an expert: the
+    plain version gives NaN (0 x NaN), the kernel +0.0.  So a NaN guard
+    drill that poisoned only unrouted experts would trip on the CPU and
+    not on the card; `testing.faults.inject_nan_output` poisons every
+    expert, and chip_smoke's MoE drill holds the blamed layers of the
+    kernels equal to those of the plain versions."""
     _, cfg, _, params = _params("float32")
     got_plan, _ = _plans("float32", "cuda")
     plan_layers = got_plan.per_layer[1] if planned else None

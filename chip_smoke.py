@@ -35,6 +35,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (dequantized) masked dense weight (``torch.matmul`` /
              ``torch.bmm``) and the card's bound for the same work (the
              live slots only: pad slots and empty experts carry none);
+             then the wide and skinny kernels in bf16 at the projection
+             shapes of rwkv6-3b, zamba2-1.2b, musicgen-medium and
+             internvl2-2b (M = 128 and 4), each with the wide kernel's
+             splits and CTAs (the streamer's x ranges), timed beside
+             ``torch.matmul`` and the bound;
 4. serve   — the port's serving entry point at full olmo-1b width: plan,
              sparse-vs-masked-dense prefill parity, greedy decode; the
              launch counts are zeroed just before and read just after.
@@ -160,6 +165,30 @@ shapes, and the kv kernel bitwise against its plain version at P = 64
 planes (batch 4 x 16 kv heads), dh = 128, bf16, S = 64 and 4096, C = 1
 and 8, with rows past S; each timed beside its plain version, a library
 call and its bound (the kv kernel also beside the mask-select rewrite).
+
+Then the recurrent families and the frontends, after phase 18, each
+fatal as above:
+
+19. recurrent — rwkv6-3b and zamba2-1.2b at published width and depth
+             (32 and 38 layers), bf16, sparsity 0.5, batch 4, prompt 32,
+             32 new tokens, through the serve entry point (counts zeroed
+             just before, read just after): the per-block parity gate, the
+             wide launches equal to planned projections x layers x
+             prefills and the skinny ones that x decode steps, tok/s, plan
+             build time and peak memory; the float32 end-to-end parity at
+             1e-4; a profile of one sparse generation (busy share, kernels
+             by device time, the tensor-core wide kernel and the streamer
+             alone) with the WKV / SSD scan's own device time and a
+             prefill's wall time; then ``serve --quant int8`` of
+             zamba2-1.2b (rows 3 and 4, the same launch counts);
+20. frontends — musicgen-medium and internvl2-2b at published width
+             through the serve entry point, gated and counted as in 19;
+             then a prefill whose first 256 positions (their
+             n_frontend_tokens) take seeded frontend rows, batch 2 x
+             prompt 320 (M = 640): the sparse plan against its
+             masked-dense reference layer by layer at 2e-2 in bf16 (one
+             wide launch a planned projection and layer) and the logits
+             end to end at 1e-4 in float32.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -313,6 +342,31 @@ GUARD_NAN_ARGS = ["--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
 OBJECTIVE_DEPLOYMENTS = ("zcu102", "edge-64k")
 LM_TRAIN_ARGS = ["--arch", "olmo-1b", "--n-layers", str(LM_TRAIN_LAYERS),
                  "--batch", "8", "--seq", "128"]
+# the recurrent families and the frontends (phases 19-20): served at
+# published width as olmo-1b is (bf16, sparsity 0.5, batch 4, prompt 32,
+# GEN_STEPS new tokens); rwkv6-3b and zamba2-1.2b at published depth too
+RECURRENT_ARCHS = ("rwkv6-3b", "zamba2-1.2b")
+FRONTEND_ARCHS = ("musicgen-medium", "internvl2-2b")
+SLICE7_ARGS = ["--batch", "4", "--prompt-len", "32", "--gen-steps",
+               str(GEN_STEPS), "--sparsity", str(SPARSITY)]
+# the float32 logits' rounding floor (`logit_sensitivity`): seeded relative
+# noise on one planned projection, about the spread of f32 rounding between
+# two summation orders; where the floor exceeds 1e-4 the logits are held
+# within FLOOR_FACTOR x the floor (`recurrent_f32_parity`)
+F32_NOISE, FLOOR_FACTOR = 1e-6, 2.0
+# the profiler range around each WKV / SSD scan call (`profile_generate`)
+RECURRENCE_RANGE = "recurrence"
+# the quantized recurrent path (rows 3 and 4)
+RECURRENT_QUANT = ("zamba2-1.2b", "int8")
+# a prefill with every frontend row (n_frontend_tokens = 256): batch 2,
+# prompt 320, so M = 640
+FRONTEND_BATCH, FRONTEND_PROMPT = 2, 320
+# the new families' projection shapes (O, N) for rows 1 and 2 (phase 3)
+NEW_SHAPES = {"rwkv6-3b": ((2560, 2560), (8960, 2560), (2560, 8960)),
+              "zamba2-1.2b": ((4096, 2048), (2048, 4096)),
+              "musicgen-medium": ((1536, 1536), (6144, 1536), (1536, 6144)),
+              "internvl2-2b": ((1024, 2048),)}
+NEW_SHAPE_MS = (WIDE_M, 4)
 
 
 def log(msg: str) -> None:
@@ -762,14 +816,74 @@ def full_width_f32_parity(torch, serve, arch: str = "olmo-1b",
         tol=TOL["float32"])
 
 
+def recurrent_f32_parity(torch, serve, arch: str) -> dict:
+    """Phase 19's float32 check of ``arch`` at full width: every block's
+    output teacher-forced from the masked-dense reference's hidden state
+    (`models.api.block_diffs`) within 1e-4, and the prefill logits end to
+    end within 1e-4, unless the model's own rounding floor
+    (`logit_sensitivity`) exceeds 1e-4: then 1e-4 cannot tell a kernel
+    from rounding, and the logits are held within `FLOOR_FACTOR` x that
+    floor (random-weight rwkv6-3b's 32 layers amplify 1e-6 relative noise
+    on one projection to 0.5 in the logits on an H100; PERF.md)."""
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.models.api import block_diffs
+    bundle, params, plan, prompt = full_width(torch, "float32", arch)
+    sparse = {**params, "sparse_plan": plan}
+    ref = engine_plan.masked_dense_params(params, plan)
+    tol = TOL["float32"]
+    with torch.no_grad():
+        layers = [serve._compare(got, want, tol) for got, want, _
+                  in block_diffs(bundle.cfg, sparse, ref, prompt)]
+        logits_s, _ = bundle.prefill(sparse, {"tokens": prompt})
+        logits_r, _ = bundle.prefill(ref, {"tokens": prompt})
+    diff, within = serve._compare(logits_s, logits_r, tol)
+    floor = logit_sensitivity(torch, bundle, ref, prompt,
+                              next(iter(plan.layers)))
+    limit = FLOOR_FACTOR * floor["logits_max_abs_change"]
+    if floor["logits_max_abs_change"] > tol:
+        gate = f"{FLOOR_FACTOR:g} x floor = {limit:g}"
+        ok = math.isfinite(limit) and diff <= limit
+    else:
+        gate, ok = f"{tol:g}", within
+    out = {"layer_max_abs_diff": max(d for d, _ in layers),
+           "logits_max_abs_diff": diff, "logits_gate": gate,
+           "argmax_equal": bool((logits_s.argmax(-1)
+                                 == logits_r.argmax(-1)).all()),
+           "floor": floor}
+    bad = [i for i, (_, good) in enumerate(layers) if not good]
+    if bad or not ok:
+        raise AssertionError(f"{arch} float32: layers {bad} beyond {tol:g}, "
+                             f"logits gated at {gate}: {out}")
+    return out
+
+
+def logit_sensitivity(torch, bundle, params, prompt, name: str) -> dict:
+    """The model's own float32 rounding floor: the prefill logits' max
+    |change| when one stacked projection (``name``, every layer) takes
+    seeded relative noise of `F32_NOISE`, about the spread of f32 rounding
+    between two summation orders."""
+    w = params["blocks"][name]
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    noisy = {**params, "blocks": {**params["blocks"], name: w * (
+        1 + F32_NOISE * torch.randn(w.shape, generator=gen, device=DEVICE))}}
+    with torch.no_grad():
+        a, _ = bundle.prefill(params, {"tokens": prompt})
+        b, _ = bundle.prefill(noisy, {"tokens": prompt})
+    return {"weight": name, "rel_noise": F32_NOISE,
+            "logits_max_abs_change": float((a - b).abs().max())}
+
+
 def device_kernels(prof) -> tuple:
     """A `torch.profiler` trace of the card's activity: ``(by_name, busy
     ms, top)`` with ``by_name`` kernel name -> (launches, device ms) and
-    ``top`` the ten kernels of most device time."""
+    ``top`` the ten kernels of most device time.  `RECURRENCE_RANGE`, a
+    host range that also shows on the card's track spanning its kernels
+    and the gaps between them, is not a kernel and is left out."""
     from torch.autograd import DeviceType
     by_name: dict = {}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        if evt.device_type == DeviceType.CUDA \
+                and evt.name != RECURRENCE_RANGE:
             n, ms = by_name.get(evt.name, (0, 0.0))
             by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
@@ -784,15 +898,30 @@ def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
     """Where the device time goes in one sparse greedy generation at full
     width (bf16; one prefill and ``steps`` decode steps): the device's
     busy share of the wall time and the kernels by total device time,
-    from a `torch.profiler` trace of the card's activity."""
+    from a `torch.profiler` trace of the card's activity, and the wall
+    time of one warm prefill (untraced, clocks read after a synchronize).
+    For a recurrent family the trace also takes the host's activity, with
+    each WKV / SSD scan call in a `RECURRENCE_RANGE` range
+    (`recurrence_ranges`), and sums the kernels those ranges launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import TRANSFORMER_FAMILIES
     bundle, params, plan, prompt = full_width(torch, "bfloat16", arch,
                                               n_layers, quant)
     sparse = {**params, "sparse_plan": plan}
+    recurrent = bundle.cfg.family not in TRANSFORMER_FAMILIES
     max_len = prompt.shape[1] + steps
     serve.greedy_generate(bundle, sparse, prompt, steps, max_len)   # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.monotonic()
+    with torch.no_grad():
+        bundle.prefill(sparse, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if recurrent else [])
+    with recurrence_ranges(bundle.cfg), profile(
+            activities=activities) as prof:
         t0 = time.monotonic()
         serve.greedy_generate(bundle, sparse, prompt, steps, max_len)
         torch.cuda.synchronize()
@@ -800,12 +929,49 @@ def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
     by_name, busy_ms, top = device_kernels(prof)
     out = {"arch": arch, "quant": quant, "layers": bundle.cfg.n_layers,
            "steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "busy_share": busy_ms / wall_ms,
+           "busy_share": busy_ms / wall_ms, "prefill_wall_ms": prefill_ms,
            "top": top,
            "wide": wide_kernels(by_name), "skinny": skinny_kernels(by_name)}
     if arch == "olmo-1b":
         out["per_call_us"] = per_call_us(torch, params, plan, torch.bfloat16)
+    if recurrent:
+        ranges = [e for e in prof.events() if e.name == RECURRENCE_RANGE
+                  and e.device_type == DeviceType.CPU]
+        want = bundle.cfg.n_layers * (1 + steps)
+        if len(ranges) != want:
+            raise AssertionError(f"{len(ranges)} recurrence ranges traced, "
+                                 f"expected {want}")
+        rec_ms = sum(e.device_time_total for e in ranges) / 1e3
+        out.update(recurrence_calls=len(ranges), recurrence_device_ms=rec_ms,
+                   recurrence_share_of_busy=rec_ms / busy_ms)
     return out
+
+
+@contextlib.contextmanager
+def recurrence_ranges(cfg):
+    """Within the block, each call of a recurrent family's scan
+    (`models.rwkv6._wkv_scan`, `models.zamba2._ssd_scan`) runs in a
+    `RECURRENCE_RANGE` `record_function` range; a transformer family is
+    left as it is."""
+    from torch.profiler import record_function
+    from repro_torch.models import rwkv6, zamba2
+    mod, name = {"ssm": (rwkv6, "_wkv_scan"),
+                 "hybrid": (zamba2, "_ssd_scan")}.get(cfg.family,
+                                                      (None, None))
+    if mod is None:
+        yield
+        return
+    scan = getattr(mod, name)
+
+    def ranged(*args, **kwargs):
+        with record_function(RECURRENCE_RANGE):
+            return scan(*args, **kwargs)
+
+    setattr(mod, name, ranged)
+    try:
+        yield
+    finally:
+        setattr(mod, name, scan)
 
 
 def skinny_kernels(by_name: dict) -> list:
@@ -2268,6 +2434,183 @@ def objective_phase(torch, serve, paths: dict) -> None:
         f"{cs['total_dram_bytes']:.6e} B")
 
 
+def check_new_shapes(torch, worst: dict) -> list:
+    """Phase 3, extended: rows 1 and 2 in bf16 at the new families'
+    projection shapes (`NEW_SHAPES`), at the prefill M (128) and the decode
+    M (4), each against its plain version at the f32 tolerance and timed
+    beside ``torch.matmul`` on the masked dense weight and its bound; the
+    wide rows carry the kernel's splits and CTAs, the skinny ones the
+    streamer's x column ranges (1: x resident)."""
+    from repro_torch.kernels import balanced_spmm as bs
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for arch, shapes in NEW_SHAPES.items():
+        for o, n in shapes:
+            tb, w_masked = make_encoding(torch, o, n, torch.bfloat16, gen)
+            wd = w_masked.to(torch.bfloat16)
+            for m in NEW_SHAPE_MS:
+                wide = m > SKINNY_M
+                name = "tiled_balanced_spmm" + ("" if wide else "_skinny")
+                fn = bs.tiled_balanced_spmm if wide \
+                    else bs.tiled_balanced_spmm_skinny
+                x = torch.randn((m, n), generator=gen,
+                                device=DEVICE).to(torch.bfloat16)
+                kern = lambda: fn(x, tb)  # noqa: E731
+                compare(torch, worst, name, kern(),
+                        bs.tiled_balanced_spmm_plain(x, tb), KERNEL_TOL,
+                        f"{arch} bf16 M={m} O={o} N={n} KB={tb.kb}")
+                row = {"name": name, "arch": arch, "M": m, "O": o, "N": n,
+                       "KB": tb.kb, "ms": time_ms(torch, kern, flush=flush),
+                       "library_ms": time_ms(
+                           torch, lambda: torch.matmul(x, wd.T),
+                           flush=flush),
+                       **bound(tb, x, m, m * o, "bfloat16")}
+                if wide:
+                    splits = bs.wide_splits(m, o, tb.nb, sms=sms)
+                    row.update(splits=splits, ctas=splits * -(-o // bs.TC_BO)
+                               * -(-m // bs.token_tile(m)))
+                else:
+                    row["x_ranges"] = bs.stream_x_ranges(
+                        n, tb.bn, bs.stream_block_bytes(tb.kb))
+                rows.append(row)
+                log("time  " + json.dumps(row))
+            del tb, w_masked, wd
+    return rows
+
+
+def slice7_serve(torch, serve, arch: str, quant: str = "none") -> tuple:
+    """Phases 19-20: ``arch`` through the serve entry point (`serve_run`:
+    counts zeroed just before, read just after; the parity gate inside),
+    at published width and depth; every planned projection on the
+    ``cuda`` rung, and the wide (or ``_q``) launches equal to planned
+    projections x layers x `SERVE_PREFILLS`, the skinny ones that x
+    `SERVE_DECODE_STEPS`.  Logs the peak device memory; returns
+    ``(label, counts)``."""
+    label = arch + ("" if quant == "none" else f" {quant}")
+    args = ["--arch", arch, *SLICE7_ARGS, "--quant", quant]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts, res = serve_run(torch, serve, label, args)
+    plan = res["plan"]
+    n_proj, layers = len(plan["block_k"]), plan["n_layers"]
+    if plan["impl_mix"] != {"cuda": n_proj}:
+        raise AssertionError(f"{label}: not every projection on the cuda "
+                             f"rung: {plan['impl_mix']}")
+    sfx = "" if quant == "none" else "_q"
+    want = {"tiled_balanced_spmm" + sfx: n_proj * layers * SERVE_PREFILLS,
+            "tiled_balanced_spmm_skinny" + sfx:
+                n_proj * layers * SERVE_DECODE_STEPS}
+    log(f"{label}: {n_proj} planned projections x {layers} layers; "
+        f"launches {dict((k, counts[k]) for k in want)}, expected {want}; "
+        f"serve peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    bad = {k: counts[k] for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{label}: launches {bad}, expected {want}")
+    return label, counts
+
+
+def recurrent_phase(torch, serve, paths: dict) -> None:
+    """Phase 19: rwkv6-3b and zamba2-1.2b at published width and depth:
+    the serve entry point (`slice7_serve`), the float32 end-to-end parity,
+    a profile of one sparse generation with the recurrence's device time,
+    then ``serve --quant int8`` of zamba2-1.2b (rows 3 and 4)."""
+    for arch in RECURRENT_ARCHS:
+        label, paths[label] = slice7_serve(torch, serve, arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        parity = recurrent_f32_parity(torch, serve, arch)
+        log(f"{arch} float32 compute, full width, end to end: "
+            f"{json.dumps(parity)}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+        log(f"{arch} profile " + json.dumps(profile_generate(
+            torch, serve, arch=arch)))
+        torch.cuda.empty_cache()
+    arch, quant = RECURRENT_QUANT
+    label, paths[label] = slice7_serve(torch, serve, arch, quant)
+
+
+def frontend_prefill(torch, arch: str) -> dict:
+    """Phase 20's frontend check: ``arch`` at published width and depth, a
+    seeded prefill of `FRONTEND_BATCH` x `FRONTEND_PROMPT` tokens whose
+    first n_frontend_tokens positions take seeded bf16 frontend rows.  In bf16 the sparse plan against its
+    masked-dense reference layer by layer (teacher-forced) at 2e-2, with
+    the wide launches counted (zeroed just before, read just after: one a
+    planned projection and layer); in float32 the prefill logits end to
+    end at 1e-4.  Returns the bf16 pass's launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.launch.serve import _compare
+    from repro_torch.models import build_model, transformer
+    out: dict = {}
+    for cd in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config(arch), sparse_serving=True,
+                                  compute_dtype=cd)
+        bundle = build_model(cfg, DEVICE)
+        params = bundle.init(0)
+        gen = torch.Generator().manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (FRONTEND_BATCH, FRONTEND_PROMPT),
+                               generator=gen).to(DEVICE)
+        fe = torch.randn((FRONTEND_BATCH, cfg.n_frontend_tokens,
+                          cfg.frontend_dim), generator=gen).to(
+                              DEVICE, torch.bfloat16)
+        plan = engine_plan.plan_model(
+            cfg, params, sparsity=SPARSITY,
+            m_hint=FRONTEND_BATCH * FRONTEND_PROMPT)
+        sparse = {**params, "sparse_plan": plan}
+        ref = engine_plan.masked_dense_params(params, plan)
+        with torch.no_grad():
+            if cd == "bfloat16":
+                reset_launches()
+                diffs = transformer.block_diffs(cfg, sparse, ref, tokens,
+                                                frontend_embed=fe)
+                torch.cuda.synchronize()
+                counts = launches()
+                layers = [_compare(got, want, TOL[cd])
+                          for got, want, _ in diffs]
+                want = len(plan.layers) * cfg.n_layers
+                out["counts"] = counts
+                out["bf16_layer_max_abs_diff"] = max(d for d, _ in layers)
+                if not all(ok for _, ok in layers) \
+                        or counts["tiled_balanced_spmm"] != want \
+                        or counts["tiled_balanced_spmm_skinny"]:
+                    raise AssertionError(
+                        f"{arch} frontend prefill: layers within 2e-2 "
+                        f"{[ok for _, ok in layers]}, launches {counts}, "
+                        f"expected {want} wide")
+            else:
+                batch = {"tokens": tokens, "frontend_embed": fe}
+                logits_s, _ = bundle.prefill(sparse, batch)
+                logits_r, _ = bundle.prefill(ref, batch)
+                diff, ok = _compare(logits_s, logits_r, TOL[cd])
+                out["f32_logits_max_abs_diff"] = diff
+                if not ok:
+                    raise AssertionError(f"{arch} frontend prefill: f32 "
+                                         f"logits differ by {diff}")
+        del bundle, params, plan, sparse, ref
+        torch.cuda.empty_cache()
+    log(f"{arch} frontend prefill (batch {FRONTEND_BATCH} x "
+        f"{FRONTEND_PROMPT}, M = {FRONTEND_BATCH * FRONTEND_PROMPT}, "
+        f"{get_config(arch).n_layers} layers): "
+        + json.dumps({k: v for k, v in out.items() if k != "counts"}))
+    return out["counts"]
+
+
+def frontend_phase(torch, serve, paths: dict) -> None:
+    """Phase 20: musicgen-medium and internvl2-2b at published width
+    through the serve entry point (`slice7_serve`), then the frontend
+    prefill check (`frontend_prefill`)."""
+    for arch in FRONTEND_ARCHS:
+        label, paths[label] = slice7_serve(torch, serve, arch)
+        torch.cuda.empty_cache()
+        paths[f"{arch} frontend"] = frontend_prefill(torch, arch)
+
+
 def main() -> int:
     import torch
     t_start = time.monotonic()
@@ -2317,6 +2660,7 @@ def main() -> int:
     rows += check_batched(torch, worst)
     rows += check_bitmap(torch, worst)
     rows += check_kv(torch, worst)
+    check_new_shapes(torch, worst)
     floor_ms = launch_floor_ms(torch, torch.empty(256 * 1024 * 1024 // 4,
                                                   device=DEVICE))
     log(f"launch floor (an empty kernel under the timer) {floor_ms:.4f} ms")
@@ -2425,6 +2769,16 @@ def main() -> int:
                 torch, serve, paths["olmo-1b"], paths["deepseek-moe-16b"],
                 paths)),
             ("18. objective", lambda: objective_phase(torch, serve, paths))):
+        t0 = time.monotonic()
+        phase()
+        torch.cuda.empty_cache()
+        log(f"phase {name}: {time.monotonic() - t0:.1f} s")
+
+    # 19-20. the recurrent families and the frontends at published width,
+    # each path's counts zeroed just before and read just after
+    for name, phase in (
+            ("19. recurrent", lambda: recurrent_phase(torch, serve, paths)),
+            ("20. frontends", lambda: frontend_phase(torch, serve, paths))):
         t0 = time.monotonic()
         phase()
         torch.cuda.empty_cache()

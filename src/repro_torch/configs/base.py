@@ -117,9 +117,10 @@ SHAPES = {
 # full-attention archs (assignment rule; see DESIGN.md §4).
 LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
 
-# the transformer families this package serves and plans (the reference's
-# models.api.TRANSFORMER_FAMILIES less audio and vlm, which are not ported)
-TRANSFORMER_FAMILIES = ("dense", "moe")
+# the families served by models/transformer.py (the reference's
+# models.api.TRANSFORMER_FAMILIES); ssm (rwkv6) and hybrid (zamba2) have
+# their own model modules and planners
+TRANSFORMER_FAMILIES = ("dense", "audio", "vlm", "moe")
 
 
 def shape_applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:

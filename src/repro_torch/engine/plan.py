@@ -2,8 +2,9 @@
 
 `build_layer_plan` plans one fc (``[O, N]``) or conv (``[Co, Ci, Hk, Wk]``)
 weight from its pruning mask; `plan_smallcnn` plans the executable small
-CNN with it; `plan_transformer` / `plan_model` plan the served transformers'
-stacked projections.
+CNN with it; `plan_transformer`, `plan_rwkv6` and `plan_zamba2` plan the
+served models' stacked projections, and `plan_model` dispatches on the
+family.
 
 One offline pass fixes every per-layer execution decision: the dataflow
 mode (§V-C `choose_dataflow`), the kernel impl (§VI-F thresholds), the
@@ -65,6 +66,13 @@ ATTN_PROJ_NAMES = ("wq", "wk", "wv", "wo")
 MLP_PROJ_NAMES = ("w_gate", "w_up", "w_down", "w_in", "w_out")
 MOE_SHARED_NAMES = ("ws_gate", "ws_up", "ws_down")
 MOE_EXPERT_NAMES = ("we_gate", "we_up", "we_down")
+# RWKV6: the time-mix R/K/V/G/O and the channel-mix matrices; the WKV
+# recurrence and the decay LoRA head stay dense
+RWKV6_PROJ_NAMES = ("wr", "wkm", "wv", "wg", "wo", "ck", "cv", "cr")
+# Zamba2: the Mamba blocks' in/out projections; the B/C/dt heads (d ->
+# ssm_state / nheads), the convs, the SSD recurrence and the shared
+# attention block (one unstacked weight set) stay dense
+ZAMBA2_PROJ_NAMES = ("z_proj", "x_proj", "out_proj")
 
 # elements per chunk of the planning transients (1 GiB of int64 at most)
 _PLAN_CHUNK = 1 << 27
@@ -936,38 +944,26 @@ class TrainPlan:
         return ModelPlan(layers=layers, meta=self.plan.meta)
 
 
-def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
-                     impl: str | None = None, include_mlp: bool = True,
-                     m_hint: int | None = None, decode_m: int | None = None,
-                     pack: bool = True, tune: str = "off",
-                     tune_cache: str | None = None, quant: str = "none",
-                     objective: str = "latency",
-                     deployment: Any = None) -> ModelPlan:
-    """Offline plan for a transformer's stacked projections: attention
-    ``[L, n_in, n_out]``, plus the MLP (or, for MoE, the shared experts)
-    unless ``include_mlp`` is False.  For MoE the rank-4 expert tensors
-    ``[L, E, n_in, n_out]`` get per-expert encodings with one shared
-    BlockChoice / KB (`engine.execute.apply_expert_fc` runs them), also
-    only with ``include_mlp``.  ``quant`` ("none" | "int8" |
-    "int4") block-quantizes every sparse encoding; ``tune`` / ``tune_cache``
-    select the block policy and ``objective`` / ``deployment`` the plan
-    objective (`build_layer_plan`).  Built on the params' device."""
-    if cfg.family not in TRANSFORMER_FAMILIES:
-        raise ValueError(f"this package plans the {TRANSFORMER_FAMILIES} "
-                         f"families, got {cfg.family!r}")
+def _resolve_sparsity(cfg, sparsity: float | None) -> float:
     sparsity = cfg.w_sparsity if sparsity is None else sparsity
     if not 0.0 < sparsity < 1.0:
         raise ValueError(f"need 0 < sparsity < 1, got {sparsity}")
+    return sparsity
+
+
+def _plan_names(cfg, params: dict, names, *, sparsity: float | None = None,
+                impl: str | None = None, m_hint: int | None = None,
+                decode_m: int | None = None, pack: bool = True,
+                tune: str = "off", tune_cache: str | None = None,
+                quant: str = "none", objective: str = "latency",
+                deployment: Any = None) -> ModelPlan:
+    """Plan the stacked leaves ``names`` of ``params["blocks"]`` (each
+    through `_plan_stacked`, in the order given) with the model's meta."""
+    sparsity = _resolve_sparsity(cfg, sparsity)
     if quant not in QUANT_MODES:
         raise ValueError(f"quant must be one of {QUANT_MODES}, got "
                          f"{quant!r}")
     blocks = params["blocks"]
-    names = [n for n in ATTN_PROJ_NAMES
-             + ((MLP_PROJ_NAMES + MOE_SHARED_NAMES) if include_mlp else ())
-             if n in blocks and blocks[n].ndim == 3]
-    if include_mlp and cfg.family == "moe":
-        names += [n for n in MOE_EXPERT_NAMES
-                  if n in blocks and blocks[n].ndim == 4]
     layers = {nm: _plan_stacked(nm, blocks[nm], sparsity=sparsity, impl=impl,
                                 m_hint=m_hint or 256, cd=cfg.compute_dtype,
                                 tune=tune, tune_cache=tune_cache,
@@ -981,16 +977,63 @@ def plan_transformer(cfg, params: dict, *, sparsity: float | None = None,
     return ModelPlan(layers=layers, meta=meta)
 
 
+def plan_transformer(cfg, params: dict, *, include_mlp: bool = True,
+                     **kwargs) -> ModelPlan:
+    """Offline plan for a transformer's stacked projections: attention
+    ``[L, n_in, n_out]``, plus the MLP (or, for MoE, the shared experts)
+    unless ``include_mlp`` is False.  For MoE the rank-4 expert tensors
+    ``[L, E, n_in, n_out]`` get per-expert encodings with one shared
+    BlockChoice / KB (`engine.execute.apply_expert_fc` runs them), also
+    only with ``include_mlp``.  The keyword arguments (``sparsity``,
+    ``impl``, ``m_hint``, ``decode_m``, ``pack``, ``tune``, ``tune_cache``,
+    ``quant``: "none" | "int8" | "int4", ``objective``, ``deployment``)
+    are `build_layer_plan`'s.  Built on the params' device."""
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        raise ValueError(f"plan_transformer plans the {TRANSFORMER_FAMILIES} "
+                         f"families, got {cfg.family!r} (plan_model "
+                         "dispatches the others)")
+    blocks = params["blocks"]
+    names = [n for n in ATTN_PROJ_NAMES
+             + ((MLP_PROJ_NAMES + MOE_SHARED_NAMES) if include_mlp else ())
+             if n in blocks and blocks[n].ndim == 3]
+    if include_mlp and cfg.family == "moe":
+        names += [n for n in MOE_EXPERT_NAMES
+                  if n in blocks and blocks[n].ndim == 4]
+    return _plan_names(cfg, params, names, **kwargs)
+
+
+def plan_rwkv6(cfg, params: dict, **kwargs) -> ModelPlan:
+    """Offline plan for the RWKV6 projections (`RWKV6_PROJ_NAMES`: the
+    time-mix R/K/V/G/O and the channel-mix matrices); the WKV recurrence
+    is elementwise and stays dense, as the paper leaves non-CONV/FC ops
+    dense.  Keyword arguments as `plan_transformer`'s."""
+    names = [nm for nm in RWKV6_PROJ_NAMES if nm in params["blocks"]]
+    return _plan_names(cfg, params, names, **kwargs)
+
+
+def plan_zamba2(cfg, params: dict, **kwargs) -> ModelPlan:
+    """Offline plan for the Zamba2 Mamba blocks' in/out projections
+    (`ZAMBA2_PROJ_NAMES`); the shared attention block (``params["shared"]``,
+    one unstacked weight set) is left to the dense path.  Keyword arguments
+    as `plan_transformer`'s."""
+    names = [nm for nm in ZAMBA2_PROJ_NAMES if nm in params["blocks"]]
+    return _plan_names(cfg, params, names, **kwargs)
+
+
 def plan_model(cfg, params: dict, **kwargs) -> ModelPlan:
-    """Family dispatcher (the reference's ``plan_model``) for the families
-    this package serves: dense and moe -> `plan_transformer`, keyword
-    arguments (``sparsity``, ``impl``, ``m_hint``, ``decode_m``, ``pack``,
-    ``quant``, ``tune``, ``tune_cache``, ``objective``, ``deployment``,
-    ``include_mlp``) forwarded unchanged."""
+    """Family dispatcher (the reference's ``plan_model``): the transformer
+    families (`TRANSFORMER_FAMILIES`: dense, audio, vlm, moe) ->
+    `plan_transformer`, ssm -> `plan_rwkv6`, hybrid -> `plan_zamba2`.
+    Keyword arguments are forwarded unchanged; ``include_mlp`` is dropped
+    for the recurrent planners."""
     if cfg.family in TRANSFORMER_FAMILIES:
         return plan_transformer(cfg, params, **kwargs)
-    raise ValueError(f"no planner for family {cfg.family!r} in this "
-                     f"package (it plans {TRANSFORMER_FAMILIES})")
+    kwargs.pop("include_mlp", None)
+    if cfg.family == "ssm":
+        return plan_rwkv6(cfg, params, **kwargs)
+    if cfg.family == "hybrid":
+        return plan_zamba2(cfg, params, **kwargs)
+    raise ValueError(f"no planner for family {cfg.family!r}")
 
 
 def masked_dense_params(params: dict, plan: ModelPlan) -> dict:
@@ -1009,6 +1052,7 @@ def masked_dense_params(params: dict, plan: ModelPlan) -> dict:
 __all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "TrainPlan", "IMPL_LADDER",
            "default_impl", "balanced_mask_k", "mask_block_k",
            "build_layer_plan", "plan_from_balanced", "plan_smallcnn",
-           "plan_transformer", "plan_model",
+           "plan_transformer", "plan_rwkv6", "plan_zamba2", "plan_model",
            "masked_dense_params", "ATTN_PROJ_NAMES", "MLP_PROJ_NAMES",
-           "MOE_SHARED_NAMES", "MOE_EXPERT_NAMES"]
+           "MOE_SHARED_NAMES", "MOE_EXPERT_NAMES", "RWKV6_PROJ_NAMES",
+           "ZAMBA2_PROJ_NAMES"]

@@ -1,13 +1,16 @@
 """Serving launcher: batched prefill + greedy decode with Sense sparse
-weights — counterpart of `repro.launch.serve` (dense and moe families).
+weights — counterpart of `repro.launch.serve`, for every family the
+reference serves.
 
-``python -m repro_torch.launch.serve --arch olmo-1b --sparsity 0.5`` or
-``--arch deepseek-moe-16b`` (on the GPU; add ``--smoke --device cpu`` for
-the small config on a CPU); ``--quant int8|int4`` serves block-quantized
-encodings through the quant kernels; ``--traffic`` serves a seeded
-Poisson request stream through the continuous-batching runtime
-(`serving/`) against the static batch loop, after a paged-vs-contiguous
-parity gate held at exactly 0.0.
+``python -m repro_torch.launch.serve --arch olmo-1b --sparsity 0.5``, or
+``--arch`` deepseek-moe-16b, rwkv6-3b, zamba2-1.2b, musicgen-medium,
+internvl2-2b (on the GPU; add ``--smoke --device cpu`` for the small config
+on a CPU; the frontend archs are served tokens only, as the reference
+serves them); ``--quant int8|int4`` serves block-quantized encodings
+through the quant kernels; ``--traffic`` serves a seeded Poisson request
+stream through the continuous-batching runtime (`serving/`, the
+transformer families only) against the static batch loop, after a
+paged-vs-contiguous parity gate held at exactly 0.0.
 
 One offline pass (`engine.plan.plan_model`) balanced-prunes every
 projection (and every routed expert), picks the per-layer dataflow mode
@@ -41,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import ARCHS, get_config, get_smoke
+from ..configs import ARCHS, TRANSFORMER_FAMILIES, get_config, get_smoke
 from ..core.compression import compressed_bits
 from ..device import resolve_device
 from ..engine import execute as engine_execute
@@ -50,7 +53,7 @@ from ..kernels import balanced_spmm, kv_cache_update
 from ..kernels.ops import SKINNY_M
 from ..kernels.tile_format import QUANT_MODES, TiledBalanced
 from ..models import build_model
-from ..models.api import merge_prefill_cache
+from ..models.api import block_diffs, merge_prefill_cache
 from . import cost_model
 
 
@@ -183,8 +186,10 @@ def _parity_check(bundle, sparse_params, ref_params, prompt, *,
                   tol: float) -> dict:
     """Sparse plan vs its masked-dense reference on the prompt.
 
-    Gated: every layer's block output, teacher-forced from the reference's
-    hidden state (and, in an MoE block, from the reference block's routing),
+    Gated: every block's output, teacher-forced from the reference's
+    hidden state (the family's `models.api.block_diffs`; in an MoE block
+    also from the reference block's routing, in a recurrent one from zero
+    states),
     within ``tol`` (abs + rel); and, at float32 compute, the prefill logits
     within ``tol``, each side routing on its own.  At bfloat16 the
     end-to-end logits are reported, not gated: rounding-order differences
@@ -194,7 +199,6 @@ def _parity_check(bundle, sparse_params, ref_params, prompt, *,
     kernels.  For MoE it reports the share of (token, k) router choices on
     which the two sides' own routing agrees, over all layers.
     """
-    from ..models.transformer import block_diffs
     cfg = bundle.cfg
     with torch.no_grad():
         logits_s, _ = bundle.prefill(sparse_params, {"tokens": prompt})
@@ -367,7 +371,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(row, column block), dequantized on chip")
     ap.add_argument("--attn-only", action="store_true",
                     help="plan only the attention projections, not the MLP "
-                         "or the experts")
+                         "or the experts (transformer families)")
     ap.add_argument("--tune", choices=["off", "cached", "sweep"],
                     default="off",
                     help="block-choice policy (kernels.autotune): 'cached' "
@@ -443,7 +447,12 @@ def main(argv=None) -> dict:
     if args.inject_nan and not args.guard:
         ap.error("--inject-nan poisons the serving path by design; it is "
                  "only meaningful (and only safe) under --guard")
-    return run(args, config(args))
+    cfg = config(args)
+    if args.traffic and cfg.family not in TRANSFORMER_FAMILIES:
+        ap.error(f"--traffic serves the transformer families "
+                 f"{TRANSFORMER_FAMILIES}; {cfg.family} has O(1) recurrent "
+                 "state (nothing to page)")
+    return run(args, cfg)
 
 
 def _launch_counts() -> dict:
@@ -465,15 +474,21 @@ def run(args: argparse.Namespace, cfg) -> dict:
     max_len = args.prompt_len + args.gen_steps
 
     # ---- the offline pass: build the plan once, serve from it ------------
+    plan_kwargs = dict(sparsity=args.sparsity,
+                       impl=None if args.impl == "auto" else args.impl,
+                       m_hint=args.batch * args.prompt_len,
+                       tune=args.tune, tune_cache=args.tune_cache,
+                       quant=args.quant, objective=args.objective,
+                       deployment=args.deployment)
+    if cfg.family in TRANSFORMER_FAMILIES:
+        plan_kwargs["include_mlp"] = not args.attn_only
+    elif args.attn_only:
+        print(f"[serve] --attn-only is inapplicable to family {cfg.family} "
+              "(no separate attention projections are planned); planning "
+              "the full projection family")
     _sync(device)
     t0 = time.monotonic()
-    plan = engine_plan.plan_model(
-        cfg, params, sparsity=args.sparsity,
-        impl=None if args.impl == "auto" else args.impl,
-        include_mlp=not args.attn_only, m_hint=args.batch * args.prompt_len,
-        tune=args.tune, tune_cache=args.tune_cache,
-        quant=args.quant, objective=args.objective,
-        deployment=args.deployment)
+    plan = engine_plan.plan_model(cfg, params, **plan_kwargs)
     _sync(device)
     plan_s = time.monotonic() - t0
     print(f"[serve] {cfg.name} (family {cfg.family}, quant {args.quant}) on "

@@ -2,8 +2,9 @@
 
     python -m repro_torch.launch.train --arch olmo-1b [--smoke] [--device cpu]
 
-Trains a transformer (dense or moe) on the synthetic Markov-chain LM
-stream with AdamW through the fault-tolerant `runtime.Trainer`:
+Trains any arch (the transformer families, rwkv6, zamba2) on the
+synthetic Markov-chain LM stream with AdamW through the fault-tolerant
+`runtime.Trainer`:
 checkpoints every ``--ckpt-every`` steps and at the end, ``--resume``
 picks up the newest restorable one, ``--grad-compression`` runs the int8
 error-feedback compression.  ``--smoke`` takes the reduced config,
@@ -20,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from ..configs import ARCHS, TRANSFORMER_FAMILIES, get_config, get_smoke
+from ..configs import ARCHS, get_config, get_smoke
 from ..data import DataConfig, SyntheticLMData
 from ..device import resolve_device
 from ..models import build_model
@@ -31,8 +32,7 @@ from ..tree import leaves
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=[a for a in ARCHS if get_config(
-        a).family in TRANSFORMER_FAMILIES], default="olmo-1b")
+    ap.add_argument("--arch", choices=ARCHS, default="olmo-1b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=200)

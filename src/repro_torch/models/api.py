@@ -1,5 +1,6 @@
-"""Model API — counterpart of `repro.models.api` for the transformer
-families this package serves (dense and moe).
+"""Model API — counterpart of `repro.models.api`: every model family the
+reference serves (the transformer families dense, audio, vlm and moe;
+ssm: rwkv6; hybrid: zamba2) behind one bundle.
 
 ``build_model(cfg, device)`` returns a `ModelBundle` of plain functions on
 tensors:
@@ -8,7 +9,12 @@ tensors:
 * ``train_loss(params, batch) -> loss``     (0-d f32, differentiable)
 * ``prefill(params, batch) -> (logits_last, cache)``
 * ``decode_step(params, batch, cache) -> (logits, cache)``
-* ``init_cache(batch, max_len) -> cache``   (plane layout ``[L, B*KH, S, dh]``)
+* ``init_cache(batch, max_len) -> cache``   (the transformer: plane layout
+  ``[L, B*KH, S, dh]``; rwkv6: token-shift and WKV states; zamba2: SSM and
+  conv states plus the shared block's ``[n_attn, B, S, KH, dh]`` KV)
+
+``input_specs(cfg, shape)`` gives one (arch, shape) cell's batch as
+tensors on the ``meta`` device (no allocation).
 
 The Sense serving path: when ``cfg.sparse_serving`` and the caller attached
 a plan (``params["sparse_plan"]``, from `engine.plan.plan_model`), every
@@ -21,7 +27,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from ..configs.base import TRANSFORMER_FAMILIES, ModelConfig
+from ..configs.base import TRANSFORMER_FAMILIES, ModelConfig, ShapeSpec
 from ..device import resolve_device
 
 Tensor = torch.Tensor
@@ -79,11 +85,50 @@ def merge_prefill_cache(cache: dict, prefill_cache: dict) -> dict:
     return out
 
 
+def _family_module(cfg: ModelConfig):
+    from . import rwkv6, transformer, zamba2
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return transformer
+    if cfg.family == "ssm":
+        return rwkv6
+    if cfg.family == "hybrid":
+        return zamba2
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
 def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
-    """The transformer bundle on ``device`` (default: the GPU; a missing
-    GPU raises unless ``device="cpu"``)."""
-    if cfg.family not in TRANSFORMER_FAMILIES:
-        raise ValueError(f"this package serves the {TRANSFORMER_FAMILIES} "
-                         f"families, got {cfg.family!r}")
-    from . import transformer
-    return transformer.build(cfg, resolve_device(device))
+    """The family's bundle on ``device`` (default: the GPU; a missing GPU
+    raises unless ``device="cpu"``)."""
+    return _family_module(cfg).build(cfg, resolve_device(device))
+
+
+def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
+                **kwargs) -> list:
+    """The family's teacher-forced per-block comparison of two param sets
+    (``transformer.block_diffs``, ``rwkv6.block_diffs`` or
+    ``zamba2.block_diffs``): ``(out, ref_out, agree)`` per block."""
+    return _family_module(cfg).block_diffs(cfg, params, ref_params, tokens,
+                                           **kwargs)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Batch:
+    """One (arch, shape) cell's batch as ``meta`` tensors: ``tokens``
+    (int32 ``[b, s]``, or ``[b, 1]`` with ``cache_len`` ``[b]`` for a
+    decode cell) and, for a model with a frontend outside decode, the
+    precomputed frame / patch embeddings ``frontend_embed`` (bf16 ``[b,
+    min(n_frontend_tokens, s), frontend_dim]``)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        specs: Batch = {"tokens": spec((b, 1), torch.int32),
+                        "cache_len": spec((b,), torch.int32)}
+    else:
+        specs = {"tokens": spec((b, s), torch.int32)}
+    if cfg.frontend and shape.kind != "decode":
+        specs["frontend_embed"] = spec(
+            (b, min(cfg.n_frontend_tokens, s), cfg.frontend_dim),
+            torch.bfloat16)
+    return specs

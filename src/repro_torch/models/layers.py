@@ -123,6 +123,25 @@ def decode_attention_planes(q: Tensor, k_planes: Tensor, v_planes: Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, c, h, dh).to(q.dtype)
 
 
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     cache_len: Tensor) -> Tensor:
+    """Single-token attention on a ``[B, Smax, KH, dh]`` cache (zamba2's
+    shared block): q ``[B, 1, H, dh]``; ``cache_len`` ``[B]`` masks the
+    slots at and past it.  As the reference's, a plain softmax: a NaN
+    score gives a NaN output (a poisoned q / k surfaces here)."""
+    b, _, h, dh = q.shape
+    kh = k_cache.shape[2]
+    qg = q.reshape(b, 1, kh, h // kh, dh).float()
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) \
+        * (1.0 / math.sqrt(dh))
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = pos[None, :] < cache_len[:, None]                # [B, Smax]
+    sc = torch.where(mask[:, None, None, None, :], sc, float("-inf"))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Projections and MLPs
 # ---------------------------------------------------------------------------

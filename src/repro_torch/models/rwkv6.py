@@ -1,0 +1,358 @@
+"""RWKV-6 "Finch" (arXiv:2404.05892), the ``rwkv6-3b`` arch (family ssm) —
+counterpart of `repro.models.rwkv6`.
+
+Per layer a time mix (the WKV linear-attention recurrence with a
+data-dependent per-channel decay from a LoRA head) and a channel mix (a
+token-shift gated FFN).  The projections run over the whole sequence at
+once; only the WKV state ``[B, H, dh, dh]`` (f32) recurs over time, as a
+Python loop over tokens (`_wkv_scan`, the configs' ``ssm_mode="scan"``) or
+over chunks of matmuls (`_wkv_chunked`, ``ssm_mode="chunked"``; decode
+always scans).  The cache is the reference's dict: ``att_shift`` and
+``ffn_shift`` ``[L, B, D]`` (the last token of each sublayer's input) and
+``wkv`` ``[L, B, H, dh, dh]``.
+
+Sense integration: with ``cfg.sparse_serving`` and a plan attached
+(``params["sparse_plan"]``, `engine.plan.plan_rwkv6`), prefill and decode
+run the R/K/V/G/O and channel-mix projections through
+`engine.execute.apply_fc`; the recurrence and the decay head stay dense.
+
+Dtypes follow the reference's promotion: the token-shift state is f32, so
+the lerps that mix it in come out f32 (the reference then multiplies f32 by
+the compute-dtype weight, in f32).  The port's kernels take one dtype, so
+each projection's input is rounded to the compute dtype first, planned or
+not; the decay head keeps the reference's f32 product.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..configs.base import ModelConfig
+from .api import ModelBundle, planned_proj, serving_plan
+from .layers import causal_lm_labels, chunked_cross_entropy, embed_init, \
+    layer_norm
+
+Tensor = torch.Tensor
+
+
+def _cdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def _mm(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` in the promoted dtype of the two (as jnp's ``@``)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _proj(lp, plan_layers, name: str, x: Tensor, cd) -> Tensor:
+    return planned_proj(lp, plan_layers, name, x.to(cd), cd)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Dict[str, Any]:
+    """Random parameters in the reference's layout and scales (the
+    reference's params are converted for comparisons, `models.convert`)."""
+    d, f, l, r = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.rwkv_lora_rank
+    dt = getattr(torch, cfg.param_dtype)
+
+    def randn(*shape):
+        return torch.randn((l, *shape), generator=generator, device=device)
+
+    def mat(*shape):
+        return (randn(*shape) / math.sqrt(shape[-2])).to(dt)
+
+    def full(value):
+        return torch.full((l, d), value, dtype=dt, device=device)
+
+    blocks = {
+        "ln1": full(1.0), "ln1_b": full(0.0),
+        "ln2": full(1.0), "ln2_b": full(0.0),
+        # time-mix lerp coefficients for r / k / v / g / w
+        "mu_r": full(0.5), "mu_k": full(0.5), "mu_v": full(0.5),
+        "mu_g": full(0.5), "mu_w": full(0.5),
+        # the decay LoRA: w = exp(-exp(w0 + tanh(xw A) B))
+        "w0": full(-6.0),
+        "wA": mat(d, r), "wB": (randn(r, d) * 0.01).to(dt),
+        "wr": mat(d, d), "wkm": mat(d, d), "wv": mat(d, d), "wg": mat(d, d),
+        "wo": mat(d, d),
+        "u": (randn(d) * 0.1).to(dt),
+        "gn": full(1.0),                 # per-head group-norm gamma
+        # channel mix
+        "cmu_k": full(0.5), "cmu_r": full(0.5),
+        "ck": mat(d, f), "cv": mat(f, d), "cr": mat(d, d),
+    }
+    return {"embed": embed_init(generator, cfg.vocab_size, d, dt),
+            "blocks": blocks,
+            "final_norm": torch.ones((d,), dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# The WKV recurrence
+# ---------------------------------------------------------------------------
+
+def _shift(x: Tensor, last: Tensor) -> Tensor:
+    """Token shift: x[:, t] <- x[:, t-1], ``last`` filling t = 0 (the
+    concatenation promotes, as the reference's)."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _chunk_len(t: int, chunk: int) -> int:
+    c = min(chunk, t)
+    while t % c:
+        c //= 2
+    return c
+
+
+def _run_chunks(chunk_step, state: Tensor, xs: tuple, c: int):
+    """Walk ``xs`` (each ``[B, T, ...]``) in chunks of ``c`` tokens,
+    carrying ``state``; each chunk is recomputed in the backward when
+    autograd records (the reference's ``jax.checkpoint(chunk_step)``).
+    Returns ``(outputs concatenated over T, state)``."""
+    outs = []
+    for j in range(0, xs[0].shape[1], c):
+        part = tuple(z[:, j:j + c] for z in xs)
+        if torch.is_grad_enabled():
+            y, state = checkpoint(chunk_step, state, *part,
+                                  use_reentrant=False)
+        else:
+            y, state = chunk_step(state, *part)
+        outs.append(y)
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)), state
+
+
+def _wkv_scan(r, k, v, w, u, state, *, chunk: int = 64):
+    """WKV recurrence over time, one token a step (f32).
+
+    r/k/v/w ``[B, T, H, dh]`` (w the decay in (0, 1)); u ``[H, dh]``;
+    state ``[B, H, dh, dh]`` (key-major).  Returns ``(out [B, T, H, dh],
+    new state)``:
+
+        out_t = r_t . (S_{t-1} + (u * k_t) (x) v_t)
+        S_t   = diag(w_t) S_{t-1} + k_t (x) v_t
+
+    The bonus term ``(r_t . (u * k_t)) v_t`` needs no state and is taken
+    for all t at once, so a step allocates only ``k_t (x) v_t`` and the new
+    state."""
+    def chunk_step(s, rc, kc, vc, wc):
+        ys = []
+        for i in range(rc.shape[1]):
+            kv = kc[:, i, ..., :, None] * vc[:, i, ..., None, :]
+            ys.append(torch.einsum("bhk,bhkv->bhv", rc[:, i], s))
+            s = torch.addcmul(kv, wc[:, i, ..., None], s)
+        return torch.stack(ys, dim=1), s
+
+    y, state = _run_chunks(chunk_step, state, (r, k, v, w),
+                           _chunk_len(r.shape[1], chunk))
+    return y + (r * u * k).sum(-1, keepdim=True) * v, state
+
+
+def _wkv_chunked(r, k, v, w, u, state, *, chunk: int = 32):
+    """Chunk-parallel WKV: the same recurrence as chunk-local matmuls (f32).
+
+    With ``L_t = sum_{tau <= t} log w_tau`` per channel inside a chunk:
+
+        y_t = r_t.(exp(L_{t-1}) * S_0)                      (inter)
+            + sum_{s<t} (r_t exp(L_{t-1} - L_s)) . k_s  v_s  (intra)
+            + (r_t.(u * k_t)) v_t                           (diagonal)
+        S'  = exp(L_C) S_0 + sum_s exp(L_C - L_s) k_s (x) v_s
+
+    ``exp(-L_s)`` grows within a chunk, so chunks stay short (32) and the
+    decay is floored at 1e-37 before its log, as the reference's."""
+    c = _chunk_len(r.shape[1], chunk)
+    tril = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                      -1)
+
+    def chunk_step(s, rc, kc, vc, wc):
+        logw = torch.log(torch.clamp_min(wc, 1e-37))
+        l_incl = torch.cumsum(logw, dim=1)              # L_t
+        l_prev = l_incl - logw                          # L_{t-1}
+        r_p = rc * torch.exp(l_prev)
+        k_m = kc * torch.exp(-l_incl)
+        y = torch.einsum("bchk,bhkv->bchv", r_p, s)
+        sc = torch.einsum("bchk,bshk->bhcs", r_p, k_m)
+        sc = torch.where(tril, sc, 0.0)
+        y = y + torch.einsum("bhcs,bshv->bchv", sc, vc)
+        y = y + (rc * u * kc).sum(-1, keepdim=True) * vc
+        k_f = kc * torch.exp(l_incl[:, -1:] - l_incl)
+        s = torch.exp(l_incl[:, -1])[..., None] * s \
+            + torch.einsum("bchk,bchv->bhkv", k_f, vc)
+        return y, s
+
+    return _run_chunks(chunk_step, state, (r, k, v, w), c)
+
+
+# ---------------------------------------------------------------------------
+# Time mix / channel mix
+# ---------------------------------------------------------------------------
+
+def _time_mix(cfg: ModelConfig, lp, x: Tensor, shift_last: Tensor,
+              state: Tensor, plan_layers=None) -> tuple:
+    """x ``[B, T, D]``; returns ``(out, new shift_last, new state)``."""
+    cd = _cdtype(cfg)
+    b, t, d = x.shape
+    hd = cfg.rwkv_head_dim
+    nh = d // hd
+    xs = _shift(x, shift_last)
+
+    def lerp(mu):
+        return x + (xs - x) * mu.to(cd)
+
+    r = _proj(lp, plan_layers, "wr", lerp(lp["mu_r"]), cd)
+    k = _proj(lp, plan_layers, "wkm", lerp(lp["mu_k"]), cd)
+    v = _proj(lp, plan_layers, "wv", lerp(lp["mu_v"]), cd)
+    g = F.silu(_proj(lp, plan_layers, "wg", lerp(lp["mu_g"]), cd))
+    # the data-dependent decay (the Finch contribution)
+    w_log = lp["w0"].to(cd) + _mm(torch.tanh(_mm(lerp(lp["mu_w"]),
+                                                 lp["wA"].to(cd))),
+                                  lp["wB"].to(cd))
+    w = torch.exp(-torch.exp(w_log.float()))            # in (0, 1)
+    hs = (b, t, nh, hd)
+    wkv = _wkv_chunked if (cfg.ssm_mode == "chunked" and t > 1) \
+        else _wkv_scan
+    out, state = wkv(r.reshape(hs).float(), k.reshape(hs).float(),
+                     v.reshape(hs).float(), w.reshape(hs),
+                     lp["u"].float().reshape(nh, hd), state)
+    # per-head group norm (population variance, as jnp.var)
+    mu = out.mean(-1, keepdim=True)
+    var = out.var(-1, unbiased=False, keepdim=True)
+    out = ((out - mu) * torch.rsqrt(var + 1e-5)).reshape(b, t, d) \
+        * lp["gn"].float()
+    out = _proj(lp, plan_layers, "wo", out.to(cd) * g, cd)
+    return out, x[:, -1, :], state
+
+
+def _channel_mix(cfg: ModelConfig, lp, x: Tensor, shift_last: Tensor,
+                 plan_layers=None) -> tuple:
+    cd = _cdtype(cfg)
+    xs = _shift(x, shift_last)
+    xk = x + (xs - x) * lp["cmu_k"].to(cd)
+    xr = x + (xs - x) * lp["cmu_r"].to(cd)
+    k = torch.square(F.relu(_proj(lp, plan_layers, "ck", xk, cd)))
+    out = torch.sigmoid(_proj(lp, plan_layers, "cr", xr, cd)) \
+        * _proj(lp, plan_layers, "cv", k, cd)
+    return out, x[:, -1, :]
+
+
+def _block(cfg: ModelConfig, lp, h: Tensor, att_shift: Tensor,
+           ffn_shift: Tensor, state: Tensor, plan_layers=None) -> tuple:
+    """One layer; returns ``(h, att_shift, ffn_shift, state)``."""
+    cd = _cdtype(cfg)
+    x = layer_norm(h, lp["ln1"], lp["ln1_b"]).to(cd)
+    att, att_shift, state = _time_mix(cfg, lp, x, att_shift, state,
+                                      plan_layers=plan_layers)
+    h = h + att.to(h.dtype)
+    x = layer_norm(h, lp["ln2"], lp["ln2_b"]).to(cd)
+    ffn, ffn_shift = _channel_mix(cfg, lp, x, ffn_shift,
+                                  plan_layers=plan_layers)
+    return h + ffn.to(h.dtype), att_shift, ffn_shift, state
+
+
+def _zero_states(cfg: ModelConfig, b: int, device) -> tuple:
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
+                                   device=device)
+    return (zeros(cfg.n_layers, b, d), zeros(cfg.n_layers, b, d),
+            zeros(cfg.n_layers, b, d // hd, hd, hd))
+
+
+def _layer(params, i: int) -> dict:
+    return {nm: w[i] for nm, w in params["blocks"].items()}
+
+
+def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor) -> list:
+    """Teacher-forced per-layer comparison of two param sets (a sparse plan
+    against its masked-dense reference): walk ``ref_params``' prefill and
+    run each layer under both from the reference's hidden state, with zero
+    shift and WKV states (a prefill starts from zero).  Returns per layer
+    ``(out, ref_out, None)``, as `transformer.block_diffs`."""
+    h = ref_params["embed"][tokens].to(_cdtype(cfg))
+    zeros = [z[0] for z in _zero_states(cfg, tokens.shape[0], tokens.device)]
+    plan, ref_plan = serving_plan(cfg, params), serving_plan(cfg, ref_params)
+    out = []
+    for i in range(cfg.n_layers):
+        want = _block(cfg, _layer(ref_params, i), h, *zeros,
+                      plan_layers=None if ref_plan is None
+                      else ref_plan.per_layer[i])[0]
+        got = _block(cfg, _layer(params, i), h, *zeros,
+                     plan_layers=None if plan is None
+                     else plan.per_layer[i])[0]
+        out.append((got, want, None))
+        h = want
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Bundle
+# ---------------------------------------------------------------------------
+
+def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
+    cd = _cdtype(cfg)
+
+    def init(seed: int = 0):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return init_params(cfg, gen, device)
+
+    def _forward(params, tokens: Tensor, states: tuple, plan=None,
+                 remat: bool = False):
+        """All layers from ``states`` (``[L, ...]`` each); returns the
+        final-normed hidden states and the new states, stacked."""
+        h = params["embed"][tokens].to(cd)
+        new = ([], [], [])
+        for i in range(cfg.n_layers):
+            args = (_layer(params, i), h, *(s[i] for s in states))
+            plp = None if plan is None else plan.per_layer[i]
+            if remat:
+                h, *st = checkpoint(_block, cfg, *args, plan_layers=plp,
+                                    use_reentrant=False)
+            else:
+                h, *st = _block(cfg, *args, plan_layers=plp)
+            for acc, s in zip(new, st):
+                acc.append(s)
+        h = layer_norm(h, params["final_norm"], None)
+        return h, tuple(torch.stack(acc) for acc in new)
+
+    def _logits(params, h):
+        return h[:, -1].float() @ params["embed"].float().T
+
+    def _cache(states):
+        return dict(zip(("att_shift", "ffn_shift", "wkv"), states))
+
+    def train_loss(params, batch):
+        tokens = batch["tokens"].long()
+        s = tokens.shape[1]
+        h, _ = _forward(params, tokens,
+                        _zero_states(cfg, tokens.shape[0], tokens.device),
+                        remat=cfg.remat)
+        labels, mask = causal_lm_labels(tokens)
+        return chunked_cross_entropy(h, params["embed"], labels,
+                                     chunk=min(cfg.loss_chunk, s), mask=mask)
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        h, states = _forward(params, tokens,
+                             _zero_states(cfg, tokens.shape[0], device),
+                             plan=serving_plan(cfg, params))
+        return _logits(params, h), _cache(states)
+
+    def init_cache(batch_size: int, max_len: int):
+        return _cache(_zero_states(cfg, batch_size, device))
+
+    def decode_step(params, batch, cache):
+        states = (cache["att_shift"], cache["ffn_shift"], cache["wkv"])
+        h, states = _forward(params, batch["tokens"], states,
+                             plan=serving_plan(cfg, params))
+        return _logits(params, h), _cache(states)
+
+    return ModelBundle(cfg=cfg, device=device, init=init,
+                       train_loss=train_loss, prefill=prefill,
+                       decode_step=decode_step, init_cache=init_cache)

@@ -1,6 +1,11 @@
-"""Decoder-only transformer, dense (olmo-1b and the other dense configs)
-and MoE (deepseek-moe-16b: capacity-dispatched routed experts plus shared
-experts) — counterpart of those families of `repro.models.transformer`.
+"""Decoder-only transformer, dense (olmo-1b and the other dense configs),
+MoE (deepseek-moe-16b: capacity-dispatched routed experts plus shared
+experts), audio (musicgen-medium) and vlm (internvl2-2b) — counterpart of
+`repro.models.transformer`.  The audio and vision frontends are stubs, as
+in the reference: ``batch["frontend_embed"]`` carries precomputed frame /
+patch embeddings ``[B, n, frontend_dim]``, projected by ``frontend_proj``
+onto the first n token positions of a prefill or a training batch (the
+loss skips the positions they predict).
 
 Layer parameters are stacked on a leading L axis, in the reference's
 layout (``[L, n_in, n_out]``), and walked with a Python loop.  The KV cache
@@ -36,7 +41,7 @@ from ..kernels.kv_cache_update import kv_cache_write_chunk, to_planes
 from .api import ModelBundle, planned_proj as _proj, serving_plan
 from .layers import (apply_rope, causal_attention, causal_lm_labels,
                      chunked_cross_entropy, decode_attention_planes,
-                     layer_norm, rms_norm)
+                     dense_init, embed_init, layer_norm, rms_norm)
 
 Tensor = torch.Tensor
 KV_DTYPE = torch.bfloat16       # the cache is bf16 by construction
@@ -96,10 +101,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         blocks["w_in"] = mat(d, f)
         blocks["w_out"] = mat(f, d)
-    embed = torch.randn((cfg.vocab_size, d), generator=generator,
-                        device=device) * 0.02
-    return {"embed": embed.to(dt), "blocks": blocks,
-            "final_norm": torch.ones((d,), dtype=dt, device=device)}
+    params = {"embed": embed_init(generator, cfg.vocab_size, d, dt),
+              "blocks": blocks,
+              "final_norm": torch.ones((d,), dtype=dt, device=device)}
+    if cfg.frontend:
+        params["frontend_proj"] = dense_init(generator, cfg.frontend_dim, d,
+                                             dt)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -277,8 +285,20 @@ def _block(cfg: ModelConfig, h: Tensor, lp, positions: Tensor,
     return h + mlp_out.to(h.dtype), kv, aux, route
 
 
-def block_diffs(cfg: ModelConfig, params, ref_params,
-                tokens: Tensor) -> list:
+def _embed_tokens(cfg: ModelConfig, params, batch) -> Tensor:
+    """Token embeddings in the compute dtype, the first n positions
+    replaced by the projected frontend rows when the batch carries
+    ``frontend_embed`` ``[B, n, frontend_dim]`` (n <= the sequence)."""
+    cd = _cdtype(cfg)
+    h = params["embed"][batch["tokens"]].to(cd)
+    if cfg.frontend and "frontend_embed" in batch:
+        proj = batch["frontend_embed"].to(cd) @ params["frontend_proj"].to(cd)
+        h = torch.cat([proj, h[:, proj.shape[1]:]], dim=1)
+    return h
+
+
+def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
+                frontend_embed: Tensor | None = None) -> list:
     """Teacher-forced per-layer comparison of two param sets (e.g. a sparse
     plan against its masked-dense reference): walk ``ref_params``' prefill
     and, at every layer, run that layer under both param sets *from the
@@ -290,11 +310,14 @@ def block_diffs(cfg: ModelConfig, params, ref_params,
 
     Returns per layer ``(out, ref_out, agree)``: the block outputs and, for
     an MoE block, the share of (token, k) choices on which the two sides'
-    own routing agrees (None for a dense block)."""
-    cd = _cdtype(cfg)
+    own routing agrees (None for a dense block).  ``frontend_embed``
+    enters through the reference's embedding, as in a prefill."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    h = ref_params["embed"][tokens].to(cd)
+    batch = {"tokens": tokens}
+    if frontend_embed is not None:
+        batch["frontend_embed"] = frontend_embed
+    h = _embed_tokens(cfg, ref_params, batch)
     plan = serving_plan(cfg, params)
     ref_plan = serving_plan(cfg, ref_params)
     out = []
@@ -347,7 +370,7 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
         tokens = batch["tokens"].long()
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        h = params["embed"][tokens].to(cd)
+        h = _embed_tokens(cfg, params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(cfg.n_layers):
             lp = {nm: w[i] for nm, w in params["blocks"].items()}
@@ -359,6 +382,9 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
             aux = aux + a
         h = _norm(cfg, h, params["final_norm"])
         labels, mask = causal_lm_labels(tokens)
+        if cfg.frontend and "frontend_embed" in batch:
+            # the frontend rows carry no token: no loss on predicting them
+            mask[:, :max(batch["frontend_embed"].shape[1] - 1, 0)] = 0.0
         loss = chunked_cross_entropy(h, params["embed"], labels,
                                      chunk=min(cfg.loss_chunk, s), mask=mask)
         return loss + cfg.router_aux_weight * aux
@@ -367,7 +393,7 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=device)[None].expand(b, s)
-        h = params["embed"][tokens].to(cd)
+        h = _embed_tokens(cfg, params, batch)
         ks, vs = [], []
         for lp, plp in _layers(params):
             h, (k, v), _, _ = _block(cfg, h, lp, positions,

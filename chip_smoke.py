@@ -190,6 +190,40 @@ fatal as above:
              wide launch a planned projection and layer) and the logits
              end to end at 1e-4 in float32.
 
+Then the long prefill, after phase 20, fatal as above:
+
+21. long prefill — (a) the chunked prefill attention
+             (`blocked_causal_attention` at olmo-1b's chunks, 512 / 1024)
+             against its unchunked twin at B = 1, S = 4096, H = 16,
+             dh = 128 (f32 within 1e-4, bf16 within 2e-2), each form's
+             time and peak memory, and a NaN key row in the first of four
+             kv chunks (S = 256) on the card against the CPU at 1e-4;
+             (b) ``serve`` of olmo-1b at published width and depth,
+             float32 compute, sparsity 0.5, batch 1 (prefill_32k's batch
+             of 32 cut to 1), one 32768-token prompt and 8 new tokens
+             with the scatter cache write: serve's parity gate (every
+             layer and the logits at 1e-4), the wide launches equal to 7
+             projections x 16 layers x prefills, the skinny ones that x
+             decode steps, the kv kernel's 2 x 16 x 2 x decode steps,
+             tok/s and the peak device memory (the kernels counted on this
+             served path are the float32 instantiations; serve's bf16
+             gate fails at this length, ROADMAP Queue 3 item 13); the
+             bf16 witness: every layer of the bf16 sparse prefill (the
+             tensor-core wide kernel, its launches counted) and of the
+             bf16 masked-dense one, teacher-forced from a float32
+             masked-dense reference, their errors against it alike
+             (relative RMS of the sparse within 1.25 x the dense's, both
+             within 2e-2); then in bf16 one sparse
+             prefill's wall time, the wide kernel at M = 32768 against
+             its plain version at 1e-4 (timed beside ``torch.matmul`` and
+             its bound) and a profile of one prefill at 2 layers (the
+             attention's and the wide kernel's shares of the device
+             time); (c) float32 end
+             to end at 4 layers and 8192 tokens against the masked-dense
+             reference at 1e-4; (d) the meta-device dry run of the cell
+             (`launch.dryrun`, batch 1): its param and cache bytes equal to
+             the card's tensors', beside the measured peak.
+
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -197,6 +231,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -367,6 +402,42 @@ NEW_SHAPES = {"rwkv6-3b": ((2560, 2560), (8960, 2560), (2560, 8960)),
               "musicgen-medium": ((1536, 1536), (6144, 1536), (1536, 6144)),
               "internvl2-2b": ((1024, 2048),)}
 NEW_SHAPE_MS = (WIDE_M, 4)
+# phase 21, the long prefill: olmo-1b at published width and depth, one
+# 32768-token prompt (prefill_32k's length; its batch of 32 cut to 1: 32
+# sequences of KV alone are 137 GB), 8 new tokens through the kv kernel.
+# Served at float32 compute, gated per layer and end to end at 1e-4: at
+# bf16 serve's own per-layer gate (2e-2, abs + rel) fails at this length on
+# 1-2-ulp roundings of the residual adds (ROADMAP Queue 3 item 13); the
+# bf16 prefill is timed, profiled and its wide kernel checked at
+# M = 32768 against its plain version (`long_prefill_profile`), and held
+# per layer against float32 (`long_bf16_witness`)
+LONG_PROMPT, LONG_GEN_STEPS = 32768, 8
+LONG_DTYPE = "float32"
+# olmo-1b's projection shapes (O, N) for the wide kernel at M = LONG_PROMPT
+LONG_KERNEL_SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192))
+LONG_ARGS = ["--arch", "olmo-1b", "--batch", "1", "--prompt-len",
+             str(LONG_PROMPT), "--gen-steps", str(LONG_GEN_STEPS),
+             "--sparsity", str(SPARSITY)]
+LONG_LABEL = "long_prefill"
+LONG_KV_LAUNCHES = 2 * OLMO_LAYERS * 2 * (1 + LONG_GEN_STEPS)
+# the two attention forms on the card (B, S, H, dh), both held in memory;
+# the poisoned multi-chunk check (S, chunk), one NaN key row at LONG_POISON_ROW
+ATTN_SHAPE = (1, 4096, 16, 128)
+LONG_POISON, LONG_POISON_ROW = (256, 64), 3
+# the profiled sparse prefill at LONG_PROMPT: depth cut to this many layers
+# (each layer is the same work; the trace of 16 holds ~340k kernels)
+LONG_PROFILE_LAYERS = 2
+# the float32 end-to-end check: published width, depth cut to 4, batch 1
+LONG_F32_LAYERS, LONG_F32_PROMPT = 4, 8192
+# the profiler range around each prefill attention call
+ATTENTION_RANGE = "attention"
+# the bf16 witness at LONG_PROMPT: per layer, the relative RMS error against
+# float32 of the bf16 sparse output within WITNESS_RATIO x the bf16
+# masked-dense one's (both round at the same points; only the f32 sums'
+# order differs), and each within WITNESS_REL, the bf16 tolerance (a block
+# rounds its input, projections, SwiGLU product and residual sums to bf16)
+WITNESS_RATIO, WITNESS_REL = 1.25, TOL["bfloat16"]
+WITNESS_LABEL = "long_prefill bf16 witness"
 
 
 def log(msg: str) -> None:
@@ -876,14 +947,15 @@ def logit_sensitivity(torch, bundle, params, prompt, name: str) -> dict:
 def device_kernels(prof) -> tuple:
     """A `torch.profiler` trace of the card's activity: ``(by_name, busy
     ms, top)`` with ``by_name`` kernel name -> (launches, device ms) and
-    ``top`` the ten kernels of most device time.  `RECURRENCE_RANGE`, a
-    host range that also shows on the card's track spanning its kernels
-    and the gaps between them, is not a kernel and is left out."""
+    ``top`` the ten kernels of most device time.  `RECURRENCE_RANGE` and
+    `ATTENTION_RANGE`, host ranges that also show on the card's track
+    spanning their kernels and the gaps between them, are not kernels and
+    are left out."""
     from torch.autograd import DeviceType
     by_name: dict = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA \
-                and evt.name != RECURRENCE_RANGE:
+                and evt.name not in (RECURRENCE_RANGE, ATTENTION_RANGE):
             n, ms = by_name.get(evt.name, (0, 0.0))
             by_name[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
@@ -948,12 +1020,29 @@ def profile_generate(torch, serve, steps: int = 8, arch: str = "olmo-1b",
 
 
 @contextlib.contextmanager
+def ranged_calls(mod, name: str, label: str):
+    """Within the block, each call of ``mod.name`` runs in a ``label``
+    `record_function` range."""
+    from torch.profiler import record_function
+    fn = getattr(mod, name)
+
+    def ranged(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+
+    setattr(mod, name, ranged)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
 def recurrence_ranges(cfg):
     """Within the block, each call of a recurrent family's scan
     (`models.rwkv6._wkv_scan`, `models.zamba2._ssd_scan`) runs in a
     `RECURRENCE_RANGE` `record_function` range; a transformer family is
     left as it is."""
-    from torch.profiler import record_function
     from repro_torch.models import rwkv6, zamba2
     mod, name = {"ssm": (rwkv6, "_wkv_scan"),
                  "hybrid": (zamba2, "_ssd_scan")}.get(cfg.family,
@@ -961,17 +1050,8 @@ def recurrence_ranges(cfg):
     if mod is None:
         yield
         return
-    scan = getattr(mod, name)
-
-    def ranged(*args, **kwargs):
-        with record_function(RECURRENCE_RANGE):
-            return scan(*args, **kwargs)
-
-    setattr(mod, name, ranged)
-    try:
+    with ranged_calls(mod, name, RECURRENCE_RANGE):
         yield
-    finally:
-        setattr(mod, name, scan)
 
 
 def skinny_kernels(by_name: dict) -> list:
@@ -2611,6 +2691,379 @@ def frontend_phase(torch, serve, paths: dict) -> None:
         paths[f"{arch} frontend"] = frontend_prefill(torch, arch)
 
 
+def attention_forms(torch) -> dict:
+    """Phase 21 (a): the chunked prefill attention (`models.layers
+    .blocked_causal_attention` at olmo-1b's chunks) against its unchunked
+    twin (`causal_attention`) on the card at `ATTN_SHAPE`, f32 within 1e-4
+    and bf16 inputs within 2e-2, each form's time and peak memory; then
+    the chunk-dependent non-finite rule on the card: a NaN key row in the
+    first of four kv chunks, the chunked form on the card against itself
+    on the CPU at 1e-4 (f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = get_config("olmo-1b")
+    b, s, h, dh = ATTN_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    qkv = [torch.randn((b, s, h, dh), generator=gen, device=DEVICE)
+           for _ in range(3)]
+    flush = torch.empty(64 * 1024 * 1024 // 4, device=DEVICE)
+    out: dict = {"shape": list(ATTN_SHAPE),
+                 "chunks": [cfg.q_chunk, cfg.kv_chunk]}
+    for dname in ("float32", "bfloat16"):
+        q, k, v = (t.to(getattr(torch, dname)) for t in qkv)
+        forms = {
+            "blocked": lambda: layers.blocked_causal_attention(
+                q, k, v, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk),
+            "unchunked": lambda: layers.causal_attention(q, k, v)}
+        got = {}
+        for name, fn in forms.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                y = fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            with torch.no_grad():
+                ms = time_ms(torch, fn, flush=flush, warmup=1, runs=5,
+                             spin=10 * SPIN_CYCLES)
+            got[name] = y
+            out[f"{dname} {name}"] = {"ms": ms, "peak_bytes": peak}
+        err = float((got["blocked"].float()
+                     - got["unchunked"].float()).abs().max())
+        out[f"{dname} max_abs_err"] = err
+        if not (err <= TOL[dname]
+                and bool(torch.isfinite(got["blocked"]).all())):
+            raise AssertionError(f"chunked vs unchunked attention, {dname}: "
+                                 f"max |diff| {err} > {TOL[dname]}")
+        del got, q, k, v
+    s_p, chunk = LONG_POISON
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((1, s_p, h, dh), generator=gen) for _ in range(3))
+    k[:, LONG_POISON_ROW] = float("nan")
+    cpu = layers.blocked_causal_attention(q, k, v, q_chunk=chunk,
+                                          kv_chunk=chunk)
+    card = layers.blocked_causal_attention(
+        q.to(DEVICE), k.to(DEVICE), v.to(DEVICE), q_chunk=chunk,
+        kv_chunk=chunk).cpu()
+    err = float((card - cpu).abs().max())
+    unchunked = float((layers.causal_attention(q, k, v) - cpu).abs().max())
+    out["poisoned"] = {"S": s_p, "chunk": chunk, "row": LONG_POISON_ROW,
+                       "card_vs_cpu_max_abs_err": err,
+                       "unchunked_vs_chunked_max_abs_diff": unchunked}
+    if not (err <= TOL["float32"] and bool(torch.isfinite(card).all())):
+        raise AssertionError(f"the chunked attention's non-finite rule "
+                             f"differs on the card: {out['poisoned']}")
+    return out
+
+
+def long_bf16_witness(torch, paths: dict) -> dict:
+    """Phase 21 (b), the bf16 witness: olmo-1b at published width and
+    depth, one `LONG_PROMPT`-token prompt, planned at bf16 as serve plans
+    it.  Walks the float32 masked-dense prefill and, at every layer, runs
+    the block from its float32 input three ways: float32 masked-dense (the
+    reference), bf16 masked-dense and bf16 sparse (the plan's tensor-core
+    wide kernel; its launches counted from just before the first layer to
+    just after the last).  Per layer, the two bf16 outputs' relative RMS
+    and max |diff| against the reference: the sparse one's relative RMS
+    within `WITNESS_RATIO` x the dense one's, both within
+    `WITNESS_REL`."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.models import build_model, transformer
+    cfg16 = dataclasses.replace(get_config("olmo-1b"), sparse_serving=True)
+    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32")
+    params = build_model(cfg16, DEVICE).init(0)
+    prompt = torch.randint(0, cfg16.vocab_size, (1, LONG_PROMPT),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(DEVICE)
+    plan = engine_plan.plan_model(cfg16, params, sparsity=SPARSITY,
+                                  m_hint=LONG_PROMPT)
+    ref = engine_plan.masked_dense_params(params, plan)
+    positions = torch.arange(LONG_PROMPT, device=DEVICE)[None]
+    t0 = time.monotonic()
+    reset_launches()
+    rows = []
+    with torch.no_grad():
+        h = transformer._embed_tokens(cfg32, ref, {"tokens": prompt})
+        for i in range(cfg16.n_layers):
+            lp = {k: w[i] for k, w in params["blocks"].items()}
+            ref_lp = {k: w[i] for k, w in ref["blocks"].items()}
+            want = transformer._block(cfg32, h, ref_lp, positions)[0]
+            h16 = h.to(torch.bfloat16)
+            got = {
+                "dense": transformer._block(cfg16, h16, ref_lp,
+                                            positions)[0],
+                "sparse": transformer._block(
+                    cfg16, h16, lp, positions,
+                    plan_layers=plan.per_layer[i])[0]}
+            norm = float(want.norm())
+            row = {"layer": i}
+            for name, y in got.items():
+                d = y.float() - want
+                row[f"{name}_rel_rms"] = float(d.norm()) / norm
+                row[f"{name}_max_abs"] = float(d.abs().max())
+            row["finite"] = all(bool(torch.isfinite(y).all())
+                                for y in got.values())
+            rows.append(row)
+            h = want
+            del got, want, h16
+    torch.cuda.synchronize()
+    counts = launches()
+    paths[WITNESS_LABEL] = counts
+    want_counts = {"tiled_balanced_spmm": len(plan.per_layer[0])
+                   * cfg16.n_layers}
+    out = {"layers": rows, "launches": {k: v for k, v in counts.items()
+                                        if v},
+           "expected_launches": want_counts,
+           "seconds": time.monotonic() - t0,
+           "worst_ratio": max(r["sparse_rel_rms"] / r["dense_rel_rms"]
+                              for r in rows),
+           "worst_rel_rms": max(max(r["sparse_rel_rms"], r["dense_rel_rms"])
+                                for r in rows)}
+    bad = [r["layer"] for r in rows if not (
+        r["finite"] and r["sparse_rel_rms"] <= WITNESS_RATIO
+        * r["dense_rel_rms"] and max(r["sparse_rel_rms"],
+                                     r["dense_rel_rms"]) <= WITNESS_REL)]
+    if bad or out["launches"] != want_counts:
+        raise AssertionError(f"{WITNESS_LABEL}: layers {bad} out of "
+                             f"bounds or launches off: {json.dumps(out)}")
+    return out
+
+
+def long_prefill_profile(torch) -> dict:
+    """Phase 21 (b): olmo-1b at published width and depth, bf16, planned
+    as serve plans it: the wall time of one sparse prefill of
+    `LONG_PROMPT` tokens (clocks read after a synchronize), the bytes of
+    its params and of the cache it returns; then a `torch.profiler` trace
+    of one sparse prefill of the same prompt at `LONG_PROFILE_LAYERS`
+    layers (the first ones' weights, planned alike): the device's busy
+    share, the device time inside the `ATTENTION_RANGE` ranges (one a
+    `blocked_causal_attention` call) and in the tensor-core wide
+    kernel."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_config
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.models import build_model, layers
+    cfg = dataclasses.replace(get_config("olmo-1b"), sparse_serving=True)
+    bundle = build_model(cfg, DEVICE)
+    params = bundle.init(0)
+    prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(DEVICE)
+    plan = engine_plan.plan_model(cfg, params, sparsity=SPARSITY,
+                                  m_hint=LONG_PROMPT)
+    out = {"param_bytes": sum(t.numel() * t.element_size()
+                              for t in params["blocks"].values())
+           + sum(params[k].numel() * params[k].element_size()
+                 for k in ("embed", "final_norm"))}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        _, cache = bundle.prefill({**params, "sparse_plan": plan},
+                                  {"tokens": prompt})
+    torch.cuda.synchronize()
+    out["prefill_wall_s"] = time.monotonic() - t0
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in cache.values())
+    del cache, plan, bundle
+    torch.cuda.empty_cache()
+    out["wide_at_long_m"] = long_wide_kernel(torch)
+    cut = dataclasses.replace(cfg, n_layers=LONG_PROFILE_LAYERS)
+    params = {**params, "blocks": {k: w[:LONG_PROFILE_LAYERS]
+                                   for k, w in params["blocks"].items()}}
+    plan = engine_plan.plan_model(cut, params, sparsity=SPARSITY,
+                                  m_hint=LONG_PROMPT)
+    bundle = build_model(cut, DEVICE)
+    sparse = {**params, "sparse_plan": plan}
+    with torch.no_grad():
+        bundle.prefill(sparse, {"tokens": prompt})            # warm
+        torch.cuda.synchronize()
+        with ranged_calls(layers, "blocked_causal_attention",
+                          ATTENTION_RANGE), profile(activities=[
+                              ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            bundle.prefill(sparse, {"tokens": prompt})
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    by_name, busy_ms, top = device_kernels(prof)
+    ranges = [e for e in prof.events() if e.name == ATTENTION_RANGE
+              and e.device_type == DeviceType.CPU]
+    if len(ranges) != LONG_PROFILE_LAYERS:
+        raise AssertionError(f"{len(ranges)} attention ranges traced, "
+                             f"expected {LONG_PROFILE_LAYERS}")
+    attn_ms = sum(e.device_time_total for e in ranges) / 1e3
+    wide = wide_kernels(by_name)
+    wide_ms = sum(w["ms"] for w in wide)
+    out["profile"] = {
+        "layers": LONG_PROFILE_LAYERS, "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+        "attention_device_ms": attn_ms,
+        "attention_share_of_busy": attn_ms / busy_ms,
+        "wide_kernel_ms": wide_ms, "wide_share_of_busy": wide_ms / busy_ms,
+        "wide": wide, "top": top}
+    return out
+
+
+def long_wide_kernel(torch) -> list:
+    """Row 1 in bf16 at M = `LONG_PROMPT` (the long prefill's GEMM M) at
+    olmo-1b's projection shapes: against its plain version at the f32
+    tolerance (both are f32 sums of the same products), timed beside
+    ``torch.matmul`` on the masked dense weight and its bound."""
+    from repro_torch.kernels import balanced_spmm as bs
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    flush = torch.empty(256 * 1024 * 1024 // 4, device=DEVICE)
+    worst: dict = {}
+    rows = []
+    m = LONG_PROMPT
+    for o, n in LONG_KERNEL_SHAPES:
+        tb, w_masked = make_encoding(torch, o, n, torch.bfloat16, gen)
+        wd = w_masked.to(torch.bfloat16)
+        x = torch.randn((m, n), generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+        kern = lambda: bs.tiled_balanced_spmm(x, tb)  # noqa: E731
+        compare(torch, worst, "tiled_balanced_spmm", kern(),
+                bs.tiled_balanced_spmm_plain(x, tb), KERNEL_TOL,
+                f"long prefill bf16 M={m} O={o} N={n} KB={tb.kb}")
+        rows.append({"M": m, "O": o, "N": n, "KB": tb.kb,
+                     "ms": time_ms(torch, kern, flush=flush, runs=5),
+                     "library_ms": time_ms(
+                         torch, lambda: torch.matmul(x, wd.T), flush=flush,
+                         runs=5),
+                     **bound(tb, x, m, m * o, "bfloat16")})
+        del tb, w_masked, wd, x
+    log(f"wide kernel at M = {m}, max |err| vs plain "
+        f"{worst['tiled_balanced_spmm']:.3g}: " + json.dumps(rows))
+    return rows
+
+
+def long_f32_parity(torch, serve) -> dict:
+    """Phase 21 (c): olmo-1b at published width, depth cut to
+    `LONG_F32_LAYERS`, float32 compute, one `LONG_F32_PROMPT`-token prompt:
+    the sparse plan against its masked-dense reference (serve's parity
+    check: every block teacher-forced and the prefill logits end to end,
+    1e-4)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("olmo-1b"), sparse_serving=True,
+                              compute_dtype="float32",
+                              n_layers=LONG_F32_LAYERS)
+    bundle = build_model(cfg, DEVICE)
+    params = bundle.init(0)
+    prompt = torch.randint(0, cfg.vocab_size, (1, LONG_F32_PROMPT),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(DEVICE)
+    plan = engine_plan.plan_model(cfg, params, sparsity=SPARSITY,
+                                  m_hint=LONG_F32_PROMPT)
+    return serve._parity_check(
+        bundle, {**params, "sparse_plan": plan},
+        engine_plan.masked_dense_params(params, plan), prompt,
+        tol=TOL["float32"])
+
+
+def long_prefill_phase(torch, serve, paths: dict) -> None:
+    """Phase 21: the chunked prefill attention on the card (a), the long
+    prefill through the serve entry point and its profile (b), the
+    float32 end-to-end check at 8192 tokens (c), and the meta-device dry
+    run of the same cell beside the measured memory (d).  The dry run is
+    host work: its entry point (``python -m repro_torch.launch.dryrun``)
+    runs in a process of its own beside (a)-(c), and is stopped if the
+    phase fails first."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "olmo-1b", "--shape", "prefill_32k", "--batch", "1", "--out",
+             out], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            peak, measured = long_prefill_card(torch, serve, paths)
+            t0 = time.monotonic()
+            stdout, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode:
+            raise AssertionError(f"the dry run failed: {stdout}")
+        rec = json.loads(next(pathlib.Path(out).glob("*.json")).read_text())
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run: {rec}")
+    mem = rec["memory"]
+    log(f"dry run {rec['cell']} ({rec['build_s']:.1f} s on meta, "
+        f"{time.monotonic() - t0:.1f} s waited for after (c)): params "
+        f"{mem['param_bytes']} B, cache {mem['cache_bytes']} B, resident "
+        f"{rec['resident_bytes']} B, flops {rec['flops']:.6e} (model flops "
+        f"{dryrun.model_flops('olmo-1b', 'prefill_32k') / 32:.6e} at batch "
+        f"1), fits_one_card {rec['fits_one_card']}; measured: params "
+        f"{measured['param_bytes']} B, prefill cache "
+        f"{measured['cache_bytes']} B, serve peak {peak} B")
+    if (mem["param_bytes"], mem["cache_bytes"]) != \
+            (measured["param_bytes"], measured["cache_bytes"]):
+        raise AssertionError("the dry run's param / cache bytes differ from "
+                             "the card's tensors")
+
+
+def long_prefill_card(torch, serve, paths: dict) -> tuple:
+    """Phase 21 (a)-(c) on the card; returns ``(serve's peak device
+    memory, long_prefill_profile's bytes and timings)``."""
+    log("phase 21 (a) attention forms " + json.dumps(attention_forms(torch)))
+    torch.cuda.empty_cache()
+    # (b) the path: counts zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    counts, res = serve_run(torch, serve, LONG_LABEL, LONG_ARGS, "scatter",
+                            LONG_DTYPE)
+    paths[LONG_LABEL] = counts
+    peak = torch.cuda.max_memory_allocated()
+    plan = res["plan"]
+    n_proj, layers = len(plan["block_k"]), plan["n_layers"]
+    want = {"tiled_balanced_spmm": n_proj * layers * SERVE_PREFILLS,
+            "tiled_balanced_spmm_skinny":
+                n_proj * layers * (1 + LONG_GEN_STEPS),
+            "kv_cache_update": LONG_KV_LAUNCHES}
+    log(f"{LONG_LABEL}: {n_proj} planned projections x {layers} layers, "
+        f"prompt {LONG_PROMPT}, {LONG_DTYPE}; launches "
+        f"{dict((k, counts[k]) for k in want)}, expected {want}; dense "
+        f"{res['dense']['tokens_per_s']:.2f} tok/s, sparse "
+        f"{res['sparse']['tokens_per_s']:.2f} tok/s (prefill + "
+        f"{LONG_GEN_STEPS} steps: dense {res['dense']['wall_s']:.3f} s, "
+        f"sparse {res['sparse']['wall_s']:.3f} s); serve peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} B)")
+    if (n_proj, layers) != (7, OLMO_LAYERS) \
+            or plan["impl_mix"] != {"cuda": n_proj}:
+        raise AssertionError(f"{LONG_LABEL}: plan {plan['impl_mix']} over "
+                             f"{layers} layers")
+    bad = {k: counts[k] for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{LONG_LABEL}: launches {bad}, expected {want}")
+    torch.cuda.empty_cache()
+    log(f"{WITNESS_LABEL}, {LONG_PROMPT} tokens: "
+        + json.dumps(long_bf16_witness(torch, paths)))
+    torch.cuda.empty_cache()
+    measured = long_prefill_profile(torch)
+    log(f"{LONG_LABEL} sparse prefill of {LONG_PROMPT} tokens, "
+        f"{OLMO_LAYERS} layers: {measured['prefill_wall_s']:.3f} s wall, "
+        f"{LONG_PROMPT / measured['prefill_wall_s']:.0f} tok/s; profile "
+        + json.dumps(measured["profile"]))
+    torch.cuda.empty_cache()
+    # (c) float32 end to end
+    t0 = time.monotonic()
+    parity = long_f32_parity(torch, serve)
+    log(f"{LONG_LABEL} float32, {LONG_F32_LAYERS} layers, prompt "
+        f"{LONG_F32_PROMPT}, end to end ({time.monotonic() - t0:.1f} s): "
+        + json.dumps(parity))
+    torch.cuda.empty_cache()
+    return peak, measured
+
+
 def main() -> int:
     import torch
     t_start = time.monotonic()
@@ -2784,6 +3237,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase {name}: {time.monotonic() - t0:.1f} s")
 
+    # 21. the long prefill: the chunked attention, olmo-1b at 32768 tokens
+    # through serve (counts zeroed just before, read just after), the
+    # float32 check at 8192 and the dry run of the cell
+    t0 = time.monotonic()
+    long_prefill_phase(torch, serve, paths)
+    torch.cuda.empty_cache()
+    log(f"phase 21. long prefill: {time.monotonic() - t0:.1f} s")
+
     # 10. result: launches summed over the paths' runs; each kernel's timed
     # row at bf16, at the quant mode its serve path runs, at the shape its
     # main path runs (the kv kernel: a decode write into a 4096-row cache)
@@ -2830,9 +3291,11 @@ def main() -> int:
 
 
 def serve_run(torch, serve, label: str, args: list,
-              cache_update: str | None = None) -> tuple:
+              cache_update: str | None = None,
+              compute_dtype: str | None = None) -> tuple:
     """Drive one path through `launch/serve` (``main``, or ``run`` on the
-    config ``main`` builds with ``cache_update`` set) with every launch
+    config ``main`` builds with ``cache_update`` and / or
+    ``compute_dtype`` set) with every launch
     count zeroed just before and read just after; fail if a kernel that
     the path's plan reaches never launched, or if a tiled kernel of the
     other format launched (a quantized plan runs only the ``_q`` kernels,
@@ -2841,12 +3304,15 @@ def serve_run(torch, serve, label: str, args: list,
     import dataclasses
     reset_launches()
     t0 = time.monotonic()
-    if cache_update is None:
+    overrides = {k: v for k, v in (("cache_update", cache_update),
+                                   ("compute_dtype", compute_dtype))
+                 if v is not None}
+    if not overrides:
         res = serve.main(args)
     else:
         ns = serve.build_parser().parse_args(args)
         res = serve.run(ns, dataclasses.replace(serve.config(ns),
-                                                cache_update=cache_update))
+                                                **overrides))
     torch.cuda.synchronize()
     counts = launches()
     plan = res["plan"]
@@ -2856,7 +3322,7 @@ def serve_run(torch, serve, label: str, args: list,
         served = (f"dense {res['dense']['tokens_per_s']:.1f} tok/s, sparse "
                   f"{res['sparse']['tokens_per_s']:.1f} tok/s")
     log(f"serve {' '.join(args)}"
-        + (f" (cache_update={cache_update})" if cache_update else "")
+        + (f" ({overrides})" if overrides else "")
         + f": {time.monotonic() - t0:.1f} s, plan "
         f"{plan['plan_build_s']:.2f} s, {served}, KB "
         f"{plan['block_k']}, parity (tol {plan['parity_tol']:g}) "

@@ -1,5 +1,6 @@
-"""Gradient compression (the reference's `repro.distributed.compress`;
-its sharding helpers are not ported)."""
-from . import compress
+"""Gradient compression and the sharding rules (the reference's
+`repro.distributed.compress` and `repro.distributed.sharding`, the latter
+over the port's own mesh description)."""
+from . import compress, sharding
 
-__all__ = ["compress"]
+__all__ = ["compress", "sharding"]

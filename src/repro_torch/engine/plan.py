@@ -1049,10 +1049,72 @@ def masked_dense_params(params: dict, plan: ModelPlan) -> dict:
     return {**params, "blocks": blocks}
 
 
+# ---------------------------------------------------------------------------
+# Shard-aware plans: the reference's specs of the encoded leaves
+# ---------------------------------------------------------------------------
+
+def _layer_weight_specs(lp: LayerPlan, mesh):
+    """The weights of one `LayerPlan` with each tensor replaced by its
+    spec: encoded leaves shard like the dense weights they replace — the
+    stacked L axis replicated, the expert axis over ``model``, the output
+    channels over the FSDP axes (`distributed.sharding.logical_spec`)."""
+    from ..distributed import sharding as shd
+    w = lp.weights
+    fsdp = [shd.fsdp_axes(mesh)]
+
+    def lead_plan(n_lead: int):
+        # the first stacked axis is L (replicated); the second, when there
+        # is one, the expert axis (model-parallel)
+        return [None, ["model"] if lp.spec.experts else None][:n_lead]
+
+    if isinstance(w, TiledBalanced):
+        lead = w.values.dim() - 3
+        vplan = lead_plan(lead) + [fsdp, None, None]
+        perm_spec = None if w.perm is None else shd.logical_spec(
+            mesh, w.perm.shape, lead_plan(w.perm.dim() - 1) + [None])
+        scales_spec = None if w.scales is None else shd.logical_spec(
+            mesh, w.scales.shape, lead_plan(lead) + [fsdp, None])
+        return TiledBalanced(
+            shd.logical_spec(mesh, w.values.shape, vplan),
+            shd.logical_spec(mesh, w.indices.shape, vplan),
+            shd.logical_spec(mesh, w.counts.shape,
+                             lead_plan(lead) + [fsdp, None]),
+            n_in=w.n_in, bn=w.bn, perm=perm_spec, scales=scales_spec,
+            quant=w.quant)
+    if isinstance(w, BalancedSparse):
+        vplan = lead_plan(w.values.dim() - 2) + [fsdp, None]
+        return BalancedSparse(shd.logical_spec(mesh, w.values.shape, vplan),
+                              shd.logical_spec(mesh, w.indices.shape, vplan),
+                              w.n_in)
+    if lp.spec.kind == "conv":          # dense conv [Co, Ci, Hk, Wk]
+        return shd.logical_spec(mesh, w.shape,
+                                [fsdp] + [None] * (w.dim() - 1))
+    return shd.logical_spec(mesh, w.shape,        # dense fc [*lead, O, N]
+                            lead_plan(w.dim() - 2) + [fsdp, None])
+
+
+def plan_specs(plan: ModelPlan, mesh) -> ModelPlan:
+    """A `ModelPlan` of ``plan``'s structure whose weight tensors are
+    replaced by their specs (`_layer_weight_specs`), the reference's
+    placement of the encoded values, indices and counts over a mesh."""
+    return ModelPlan(
+        layers={nm: LayerPlan(spec=lp.spec,
+                              weights=_layer_weight_specs(lp, mesh))
+                for nm, lp in plan.layers.items()},
+        meta=plan.meta)
+
+
+def shard_plan(plan: ModelPlan, mesh) -> ModelPlan:
+    """The reference places the plan on its `plan_specs`; on one device
+    the plan already lies whole on the card, and is returned as it is."""
+    return plan
+
+
 __all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "TrainPlan", "IMPL_LADDER",
            "default_impl", "balanced_mask_k", "mask_block_k",
            "build_layer_plan", "plan_from_balanced", "plan_smallcnn",
            "plan_transformer", "plan_rwkv6", "plan_zamba2", "plan_model",
-           "masked_dense_params", "ATTN_PROJ_NAMES", "MLP_PROJ_NAMES",
+           "masked_dense_params", "plan_specs", "shard_plan",
+           "ATTN_PROJ_NAMES", "MLP_PROJ_NAMES",
            "MOE_SHARED_NAMES", "MOE_EXPERT_NAMES", "RWKV6_PROJ_NAMES",
            "ZAMBA2_PROJ_NAMES"]

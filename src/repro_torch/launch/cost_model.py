@@ -46,6 +46,50 @@ from typing import Any, Dict, Sequence
 from ..core.dataflow import LayerSpec, ifm_storage_bits, weight_storage_bits
 
 # ---------------------------------------------------------------------------
+# Canonical dtype widths (the reference's one table; `launch.dryrun` sums
+# tensor bytes from it)
+# ---------------------------------------------------------------------------
+
+DTYPE_BITS: Dict[str, int] = {
+    "f64": 64, "float64": 64,
+    "f32": 32, "float32": 32,
+    "f16": 16, "float16": 16,
+    "bf16": 16, "bfloat16": 16,
+    "s64": 64, "int64": 64, "u64": 64, "uint64": 64,
+    "s32": 32, "int32": 32, "u32": 32, "uint32": 32,
+    "s16": 16, "int16": 16, "u16": 16, "uint16": 16,
+    "s8": 8, "int8": 8, "u8": 8, "uint8": 8,
+    "s4": 4, "int4": 4, "u4": 4, "uint4": 4,
+    "pred": 8, "bool": 8,
+    "f8e4m3fn": 8, "f8e5m2": 8,
+    "c64": 64, "c128": 128,
+}
+
+# torch's names where they differ from the table's (``torch.float8_e4m3fn``
+# -> ``f8e4m3fn``, the complex types by their total width)
+_TORCH_NAMES = {"float8_e4m3fn": "f8e4m3fn", "float8_e5m2": "f8e5m2",
+                "complex64": "c64", "complex128": "c128"}
+
+
+def dtype_bits(dt: Any) -> int:
+    """Bit width of an HLO / numpy dtype name, a `torch.dtype` or its name
+    (``torch.bfloat16``, ``"torch.bfloat16"``), or anything with a str
+    form."""
+    key = str(dt).lower()
+    if key.startswith("torch."):
+        key = key[len("torch."):]
+        key = _TORCH_NAMES.get(key, key)
+    if key in DTYPE_BITS:
+        return DTYPE_BITS[key]
+    raise KeyError(f"unknown dtype {dt!r} (add it to cost_model.DTYPE_BITS)")
+
+
+def dtype_bytes(dt: Any) -> float:
+    """Bytes per element; fractional for sub-byte types (s4 -> 0.5)."""
+    return dtype_bits(dt) / 8.0
+
+
+# ---------------------------------------------------------------------------
 # Energy table (Accelergy-style per-component constants; DESIGN.md §14)
 # ---------------------------------------------------------------------------
 

@@ -182,6 +182,13 @@ def _compare(got: torch.Tensor, want: torch.Tensor, tol: float):
     return float(err.max()), ok
 
 
+def _gate_excess(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """How far the worst output of ``got`` lies past `_compare`'s bound:
+    ``max(|got - want| - (tol + tol*|want|))`` (<= 0 within the gate)."""
+    err = (got.float() - want.float()).abs()
+    return float((err - (tol + tol * want.float().abs())).max())
+
+
 def _parity_check(bundle, sparse_params, ref_params, prompt, *,
                   tol: float) -> dict:
     """Sparse plan vs its masked-dense reference on the prompt.
@@ -197,7 +204,8 @@ def _parity_check(bundle, sparse_params, ref_params, prompt, *,
     max |dlogit| 5.8e-2 at bf16, 1.1e-5 at f32 — see PERF.md), so an
     end-to-end bf16 bound measures the model's depth rather than the
     kernels.  For MoE it reports the share of (token, k) router choices on
-    which the two sides' own routing agrees, over all layers.
+    which the two sides' own routing agrees, over all layers, and the
+    per-layer gate's margin (`_gate_excess`, at most 0 when it passes).
     """
     cfg = bundle.cfg
     with torch.no_grad():
@@ -216,6 +224,9 @@ def _parity_check(bundle, sparse_params, ref_params, prompt, *,
     out = {"logits_max_abs_diff": logit_diff,
            "logits_within_tol": logits_ok,
            "layer_max_abs_diff": max(d for d, _ in layers),
+           # the per-layer gate's margin: its closest approach (< 0 passes)
+           "layer_gate_excess": max(_gate_excess(got, want, tol)
+                                    for got, want, _ in diffs),
            "argmax_equal": bool((logits_s.argmax(-1)
                                  == logits_r.argmax(-1)).all())}
     if agree:

@@ -14,7 +14,13 @@ tensors:
   conv states plus the shared block's ``[n_attn, B, S, KH, dh]`` KV)
 
 ``input_specs(cfg, shape)`` gives one (arch, shape) cell's batch as
-tensors on the ``meta`` device (no allocation).
+tensors on the ``meta`` device (no allocation), ``init_shapes(cfg)`` the
+params the same way, and ``param_specs(cfg, mesh)`` /
+``batch_partition_spec(cfg, shape, mesh)`` the reference's sharding
+decisions over a `launch.mesh.Mesh` (`distributed.sharding`).  Each family
+module registers its build function under the ``cfg.family`` names it
+serves (`register_family`), and every entry point here dispatches through
+that registry.
 
 The Sense serving path: when ``cfg.sparse_serving`` and the caller attached
 a plan (``params["sparse_plan"]``, from `engine.plan.plan_model`), every
@@ -23,11 +29,12 @@ planned projection runs through the balanced-sparse kernels.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Callable, Dict
 
 import torch
 
-from ..configs.base import TRANSFORMER_FAMILIES, ModelConfig, ShapeSpec
+from ..configs.base import ModelConfig, ShapeSpec
 from ..device import resolve_device
 
 Tensor = torch.Tensor
@@ -43,6 +50,21 @@ class ModelBundle:
     prefill: Callable[[Any, Batch], tuple]
     decode_step: Callable[[Any, Batch, Any], tuple]
     init_cache: Callable[[int, int], Any]
+
+
+_REGISTRY: Dict[str, Callable[[ModelConfig, torch.device], ModelBundle]] = {}
+
+
+def register_family(*families: str):
+    """Register a family's ``build(cfg, device)`` under each ``cfg.family``
+    it serves.  Every entry point below dispatches through this registry:
+    the module that defines the registered ``build`` also serves the
+    family's ``init_params``, ``param_specs`` and ``block_diffs``."""
+    def deco(fn):
+        for name in families:
+            _REGISTRY[name] = fn
+        return fn
+    return deco
 
 
 def planned_proj(lp, plan_layers, name: str, x: Tensor, cd) -> Tensor:
@@ -85,21 +107,37 @@ def merge_prefill_cache(cache: dict, prefill_cache: dict) -> dict:
     return out
 
 
+def _family_build(cfg: ModelConfig):
+    """The ``build`` registered for ``cfg.family``."""
+    from . import rwkv6, transformer, zamba2  # noqa: F401  (they register)
+    try:
+        return _REGISTRY[cfg.family]
+    except KeyError:
+        raise ValueError(f"unknown family {cfg.family!r}") from None
+
+
 def _family_module(cfg: ModelConfig):
-    from . import rwkv6, transformer, zamba2
-    if cfg.family in TRANSFORMER_FAMILIES:
-        return transformer
-    if cfg.family == "ssm":
-        return rwkv6
-    if cfg.family == "hybrid":
-        return zamba2
-    raise ValueError(f"unknown family {cfg.family!r}")
+    """The module that registered ``cfg.family``."""
+    return sys.modules[_family_build(cfg).__module__]
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
     """The family's bundle on ``device`` (default: the GPU; a missing GPU
     raises unless ``device="cpu"``)."""
-    return _family_module(cfg).build(cfg, resolve_device(device))
+    return _family_build(cfg)(cfg, resolve_device(device))
+
+
+def init_shapes(cfg: ModelConfig) -> dict:
+    """The family's params as ``meta`` tensors (shapes and dtypes, no
+    storage and no draws)."""
+    return _family_module(cfg).init_params(cfg, torch.Generator(),
+                                           torch.device("meta"))
+
+
+def param_specs(cfg: ModelConfig, mesh) -> dict:
+    """The family's parameter specs on ``mesh`` (`distributed.sharding`;
+    ``P()`` for every leaf without a mesh)."""
+    return _family_module(cfg).param_specs(cfg, mesh)
 
 
 def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
@@ -131,4 +169,17 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Batch:
         specs["frontend_embed"] = spec(
             (b, min(cfg.n_frontend_tokens, s), cfg.frontend_dim),
             torch.bfloat16)
+    return specs
+
+
+def batch_partition_spec(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Batch:
+    """Specs matching `input_specs`: the batch over the longest prefix of
+    the dp axes that divides it (`distributed.sharding.shard_batch`)."""
+    from ..distributed import sharding as shd
+    dp = shd.shard_batch(mesh, shape.global_batch)
+    specs: Batch = {"tokens": shd.P(dp, None)}
+    if shape.kind not in ("train", "prefill"):
+        specs["cache_len"] = shd.P(dp)
+    if cfg.frontend and shape.kind != "decode":
+        specs["frontend_embed"] = shd.P(dp, None, None)
     return specs

@@ -1,7 +1,7 @@
 """Shared model primitives — counterpart of `repro.models.layers` (init
-helpers, norms, RoPE, prefill and decode attention, the projections and
-MLPs, and the chunked LM loss).  Scores, softmax and the value sum run
-in f32 and the result is cast back to the activation dtype, as the
+helpers, norms, RoPE, the chunked prefill attention and its unchunked
+twin, decode attention, the projections and MLPs, and the chunked LM
+loss).  Scores, softmax and the value sum run in f32 and the result is cast back to the activation dtype, as the
 reference's ``preferred_element_type=f32`` einsums do.  Masks select with
 `torch.where`, never multiply (0 * NaN would poison the output)."""
 from __future__ import annotations
@@ -21,18 +21,19 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 
 def dense_init(generator: torch.Generator, n_in: int, n_out: int,
-               dtype=torch.float32) -> Tensor:
+               dtype=torch.float32, device=None) -> Tensor:
     """``[n_in, n_out]`` unit normals over sqrt(n_in), drawn from
-    ``generator`` on its device."""
+    ``generator`` on ``device`` (default: the generator's; ``meta`` draws
+    nothing)."""
     w = torch.randn((n_in, n_out), generator=generator,
-                    device=generator.device)
+                    device=device or generator.device)
     return (w * (1.0 / math.sqrt(n_in))).to(dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, dim: int,
-               dtype=torch.float32) -> Tensor:
+               dtype=torch.float32, device=None) -> Tensor:
     w = torch.randn((vocab, dim), generator=generator,
-                    device=generator.device)
+                    device=device or generator.device)
     return (w * 0.02).to(dtype)
 
 
@@ -78,13 +79,16 @@ def apply_rope(x: Tensor, positions: Tensor, *,
 
 
 def causal_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    """Causal prefill attention, q ``[B, S, H, dh]``, k/v ``[B, S, KH, dh]``
-    with H = KH * G (grouped, no KV repetition).  The counterpart of the
-    reference's ``blocked_causal_attention`` as one masked softmax: at the
-    serving prompt lengths the ``[S, S]`` scores are small.  As there, a
-    non-finite score (a NaN or Inf q / k) weighs nothing, and a row with
-    no finite score gives zeros: a poisoned q / k projection surfaces in
-    the decode step's attention, not in the prefill's."""
+    """Causal prefill attention as one masked softmax, q ``[B, S, H, dh]``,
+    k/v ``[B, S, KH, dh]`` with H = KH * G (grouped, no KV repetition): the
+    plain, unchunked twin of `blocked_causal_attention`, which tests and
+    the GPU smoke hold it against; the models call it only for a sequence
+    of one chunk (`prefill_attention`).  It holds the ``[B, KH, G, S, S]``
+    scores at once.  A non-finite score (a NaN or Inf
+    q / k) weighs nothing and a row with no finite score gives zeros.  On
+    finite inputs it equals the reference's ``blocked_causal_attention``
+    at any chunking; with a non-finite k it does so only when the kv
+    sequence is one chunk (see `blocked_causal_attention`)."""
     b, s, h, dh = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, dh).float()
@@ -96,6 +100,131 @@ def causal_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     p = torch.where(torch.isnan(p), 0.0, p)     # rows with no finite score
     out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+def attention_chunks(s: int, q_chunk: int, kv_chunk: int) -> Tuple[int, int]:
+    """The chunks a model's prefill attention runs at for sequence ``s``:
+    the config's ``q_chunk`` / ``kv_chunk`` capped at ``s``, each halved
+    until it divides ``s`` (at least 1), as the reference's models pick
+    them.  An odd ``s`` gives chunks of 1."""
+    qc, kc = min(q_chunk, s), min(kv_chunk, s)
+    while s % qc:
+        qc //= 2
+    while s % kc:
+        kc //= 2
+    return max(qc, 1), max(kc, 1)
+
+
+def _q_block(qc: Tensor, k: Tensor, v: Tensor, q_lo: int, kv_chunk: int,
+             causal: bool, scale: float) -> Tensor:
+    """One q block of `blocked_causal_attention`: qc ``[B, Cq, KH, G, dh]``
+    (f32) against f32 k / v ``[B, S, KH, dh]``; returns ``[B, Cq, KH, G,
+    dh]`` f32."""
+    b, cq, kh, g, dh = qc.shape
+    dev = qc.device
+    m = torch.full((b, kh, g, cq), float("-inf"), dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, kh, g, cq), dtype=torch.float32, device=dev)
+    a = torch.zeros((b, kh, g, cq, dh), dtype=torch.float32, device=dev)
+    q_hi = q_lo + cq - 1
+    qpos = torch.arange(q_lo, q_lo + cq, device=dev)
+    for k_lo in range(0, k.shape[1], kv_chunk):
+        # a kv chunk is visible iff its first position <= the block's last
+        if causal and k_lo > q_hi:
+            break
+        kc = k[:, k_lo:k_lo + kv_chunk]
+        vc = v[:, k_lo:k_lo + kv_chunk]
+        if qc.is_meta:
+            # no values on the meta device (the dry run): the two products
+            # alone, accumulated so that a backward reaches every chunk,
+            # give the shapes and the FLOPs it counts
+            a = a + torch.einsum("bhgqk,bkhd->bhgqd",
+                                 torch.einsum("bqhgd,bkhd->bhgqk", qc, kc),
+                                 vc)
+            continue
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc) * scale
+        if causal and k_lo + kv_chunk - 1 > q_lo:
+            # the chunk crosses the diagonal (below it the mask is all-true)
+            kpos = torch.arange(k_lo, k_lo + kv_chunk, device=dev)
+            sc = torch.where(kpos[None, :] <= qpos[:, None], sc,
+                             float("-inf"))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        # guard fully-masked rows (m_new = -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(sc - m_safe[..., None])
+        p = torch.where(torch.isfinite(sc), p, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        a = a * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
+        m = m_new
+    out = a / torch.clamp_min(l[..., None], 1e-30)          # [B,KH,G,Cq,dh]
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def blocked_causal_attention(q: Tensor, k: Tensor, v: Tensor, *,
+                             q_chunk: int = 512, kv_chunk: int = 1024,
+                             causal: bool = True) -> Tensor:
+    """Flash-style attention, q ``[B, S, H, dh]``, k/v ``[B, S, KH, dh]``
+    with H = KH * G (grouped, no KV repetition) — the reference's
+    ``blocked_causal_attention``.  An online softmax over kv chunks inside
+    a loop over q chunks, in f32, so the largest score tensor is ``[B, KH,
+    G, q_chunk, kv_chunk]``; the chunks must divide S.  A kv chunk that no
+    query of the block can see is skipped (the reference's ``lax.cond``
+    skips the same chunks).  With gradients on, each q block is recomputed
+    in the backward (`torch.utils.checkpoint`, the reference's
+    ``jax.checkpoint``), so no score block is kept for it.
+
+    The update is the reference's operation for operation, NaN propagation
+    included: a NaN or Inf score makes its chunk's running max non-finite,
+    after which every later chunk's correction is 0, so with a poisoned k
+    the result depends on the chunking (`causal_attention`, the unchunked
+    rule, agrees only when S is one kv chunk).  The reference's ``mesh=``
+    argument (sharding constraints) has no counterpart: on one device it
+    does nothing.  On the ``meta`` device (`launch.dryrun`) tensors hold
+    no values, and only the two products of each computed chunk run."""
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    if s % q_chunk or s % kv_chunk:
+        raise ValueError(f"chunks ({q_chunk}, {kv_chunk}) must divide the "
+                         f"sequence {s}")
+    scale = 1.0 / math.sqrt(dh)
+    qs = q.reshape(b, s, kh, h // kh, dh).float()
+    kf, vf = k.float(), v.float()
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for q_lo in range(0, s, q_chunk):
+        qc = qs[:, q_lo:q_lo + q_chunk]
+        if grad:
+            outs.append(checkpoint(_q_block, qc, kf, vf, q_lo, kv_chunk,
+                                   causal, scale, use_reentrant=False))
+        else:
+            outs.append(_q_block(qc, kf, vf, q_lo, kv_chunk, causal, scale))
+    return torch.cat(outs, dim=1).reshape(b, s, h, dh).to(q.dtype)
+
+
+def prefill_attention(q: Tensor, k: Tensor, v: Tensor, *, q_chunk: int,
+                      kv_chunk: int) -> Tensor:
+    """The models' prefill (and training) attention at the chunks
+    `attention_chunks` picks for the sequence: `blocked_causal_attention`
+    when the sequence spans more than one chunk, `causal_attention` when
+    it is one chunk (every prompt of the 32-token serving paths).
+
+    At one chunk the two hold the same scores in memory and agree with the
+    reference to rounding, NaN and Inf keys included, but for one case: a
+    row with a non-finite score and a finite one above ~88 (the reference's
+    ``exp`` overflows there and its output is NaN, the unchunked form's is
+    finite).  The unchunked form keeps the numerics these paths had before
+    the chunked form existed: serve's bf16 per-layer parity gate bounds
+    each output by its own magnitude, not by the residual sums it was
+    rounded from, and the chunked form's rounding, as close to the
+    reference's, put one deepseek-moe-16b output of 2.1M past it at a
+    32-token prompt on an H100 (ROADMAP Queue 3 item 13)."""
+    s = q.shape[1]
+    qc, kc = attention_chunks(s, q_chunk, kv_chunk)
+    if qc == kc == s:
+        return causal_attention(q, k, v)
+    return blocked_causal_attention(q, k, v, q_chunk=qc, kv_chunk=kc)
 
 
 def decode_attention_planes(q: Tensor, k_planes: Tensor, v_planes: Tensor,

@@ -32,7 +32,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .api import ModelBundle, planned_proj, serving_plan
+from ..distributed import sharding as shd
+from ..distributed.sharding import P
+from ..tree import tree_map
+from .api import (ModelBundle, init_shapes, planned_proj, register_family,
+                  serving_plan)
 from .layers import causal_lm_labels, chunked_cross_entropy, embed_init, \
     layer_norm
 
@@ -90,9 +94,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "cmu_k": full(0.5), "cmu_r": full(0.5),
         "ck": mat(d, f), "cv": mat(f, d), "cr": mat(d, d),
     }
-    return {"embed": embed_init(generator, cfg.vocab_size, d, dt),
+    return {"embed": embed_init(generator, cfg.vocab_size, d, dt, device),
             "blocks": blocks,
             "final_norm": torch.ones((d,), dtype=dt, device=device)}
+
+
+def param_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The reference's parameter specs (`transformer.param_specs`' rules:
+    square projections' output dim over ``model``, the other over the FSDP
+    axes, the LoRA and per-channel vectors as the reference has them)."""
+    if mesh is None:
+        return tree_map(lambda _: P(), init_shapes(cfg))
+    d, f = cfg.d_model, cfg.d_ff
+    fsdp, tp = [("data", "pod")], ["model"]
+
+    def ls(shape, plan):
+        return shd.logical_spec(mesh, (0, *shape), [None, *plan])
+
+    vec = P(None, None)
+    blocks = {
+        "ln1": vec, "ln1_b": vec, "ln2": vec, "ln2_b": vec,
+        "mu_r": vec, "mu_k": vec, "mu_v": vec, "mu_g": vec, "mu_w": vec,
+        "w0": vec, "u": vec, "gn": vec, "cmu_k": vec, "cmu_r": vec,
+        "wA": ls((d, cfg.rwkv_lora_rank), [fsdp, None]),
+        "wB": ls((cfg.rwkv_lora_rank, d), [None, fsdp]),
+        "wr": ls((d, d), [fsdp, tp]),
+        "wkm": ls((d, d), [fsdp, tp]),
+        "wv": ls((d, d), [fsdp, tp]),
+        "wg": ls((d, d), [fsdp, tp]),
+        "wo": ls((d, d), [tp, fsdp]),
+        "ck": ls((d, f), [fsdp, tp]),
+        "cv": ls((f, d), [tp, fsdp]),
+        "cr": ls((d, d), [fsdp, tp]),
+    }
+    return {"embed": shd.logical_spec(mesh, (cfg.vocab_size, d), [tp, fsdp]),
+            "blocks": blocks,
+            "final_norm": P(None)}
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +331,7 @@ def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor) -> list:
 # Bundle
 # ---------------------------------------------------------------------------
 
+@register_family("ssm")
 def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     cd = _cdtype(cfg)
 

@@ -36,12 +36,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ModelConfig
+from ..configs.base import TRANSFORMER_FAMILIES, ModelConfig
+from ..distributed import sharding as shd
+from ..distributed.sharding import P
 from ..kernels.kv_cache_update import kv_cache_write_chunk, to_planes
-from .api import ModelBundle, planned_proj as _proj, serving_plan
-from .layers import (apply_rope, causal_attention, causal_lm_labels,
-                     chunked_cross_entropy, decode_attention_planes,
-                     dense_init, embed_init, layer_norm, rms_norm)
+from ..tree import tree_map
+from .api import (ModelBundle, planned_proj as _proj, register_family,
+                  serving_plan)
+from .layers import (apply_rope, causal_lm_labels, chunked_cross_entropy,
+                     decode_attention_planes, dense_init, embed_init,
+                     layer_norm, prefill_attention, rms_norm)
 
 Tensor = torch.Tensor
 KV_DTYPE = torch.bfloat16       # the cache is bf16 by construction
@@ -101,13 +105,104 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         blocks["w_in"] = mat(d, f)
         blocks["w_out"] = mat(f, d)
-    params = {"embed": embed_init(generator, cfg.vocab_size, d, dt),
+    params = {"embed": embed_init(generator, cfg.vocab_size, d, dt, device),
               "blocks": blocks,
               "final_norm": torch.ones((d,), dtype=dt, device=device)}
     if cfg.frontend:
         params["frontend_proj"] = dense_init(generator, cfg.frontend_dim, d,
-                                             dt)
+                                             dt, device)
     return params
+
+
+def init_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The params as ``meta`` tensors: `init_params`' shapes and dtypes,
+    no storage and no draws."""
+    return init_params(cfg, torch.Generator(), torch.device("meta"))
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules (the reference's, over a `launch.mesh.Mesh`)
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The reference's parameter specs: projections' model dims over
+    ``model`` (heads, d_ff, experts, vocab), their other dim over the FSDP
+    axes; the stacked L axis and the norms replicated.  Without a mesh,
+    ``P()`` for every leaf."""
+    if mesh is None:
+        return tree_map(lambda _: P(), init_shapes(cfg))
+    d, dh = cfg.d_model, cfg.head_dim
+    h, kh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    fsdp, tp = [("data", "pod")], ["model"]
+
+    def ls(shape, plan):            # layer-stacked: leading L replicated
+        return shd.logical_spec(mesh, (0, *shape), [None, *plan])
+
+    blocks: Dict[str, Any] = {
+        "wq": ls((d, h * dh), [fsdp, tp]),
+        "wk": ls((d, kh * dh), [fsdp, tp]),
+        "wv": ls((d, kh * dh), [fsdp, tp]),
+        "wo": ls((h * dh, d), [tp, fsdp]),
+        "attn_norm": P(None, None),
+        "mlp_norm": P(None, None),
+    }
+    if cfg.qk_norm:
+        blocks["q_norm"] = P(None, None)
+        blocks["k_norm"] = P(None, None)
+    if cfg.family == "moe":
+        e = cfg.n_experts
+        fs = cfg.d_ff * max(cfg.n_shared_experts, 0)
+        blocks["router"] = ls((d, e), [fsdp, None])
+        blocks["we_gate"] = ls((e, d, f), [tp, fsdp, None])
+        blocks["we_up"] = ls((e, d, f), [tp, fsdp, None])
+        blocks["we_down"] = ls((e, f, d), [tp, None, fsdp])
+        if fs:
+            blocks["ws_gate"] = ls((d, fs), [fsdp, tp])
+            blocks["ws_up"] = ls((d, fs), [fsdp, tp])
+            blocks["ws_down"] = ls((fs, d), [tp, fsdp])
+    elif cfg.mlp == "swiglu":
+        blocks["w_gate"] = ls((d, f), [fsdp, tp])
+        blocks["w_up"] = ls((d, f), [fsdp, tp])
+        blocks["w_down"] = ls((f, d), [tp, fsdp])
+    else:
+        blocks["w_in"] = ls((d, f), [fsdp, tp])
+        blocks["w_out"] = ls((f, d), [tp, fsdp])
+    specs: Dict[str, Any] = {
+        # vocab over model (sharded softmax / CE), d over the FSDP axes
+        "embed": shd.logical_spec(mesh, (cfg.vocab_size, d), [tp, fsdp]),
+        "blocks": blocks,
+        "final_norm": P(None),
+    }
+    if cfg.frontend:
+        specs["frontend_proj"] = shd.logical_spec(
+            mesh, (cfg.frontend_dim, d), [fsdp, tp])
+    return specs
+
+
+def _strip_fsdp(spec: P) -> P:
+    """Use-time spec: drop the stacked L dim and the data / pod (FSDP)
+    axes, keep ``model``."""
+    def clean(d):
+        if d is None:
+            return None
+        names = (d,) if isinstance(d, str) else tuple(d)
+        kept = tuple(n for n in names if n == "model")
+        return kept[0] if len(kept) == 1 else (kept or None)
+    return P(*[clean(d) for d in list(spec)[1:]])
+
+
+def use_specs(cfg: ModelConfig, mesh) -> Dict[str, P]:
+    """Per-layer use-time specs of the blocks (`_strip_fsdp`)."""
+    return {k: _strip_fsdp(s)
+            for k, s in param_specs(cfg, mesh)["blocks"].items()}
+
+
+def gather_for_use(cfg: ModelConfig, mesh, lp: Dict[str, Tensor],
+                   specs: Dict[str, P]) -> Dict[str, Tensor]:
+    """The reference gathers each layer's FSDP-sharded weights (cast to the
+    compute dtype) before use; on one device every weight is whole, and
+    the layer is returned as it is."""
+    return lp
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +254,8 @@ def _attn(cfg: ModelConfig, lp, h: Tensor, positions: Tensor,
         o = decode_attention_planes(q, k_cache.to(cd), v_cache.to(cd), clen)
         kv_out = (k_cache, v_cache)
     else:
-        o = causal_attention(q, k, v)
+        o = prefill_attention(q, k, v, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk)
         kv_out = (k, v)
     o = o.reshape(b, s, nh * dh)
     return _proj(lp, plan_layers, "wo", o, cd), kv_out
@@ -342,6 +438,7 @@ def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
 # Bundle
 # ---------------------------------------------------------------------------
 
+@register_family(*TRANSFORMER_FAMILIES)
 def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     cd = _cdtype(cfg)
 

@@ -34,9 +34,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .api import ModelBundle, planned_proj as _proj, serving_plan
-from .layers import (apply_rope, causal_attention, causal_lm_labels,
-                     chunked_cross_entropy, decode_attention, embed_init,
+from ..distributed import sharding as shd
+from ..distributed.sharding import P
+from ..tree import tree_map
+from .api import (ModelBundle, init_shapes, planned_proj as _proj,
+                  register_family, serving_plan)
+from .layers import (apply_rope, causal_lm_labels, chunked_cross_entropy,
+                     decode_attention, embed_init, prefill_attention,
                      rms_norm, swiglu)
 from .rwkv6 import _chunk_len, _layer, _run_chunks
 
@@ -112,9 +116,60 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "mlp_norm": const(1.0, d),
         "w_gate": fan(d, f), "w_up": fan(d, f), "w_down": fan(f, d),
     }
-    return {"embed": embed_init(generator, cfg.vocab_size, d, dt),
+    return {"embed": embed_init(generator, cfg.vocab_size, d, dt, device),
             "blocks": blocks, "shared": shared,
             "final_norm": const(1.0, d)}
+
+
+def param_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The reference's parameter specs: the Mamba projections' d_in /
+    head dims over ``model``, d over the FSDP axes; the shared block's
+    as the transformer's, unstacked."""
+    if mesh is None:
+        return tree_map(lambda _: P(), init_shapes(cfg))
+    d = cfg.d_model
+    d_in, nheads, _, _ = _dims(cfg)
+    dh, h, kh, f = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    n = cfg.ssm_state
+    fsdp, tp = [("data", "pod")], ["model"]
+
+    def ls(shape, plan):
+        return shd.logical_spec(mesh, (0, *shape), [None, *plan])
+
+    def one(shape, plan):
+        return shd.logical_spec(mesh, shape, plan)
+
+    blocks = {
+        "norm": P(None, None),
+        "z_proj": ls((d, d_in), [fsdp, tp]),
+        "x_proj": ls((d, d_in), [fsdp, tp]),
+        "B_proj": ls((d, n), [fsdp, None]),
+        "C_proj": ls((d, n), [fsdp, None]),
+        "dt_proj": ls((d, nheads), [fsdp, tp]),
+        "conv_wx": ls((cfg.ssm_conv, d_in), [None, tp]),
+        "conv_wB": P(None, None, None),
+        "conv_wC": P(None, None, None),
+        "conv_b": P(None, None),
+        "A_log": ls((nheads,), [tp]),
+        "D": ls((nheads,), [tp]),
+        "dt_bias": ls((nheads,), [tp]),
+        "gate_norm": ls((d_in,), [tp]),
+        "out_proj": ls((d_in, d), [tp, fsdp]),
+    }
+    shared = {
+        "attn_norm": P(None),
+        "wq": one((d, h * dh), [fsdp, tp]),
+        "wk": one((d, kh * dh), [fsdp, tp]),
+        "wv": one((d, kh * dh), [fsdp, tp]),
+        "wo": one((h * dh, d), [tp, fsdp]),
+        "mlp_norm": P(None),
+        "w_gate": one((d, f), [fsdp, tp]),
+        "w_up": one((d, f), [fsdp, tp]),
+        "w_down": one((f, d), [tp, fsdp]),
+    }
+    return {"embed": one((cfg.vocab_size, d), [tp, fsdp]),
+            "blocks": blocks, "shared": shared,
+            "final_norm": P(None)}
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +306,8 @@ def _shared_attn(cfg: ModelConfig, sp, h: Tensor, positions: Tensor,
         o = decode_attention(q, k_cache.to(cd), v_cache.to(cd), clen + 1)
         kv = (k_cache, v_cache)
     else:
-        o = causal_attention(q, k, v)
+        o = prefill_attention(q, k, v, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk)
         kv = (k.to(KV_DTYPE), v.to(KV_DTYPE))
     h = h + (o.reshape(b, s, nh * dh) @ sp["wo"].to(cd)).to(h.dtype)
     x = rms_norm(h, sp["mlp_norm"]).to(cd)
@@ -302,6 +358,7 @@ def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor) -> list:
 # Bundle
 # ---------------------------------------------------------------------------
 
+@register_family("hybrid")
 def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     cd = _cdtype(cfg)
 

@@ -28,8 +28,9 @@ Copies and row moves are value-exact, so paged serving's logits are
 contiguous cache is the degenerate configuration ``page_size == max_len``
 (one page per request).
 
-The reference's ``paged_pool_specs`` (the pool's placement on a TPU mesh)
-is not ported: on one GPU the pool is one tensor per leaf on that card.
+`paged_pool_specs` gives the reference's specs of the pool over a mesh
+description (`launch.mesh.Mesh`); on one GPU the pool is one tensor per
+leaf on that card, so nothing is placed by them.
 """
 from __future__ import annotations
 
@@ -122,3 +123,12 @@ def scatter_rows(pool_leaf: Tensor, rows_val: Tensor, planes: Tensor,
     pool_leaf[:, planes.long(), row_ids.long()] = \
         rows_val.to(pool_leaf.dtype)
     return pool_leaf
+
+
+def paged_pool_specs(mesh, num_pages: int, n_kv_heads: int) -> dict:
+    """The pool leaves' specs: planes over the dp axes, then ``model``
+    (`distributed.sharding.kv_plane_spec`, one leading L dim); the page
+    table stays host-side (`sharding.page_table_spec` if mirrored)."""
+    from ..distributed import sharding as shd
+    spec = shd.kv_plane_spec(mesh, num_pages * n_kv_heads, lead_dims=1)
+    return {"k": spec, "v": spec}

@@ -756,16 +756,42 @@ def test_serve_guard_clean_plan_shows_no_degradation():
     assert "degraded_dispatch" not in results["plan"]["engine_stats"]
 
 
-@pytest.mark.parametrize("poison", ["none", "k_rows", "q_rows", "all_k"])
-def test_prefill_attention_non_finite_scores_as_reference(poison):
+@pytest.mark.parametrize("poison,s,q_chunk,kv_chunk", [
+    pytest.param("none", 8, 8, 8, id="none"),
+    pytest.param("k_rows", 8, 8, 8, id="k_rows"),
+    pytest.param("q_rows", 8, 8, 8, id="q_rows"),
+    pytest.param("all_k", 8, 8, 8, id="all_k"),
+    # a poisoned row inside the first kv chunk of a multi-chunk sequence:
+    # the reference's online softmax weighs the later chunks by 0 there
+    pytest.param("k_nan_first_chunk", 32, 16, 16, id="k_nan-s32-c16"),
+    pytest.param("k_inf_first_chunk", 32, 16, 16, id="k_inf-s32-c16"),
+    pytest.param("q_rows", 32, 16, 16, id="q_rows-s32-c16"),
+    pytest.param("k_nan_first_chunk", 32, 8, 16, id="k_nan-s32-q8-kv16"),
+    pytest.param("k_inf_first_chunk", 32, 8, 16, id="k_inf-s32-q8-kv16"),
+    pytest.param("q_rows", 32, 8, 16, id="q_rows-s32-q8-kv16"),
+    # one chunk, a NaN key beside a finite score above ~88: the one case
+    # where the models' one-chunk form (`causal_attention`) differs from
+    # the reference, whose exp overflows there (pinned, not hidden)
+    pytest.param("k_nan_beside_overflow", 8, 8, 8, id="k_nan-overflow"),
+])
+def test_prefill_attention_non_finite_scores_as_reference(poison, s, q_chunk,
+                                                          kv_chunk):
     """The reference's prefill attention gives a non-finite score no
     weight (a row with none finite gives zeros), so a NaN q / k projection
     is first seen in the decode step; the port's does the same, and equals
-    it on finite inputs."""
+    it on finite inputs.  The models' prefill attention
+    (`layers.prefill_attention`, the chunked form) equals the reference's
+    at every chunking, also where a poisoned key sits in the first of
+    several kv chunks; the unchunked `causal_attention` equals it on one
+    chunk.  At one chunk `prefill_attention` takes `causal_attention`
+    (ROADMAP Queue 3 item 13), which differs from the reference where a
+    row holds a NaN score and a finite one above ~88: the reference's
+    ``exp(sc - 0)`` overflows and the row is NaN, the port's is finite and
+    gives the NaN key no weight; the rows before the NaN key agree."""
     from repro.models.layers import blocked_causal_attention
-    from repro_torch.models.layers import causal_attention
+    from repro_torch.models.layers import causal_attention, prefill_attention
     rng = np.random.default_rng(9)
-    q, k, v = (rng.standard_normal((2, 8, 4, 16)).astype(np.float32)
+    q, k, v = (rng.standard_normal((2, s, 4, 16)).astype(np.float32)
                for _ in range(3))
     k, v = k[:, :, :2], v[:, :, :2]
     if poison == "k_rows":
@@ -774,12 +800,40 @@ def test_prefill_attention_non_finite_scores_as_reference(poison):
         q[:, 5] = np.inf
     elif poison == "all_k":
         k[:] = np.nan
-    got = causal_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    elif poison == "k_nan_first_chunk":
+        k[:, 3] = np.nan
+    elif poison == "k_inf_first_chunk":
+        k[:, 3] = np.inf
+    elif poison == "k_nan_beside_overflow":
+        q = np.abs(q) + 4.0          # every q . k0 / 4 >= 6 * 4 * 16 / 4 = 96
+        k[:, 0] = 6.0
+        k[:, 3] = np.nan
     want = blocked_causal_attention(*(jnp.asarray(a) for a in (q, k, v)),
-                                    q_chunk=8, kv_chunk=8)
-    assert bool(torch.isfinite(got).all())
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-5)
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
+    paths = [prefill_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)]
+    if s == kv_chunk:
+        paths.append(causal_attention(*(torch.from_numpy(a)
+                                        for a in (q, k, v))))
+    if poison == "k_nan_beside_overflow":
+        want = np.asarray(want)
+        assert np.isnan(want[:, 3:]).all() and np.isfinite(want[:, :3]).all()
+        # rows 4.. are the softmax over the finite scores alone: the same
+        # attention with position 3 taken out of q, k and v
+        rule = causal_attention(*(torch.from_numpy(np.delete(a, 3, axis=1))
+                                  for a in (q, k, v)))
+        for got in paths:
+            assert bool(torch.isfinite(got).all())
+            np.testing.assert_allclose(got[:, :3].numpy(), want[:, :3],
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(got[:, 4:].numpy(),
+                                       rule[:, 3:].numpy(), rtol=1e-5,
+                                       atol=1e-5)
+        return
+    for got in paths:
+        assert bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_guarded_generate_equals_reference_on_converted_params():

@@ -295,7 +295,11 @@ def test_fc_stream_bytes_match_stats_exactly(impl, quant):
     assert bs["dispatches"] == 1
     assert execute.stats()["bytes_weights"] == bs["bytes_weights"]
     ref_execute.reset_stats()
-    jax.block_until_ready(jax.jit(ref_execute.apply_fc)(jnp.asarray(x), lp_j))
+    # a jit of its own: the reference's counters tick only while it traces,
+    # and its own tests jit `apply_fc` at these shapes (a shared trace cache
+    # would leave theirs, or this, uncounted)
+    jax.block_until_ready(jax.jit(lambda x, lp: ref_execute.apply_fc(x, lp))(
+        jnp.asarray(x), lp_j))
     assert bs == ref_execute.bytes_stats()["fc0"]
     assert dataclasses.asdict(tag) == dataclasses.asdict(lp_j.spec.cost)
 
@@ -320,8 +324,8 @@ def test_conv_stream_bytes_match_stats_exactly():
                                      mask=jnp.asarray(mask), kind="conv",
                                      impl="xla", m_hint=64)
     ref_execute.reset_stats()
-    jax.block_until_ready(jax.jit(ref_execute.apply_conv)(jnp.asarray(x),
-                                                          lp_j))
+    jax.block_until_ready(jax.jit(lambda x, lp: ref_execute.apply_conv(
+        x, lp))(jnp.asarray(x), lp_j))          # a jit of its own, as above
     assert bs == ref_execute.bytes_stats()["conv0"]
 
 

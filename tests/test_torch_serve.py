@@ -29,7 +29,7 @@ from repro_torch.engine import execute  # noqa: E402
 from repro_torch.engine import plan as engine_plan  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.api import merge_prefill_cache  # noqa: E402
+from repro_torch.models.api import block_diffs, merge_prefill_cache  # noqa: E402,E501
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -128,6 +128,30 @@ def test_serve_main_smoke_cpu(impl, tmp_path):
     assert res["sparse"]["tokens_per_s"] > 0 and report.exists()
 
 
+def test_parity_reports_the_gate_margin():
+    """`_gate_excess` is how far the worst output lies past the per-layer
+    gate ``tol + tol*|want|`` (at most 0 when `_compare` passes it), and
+    the parity report carries its largest value over the layers."""
+    want = torch.tensor([0.0, 1.0, -10.0])
+    got = want + torch.tensor([0.01, 0.05, 0.1])
+    # bounds 0.02, 0.04, 0.22: excesses -0.01, +0.01, -0.12
+    assert serve._gate_excess(got, want, 2e-2) == pytest.approx(0.01, abs=1e-6)
+    assert not serve._compare(got, want, 2e-2)[1]
+    got[1] = 1.03
+    assert serve._gate_excess(got, want, 2e-2) == pytest.approx(-0.01, abs=1e-6)
+    assert serve._compare(got, want, 2e-2)[1]
+    _, m, _, got, prompt = _setup("float32")
+    prompt = torch.from_numpy(prompt)
+    parity = serve._parity_check(m, got["sparse"], got["dense"], prompt,
+                                 tol=1e-4)
+    with torch.no_grad():
+        diffs = block_diffs(m.cfg, got["sparse"], got["dense"], prompt)
+    excess = max(float(((g - w).abs() - (1e-4 + 1e-4 * w.abs())).max())
+                 for g, w, _ in diffs)
+    assert parity["layer_gate_excess"] == pytest.approx(excess)
+    assert parity["layer_gate_excess"] <= 0.0
+
+
 def test_serve_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -152,3 +176,31 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+def test_serve_example_on_the_cpu(capsys):
+    """``examples/torch_serve_sparse_lm.py --device cpu``: olmo-1b smoke
+    served through the plan, the sparse projections' dispatches counted
+    (and, with ``--impl cuda``, the kernels' plain versions reached);
+    without ``--device cpu`` it raises here (no card)."""
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" \
+        / "torch_serve_sparse_lm.py"
+    spec = importlib.util.spec_from_file_location("torch_serve_example",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    res = example.main(["--device", "cpu", "--gen-steps", "4"])
+    stats = res["plan"]["engine_stats"]
+    assert stats["balanced_spmm"] > 0
+    assert res["plan"]["model"] == "olmo-1b-smoke"
+    assert res["plan"]["parity"]["layer_max_abs_diff"] <= 2e-2
+    assert res["sparse"]["tokens_per_s"] > 0
+    res = example.main(["--device", "cpu", "--gen-steps", "2",
+                        "--impl", "cuda"])
+    assert res["plan"]["impl_mix"] == {"cuda": 7}
+    assert res["plan"]["engine_stats"]["balanced_spmm"] > 0
+    assert "[serve/sparse]" in capsys.readouterr().out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main([])

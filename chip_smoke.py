@@ -172,7 +172,7 @@ fatal as above:
 19. recurrent — rwkv6-3b and zamba2-1.2b at published width and depth
              (32 and 38 layers), bf16, sparsity 0.5, batch 4, prompt 32,
              32 new tokens, through the serve entry point (counts zeroed
-             just before, read just after): the per-block parity gate, the
+             just before, read just after): the sublayer parity gate, the
              wide launches equal to planned projections x layers x
              prefills and the skinny ones that x decode steps, tok/s, plan
              build time and peak memory; the float32 end-to-end parity at
@@ -186,7 +186,7 @@ fatal as above:
              then a prefill whose first 256 positions (their
              n_frontend_tokens) take seeded frontend rows, batch 2 x
              prompt 320 (M = 640): the sparse plan against its
-             masked-dense reference layer by layer at 2e-2 in bf16 (one
+             masked-dense reference sublayer by sublayer at 2e-2 in bf16 (one
              wide launch a planned projection and layer) and the logits
              end to end at 1e-4 in float32.
 
@@ -199,17 +199,16 @@ Then the long prefill, after phase 20, fatal as above:
              time and peak memory, and a NaN key row in the first of four
              kv chunks (S = 256) on the card against the CPU at 1e-4;
              (b) ``serve`` of olmo-1b at published width and depth,
-             float32 compute, sparsity 0.5, batch 1 (prefill_32k's batch
-             of 32 cut to 1), one 32768-token prompt and 8 new tokens
-             with the scatter cache write: serve's parity gate (every
-             layer and the logits at 1e-4), the wide launches equal to 7
-             projections x 16 layers x prefills, the skinny ones that x
-             decode steps, the kv kernel's 2 x 16 x 2 x decode steps,
-             tok/s and the peak device memory (the kernels counted on this
-             served path are the float32 instantiations; serve's bf16
-             gate fails at this length, ROADMAP Queue 3 item 13); the
-             bf16 witness: every layer of the bf16 sparse prefill (the
-             tensor-core wide kernel, its launches counted) and of the
+             bf16 compute, sparsity 0.5, batch 1 (prefill_32k's batch of
+             32 cut to 1), one 32768-token prompt and 8 new tokens with
+             the scatter cache write: serve's parity gate (every
+             sublayer's increment at 2e-2), the wide launches (the
+             tensor-core kernel) equal to 7 projections x 16 layers x
+             prefills, the skinny ones (the streamer) that x decode
+             steps, the kv kernel's 2 x 16 x 2 x decode steps, tok/s and
+             the peak device memory; the bf16 witness: every layer of
+             the bf16 sparse prefill (the tensor-core wide kernel, its
+             launches counted) and of the
              bf16 masked-dense one, teacher-forced from a float32
              masked-dense reference, their errors against it alike
              (relative RMS of the sparse within 1.25 x the dense's, both
@@ -405,14 +404,14 @@ NEW_SHAPE_MS = (WIDE_M, 4)
 # phase 21, the long prefill: olmo-1b at published width and depth, one
 # 32768-token prompt (prefill_32k's length; its batch of 32 cut to 1: 32
 # sequences of KV alone are 137 GB), 8 new tokens through the kv kernel.
-# Served at float32 compute, gated per layer and end to end at 1e-4: at
-# bf16 serve's own per-layer gate (2e-2, abs + rel) fails at this length on
-# 1-2-ulp roundings of the residual adds (ROADMAP Queue 3 item 13); the
-# bf16 prefill is timed, profiled and its wide kernel checked at
-# M = 32768 against its plain version (`long_prefill_profile`), and held
-# per layer against float32 (`long_bf16_witness`)
+# Served at bf16 compute through serve's sublayer gate (2e-2, abs + rel),
+# so the launches counted are the bf16 kernels' (the tensor-core wide
+# kernel, the streamer); the bf16 prefill is also timed, profiled and its
+# wide kernel checked at M = 32768 against its plain version
+# (`long_prefill_profile`), and held per layer against float32
+# (`long_bf16_witness`); float32 is gated end to end at `LONG_F32_LAYERS`
 LONG_PROMPT, LONG_GEN_STEPS = 32768, 8
-LONG_DTYPE = "float32"
+LONG_DTYPE = "bfloat16"
 # olmo-1b's projection shapes (O, N) for the wide kernel at M = LONG_PROMPT
 LONG_KERNEL_SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192))
 LONG_ARGS = ["--arch", "olmo-1b", "--batch", "1", "--prompt-len",
@@ -888,23 +887,25 @@ def full_width_f32_parity(torch, serve, arch: str = "olmo-1b",
 
 
 def recurrent_f32_parity(torch, serve, arch: str) -> dict:
-    """Phase 19's float32 check of ``arch`` at full width: every block's
-    output teacher-forced from the masked-dense reference's hidden state
-    (`models.api.block_diffs`) within 1e-4, and the prefill logits end to
-    end within 1e-4, unless the model's own rounding floor
+    """Phase 19's float32 check of ``arch`` at full width: every
+    sublayer's increment teacher-forced from the masked-dense reference's
+    input to it (`models.api.sublayer_diffs`, serve's gate
+    `serve.gate_block`) within 1e-4, and the prefill logits end to end
+    within 1e-4, unless the model's own rounding floor
     (`logit_sensitivity`) exceeds 1e-4: then 1e-4 cannot tell a kernel
     from rounding, and the logits are held within `FLOOR_FACTOR` x that
     floor (random-weight rwkv6-3b's 32 layers amplify 1e-6 relative noise
     on one projection to 0.5 in the logits on an H100; PERF.md)."""
     from repro_torch.engine import plan as engine_plan
-    from repro_torch.models.api import block_diffs
+    from repro_torch.models.api import sublayer_diffs
     bundle, params, plan, prompt = full_width(torch, "float32", arch)
     sparse = {**params, "sparse_plan": plan}
     ref = engine_plan.masked_dense_params(params, plan)
     tol = TOL["float32"]
     with torch.no_grad():
-        layers = [serve._compare(got, want, tol) for got, want, _
-                  in block_diffs(bundle.cfg, sparse, ref, prompt)]
+        rows = [(d.block, *row) for d in sublayer_diffs(
+            bundle.cfg, sparse, ref, prompt)
+            for row in serve.gate_block(d, tol)]
         logits_s, _ = bundle.prefill(sparse, {"tokens": prompt})
         logits_r, _ = bundle.prefill(ref, {"tokens": prompt})
     diff, within = serve._compare(logits_s, logits_r, tol)
@@ -916,15 +917,18 @@ def recurrent_f32_parity(torch, serve, arch: str) -> dict:
         ok = math.isfinite(limit) and diff <= limit
     else:
         gate, ok = f"{tol:g}", within
-    out = {"layer_max_abs_diff": max(d for d, _ in layers),
+    out = {"layer_max_abs_diff": max(r[2] for r in rows
+                                     if r[1] == "output"),
+           "layer_gate_excess": max(r[4] for r in rows
+                                    if r[1] != "output"),
            "logits_max_abs_diff": diff, "logits_gate": gate,
            "argmax_equal": bool((logits_s.argmax(-1)
                                  == logits_r.argmax(-1)).all()),
            "floor": floor}
-    bad = [i for i, (_, good) in enumerate(layers) if not good]
+    bad = [f"{r[0]} {r[1]}" for r in rows if not r[3]]
     if bad or not ok:
-        raise AssertionError(f"{arch} float32: layers {bad} beyond {tol:g}, "
-                             f"logits gated at {gate}: {out}")
+        raise AssertionError(f"{arch} float32: sublayers {bad} beyond "
+                             f"{tol:g}, logits gated at {gate}: {out}")
     return out
 
 
@@ -2616,15 +2620,16 @@ def recurrent_phase(torch, serve, paths: dict) -> None:
 def frontend_prefill(torch, arch: str) -> dict:
     """Phase 20's frontend check: ``arch`` at published width and depth, a
     seeded prefill of `FRONTEND_BATCH` x `FRONTEND_PROMPT` tokens whose
-    first n_frontend_tokens positions take seeded bf16 frontend rows.  In bf16 the sparse plan against its
-    masked-dense reference layer by layer (teacher-forced) at 2e-2, with
-    the wide launches counted (zeroed just before, read just after: one a
-    planned projection and layer); in float32 the prefill logits end to
-    end at 1e-4.  Returns the bf16 pass's launch counts."""
+    first n_frontend_tokens positions take seeded bf16 frontend rows.  In
+    bf16 the sparse plan against its masked-dense reference sublayer by
+    sublayer (serve's gate, `serve.gate_block`) at 2e-2, with the wide
+    launches counted (zeroed just before, read just after: one a planned
+    projection and layer); in float32 the prefill logits end to end at
+    1e-4.  Returns the bf16 pass's launch counts."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.engine import plan as engine_plan
-    from repro_torch.launch.serve import _compare
+    from repro_torch.launch.serve import _compare, gate_block
     from repro_torch.models import build_model, transformer
     out: dict = {}
     for cd in ("bfloat16", "float32"):
@@ -2647,22 +2652,23 @@ def frontend_prefill(torch, arch: str) -> dict:
         with torch.no_grad():
             if cd == "bfloat16":
                 reset_launches()
-                diffs = transformer.block_diffs(cfg, sparse, ref, tokens,
-                                                frontend_embed=fe)
+                rows = [(d.block, *row) for d in transformer.sublayer_diffs(
+                    cfg, sparse, ref, tokens, frontend_embed=fe)
+                    for row in gate_block(d, TOL[cd])]
                 torch.cuda.synchronize()
                 counts = launches()
-                layers = [_compare(got, want, TOL[cd])
-                          for got, want, _ in diffs]
                 want = len(plan.layers) * cfg.n_layers
                 out["counts"] = counts
-                out["bf16_layer_max_abs_diff"] = max(d for d, _ in layers)
-                if not all(ok for _, ok in layers) \
-                        or counts["tiled_balanced_spmm"] != want \
+                out["bf16_layer_max_abs_diff"] = max(
+                    r[2] for r in rows if r[1] == "output")
+                out["bf16_gate_excess"] = max(
+                    r[4] for r in rows if r[1] != "output")
+                bad = [f"{r[0]} {r[1]}" for r in rows if not r[3]]
+                if bad or counts["tiled_balanced_spmm"] != want \
                         or counts["tiled_balanced_spmm_skinny"]:
                     raise AssertionError(
-                        f"{arch} frontend prefill: layers within 2e-2 "
-                        f"{[ok for _, ok in layers]}, launches {counts}, "
-                        f"expected {want} wide")
+                        f"{arch} frontend prefill: sublayers past 2e-2 "
+                        f"{bad}, launches {counts}, expected {want} wide")
             else:
                 batch = {"tokens": tokens, "frontend_embed": fe}
                 logits_s, _ = bundle.prefill(sparse, batch)

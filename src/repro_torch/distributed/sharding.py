@@ -16,7 +16,9 @@ decide the same specs (tuples of axis names, `P`) for a mesh that
 describes axis sizes, and nothing is placed: `named`, `tree_shardings`,
 `with_hidden_sharding` and `with_channel_sharding` return what they are
 given.  The decisions equal the reference's on every mesh, which is what
-lets a spec be reasoned about here before a multi-device port exists.
+lets a spec be reasoned about here before a multi-device port exists;
+`shard_shape` turns a decision into one device's shard, which the dry
+run's production-mesh records sum into per-device bytes.
 """
 from __future__ import annotations
 
@@ -117,6 +119,25 @@ def shard_batch(mesh: Mesh, batch_size: int) -> tuple | None:
     return tuple(out) if out else None
 
 
+def shard_shape(mesh: Mesh, shape: Sequence[int], spec: P) -> tuple:
+    """One device's shard of a ``shape`` array laid out by ``spec`` on
+    ``mesh`` (``jax.sharding.NamedSharding(mesh, spec).shard_shape``):
+    each dim divided by the product of its axes' sizes, a dim past the
+    spec's length whole.  Raises ValueError where that product does not
+    divide the dim, or the spec is longer than the shape."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec!r} has more dims than shape "
+                         f"{tuple(shape)}")
+    out = []
+    for i, size in enumerate(shape):
+        n = _axes_size(mesh, spec[i] if i < len(spec) else None)
+        if size % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} ({size}) does not "
+                             f"divide over {spec[i]!r} ({n} devices)")
+        out.append(size // n)
+    return tuple(out)
+
+
 def with_hidden_sharding(mesh: Mesh, h, *, seq_parallel: bool = True):
     """The reference constrains hidden states ``[B, S, D]`` to batch over
     dp and sequence over ``model``; on one device that is ``h`` itself."""
@@ -155,5 +176,6 @@ def tree_shardings(mesh: Mesh, spec_tree):
 
 
 __all__ = ["P", "dp_axes", "fsdp_axes", "dim_spec", "logical_spec",
-           "shard_batch", "with_hidden_sharding", "with_channel_sharding",
-           "kv_plane_spec", "page_table_spec", "named", "tree_shardings"]
+           "shard_batch", "shard_shape", "with_hidden_sharding",
+           "with_channel_sharding", "kv_plane_spec", "page_table_spec",
+           "named", "tree_shardings"]

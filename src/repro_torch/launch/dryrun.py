@@ -30,6 +30,28 @@ Each record holds:
 * ``roofline`` — the FLOPs over the bf16 peak and the resident bytes over
   the memory rate of one H100 (`launch.mesh`).
 
+With ``--production-mesh`` (the reference's one pod, ``pod16x16``: 16 x 16
+over ``(data, model)``) or ``--multi-pod`` (``pod2x16x16``: 2 x 16 x 16
+over ``(pod, data, model)``) a cell's id and ``mesh`` carry that tag, and
+its record swaps the one-card fields (``fits_one_card``, ``roofline``,
+``n_devices``, ``collectives``) for the reference's production-mesh view,
+host arithmetic over its sharding rules (no device is involved):
+
+* ``n_chips`` — the mesh's size;
+* ``per_device`` — each part's bytes on one device: params by the
+  family's ``param_specs``, the AdamW moments by the same specs and the
+  step count replicated (the reference's ``opt_sh``), grads by the param
+  specs, the cache by ``cache_specs``, inputs by
+  `models.api.batch_partition_spec` (each leaf's
+  `distributed.sharding.shard_shape`);
+* ``resident_bytes_per_device`` and ``fits_hbm`` — their sum against one
+  H100's `launch.mesh.HBM_BYTES`, the same necessary condition as
+  ``fits_one_card``;
+* ``flops_per_device`` and ``collectives`` — null, with the reason in
+  ``per_device_null_reason``: both are properties of the SPMD program the
+  reference's compiler partitions for the mesh, which the port does not
+  build.  The global ``flops`` stay as the meta run counts them.
+
 The reference's ``launch/hlo_cost.py`` (a walker over compiled HLO text)
 has no port: the port emits no HLO, and the flop counter takes its role.
 The recurrent families at ``prefill_32k``, ``decode_32k`` and
@@ -43,7 +65,8 @@ compile.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
         --shape prefill_32k [--batch 1] [--variant v0_baseline]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+        [--production-mesh | --multi-pod]
 
 Records are written to ``dryrun_torch/<cell>.json`` at the repository root
 (``--out`` for another directory), one file per cell.
@@ -53,6 +76,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
 import traceback
 from pathlib import Path
@@ -62,15 +86,23 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCHS, SHAPES, ShapeSpec, get_config, get_smoke, \
     shape_applicable
+from ..distributed.sharding import P, shard_shape
 from ..models import build_model
-from ..models.api import init_shapes, input_specs
+from ..models.api import (batch_partition_spec, cache_specs, init_shapes,
+                          input_specs, param_specs)
 from ..optim import AdamWConfig, adamw_init, adamw_update
-from ..tree import leaves, tree_map, unflatten
+from ..tree import flatten_with_paths, leaves, tree_map, unflatten
 from . import cost_model
-from .mesh import HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16
+from .mesh import HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16, make_production_mesh
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "dryrun_torch"
 MESH_TAG = "gpu1"
+# the reference's production meshes: tag -> multi_pod
+PRODUCTION_MESHES = {"pod16x16": False, "pod2x16x16": True}
+SPMD_REASON = ("per-device FLOPs and collective bytes are properties of the "
+               "SPMD program the reference's compiler partitions for this "
+               "mesh; the port builds no such program, so they are not "
+               "derived (null, not 0)")
 META = torch.device("meta")
 # the recurrent families' long cells run the chunked forms
 CHUNKED_CELLS = ("prefill_32k", "decode_32k", "long_500k")
@@ -150,6 +182,49 @@ def tree_bytes(tree) -> int:
                    for t in leaves(tree) if torch.is_tensor(t)))
 
 
+def _spec_paths(specs) -> dict:
+    """``{key path: P}`` of a tree of specs (a spec is a leaf)."""
+    if isinstance(specs, dict):
+        return {(k,) + p: v for k in specs
+                for p, v in _spec_paths(specs[k]).items()}
+    return {(): specs}
+
+
+def shard_bytes(mesh, tree, specs) -> int:
+    """Bytes of one device's shards of a tree of tensors laid out by the
+    matching tree of specs (`distributed.sharding.shard_shape`)."""
+    by_path = _spec_paths(specs)
+    total = 0
+    for path, t in flatten_with_paths(tree):
+        shard = shard_shape(mesh, tuple(t.shape), by_path[path])
+        total += math.prod(shard) * cost_model.dtype_bytes(t.dtype)
+    return int(total)
+
+
+def per_device_bytes(cfg, shape: ShapeSpec, mesh, state: dict,
+                     out: dict) -> dict:
+    """Each resident part's bytes on one device of ``mesh`` under the
+    reference's specs: params and grads by ``param_specs``, the AdamW
+    moments likewise with the step replicated, the cache (decode: the one
+    the step reads; prefill: the one it returns) by ``cache_specs``, the
+    inputs by ``batch_partition_spec``."""
+    pspecs = param_specs(cfg, mesh)
+    opt = state.get("opt")
+    cache = state.get("cache") if shape.kind == "decode" \
+        else out.get("cache")
+    return {
+        "param_bytes": shard_bytes(mesh, state["params"], pspecs),
+        "opt_bytes": 0 if opt is None else shard_bytes(
+            mesh, opt, {"m": pspecs, "v": pspecs, "step": P()}),
+        "grad_bytes": 0 if out.get("grads") is None
+        else shard_bytes(mesh, out["grads"], pspecs),
+        "cache_bytes": 0 if cache is None else shard_bytes(
+            mesh, cache, cache_specs(cfg, mesh, shape.global_batch)),
+        "input_bytes": shard_bytes(mesh, state["inputs"],
+                                   batch_partition_spec(cfg, shape, mesh)),
+    }
+
+
 def build_cell(cfg, shape: ShapeSpec):
     """``(step, state)``: ``step()`` runs the cell's step on ``meta`` and
     returns the tensors it produced; ``state`` the resident tensors by
@@ -206,10 +281,15 @@ def build_cell(cfg, shape: ShapeSpec):
 def run_cell(arch: str, shape_name: str, *, variant: str = "v0_baseline",
              batch: int | None = None, seq_len: int | None = None,
              smoke: bool = False, out_dir: Path | None = None,
-             save: bool = True) -> dict:
+             save: bool = True, mesh_tag: str = MESH_TAG) -> dict:
     """Build and run one cell on ``meta``; returns (and saves) its record.
     ``batch`` / ``seq_len`` cut the shape (named in the cell id),
-    ``smoke`` takes the arch's smoke config."""
+    ``smoke`` takes the arch's smoke config, ``mesh_tag`` one of
+    `PRODUCTION_MESHES` records the cell on that mesh (default: one
+    card)."""
+    if mesh_tag != MESH_TAG and mesh_tag not in PRODUCTION_MESHES:
+        raise ValueError(f"mesh_tag must be {MESH_TAG!r} or one of "
+                         f"{sorted(PRODUCTION_MESHES)}, got {mesh_tag!r}")
     cfg = get_smoke(arch) if smoke else get_config(arch)
     variant = cell_variant(cfg, shape_name, variant)
     shape = SHAPES[shape_name]
@@ -222,7 +302,7 @@ def run_cell(arch: str, shape_name: str, *, variant: str = "v0_baseline",
         shape, global_batch=batch or shape.global_batch,
         seq_len=seq_len or shape.seq_len)
     cell_id = (f"{arch}{'-smoke' if smoke else ''}__{shape_name}{cut}__"
-               f"{MESH_TAG}__{variant}")
+               f"{mesh_tag}__{variant}")
     ok, why = shape_applicable(cfg, shape_name)
     if not ok:
         rec = {"cell": cell_id, "status": "skipped", "reason": why}
@@ -270,6 +350,20 @@ def run_cell(arch: str, shape_name: str, *, variant: str = "v0_baseline",
                          "dominant": ("compute" if t_compute >= t_memory
                                       else "memory")},
         }
+        if mesh_tag in PRODUCTION_MESHES:
+            mesh = make_production_mesh(multi_pod=PRODUCTION_MESHES[mesh_tag])
+            per_dev = per_device_bytes(cfg, shape, mesh, state, out)
+            for key in ("n_devices", "collectives", "fits_one_card",
+                        "roofline"):
+                del rec[key]
+            resident_dev = sum(per_dev.values())
+            rec.update({
+                "mesh": mesh_tag, "n_chips": mesh.size,
+                "per_device": per_dev,
+                "resident_bytes_per_device": resident_dev,
+                "fits_hbm": bool(resident_dev <= HBM_BYTES),
+                "flops_per_device": None, "collectives": None,
+                "per_device_null_reason": SPMD_REASON})
     except Exception as e:  # noqa: BLE001 — a failing cell is a record
         rec = {"cell": cell_id, "arch": arch, "shape": shape_name,
                "variant": variant, "status": "error",
@@ -301,7 +395,16 @@ def main(argv=None) -> list:
                     help="every (arch x shape) cell")
     ap.add_argument("--out", default=None,
                     help=f"record directory (default {RESULTS_DIR})")
+    meshes = ap.add_mutually_exclusive_group()
+    meshes.add_argument("--production-mesh", action="store_true",
+                        help="record per-device bytes on the reference's "
+                             "one-pod mesh (pod16x16) instead of one card")
+    meshes.add_argument("--multi-pod", action="store_true",
+                        help="the same on the reference's two-pod mesh "
+                             "(pod2x16x16)")
     args = ap.parse_args(argv)
+    mesh_tag = "pod2x16x16" if args.multi_pod else \
+        "pod16x16" if args.production_mesh else MESH_TAG
     if args.all:
         cells = [(a, s) for a in ARCHS for s in SHAPES]
     elif args.arch and args.shape:
@@ -312,9 +415,16 @@ def main(argv=None) -> list:
     for arch, shape in cells:
         rec = run_cell(arch, shape, variant=args.variant, batch=args.batch,
                        seq_len=args.seq_len, smoke=args.smoke,
-                       out_dir=args.out)
+                       out_dir=args.out, mesh_tag=mesh_tag)
         recs.append(rec)
-        if rec["status"] == "ok":
+        if rec["status"] == "ok" and "per_device" in rec:
+            print(f"[ok] {rec['cell']}: {rec['build_s']:.1f} s, flops "
+                  f"{rec['flops']:.4e} (global), per device "
+                  f"{rec['per_device']}, resident "
+                  f"{rec['resident_bytes_per_device']} B of "
+                  f"{rec['n_chips']} chips, fits_hbm={rec['fits_hbm']}",
+                  flush=True)
+        elif rec["status"] == "ok":
             m = rec["memory"]
             print(f"[ok] {rec['cell']}: {rec['build_s']:.1f} s, flops "
                   f"{rec['flops']:.4e} (model {rec['model_flops']}), params "

@@ -38,6 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import time
 
@@ -53,7 +54,7 @@ from ..kernels import balanced_spmm, kv_cache_update
 from ..kernels.ops import SKINNY_M
 from ..kernels.tile_format import QUANT_MODES, TiledBalanced
 from ..models import build_model
-from ..models.api import block_diffs, merge_prefill_cache
+from ..models.api import merge_prefill_cache, sublayer_diffs
 from . import cost_model
 
 
@@ -184,49 +185,83 @@ def _compare(got: torch.Tensor, want: torch.Tensor, tol: float):
 
 def _gate_excess(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     """How far the worst output of ``got`` lies past `_compare`'s bound:
-    ``max(|got - want| - (tol + tol*|want|))`` (<= 0 within the gate)."""
+    ``max(|got - want| - (tol + tol*|want|))`` (<= 0 within the gate; +inf
+    where ``got`` holds a non-finite value)."""
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
     err = (got.float() - want.float()).abs()
     return float((err - (tol + tol * want.float().abs())).max())
+
+
+def gate_block(diff, tol: float) -> list:
+    """Serve's per-block gate on one `models.api.BlockDiff`: each
+    sublayer's increment against the reference's, `_compare` at ``tol``,
+    and the block output finite.  Returns per sublayer ``(name, max |diff|,
+    within, excess)`` (`_gate_excess`), then ``("output", max |diff|,
+    finite, excess)``: the block output is reported, its bound not gated
+    (a bf16 block rounds its residual sums at the residual's magnitude,
+    which an increment that cancels the residual to a small output does
+    not have)."""
+    rows = [(name, *_compare(got, want, tol), _gate_excess(got, want, tol))
+            for name, got, want in diff.increments]
+    out_diff = float((diff.out.float() - diff.ref_out.float()).abs().max())
+    rows.append(("output", out_diff, bool(torch.isfinite(diff.out).all()),
+                 _gate_excess(diff.out, diff.ref_out, tol)))
+    return rows
 
 
 def _parity_check(bundle, sparse_params, ref_params, prompt, *,
                   tol: float) -> dict:
     """Sparse plan vs its masked-dense reference on the prompt.
 
-    Gated: every block's output, teacher-forced from the reference's
-    hidden state (the family's `models.api.block_diffs`; in an MoE block
-    also from the reference block's routing, in a recurrent one from zero
-    states),
-    within ``tol`` (abs + rel); and, at float32 compute, the prefill logits
-    within ``tol``, each side routing on its own.  At bfloat16 the
-    end-to-end logits are reported, not gated: rounding-order differences
-    compound over depth (full-width olmo-1b on an H100, identical weights:
-    max |dlogit| 5.8e-2 at bf16, 1.1e-5 at f32 — see PERF.md), so an
-    end-to-end bf16 bound measures the model's depth rather than the
-    kernels.  For MoE it reports the share of (token, k) router choices on
-    which the two sides' own routing agrees, over all layers, and the
-    per-layer gate's margin (`_gate_excess`, at most 0 when it passes).
-    """
+    Gated: every sublayer's increment to the residual (attention, MLP or
+    MoE, time / channel mix, Mamba mixer; the family's
+    `models.api.sublayer_diffs`), each side computed from the reference's
+    input to that sublayer (in an MoE block also with the reference's
+    routing, in a recurrent one from zero states), within ``tol`` (abs +
+    rel, `_compare`), and every block output finite; at float32 compute
+    also the prefill logits within ``tol``, each side routing on its own.
+    The block outputs are reported (``layer_max_abs_diff``), not gated: a
+    bf16 block rounds its residual sums at the residual's magnitude, so a
+    1-ulp difference at magnitude 8 that cancels to a small output lies
+    past ``tol + tol*|out|`` on a correct plan.  At bfloat16 the end-to-end
+    logits are reported, not gated: rounding-order differences compound
+    over depth (full-width olmo-1b on an H100, identical weights: max
+    |dlogit| 5.8e-2 at bf16, 1.1e-5 at f32 — see PERF.md).  For MoE it
+    reports the share of (token, k) router choices on which the two
+    sides' own routing agrees, over all layers; and the gate's margin
+    over the sublayers (``layer_gate_excess``, at most 0 when it passes)
+    with the one that came closest (``layer_gate_closest``)."""
     cfg = bundle.cfg
+    outs, agree, bad = [], [], []
+    closest = (-math.inf, "")
     with torch.no_grad():
         logits_s, _ = bundle.prefill(sparse_params, {"tokens": prompt})
         logits_r, _ = bundle.prefill(ref_params, {"tokens": prompt})
-        diffs = block_diffs(cfg, sparse_params, ref_params, prompt)
-    layers = [_compare(got, want, tol) for got, want, _ in diffs]
-    agree = [a for _, _, a in diffs if a is not None]
+        for diff in sublayer_diffs(cfg, sparse_params, ref_params, prompt):
+            if diff.agree is not None:
+                agree.append(diff.agree)
+            for name, err, ok, excess in gate_block(diff, tol):
+                where = f"{diff.block} {name}"
+                if name == "output":
+                    outs.append(err)
+                elif excess >= closest[0]:
+                    closest = (excess, where)
+                if not ok:
+                    bad.append(f"{where} (max |diff| {err:.6g})")
     logit_diff, logits_ok = _compare(logits_s, logits_r, tol)
-    bad = [i for i, (_, ok) in enumerate(layers) if not ok]
     if bad or (cfg.compute_dtype == "float32" and not logits_ok):
         raise AssertionError(
             f"sparse plan differs from the masked-dense reference (tol "
-            f"{tol:g}): layers {bad} out of tolerance, per-layer max|diff| "
-            f"{[round(d, 6) for d, _ in layers]}, max |dlogit| {logit_diff}")
+            f"{tol:g}): {', '.join(bad) or 'every sublayer within'}; "
+            f"block outputs' max |diff| {[round(d, 6) for d in outs]}, "
+            f"max |dlogit| {logit_diff}")
     out = {"logits_max_abs_diff": logit_diff,
            "logits_within_tol": logits_ok,
-           "layer_max_abs_diff": max(d for d, _ in layers),
-           # the per-layer gate's margin: its closest approach (< 0 passes)
-           "layer_gate_excess": max(_gate_excess(got, want, tol)
-                                    for got, want, _ in diffs),
+           "layer_max_abs_diff": max(outs),
+           # the sublayer gate's margin: its closest approach (< 0 passes)
+           "layer_gate_excess": closest[0],
+           "layer_gate_closest": closest[1],
            "argmax_equal": bool((logits_s.argmax(-1)
                                  == logits_r.argmax(-1)).all())}
     if agree:
@@ -587,8 +622,10 @@ def run(args: argparse.Namespace, cfg) -> dict:
     routing = "" if "routing_agreement" not in parity else \
         f", own routing agrees on {parity['routing_agreement']:.4f} of " \
         f"(token, k) choices"
-    print(f"[serve] parity sparse vs masked-dense (tol {tol:g}): per-layer "
-          f"max |diff| = {parity['layer_max_abs_diff']:.2e}, max |dlogit| = "
+    print(f"[serve] parity sparse vs masked-dense (tol {tol:g}): sublayer "
+          f"gate excess {parity['layer_gate_excess']:.3g} (closest "
+          f"{parity['layer_gate_closest']}), block outputs' max |diff| = "
+          f"{parity['layer_max_abs_diff']:.2e}, max |dlogit| = "
           f"{parity['logits_max_abs_diff']:.2e}, argmax equal "
           f"{parity['argmax_equal']}{routing};  engine dispatches: {stats}")
 

@@ -12,6 +12,10 @@ tensors:
 * ``init_cache(batch, max_len) -> cache``   (the transformer: plane layout
   ``[L, B*KH, S, dh]``; rwkv6: token-shift and WKV states; zamba2: SSM and
   conv states plus the shared block's ``[n_attn, B, S, KH, dh]`` KV)
+* ``param_specs() -> specs`` / ``cache_specs(batch) -> specs``  (the
+  reference's sharding decisions for the params and the cache on the
+  mesh the bundle was built with, ``build_model(cfg, device, mesh=...)``;
+  ``P()`` leaves without a mesh: descriptions, nothing is placed)
 
 ``input_specs(cfg, shape)`` gives one (arch, shape) cell's batch as
 tensors on the ``meta`` device (no allocation), ``init_shapes(cfg)`` the
@@ -50,16 +54,35 @@ class ModelBundle:
     prefill: Callable[[Any, Batch], tuple]
     decode_step: Callable[[Any, Batch, Any], tuple]
     init_cache: Callable[[int, int], Any]
+    param_specs: Callable[[], Any]
+    cache_specs: Callable[[int], Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDiff:
+    """One block of a teacher-forced comparison of two param sets (the
+    families' ``sublayer_diffs``).  ``increments`` holds per sublayer
+    ``(name, got, want)``: the tensors each side adds to the residual
+    (after their cast to its dtype), both computed from the reference's
+    input to that sublayer; ``out`` / ``ref_out`` are the block outputs
+    assembled from them, ``h + inc_1 + inc_2 ...`` on each side, and
+    ``agree`` an MoE block's routing agreement (None elsewhere)."""
+    block: str
+    out: Tensor
+    ref_out: Tensor
+    agree: float | None
+    increments: tuple
 
 
 _REGISTRY: Dict[str, Callable[[ModelConfig, torch.device], ModelBundle]] = {}
 
 
 def register_family(*families: str):
-    """Register a family's ``build(cfg, device)`` under each ``cfg.family``
-    it serves.  Every entry point below dispatches through this registry:
-    the module that defines the registered ``build`` also serves the
-    family's ``init_params``, ``param_specs`` and ``block_diffs``."""
+    """Register a family's ``build(cfg, device, mesh=None)`` under each
+    ``cfg.family`` it serves.  Every entry point below dispatches through
+    this registry: the module that defines the registered ``build`` also
+    serves the family's ``init_params``, ``param_specs``, ``cache_specs`` and
+    ``sublayer_diffs``."""
     def deco(fn):
         for name in families:
             _REGISTRY[name] = fn
@@ -121,10 +144,11 @@ def _family_module(cfg: ModelConfig):
     return sys.modules[_family_build(cfg).__module__]
 
 
-def build_model(cfg: ModelConfig, device=None) -> ModelBundle:
+def build_model(cfg: ModelConfig, device=None, mesh=None) -> ModelBundle:
     """The family's bundle on ``device`` (default: the GPU; a missing GPU
-    raises unless ``device="cpu"``)."""
-    return _family_build(cfg)(cfg, resolve_device(device))
+    raises unless ``device="cpu"``), its specs decided on ``mesh`` (a
+    `launch.mesh.Mesh`; None: ``P()`` leaves)."""
+    return _family_build(cfg)(cfg, resolve_device(device), mesh=mesh)
 
 
 def init_shapes(cfg: ModelConfig) -> dict:
@@ -140,13 +164,18 @@ def param_specs(cfg: ModelConfig, mesh) -> dict:
     return _family_module(cfg).param_specs(cfg, mesh)
 
 
-def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
-                **kwargs) -> list:
-    """The family's teacher-forced per-block comparison of two param sets
-    (``transformer.block_diffs``, ``rwkv6.block_diffs`` or
-    ``zamba2.block_diffs``): ``(out, ref_out, agree)`` per block."""
-    return _family_module(cfg).block_diffs(cfg, params, ref_params, tokens,
-                                           **kwargs)
+def cache_specs(cfg: ModelConfig, mesh, batch_size: int) -> dict:
+    """The family's cache specs for ``batch_size`` sequences on ``mesh``
+    (``P()`` for every leaf without a mesh)."""
+    return _family_module(cfg).cache_specs(cfg, mesh, batch_size)
+
+
+def sublayer_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
+                   **kwargs):
+    """The family's teacher-forced per-sublayer comparison of two param
+    sets: one `BlockDiff` per block, yielded block by block."""
+    return _family_module(cfg).sublayer_diffs(cfg, params, ref_params,
+                                              tokens, **kwargs)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Batch:

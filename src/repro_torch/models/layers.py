@@ -82,13 +82,15 @@ def causal_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     """Causal prefill attention as one masked softmax, q ``[B, S, H, dh]``,
     k/v ``[B, S, KH, dh]`` with H = KH * G (grouped, no KV repetition): the
     plain, unchunked twin of `blocked_causal_attention`, which tests and
-    the GPU smoke hold it against; the models call it only for a sequence
-    of one chunk (`prefill_attention`).  It holds the ``[B, KH, G, S, S]``
-    scores at once.  A non-finite score (a NaN or Inf
+    the GPU smoke hold it against; no model calls it.  It holds the
+    ``[B, KH, G, S, S]`` scores at once.  A non-finite score (a NaN or Inf
     q / k) weighs nothing and a row with no finite score gives zeros.  On
     finite inputs it equals the reference's ``blocked_causal_attention``
     at any chunking; with a non-finite k it does so only when the kv
-    sequence is one chunk (see `blocked_causal_attention`)."""
+    sequence is one chunk (see `blocked_causal_attention`), and then not
+    where a row holds a NaN score beside a finite one above ~88: the
+    reference's ``exp`` overflows there and its row is NaN, this one's is
+    finite."""
     b, s, h, dh = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, dh).float()
@@ -205,25 +207,10 @@ def blocked_causal_attention(q: Tensor, k: Tensor, v: Tensor, *,
 
 def prefill_attention(q: Tensor, k: Tensor, v: Tensor, *, q_chunk: int,
                       kv_chunk: int) -> Tensor:
-    """The models' prefill (and training) attention at the chunks
-    `attention_chunks` picks for the sequence: `blocked_causal_attention`
-    when the sequence spans more than one chunk, `causal_attention` when
-    it is one chunk (every prompt of the 32-token serving paths).
-
-    At one chunk the two hold the same scores in memory and agree with the
-    reference to rounding, NaN and Inf keys included, but for one case: a
-    row with a non-finite score and a finite one above ~88 (the reference's
-    ``exp`` overflows there and its output is NaN, the unchunked form's is
-    finite).  The unchunked form keeps the numerics these paths had before
-    the chunked form existed: serve's bf16 per-layer parity gate bounds
-    each output by its own magnitude, not by the residual sums it was
-    rounded from, and the chunked form's rounding, as close to the
-    reference's, put one deepseek-moe-16b output of 2.1M past it at a
-    32-token prompt on an H100 (ROADMAP Queue 3 item 13)."""
-    s = q.shape[1]
-    qc, kc = attention_chunks(s, q_chunk, kv_chunk)
-    if qc == kc == s:
-        return causal_attention(q, k, v)
+    """The models' prefill (and training) attention: the reference's one
+    form, `blocked_causal_attention` at the chunks `attention_chunks`
+    picks for the sequence, a one-chunk prompt included."""
+    qc, kc = attention_chunks(q.shape[1], q_chunk, kv_chunk)
     return blocked_causal_attention(q, k, v, q_chunk=qc, kv_chunk=kc)
 
 

@@ -35,8 +35,8 @@ from ..configs.base import ModelConfig
 from ..distributed import sharding as shd
 from ..distributed.sharding import P
 from ..tree import tree_map
-from .api import (ModelBundle, init_shapes, planned_proj, register_family,
-                  serving_plan)
+from .api import (BlockDiff, ModelBundle, init_shapes, planned_proj,
+                  register_family, serving_plan)
 from .layers import causal_lm_labels, chunked_cross_entropy, embed_init, \
     layer_norm
 
@@ -279,18 +279,35 @@ def _channel_mix(cfg: ModelConfig, lp, x: Tensor, shift_last: Tensor,
     return out, x[:, -1, :]
 
 
+def _time_mix_inc(cfg: ModelConfig, lp, h: Tensor, att_shift: Tensor,
+                  state: Tensor, plan_layers=None) -> tuple:
+    """The time mix's increment to the residual ``h`` (in ``h``'s dtype);
+    returns ``(increment, att_shift, state)``."""
+    x = layer_norm(h, lp["ln1"], lp["ln1_b"]).to(_cdtype(cfg))
+    att, att_shift, state = _time_mix(cfg, lp, x, att_shift, state,
+                                      plan_layers=plan_layers)
+    return att.to(h.dtype), att_shift, state
+
+
+def _channel_mix_inc(cfg: ModelConfig, lp, h: Tensor, ffn_shift: Tensor,
+                     plan_layers=None) -> tuple:
+    """The channel mix's increment to the residual ``h``; returns
+    ``(increment, ffn_shift)``."""
+    x = layer_norm(h, lp["ln2"], lp["ln2_b"]).to(_cdtype(cfg))
+    ffn, ffn_shift = _channel_mix(cfg, lp, x, ffn_shift,
+                                  plan_layers=plan_layers)
+    return ffn.to(h.dtype), ffn_shift
+
+
 def _block(cfg: ModelConfig, lp, h: Tensor, att_shift: Tensor,
            ffn_shift: Tensor, state: Tensor, plan_layers=None) -> tuple:
     """One layer; returns ``(h, att_shift, ffn_shift, state)``."""
-    cd = _cdtype(cfg)
-    x = layer_norm(h, lp["ln1"], lp["ln1_b"]).to(cd)
-    att, att_shift, state = _time_mix(cfg, lp, x, att_shift, state,
+    att, att_shift, state = _time_mix_inc(cfg, lp, h, att_shift, state,
+                                          plan_layers=plan_layers)
+    h = h + att
+    ffn, ffn_shift = _channel_mix_inc(cfg, lp, h, ffn_shift,
                                       plan_layers=plan_layers)
-    h = h + att.to(h.dtype)
-    x = layer_norm(h, lp["ln2"], lp["ln2_b"]).to(cd)
-    ffn, ffn_shift = _channel_mix(cfg, lp, x, ffn_shift,
-                                  plan_layers=plan_layers)
-    return h + ffn.to(h.dtype), att_shift, ffn_shift, state
+    return h + ffn, att_shift, ffn_shift, state
 
 
 def _zero_states(cfg: ModelConfig, b: int, device) -> tuple:
@@ -305,26 +322,48 @@ def _layer(params, i: int) -> dict:
     return {nm: w[i] for nm, w in params["blocks"].items()}
 
 
-def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor) -> list:
-    """Teacher-forced per-layer comparison of two param sets (a sparse plan
-    against its masked-dense reference): walk ``ref_params``' prefill and
-    run each layer under both from the reference's hidden state, with zero
-    shift and WKV states (a prefill starts from zero).  Returns per layer
-    ``(out, ref_out, None)``, as `transformer.block_diffs`."""
+def sublayer_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor):
+    """Teacher-forced per-sublayer comparison of two param sets (a sparse
+    plan against its masked-dense reference), as
+    `transformer.sublayer_diffs`: walk ``ref_params``' prefill and run
+    each layer's time mix from the reference's input ``h`` and its channel
+    mix from the reference's ``h + att``, under both, with zero shift and
+    WKV states (a prefill starts from zero).  Yields one
+    `models.api.BlockDiff` per layer (``time_mix``, ``channel_mix``)."""
     h = ref_params["embed"][tokens].to(_cdtype(cfg))
-    zeros = [z[0] for z in _zero_states(cfg, tokens.shape[0], tokens.device)]
+    att0, ffn0, wkv0 = (z[0] for z in _zero_states(cfg, tokens.shape[0],
+                                                    tokens.device))
     plan, ref_plan = serving_plan(cfg, params), serving_plan(cfg, ref_params)
-    out = []
     for i in range(cfg.n_layers):
-        want = _block(cfg, _layer(ref_params, i), h, *zeros,
-                      plan_layers=None if ref_plan is None
-                      else ref_plan.per_layer[i])[0]
-        got = _block(cfg, _layer(params, i), h, *zeros,
-                     plan_layers=None if plan is None
-                     else plan.per_layer[i])[0]
-        out.append((got, want, None))
+        lp, ref_lp = _layer(params, i), _layer(ref_params, i)
+        plp = None if plan is None else plan.per_layer[i]
+        ref_plp = None if ref_plan is None else ref_plan.per_layer[i]
+        a_ref = _time_mix_inc(cfg, ref_lp, h, att0, wkv0,
+                              plan_layers=ref_plp)[0]
+        a_got = _time_mix_inc(cfg, lp, h, att0, wkv0, plan_layers=plp)[0]
+        mid = h + a_ref
+        f_ref = _channel_mix_inc(cfg, ref_lp, mid, ffn0,
+                                 plan_layers=ref_plp)[0]
+        f_got = _channel_mix_inc(cfg, lp, mid, ffn0, plan_layers=plp)[0]
+        want = mid + f_ref
+        yield BlockDiff(block=f"layer {i}", out=h + a_got + f_got,
+                        ref_out=want, agree=None,
+                        increments=(("time_mix", a_got, a_ref),
+                                    ("channel_mix", f_got, f_ref)))
         h = want
-    return out
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch_size: int) -> Dict[str, P]:
+    """The reference's cache specs: the token-shift states ``[L, B, D]``
+    and the WKV state ``[L, B, H, dh, dh]`` with the batch over the data
+    axes that divide it (`distributed.sharding.shard_batch`), the heads
+    over ``model`` when it divides them.  Without a mesh, ``P()``."""
+    if mesh is None:
+        return {"att_shift": P(), "ffn_shift": P(), "wkv": P()}
+    dp = shd.shard_batch(mesh, batch_size)
+    hsp = shd.dim_spec(mesh, cfg.d_model // cfg.rwkv_head_dim, "model")
+    return {"att_shift": P(None, dp, None), "ffn_shift": P(None, dp, None),
+            "wkv": P(None, dp, hsp, None, None)}
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +371,7 @@ def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor) -> list:
 # ---------------------------------------------------------------------------
 
 @register_family("ssm")
-def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
+def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
     cd = _cdtype(cfg)
 
     def init(seed: int = 0):
@@ -393,4 +432,6 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
 
     return ModelBundle(cfg=cfg, device=device, init=init,
                        train_loss=train_loss, prefill=prefill,
-                       decode_step=decode_step, init_cache=init_cache)
+                       decode_step=decode_step, init_cache=init_cache,
+                       param_specs=lambda: param_specs(cfg, mesh),
+                       cache_specs=lambda b: cache_specs(cfg, mesh, b))

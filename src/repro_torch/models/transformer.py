@@ -41,8 +41,8 @@ from ..distributed import sharding as shd
 from ..distributed.sharding import P
 from ..kernels.kv_cache_update import kv_cache_write_chunk, to_planes
 from ..tree import tree_map
-from .api import (ModelBundle, planned_proj as _proj, register_family,
-                  serving_plan)
+from .api import (BlockDiff, ModelBundle, planned_proj as _proj,
+                  register_family, serving_plan)
 from .layers import (apply_rope, causal_lm_labels, chunked_cross_entropy,
                      decode_attention_planes, dense_init, embed_init,
                      layer_norm, prefill_attention, rms_norm)
@@ -290,9 +290,9 @@ def _moe(cfg: ModelConfig, lp, h: Tensor, plan_layers=None,
     """Capacity-dispatch MoE FFN.  Returns ``(out, aux_loss, route)`` with
     ``route = (gate, expert ids)``, each ``[B, S, K]``, this block's own
     routing.  ``route`` given forces the dispatch to those experts and
-    gates (the teacher-forced parity of `block_diffs`).  Long sequences run
-    in segments of <= ``_MOE_SEG`` tokens, as the reference's scan does:
-    the dispatch buffers are O(tokens)."""
+    gates (the teacher-forced parity of `sublayer_diffs`).  Long
+    sequences run in segments of <= ``_MOE_SEG`` tokens, as the
+    reference's scan does: the dispatch buffers are O(tokens)."""
     cd = _cdtype(cfg)
     b, s, d = h.shape
     x = _norm(cfg, h, lp["mlp_norm"]).to(cd)
@@ -316,6 +316,17 @@ def _moe(cfg: ModelConfig, lp, h: Tensor, plan_layers=None,
         torch.cat(gs, dim=1), torch.cat(es, dim=1))
 
 
+def _route(cfg: ModelConfig, lp, xf: Tensor) -> tuple:
+    """The router on tokens ``xf [T, d]``: ``(probs [T, E], gate [T, K],
+    expert ids [T, K])``, the top-k a stable descending sort and the gates
+    renormalized over it."""
+    logits = (xf @ lp["router"].to(_cdtype(cfg))).float()        # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = gate[:, :cfg.top_k], eidx[:, :cfg.top_k]        # [T, K]
+    return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), eidx
+
+
 def _moe_tokens(cfg: ModelConfig, lp, xf: Tensor, plan_layers=None,
                 route=None) -> tuple:
     """Router, top-k, capacity dispatch, experts, combine, shared experts
@@ -329,11 +340,7 @@ def _moe_tokens(cfg: ModelConfig, lp, xf: Tensor, plan_layers=None,
     cd = _cdtype(cfg)
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
-    logits = (xf @ lp["router"].to(cd)).float()                  # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-    gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, eidx = gate[:, :k], eidx[:, :k]                        # [T, K]
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    probs, gate, eidx = _route(cfg, lp, xf)
     own = (gate, eidx)
     # load-balancing auxiliary (Switch): E * sum_e f_e * p_e
     assign = torch.zeros((t, e), dtype=torch.float32, device=xf.device)
@@ -393,21 +400,24 @@ def _embed_tokens(cfg: ModelConfig, params, batch) -> Tensor:
     return h
 
 
-def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
-                frontend_embed: Tensor | None = None) -> list:
-    """Teacher-forced per-layer comparison of two param sets (e.g. a sparse
-    plan against its masked-dense reference): walk ``ref_params``' prefill
-    and, at every layer, run that layer under both param sets *from the
-    same input hidden state*, so rounding differences do not compound
-    across layers.  An MoE block under ``params`` also takes the reference
-    block's routing (expert ids and gates): a near-tie in the router that
-    breaks the other way would send a token to another expert, a large but
-    legitimate difference, so the comparison covers the projections only.
-
-    Returns per layer ``(out, ref_out, agree)``: the block outputs and, for
-    an MoE block, the share of (token, k) choices on which the two sides'
-    own routing agrees (None for a dense block).  ``frontend_embed``
-    enters through the reference's embedding, as in a prefill."""
+def sublayer_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
+                   frontend_embed: Tensor | None = None):
+    """Teacher-forced per-sublayer comparison of two param sets (a sparse
+    plan against its masked-dense reference): walk ``ref_params``'
+    prefill and, at every layer, run each sublayer under both param sets
+    from the reference's input to it: the attention from the block's
+    input ``h``, the MLP or MoE from the reference's ``h + attn``.  So
+    rounding differences compound neither across layers nor from one
+    sublayer into the next, and each planned projection runs once a
+    layer.  An MoE sublayer under ``params`` takes the reference's
+    routing (expert ids and gates): a near-tie in the router that breaks
+    the other way would send a token to another expert, a large but
+    legitimate difference, so the comparison covers the projections
+    only; ``agree`` is the share of (token, k) choices on which the
+    router of ``params``, on its own ``h + attn``, picks the reference's
+    experts.  ``frontend_embed`` enters through the reference's
+    embedding, as in a prefill.  Yields one `models.api.BlockDiff` per
+    layer (sublayers ``attn`` and ``mlp`` or ``moe``)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     batch = {"tokens": tokens}
@@ -416,22 +426,46 @@ def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
     h = _embed_tokens(cfg, ref_params, batch)
     plan = serving_plan(cfg, params)
     ref_plan = serving_plan(cfg, ref_params)
-    out = []
     for i in range(cfg.n_layers):
         lp = {nm: w[i] for nm, w in params["blocks"].items()}
         ref_lp = {nm: w[i] for nm, w in ref_params["blocks"].items()}
-        want, _, _, ref_route = _block(
-            cfg, h, ref_lp, positions,
-            plan_layers=None if ref_plan is None else ref_plan.per_layer[i])
-        got, _, _, route = _block(
-            cfg, h, lp, positions,
-            plan_layers=None if plan is None else plan.per_layer[i],
-            route=ref_route)
-        agree = None if route is None else \
-            float((route[1] == ref_route[1]).float().mean())
-        out.append((got, want, agree))
+        plp = None if plan is None else plan.per_layer[i]
+        ref_plp = None if ref_plan is None else ref_plan.per_layer[i]
+        a_ref = _attn(cfg, ref_lp, h, positions,
+                      plan_layers=ref_plp)[0].to(h.dtype)
+        a_got = _attn(cfg, lp, h, positions, plan_layers=plp)[0].to(h.dtype)
+        mid = h + a_ref
+        agree = None
+        if cfg.family == "moe":
+            m_ref, _, ref_route = _moe(cfg, ref_lp, mid, plan_layers=ref_plp)
+            m_got, _, _ = _moe(cfg, lp, mid, plan_layers=plp,
+                               route=ref_route)
+            own = _norm(cfg, h + a_got, lp["mlp_norm"]).to(_cdtype(cfg))
+            eidx = _route(cfg, lp, own.reshape(b * s, -1))[2]
+            agree = float((eidx == ref_route[1].reshape(b * s, -1))
+                          .float().mean())
+            name = "moe"
+        else:
+            m_ref = _mlp(cfg, ref_lp, mid, plan_layers=ref_plp)
+            m_got = _mlp(cfg, lp, mid, plan_layers=plp)
+            name = "mlp"
+        m_ref, m_got = m_ref.to(h.dtype), m_got.to(h.dtype)
+        want = mid + m_ref
+        yield BlockDiff(block=f"layer {i}", out=h + a_got + m_got,
+                        ref_out=want, agree=agree,
+                        increments=(("attn", a_got, a_ref),
+                                    (name, m_got, m_ref)))
         h = want
-    return out
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch_size: int) -> Dict[str, P]:
+    """The reference's cache specs: the ``[L, B*KH, S, dh]`` planes over
+    the data axes (then ``model``) when they divide them, rows replicated
+    (`distributed.sharding.kv_plane_spec`).  Without a mesh, ``P()``."""
+    if mesh is None:
+        return {"k": P(), "v": P()}
+    kv = shd.kv_plane_spec(mesh, batch_size * cfg.n_kv_heads, lead_dims=1)
+    return {"k": kv, "v": kv}
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +473,7 @@ def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
 # ---------------------------------------------------------------------------
 
 @register_family(*TRANSFORMER_FAMILIES)
-def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
+def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
     cd = _cdtype(cfg)
 
     def init(seed: int = 0):
@@ -532,4 +566,6 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
 
     return ModelBundle(cfg=cfg, device=device, init=init,
                        train_loss=train_loss, prefill=prefill,
-                       decode_step=decode_step, init_cache=init_cache)
+                       decode_step=decode_step, init_cache=init_cache,
+                       param_specs=lambda: param_specs(cfg, mesh),
+                       cache_specs=lambda b: cache_specs(cfg, mesh, b))

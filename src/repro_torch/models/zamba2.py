@@ -37,8 +37,8 @@ from ..configs.base import ModelConfig
 from ..distributed import sharding as shd
 from ..distributed.sharding import P
 from ..tree import tree_map
-from .api import (ModelBundle, init_shapes, planned_proj as _proj,
-                  register_family, serving_plan)
+from .api import (BlockDiff, ModelBundle, init_shapes,
+                  planned_proj as _proj, register_family, serving_plan)
 from .layers import (apply_rope, causal_lm_labels, chunked_cross_entropy,
                      decode_attention, embed_init, prefill_attention,
                      rms_norm, swiglu)
@@ -239,6 +239,16 @@ def _mamba_block(cfg: ModelConfig, lp, h: Tensor, ssm_state: Tensor,
                  conv_state: Tensor, plan_layers=None) -> tuple:
     """One Mamba2 layer with its residual; returns ``(h, ssm_state,
     conv_state)``."""
+    out, ssm_state, conv_state = _mamba_inc(cfg, lp, h, ssm_state,
+                                            conv_state,
+                                            plan_layers=plan_layers)
+    return h + out, ssm_state, conv_state
+
+
+def _mamba_inc(cfg: ModelConfig, lp, h: Tensor, ssm_state: Tensor,
+               conv_state: Tensor, plan_layers=None) -> tuple:
+    """One Mamba2 layer's increment to the residual ``h`` (in ``h``'s
+    dtype); returns ``(increment, ssm_state, conv_state)``."""
     cd = _cdtype(cfg)
     b, t, _ = h.shape
     d_in, nheads, _, _ = _dims(cfg)
@@ -274,7 +284,7 @@ def _mamba_block(cfg: ModelConfig, lp, h: Tensor, ssm_state: Tensor,
     y = y + lp["D"].float()[None, None, :, None] * xh
     y = rms_norm(y.reshape(b, t, d_in), lp["gate_norm"]) * F.silu(z.float())
     out = _proj(lp, plan_layers, "out_proj", y.to(cd), cd)
-    return h + out.to(h.dtype), ssm_state, conv_state
+    return out.to(h.dtype), ssm_state, conv_state
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +297,15 @@ def _shared_attn(cfg: ModelConfig, sp, h: Tensor, positions: Tensor,
     ``(h, (k, v))``.  ``kv_override`` is ``(k_cache, v_cache, cache_len)``
     for a decode step (caches ``[B, Smax, KH, dh]``): the new row is
     written at ``cache_len`` by a mask select, as the reference's."""
+    a, kv = _shared_attn_inc(cfg, sp, h, positions, kv_override=kv_override)
+    h = h + a
+    return h + _shared_mlp_inc(cfg, sp, h), kv
+
+
+def _shared_attn_inc(cfg: ModelConfig, sp, h: Tensor, positions: Tensor,
+                     kv_override=None) -> tuple:
+    """The shared block's attention increment to the residual ``h`` (in
+    ``h``'s dtype); returns ``(increment, (k, v))``."""
     cd = _cdtype(cfg)
     b, s, _ = h.shape
     dh, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -309,11 +328,15 @@ def _shared_attn(cfg: ModelConfig, sp, h: Tensor, positions: Tensor,
         o = prefill_attention(q, k, v, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
         kv = (k.to(KV_DTYPE), v.to(KV_DTYPE))
-    h = h + (o.reshape(b, s, nh * dh) @ sp["wo"].to(cd)).to(h.dtype)
+    return (o.reshape(b, s, nh * dh) @ sp["wo"].to(cd)).to(h.dtype), kv
+
+
+def _shared_mlp_inc(cfg: ModelConfig, sp, h: Tensor) -> Tensor:
+    """The shared block's SwiGLU increment to the residual ``h``."""
+    cd = _cdtype(cfg)
     x = rms_norm(h, sp["mlp_norm"]).to(cd)
-    mlp = swiglu(x, sp["w_gate"].to(cd), sp["w_up"].to(cd),
-                 sp["w_down"].to(cd))
-    return h + mlp.to(h.dtype), kv
+    return swiglu(x, sp["w_gate"].to(cd), sp["w_up"].to(cd),
+                  sp["w_down"].to(cd)).to(h.dtype)
 
 
 def _zero_states(cfg: ModelConfig, b: int, device) -> tuple:
@@ -324,34 +347,61 @@ def _zero_states(cfg: ModelConfig, b: int, device) -> tuple:
                         dtype=torch.float32, device=device))
 
 
-def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor) -> list:
-    """Teacher-forced per-block comparison of two param sets (a sparse plan
-    against its masked-dense reference), in the model's order: each
-    shared-attention application and each Mamba layer runs under both from
-    the reference's hidden state, the Mamba layers with zero SSM and conv
-    states (a prefill starts from zero).  Returns per block ``(out,
-    ref_out, None)``, as `transformer.block_diffs`."""
+def sublayer_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor):
+    """Teacher-forced per-sublayer comparison of two param sets (a sparse
+    plan against its masked-dense reference), in the model's order, as
+    `transformer.sublayer_diffs`: each shared-block application's
+    attention from the reference's input ``h`` and its SwiGLU from the
+    reference's ``h + attn``, and each Mamba layer from the reference's
+    input with zero SSM and conv states (a prefill starts from zero), run
+    under both.  Yields one `models.api.BlockDiff` per block: ``shared g``
+    (``shared_attn``, ``shared_mlp``) and ``mamba i`` (``mamba``)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     h = ref_params["embed"][tokens].to(_cdtype(cfg))
     zeros = [z[0] for z in _zero_states(cfg, b, tokens.device)]
     plan, ref_plan = serving_plan(cfg, params), serving_plan(cfg, ref_params)
-    out = []
-    for a, bnd in _groups(cfg):
-        want = _shared_attn(cfg, ref_params["shared"], h, positions)[0]
-        got = _shared_attn(cfg, params["shared"], h, positions)[0]
-        out.append((got, want, None))
+    for g, (a, bnd) in enumerate(_groups(cfg)):
+        sp, ref_sp = params["shared"], ref_params["shared"]
+        a_ref = _shared_attn_inc(cfg, ref_sp, h, positions)[0]
+        a_got = _shared_attn_inc(cfg, sp, h, positions)[0]
+        mid = h + a_ref
+        m_ref = _shared_mlp_inc(cfg, ref_sp, mid)
+        m_got = _shared_mlp_inc(cfg, sp, mid)
+        want = mid + m_ref
+        yield BlockDiff(block=f"shared {g}", out=h + a_got + m_got,
+                        ref_out=want, agree=None,
+                        increments=(("shared_attn", a_got, a_ref),
+                                    ("shared_mlp", m_got, m_ref)))
         h = want
         for i in range(a, bnd):
-            want = _mamba_block(cfg, _layer(ref_params, i), h, *zeros,
-                                plan_layers=None if ref_plan is None
-                                else ref_plan.per_layer[i])[0]
-            got = _mamba_block(cfg, _layer(params, i), h, *zeros,
-                               plan_layers=None if plan is None
-                               else plan.per_layer[i])[0]
-            out.append((got, want, None))
+            ref_inc = _mamba_inc(cfg, _layer(ref_params, i), h, *zeros,
+                                 plan_layers=None if ref_plan is None
+                                 else ref_plan.per_layer[i])[0]
+            inc = _mamba_inc(cfg, _layer(params, i), h, *zeros,
+                             plan_layers=None if plan is None
+                             else plan.per_layer[i])[0]
+            want = h + ref_inc
+            yield BlockDiff(block=f"mamba {i}", out=h + inc, ref_out=want,
+                            agree=None,
+                            increments=(("mamba", inc, ref_inc),))
             h = want
-    return out
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch_size: int) -> Dict[str, P]:
+    """The reference's cache specs: the batch over the data axes that
+    divide it (`distributed.sharding.shard_batch`), the SSM state's heads
+    over ``model`` when it divides them, and the shared block's KV
+    ``[n_attn, B, S, KH, dh]`` with the sequence over ``model``.  Without
+    a mesh, ``P()``."""
+    if mesh is None:
+        return {"ssm": P(), "conv": P(), "k": P(), "v": P()}
+    dp = shd.shard_batch(mesh, batch_size)
+    hsp = shd.dim_spec(mesh, _dims(cfg)[1], "model")
+    return {"ssm": P(None, dp, hsp, None, None),
+            "conv": P(None, dp, None, None),
+            "k": P(None, dp, "model", None, None),
+            "v": P(None, dp, "model", None, None)}
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +409,7 @@ def block_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor) -> list:
 # ---------------------------------------------------------------------------
 
 @register_family("hybrid")
-def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
+def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
     cd = _cdtype(cfg)
 
     def init(seed: int = 0):
@@ -457,4 +507,6 @@ def build(cfg: ModelConfig, device: torch.device) -> ModelBundle:
 
     return ModelBundle(cfg=cfg, device=device, init=init,
                        train_loss=train_loss, prefill=prefill,
-                       decode_step=decode_step, init_cache=init_cache)
+                       decode_step=decode_step, init_cache=init_cache,
+                       param_specs=lambda: param_specs(cfg, mesh),
+                       cache_specs=lambda b: cache_specs(cfg, mesh, b))

@@ -8,7 +8,8 @@ Each injector makes exactly the damage one guard layer is built to catch:
   `guard.validate_plan`'s ``scale`` checks and the ``--guard`` NaN
   quarantine
 * `inject_nan_output`      — weight poison -> ``serve --guard``'s NaN
-  bisection and quarantine
+  bisection and quarantine, and serve's parity gate
+* `scale_values`           — finite wrong values -> serve's parity gate
 * `truncate_shard` / `bit_flip_shard` — checkpoint damage against the CRC
   manifest -> `CheckpointManager.restore_latest`'s fallback
 * `poison_autotune_entry`  — cache damage -> `autotune.resolve_blocks`
@@ -151,23 +152,48 @@ def corrupt_scales(plan: ModelPlan, layer: str | None = None,
         name
 
 
-def inject_nan_output(plan: ModelPlan, layer: str | None = None
-                      ) -> Tuple[ModelPlan, str]:
+def _map_values(w, fn, index: int | None):
+    """``w`` with ``fn`` applied to its values (the scales of a quantized
+    encoding: integers hold no NaN), on stacked layer ``index`` alone when
+    given."""
+    def apply(t):
+        if index is None:
+            return fn(t)
+        t = t.clone()
+        t[index] = fn(t[index])
+        return t
+    if isinstance(w, TiledBalanced) and w.quant != "none":
+        return dataclasses.replace(w, scales=apply(w.scales))
+    if isinstance(w, (TiledBalanced, BalancedSparse)):
+        return dataclasses.replace(w, values=apply(w.values))
+    return apply(w)
+
+
+def inject_nan_output(plan: ModelPlan, layer: str | None = None, *,
+                      index: int | None = None) -> Tuple[ModelPlan, str]:
     """Poison every encoded value of one sparse layer with NaN (the scales
     of a quantized one: integers hold no NaN), so its output and every
     downstream logit go non-finite while the encoding stays structurally
-    valid.  Returns ``(poisoned_plan, name)``."""
+    valid; with ``index``, only stacked layer ``index`` of it.  Returns
+    ``(poisoned_plan, name)``."""
     name = _pick_sparse(plan, layer)
     lp = plan.layers[name]
-    w = lp.weights
-    if isinstance(w, TiledBalanced) and w.quant != "none":
-        new = dataclasses.replace(
-            w, scales=torch.full_like(w.scales, float("nan")))
-    elif isinstance(w, (TiledBalanced, BalancedSparse)):
-        new = dataclasses.replace(
-            w, values=torch.full_like(w.values, float("nan")))
-    else:
-        new = torch.full_like(w, float("nan"))
+    new = _map_values(lp.weights, lambda t: torch.full_like(t, float("nan")),
+                      index)
+    return _replace_layer(plan, name, LayerPlan(spec=lp.spec, weights=new)), \
+        name
+
+
+def scale_values(plan: ModelPlan, layer: str | None = None, *,
+                 index: int | None = None) -> Tuple[ModelPlan, str]:
+    """Double one sparse layer's encoded values (a quantized one's
+    scales), on stacked layer ``index`` alone when given: a finite,
+    structurally valid encoding whose numbers are wrong, which only a
+    parity check against the reference can catch.  Returns
+    ``(corrupted_plan, name)``."""
+    name = _pick_sparse(plan, layer)
+    lp = plan.layers[name]
+    new = _map_values(lp.weights, lambda t: t * 2, index)
     return _replace_layer(plan, name, LayerPlan(spec=lp.spec, weights=new)), \
         name
 

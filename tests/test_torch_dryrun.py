@@ -5,7 +5,9 @@ the sum over `init_shapes` and its matmul FLOPs equal to the dot FLOPs of
 the reference's compiled HLO (walked with the reference's `hlo_cost`
 helpers) once the chunks the reference's ``lax.cond`` skips are counted;
 the variants, the skip records, the recurrent families' chunked long
-cells, and the CLI's records."""
+cells, and the CLI's records; on the reference's production meshes the
+per-device bytes of smoke cells equal the reference specs' shard sizes,
+and without a mesh flag the one-card record is as before."""
 import dataclasses
 import json
 import os
@@ -259,3 +261,111 @@ def test_published_decode_cell_fits_and_counts(tmp_path):
     assert rec["model_flops"] == dryrun.model_flops("olmo-1b", "decode_32k")
     assert rec["fits_one_card"] == (rec["resident_bytes"] <= HBM_BYTES)
     assert np.isfinite(rec["roofline"]["bound_s"])
+
+
+# the one-card record's keys, as PR 21 wrote them
+ONE_CARD_KEYS = {"cell", "arch", "shape", "kind", "batch", "seq_len",
+                 "smoke", "mesh", "variant", "status", "n_devices",
+                 "build_s", "flops", "flops_by_op", "collectives", "memory",
+                 "resident_bytes", "fits_one_card", "hbm_bytes",
+                 "model_flops", "model_flops_ratio", "roofline"}
+
+
+def _ref_shard_bytes(ref_mesh, tree, specs):
+    """Bytes of one device's shards under the reference's specs:
+    ``NamedSharding(mesh, spec).shard_shape`` of every leaf of ``tree``
+    (a pytree of shape-dtype structs)."""
+    from jax.sharding import NamedSharding, PartitionSpec
+    spec_leaves = jax.tree.leaves(
+        specs, is_leaf=lambda x: isinstance(x, PartitionSpec))
+    total = 0
+    for leaf, spec in zip(jax.tree.leaves(tree), spec_leaves, strict=True):
+        shard = NamedSharding(ref_mesh, spec).shard_shape(leaf.shape)
+        total += int(np.prod(shard)) * jnp.dtype(leaf.dtype).itemsize
+    return total
+
+
+@pytest.mark.parametrize("arch,shape", [("olmo-1b", "train_4k"),
+                                        ("olmo-1b", "decode_32k"),
+                                        ("zamba2-1.2b", "decode_32k"),
+                                        ("rwkv6-3b", "prefill_32k"),
+                                        ("deepseek-moe-16b", "train_4k")])
+def test_production_mesh_bytes_equal_reference_shards(arch, shape,
+                                                      tmp_path):
+    """A smoke cell on ``pod16x16`` (batch 32, 64 tokens): each part's
+    per-device bytes equal the sum of the reference's shard sizes under
+    its own bundle's specs on the ``AbstractMesh`` (16, 16): params and
+    grads by ``param_specs``, AdamW by them with the step replicated, the
+    cache by ``cache_specs``, the inputs by ``batch_partition_spec``.
+    Per-device FLOPs and collectives are null with their reason; the
+    global FLOPs and bytes are the one-card record's."""
+    from jax.sharding import AbstractMesh, PartitionSpec
+    from repro.models.api import batch_partition_spec as ref_bps
+    from repro.models.api import input_specs as ref_input_specs
+    from repro.optim import adamw_init as ref_adamw_init
+    b, s = 32, 64
+    rec = dryrun.run_cell(arch, shape, smoke=True, batch=b, seq_len=s,
+                          mesh_tag="pod16x16", out_dir=tmp_path)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["cell"].split("__")[2] == "pod16x16"
+    assert rec["mesh"] == "pod16x16" and rec["n_chips"] == 256
+    one = dryrun.run_cell(arch, shape, smoke=True, batch=b, seq_len=s,
+                          save=False)
+    for key in ("flops", "memory", "resident_bytes", "model_flops"):
+        assert rec[key] == one[key], key
+    assert rec["flops_per_device"] is None and rec["collectives"] is None
+    assert "SPMD" in rec["per_device_null_reason"]
+    assert not {"fits_one_card", "roofline", "n_devices"} & set(rec)
+    ref_mesh = AbstractMesh((16, 16), ("data", "model"))
+    cfg_j = dryrun.apply_variant(ref_get_smoke(arch), rec["variant"])
+    bundle = ref_build_model(cfg_j, ref_mesh)
+    params = jax.eval_shape(bundle.init,
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    pspecs = bundle.param_specs()
+    spec = dataclasses.replace(REF_SHAPES[shape], global_batch=b,
+                               seq_len=s)
+    want = {"param_bytes": _ref_shard_bytes(ref_mesh, params, pspecs),
+            "input_bytes": _ref_shard_bytes(
+                ref_mesh, ref_input_specs(cfg_j, spec),
+                ref_bps(cfg_j, spec, ref_mesh)),
+            "opt_bytes": 0, "grad_bytes": 0, "cache_bytes": 0}
+    if spec.kind == "train":
+        opt = jax.eval_shape(ref_adamw_init, params)
+        want["opt_bytes"] = _ref_shard_bytes(
+            ref_mesh, opt, {"m": pspecs, "v": pspecs, "step": PartitionSpec()})
+        want["grad_bytes"] = want["param_bytes"]
+    else:
+        # decode: the cache the step reads; prefill: the one it returns
+        cache = jax.eval_shape(lambda: bundle.init_cache(b, s)) \
+            if spec.kind == "decode" else jax.eval_shape(
+                bundle.prefill, params, ref_input_specs(cfg_j, spec))[1]
+        want["cache_bytes"] = _ref_shard_bytes(ref_mesh, cache,
+                                               bundle.cache_specs(b))
+    assert rec["per_device"] == want
+    assert rec["resident_bytes_per_device"] == sum(want.values())
+    assert rec["fits_hbm"] == (sum(want.values()) <= HBM_BYTES)
+
+
+def test_one_card_record_unchanged_and_mesh_flags(tmp_path, capsys):
+    """Without a mesh flag the record is the one-card record (`gpu1`, its
+    keys as before); ``--production-mesh`` and ``--multi-pod`` write the
+    same cell under ``pod16x16`` / ``pod2x16x16``, and refuse each
+    other."""
+    rec = dryrun.run_cell("olmo-1b", "decode_32k", smoke=True, batch=B,
+                          seq_len=S, save=False)
+    assert set(rec) == ONE_CARD_KEYS and rec["mesh"] == "gpu1"
+    assert rec["n_devices"] == 1 and rec["collectives"]["total_bytes"] == 0
+    args = ["--arch", "olmo-1b", "--shape", "decode_32k", "--smoke",
+            "--batch", "32", "--seq-len", "64", "--out", str(tmp_path)]
+    for flag, tag, chips in (("--production-mesh", "pod16x16", 256),
+                             ("--multi-pod", "pod2x16x16", 512)):
+        [r] = dryrun.main(args + [flag])
+        assert r["status"] == "ok" and r["mesh"] == tag
+        assert r["n_chips"] == chips
+        assert (tmp_path / f"{r['cell']}.json").exists()
+        assert f"__{tag}__" in r["cell"]
+    assert "fits_hbm=True" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        dryrun.main(args + ["--production-mesh", "--multi-pod"])
+    with pytest.raises(ValueError, match="mesh_tag"):
+        dryrun.run_cell("olmo-1b", "decode_32k", mesh_tag="pod4x4")

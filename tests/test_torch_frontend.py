@@ -185,23 +185,27 @@ def test_plans_match_reference(arch):
 
 @pytest.mark.parametrize("arch", FRONTEND_ARCHS)
 def test_block_diffs_with_frontend(arch):
-    """The per-layer teacher-forced comparison takes ``frontend_embed``
+    """The teacher-forced sublayer comparison takes ``frontend_embed``
     (chip_smoke's frontend check): the plan against its masked-dense
-    reference within 2e-2 at every layer at bf16; with the frontend the
-    first layer's input is the projected rows."""
+    reference within 2e-2 at every sublayer and block output at bf16;
+    with the frontend the first layer's input is the projected rows."""
     _, m, _, params = _served(arch, "bfloat16", "cuda")
     tokens, fe = _batch(m.cfg)
     ref = engine_plan.masked_dense_params(params, params["sparse_plan"])
     batch = _port_batch(tokens, fe)
     with torch.no_grad():
-        diffs = transformer.block_diffs(m.cfg, params, ref, batch["tokens"],
-                                        frontend_embed=batch["frontend_embed"])
-        plain = transformer.block_diffs(m.cfg, params, ref, batch["tokens"])
+        diffs = list(transformer.sublayer_diffs(
+            m.cfg, params, ref, batch["tokens"],
+            frontend_embed=batch["frontend_embed"]))
+        plain = next(transformer.sublayer_diffs(m.cfg, params, ref,
+                                                batch["tokens"]))
     assert len(diffs) == m.cfg.n_layers
-    for got, want, agree in diffs:
-        _close(got, _np(want), TOL["bfloat16"])
-        assert agree is None
-    assert float((diffs[0][1] - plain[0][1]).abs().max()) > 0
+    for d in diffs:
+        for _, inc, want in d.increments:
+            _close(inc, _np(want), TOL["bfloat16"])
+        _close(d.out, _np(d.ref_out), TOL["bfloat16"])
+        assert d.agree is None
+    assert float((diffs[0].ref_out - plain.ref_out).abs().max()) > 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -769,9 +769,10 @@ def test_serve_guard_clean_plan_shows_no_degradation():
     pytest.param("k_nan_first_chunk", 32, 8, 16, id="k_nan-s32-q8-kv16"),
     pytest.param("k_inf_first_chunk", 32, 8, 16, id="k_inf-s32-q8-kv16"),
     pytest.param("q_rows", 32, 8, 16, id="q_rows-s32-q8-kv16"),
-    # one chunk, a NaN key beside a finite score above ~88: the one case
-    # where the models' one-chunk form (`causal_attention`) differs from
-    # the reference, whose exp overflows there (pinned, not hidden)
+    # one chunk, a NaN key beside a finite score above ~88: the
+    # reference's exp overflows and its rows from the NaN key on are NaN;
+    # the models' prefill attention gives the same, the unchunked twin
+    # (`causal_attention`, no model's) finite rows (pinned, not hidden)
     pytest.param("k_nan_beside_overflow", 8, 8, 8, id="k_nan-overflow"),
 ])
 def test_prefill_attention_non_finite_scores_as_reference(poison, s, q_chunk,
@@ -780,14 +781,14 @@ def test_prefill_attention_non_finite_scores_as_reference(poison, s, q_chunk,
     weight (a row with none finite gives zeros), so a NaN q / k projection
     is first seen in the decode step; the port's does the same, and equals
     it on finite inputs.  The models' prefill attention
-    (`layers.prefill_attention`, the chunked form) equals the reference's
-    at every chunking, also where a poisoned key sits in the first of
-    several kv chunks; the unchunked `causal_attention` equals it on one
-    chunk.  At one chunk `prefill_attention` takes `causal_attention`
-    (ROADMAP Queue 3 item 13), which differs from the reference where a
-    row holds a NaN score and a finite one above ~88: the reference's
-    ``exp(sc - 0)`` overflows and the row is NaN, the port's is finite and
-    gives the NaN key no weight; the rows before the NaN key agree."""
+    (`layers.prefill_attention`, always the chunked form) equals the
+    reference's at every chunking, one chunk included, also where a
+    poisoned key sits in the first of several kv chunks; the unchunked
+    `causal_attention` equals it on one chunk but for one case: a row
+    holding a NaN score and a finite one above ~88, where the reference's
+    ``exp(sc - 0)`` overflows and the row is NaN (so is
+    `prefill_attention`'s), while the unchunked twin's is finite and gives
+    the NaN key no weight; the rows before the NaN key agree."""
     from repro.models.layers import blocked_causal_attention
     from repro_torch.models.layers import causal_attention, prefill_attention
     rng = np.random.default_rng(9)
@@ -818,17 +819,19 @@ def test_prefill_attention_non_finite_scores_as_reference(poison, s, q_chunk,
     if poison == "k_nan_beside_overflow":
         want = np.asarray(want)
         assert np.isnan(want[:, 3:]).all() and np.isfinite(want[:, :3]).all()
-        # rows 4.. are the softmax over the finite scores alone: the same
-        # attention with position 3 taken out of q, k and v
+        got, twin = paths
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        assert np.isnan(got[:, 3:].numpy()).all()
+        # the unchunked twin's rows 4.. are the softmax over the finite
+        # scores alone: the same attention with position 3 taken out of
+        # q, k and v
         rule = causal_attention(*(torch.from_numpy(np.delete(a, 3, axis=1))
                                   for a in (q, k, v)))
-        for got in paths:
-            assert bool(torch.isfinite(got).all())
-            np.testing.assert_allclose(got[:, :3].numpy(), want[:, :3],
-                                       rtol=1e-5, atol=1e-5)
-            np.testing.assert_allclose(got[:, 4:].numpy(),
-                                       rule[:, 3:].numpy(), rtol=1e-5,
-                                       atol=1e-5)
+        assert bool(torch.isfinite(twin).all())
+        np.testing.assert_allclose(twin[:, :3].numpy(), want[:, :3],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(twin[:, 4:].numpy(), rule[:, 3:].numpy(),
+                                   rtol=1e-5, atol=1e-5)
         return
     for got in paths:
         assert bool(torch.isfinite(got).all())

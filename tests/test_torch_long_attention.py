@@ -174,14 +174,9 @@ def _ref_chunks(arch, cfg_chunks, s, monkeypatch):
 
 def _port_chunks(arch, cfg_chunks, s, monkeypatch):
     """The chunks the port's attention sublayer runs at: the blocked form's
-    arguments, or ``(s, s)`` where one chunk takes the unchunked form."""
+    arguments (its one form, a one-chunk sequence included)."""
     calls = []
     monkeypatch.setattr(layers, "blocked_causal_attention", _spy(calls))
-
-    def unchunked(q, k, v):
-        calls.append((q.shape[1], q.shape[1]))
-        return q
-    monkeypatch.setattr(layers, "causal_attention", unchunked)
     cfg = dataclasses.replace(get_smoke(arch), q_chunk=cfg_chunks[0],
                               kv_chunk=cfg_chunks[1])
     gen = torch.Generator().manual_seed(0)
@@ -205,6 +200,32 @@ def test_chunk_rule_matches_reference(arch, cfg_chunks, monkeypatch):
         got = _port_chunks(arch, cfg_chunks, s, monkeypatch)
         assert len(want) == 1 and got == want, (s, got, want)
         assert layers.attention_chunks(s, *cfg_chunks) == want[0]
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "zamba2-1.2b"])
+def test_one_chunk_prefill_attention_matches_reference(arch):
+    """At a one-chunk length (a serving prompt of 8 tokens, and the smoke
+    config's whole chunk) the models' `prefill_attention` equals the
+    reference's ``blocked_causal_attention`` at the chunks the reference's
+    model picks, on finite inputs with the smoke config's heads, 1e-5."""
+    cfg = get_smoke(arch)
+    g = cfg.n_heads // cfg.n_kv_heads
+    for s in (8, min(cfg.q_chunk, cfg.kv_chunk)):
+        qc, kc = layers.attention_chunks(s, cfg.q_chunk, cfg.kv_chunk)
+        assert (qc, kc) == (s, s)
+        rng = np.random.default_rng(s)
+        q = rng.standard_normal((B, s, cfg.n_kv_heads * g, cfg.head_dim)
+                                ).astype(np.float32)
+        k, v = (rng.standard_normal((B, s, cfg.n_kv_heads, cfg.head_dim)
+                                    ).astype(np.float32) for _ in range(2))
+        want = ref_layers.blocked_causal_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), q_chunk=s, kv_chunk=s)
+        got = layers.prefill_attention(*(torch.from_numpy(a)
+                                         for a in (q, k, v)),
+                                       q_chunk=cfg.q_chunk,
+                                       kv_chunk=cfg.kv_chunk)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -291,16 +291,20 @@ def test_greedy_tokens_equal_reference_f32():
 
 
 def test_block_diffs_forces_reference_routing():
-    """`block_diffs` on MoE: every layer's sparse block takes the
-    reference block's routing, and the own-routing agreement is a share."""
+    """`sublayer_diffs` on MoE: every layer's sparse MoE sublayer takes the
+    reference block's routing, and the own-routing agreement is a share;
+    the increments and the block outputs within the bf16 tolerance."""
     _, m, _, got, prompt = _setup("bfloat16")
     with torch.no_grad():
-        diffs = tr.block_diffs(m.cfg, got["sparse"], got["dense"],
-                               torch.from_numpy(prompt))
+        diffs = list(tr.sublayer_diffs(m.cfg, got["sparse"], got["dense"],
+                                       torch.from_numpy(prompt)))
     assert len(diffs) == m.cfg.n_layers
-    for out, want, agree in diffs:
-        assert out.shape == want.shape and 0.0 <= agree <= 1.0
-        _close(out, want.float().numpy(), "bfloat16")
+    for d in diffs:
+        assert d.out.shape == d.ref_out.shape and 0.0 <= d.agree <= 1.0
+        assert [nm for nm, _, _ in d.increments] == ["attn", "moe"]
+        for _, inc, want in d.increments:
+            _close(inc, want.float().numpy(), "bfloat16")
+        _close(d.out, d.ref_out.float().numpy(), "bfloat16")
 
 
 @pytest.mark.parametrize("impl", ["cuda", "xla"])

@@ -1,8 +1,10 @@
 """The port's mesh description and sharding rules against the JAX
 reference's: every spec decision (`dim_spec`, `logical_spec`,
 `shard_batch`, `kv_plane_spec`, `page_table_spec`, `paged_pool_specs`,
-`batch_partition_spec` for every shape, `param_specs` of every family at
-smoke and published width, `plan_specs` of an olmo-1b smoke plan) equal,
+`batch_partition_spec` for every shape, `param_specs` and the bundles'
+`cache_specs` of every family at smoke and published width, `plan_specs`
+of an olmo-1b smoke plan) and `shard_shape` against ``NamedSharding``
+equal,
 compared as tuples, on the port's `Mesh` and on a jax ``AbstractMesh`` of
 the same axis sizes — (1, 1), (4, 4), (16, 16) and (2, 16, 16); the
 one-device identities; and `cost_model.DTYPE_BITS` with its functions (the
@@ -173,10 +175,11 @@ _REF_SPECS = {**{f: ref_transformer.param_specs
 
 
 def test_entry_points_dispatch_through_the_registry(monkeypatch):
-    """`build_model`, `init_shapes`, `param_specs` and `block_diffs` reach
-    a family through `register_family` alone: every arch's family is
-    served by its module, a family registered under a new name is served
-    by the module of its ``build``, and an unregistered name raises."""
+    """`build_model`, `init_shapes`, `param_specs`, `cache_specs` and
+    `sublayer_diffs` reach a family through `register_family` alone:
+    every arch's family is served by its module, a family registered
+    under a new name is served by the module of its ``build``, and an
+    unregistered name raises."""
     for arch in ARCHS:
         cfg = get_smoke(arch)
         want = {"ssm": "rwkv6", "hybrid": "zamba2"}.get(cfg.family,
@@ -185,14 +188,15 @@ def test_entry_points_dispatch_through_the_registry(monkeypatch):
             f"repro_torch.models.{want}"
     toy = types.ModuleType("toy_family")
 
-    def build(cfg, device):
+    def build(cfg, device, mesh=None):
         return ("bundle", cfg.family, device)
 
     build.__module__ = toy.__name__
     toy.init_params = lambda cfg, gen, device: {
         "w": torch.empty((2, 3), device=device)}
     toy.param_specs = lambda cfg, mesh: {"w": shd.P(None, "model")}
-    toy.block_diffs = lambda cfg, params, ref, tokens, **kw: [kw]
+    toy.cache_specs = lambda cfg, mesh, b: {"k": shd.P(None, b)}
+    toy.sublayer_diffs = lambda cfg, params, ref, tokens, **kw: [kw]
     monkeypatch.setitem(sys.modules, toy.__name__, toy)
     monkeypatch.setattr(api, "_REGISTRY", dict(api._REGISTRY))
     assert api.register_family("toy", "toy2")(build) is build
@@ -203,7 +207,9 @@ def test_entry_points_dispatch_through_the_registry(monkeypatch):
         w = api.init_shapes(cfg)["w"]
         assert w.is_meta and tuple(w.shape) == (2, 3)
         assert api.param_specs(cfg, None) == {"w": shd.P(None, "model")}
-        assert api.block_diffs(cfg, {}, {}, None, extra=1) == [{"extra": 1}]
+        assert api.cache_specs(cfg, None, 3) == {"k": shd.P(None, 3)}
+        assert api.sublayer_diffs(cfg, {}, {}, None, extra=1) == \
+            [{"extra": 1}]
     cfg = dataclasses.replace(get_smoke("olmo-1b"), family="unregistered")
     with pytest.raises(ValueError, match="unknown family 'unregistered'"):
         api.build_model(cfg, "cpu")
@@ -245,6 +251,72 @@ def test_param_specs_without_mesh_and_init_shapes(arch):
         assert t.device.type == "meta"
         assert tuple(t.shape) == tuple(rf[p].shape), p
         assert str(t.dtype).removeprefix("torch.") == str(rf[p].dtype), p
+
+
+BATCHES = (1, 2, 4, 8, 32, 256)
+
+
+@pytest.mark.parametrize("which", ["smoke", "published"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_specs_every_family(arch, which, meshes):
+    """The bundles' ``cache_specs(batch)`` (and `api.cache_specs`) equal,
+    as tuples, the reference bundle's built on the jax ``AbstractMesh`` of
+    the same sizes, at every batch of `BATCHES`; without a mesh ``P()``
+    for every leaf, as the reference's."""
+    from repro_torch.models import build_model
+    port, ref = meshes
+    cfg = get_smoke(arch) if which == "smoke" else get_config(arch)
+    ref_cfg = ref_get_smoke(arch) if which == "smoke" \
+        else ref_get_config(arch)
+    bundle = build_model(cfg, "meta", mesh=port)
+    ref_bundle = ref_build_model(ref_cfg, ref)
+    for b in BATCHES:
+        want = _spec_tree(ref_bundle.cache_specs(b))
+        assert _spec_tree(bundle.cache_specs(b)) == want, b
+        assert _spec_tree(api.cache_specs(cfg, port, b)) == want, b
+    assert _spec_tree(bundle.param_specs()) == \
+        _spec_tree(ref_bundle.param_specs())
+    plain = build_model(cfg, "meta")
+    assert _spec_tree(plain.cache_specs(4)) == \
+        _spec_tree(ref_build_model(ref_cfg).cache_specs(4))
+    assert set(_spec_tree(plain.cache_specs(4)).values()) == {()}
+    assert sorted(plain.cache_specs(4)) == \
+        sorted(plain.init_cache(4, 16))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_shard_shape_equals_named_sharding(arch, meshes):
+    """`sharding.shard_shape` equals ``NamedSharding(AbstractMesh, spec)
+    .shard_shape(shape)`` for every param leaf (published width) and
+    every cache leaf of a decode cell's cache (batch 32 x 32768 tokens)
+    of the arch, on every mesh; a dim its axes do not divide raises in
+    both."""
+    from jax.sharding import NamedSharding, PartitionSpec
+    from repro_torch.models import build_model
+    from repro_torch.tree import flatten_with_paths
+    port, ref = meshes
+    cfg = get_config(arch)
+    bundle = build_model(cfg, "meta", mesh=port)
+    pairs = [(api.init_shapes(cfg), bundle.param_specs()),
+             (bundle.init_cache(32, 32768), bundle.cache_specs(32))]
+    n = 0
+    for tree, specs in pairs:
+        by_path = _spec_tree(specs)
+        for path, t in flatten_with_paths(tree):
+            spec = shd.P(*by_path[path])
+            want = NamedSharding(ref, PartitionSpec(*spec)).shard_shape(
+                tuple(t.shape))
+            assert shd.shard_shape(port, tuple(t.shape), spec) == \
+                tuple(want), (path, spec)
+            n += 1
+    assert n > 10
+    if port.size > 1:
+        with pytest.raises(ValueError, match="does not divide"):
+            shd.shard_shape(port, (3, 5), shd.P("model"))
+        with pytest.raises(ValueError):
+            NamedSharding(ref, PartitionSpec("model")).shard_shape((3, 5))
+    with pytest.raises(ValueError, match="more dims"):
+        shd.shard_shape(port, (4,), shd.P(None, None))
 
 
 def test_transformer_use_specs_and_identities(meshes):

@@ -223,6 +223,23 @@ Then the long prefill, after phase 20, fatal as above:
              (`launch.dryrun`, batch 1): its param and cache bytes equal to
              the card's tensors', beside the measured peak.
 
+Then the mesh, after phase 21, fatal as above:
+
+22. mesh  — which ``gloo`` collectives take CUDA tensors (two ranks on
+             the card); then ``serve --mesh data=2,model=2`` of olmo-1b at
+             published width (depth `MESH_LAYERS`), bf16, batch 4, prompt
+             32, 8 new tokens through the kv kernel: four
+             `torch.distributed` ranks, one process each, all on cuda:0
+             over ``gloo``, each holding its shards of the params, the
+             plan and the cache by the reference's specs; its greedy
+             tokens equal to a one-process run of the same plan, the
+             logits of its prefill and of every decode step within 2e-2
+             of that run's, each rank's resident bytes
+             equal to the dry run's `shard_bytes`, each rank's launches of
+             the wide, skinny and kv kernels equal to the plan's count;
+             the device count, the backend, each rank's collectives, peak
+             memory and wall printed.
+
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -437,6 +454,24 @@ ATTENTION_RANGE = "attention"
 # rounds its input, projections, SwiGLU product and residual sums to bf16)
 WITNESS_RATIO, WITNESS_REL = 1.25, TOL["bfloat16"]
 WITNESS_LABEL = "long_prefill bf16 witness"
+# phase 22, the mesh: olmo-1b at published width, bf16, batch 4, prompt
+# 32, 8 new tokens through the kv kernel, served by four torch.distributed
+# ranks on a (data=2, model=2) mesh, all sharing cuda:0 over gloo (NCCL
+# refuses two ranks on one card); depth cut to MESH_LAYERS when the phase
+# would pass ~150 s
+MESH, MESH_RANKS, MESH_LAYERS, MESH_GEN_STEPS = "data=2,model=2", 4, 16, 8
+MESH_ARGS = ["--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
+             "--gen-steps", str(MESH_GEN_STEPS), "--sparsity", str(SPARSITY),
+             "--n-layers", str(MESH_LAYERS), "--mesh", MESH]
+# each rank's launches: one wide launch a planned projection and layer in
+# the prefill (M = 2 rows x 32), one skinny launch a projection, layer and
+# decode step (M = 2), one kv launch for k and one for v a layer and step
+MESH_PROJECTIONS = 7
+MESH_LAUNCHES = {
+    "tiled_balanced_spmm": MESH_PROJECTIONS * MESH_LAYERS,
+    "tiled_balanced_spmm_skinny": MESH_PROJECTIONS * MESH_LAYERS
+    * MESH_GEN_STEPS,
+    "kv_cache_update": 2 * MESH_LAYERS * MESH_GEN_STEPS}
 
 
 def log(msg: str) -> None:
@@ -3251,6 +3286,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 21. long prefill: {time.monotonic() - t0:.1f} s")
 
+    # 22. the mesh: olmo-1b on four ranks sharing the card (counts zeroed
+    # just before each rank's greedy path and read just after, in the rank)
+    t0 = time.monotonic()
+    mesh_phase(torch, serve, paths)
+    torch.cuda.empty_cache()
+    log(f"phase 22. mesh: {time.monotonic() - t0:.1f} s")
+
     # 10. result: launches summed over the paths' runs; each kernel's timed
     # row at bf16, at the quant mode its serve path runs, at the shape its
     # main path runs (the kv kernel: a decode write into a 4096-row cache)
@@ -3294,6 +3336,59 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def mesh_phase(torch, serve, paths: dict) -> None:
+    """Phase 22: which gloo collectives take CUDA tensors (two ranks),
+    then ``serve --mesh`` of olmo-1b on four ranks sharing the card:
+    serve's own gates (every rank's greedy tokens equal to a one-process
+    run of the same plan in this process, the logits of the prefill and
+    of every decode step within 2e-2 of its,
+    each rank's resident bytes of placed leaves equal to the dry run's
+    `shard_bytes`), held again here, and each rank's launches of rows 1, 2
+    and 8 equal to the plan's count (`MESH_LAUNCHES`)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.testing import multidevice
+    log(f"phase 22 mesh: {torch.cuda.device_count()} device(s), backend "
+        f"gloo, {MESH_RANKS} ranks on cuda:0, olmo-1b {MESH_LAYERS} of "
+        f"{OLMO_LAYERS} layers")
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = run_ranks(multidevice.gloo_cuda_probe, 2,
+                          init_method=f"file://{tmp}/probe", timeout_s=180)
+        log(f"gloo collectives on CUDA tensors: {json.dumps(probe[0])}")
+        ns = serve.build_parser().parse_args(
+            MESH_ARGS + ["--dist-init", f"file://{tmp}/mesh"])
+        cfg = dataclasses.replace(serve.config(ns), cache_update="scatter")
+        res = serve.run(ns, cfg)["mesh"]
+    steps = res["step_logits_max_abs_diff"]
+    log(f"mesh {res['mesh']} over {res['backend']}: tokens equal to one "
+        f"process {res['tokens_equal']}, logits max |diff| prefill "
+        f"{steps[0]:.6g}, decode steps "
+        f"{[round(e, 6) for e in steps[1:]]} (tol {res['parity_tol']:g}), "
+        f"resident bytes equal to shard_bytes {res['bytes_equal']}, ranks "
+        f"{res['ranks_s']:.1f} s; tokens[0] {res['tokens'][0]}")
+    if not res["tokens_equal"] or not res["bytes_equal"] \
+            or max(steps) > TOL["bfloat16"]:
+        raise AssertionError(f"the mesh run failed its gates: {res}")
+    for r in res["ranks"]:
+        got = {k: r["kernel_launches"][k] for k in MESH_LAUNCHES}
+        log(f"mesh rank {r['rank']} {r['coord']}: launches {got}, resident "
+            f"{r['resident_bytes']} B (shard_bytes {r['shard_bytes']}), peak "
+            f"{r['peak_gib']} GiB serving, {r['setup_peak_gib']} GiB in set-up"
+            f" (whole params and plan), set-up {r['setup_s']:.1f} s, greedy "
+            f"{r['wall_s']:.3f} s "
+            f"({ns.batch * MESH_GEN_STEPS / r['wall_s']:.2f} tok/s)")
+        log(f"mesh rank {r['rank']} collectives " + ", ".join(
+            f"{k}: {c['ops']} ops {c['bytes']} B"
+            for k, c in r["collectives"].items()))
+        if got != MESH_LAUNCHES:
+            raise AssertionError(f"rank {r['rank']} launched {got}, the "
+                                 f"plan's count is {MESH_LAUNCHES}")
+    paths["olmo-1b mesh"] = {
+        k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
+        for k in launches()}
 
 
 def serve_run(torch, serve, label: str, args: list,

@@ -1,5 +1,6 @@
 """Sharding rules — counterpart of `repro.distributed.sharding`, over the
-port's own `launch.mesh.Mesh`.
+port's `launch.mesh.Mesh` (a description) and `launch.mesh.LiveMesh` (live
+`torch.distributed` ranks).
 
 The reference maps its production mesh ``(data, model)`` (or ``(pod,
 data, model)``) onto every parameter and activation:
@@ -11,20 +12,36 @@ data, model)``) onto every parameter and activation:
 * ``pod``   — pure data parallel, composed with ``data`` for the batch.
 
 Every rule is divisibility-guarded: a dim is sharded over an axis only if
-the axis size divides it.  The port runs on one device, so the rules here
-decide the same specs (tuples of axis names, `P`) for a mesh that
-describes axis sizes, and nothing is placed: `named`, `tree_shardings`,
-`with_hidden_sharding` and `with_channel_sharding` return what they are
-given.  The decisions equal the reference's on every mesh, which is what
-lets a spec be reasoned about here before a multi-device port exists;
-`shard_shape` turns a decision into one device's shard, which the dry
-run's production-mesh records sum into per-device bytes.
+the axis size divides it.  The rules decide the same specs (tuples of
+axis names, `P`) as the reference's on any mesh; `shard_shape` turns a
+decision into one device's shard, which the dry run's production-mesh
+records sum into per-device bytes.
+
+On a live mesh the decisions are carried out: `place` cuts a rank's block
+of a whole tensor, `gather` reassembles blocks over named axes
+(``all_gather``), `all_reduce` sums over named axes, `planes_of` /
+`rows_of` move an activation between the batch-row layout and the
+cache's plane layout, and `named` / `tree_shardings` give placements.  A
+dim split over a tuple of axes is split first axis major, as the
+reference splits it.  Every collective ticks `COLLECTIVES` (per kind, its
+ops and operand bytes: the counterpart of the reference's
+``hlo_cost.analyze(...).coll``); a collective over axes that hold one
+rank is skipped and not counted.  On a description `named`,
+`tree_shardings`, `with_hidden_sharding` and `with_channel_sharding`
+return what they are given.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
+import math
 from typing import Sequence
 
-from ..launch.mesh import Mesh
+import torch
+
+from ..launch.mesh import LiveMesh, Mesh, spec_axes
+
+Tensor = torch.Tensor
 
 
 class P(tuple):
@@ -140,13 +157,15 @@ def shard_shape(mesh: Mesh, shape: Sequence[int], spec: P) -> tuple:
 
 def with_hidden_sharding(mesh: Mesh, h, *, seq_parallel: bool = True):
     """The reference constrains hidden states ``[B, S, D]`` to batch over
-    dp and sequence over ``model``; on one device that is ``h`` itself."""
+    dp and sequence over ``model``; the port's live path keeps a rank's
+    batch rows whole (`models.transformer`), so this is ``h`` itself."""
     return h
 
 
 def with_channel_sharding(mesh: Mesh, h):
     """The reference constrains ``[B, S, D]`` with D over ``model`` (the
-    recurrent families' layout); on one device that is ``h`` itself."""
+    recurrent families' layout); the recurrent families do not run on a
+    live mesh yet, so this is ``h`` itself."""
     return h
 
 
@@ -163,19 +182,281 @@ def page_table_spec(mesh: Mesh) -> P:
     return P(None, None)
 
 
-def named(mesh: Mesh, spec: P) -> P:
-    """The reference's ``NamedSharding(mesh, spec)``; on one device there
-    is nothing to place, and the spec is returned."""
-    return spec
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """The reference's ``NamedSharding(mesh, spec)`` on a live mesh."""
+    mesh: LiveMesh
+    spec: P
+
+    def place(self, t: Tensor) -> Tensor:
+        return place(t, self.mesh, self.spec)
 
 
-def tree_shardings(mesh: Mesh, spec_tree):
-    """The reference maps `named` over a tree of specs; on one device the
-    tree is returned as it is."""
-    return spec_tree
+def named(mesh, spec: P):
+    """The reference's ``NamedSharding(mesh, spec)``: a `Placement` on a
+    live mesh; on a description, nothing is placed and the spec is
+    returned."""
+    return Placement(mesh, spec) if isinstance(mesh, LiveMesh) else spec
+
+
+def tree_shardings(mesh, spec_tree):
+    """`named` over a dict tree of specs (a spec is a leaf); on a
+    description, the tree itself."""
+    if not isinstance(mesh, LiveMesh):
+        return spec_tree
+    if isinstance(spec_tree, dict):
+        return {k: tree_shardings(mesh, v) for k, v in spec_tree.items()}
+    return named(mesh, spec_tree)
+
+
+def place_tree(tree, shardings):
+    """Each tensor of a dict tree cut to its `Placement`'s block (the
+    reference's ``device_put(tree, shardings)``); a leaf whose sharding is
+    a bare spec (a description) is kept whole."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    return shardings.place(tree) if isinstance(shardings, Placement) \
+        else tree
+
+
+# ---------------------------------------------------------------------------
+# Live meshes: blocks and collectives
+# ---------------------------------------------------------------------------
+
+class CollectiveCounter:
+    """Collectives run, per kind: ``{kind: {"ops": n, "bytes": b}}``, the
+    bytes each rank's operand holds (a gather's shard, a sum's tensor)."""
+
+    def __init__(self):
+        self._counts: "collections.defaultdict" = collections.defaultdict(
+            collections.Counter)
+
+    def record(self, kind: str, nbytes: int) -> None:
+        self._counts[kind]["ops"] += 1
+        self._counts[kind]["bytes"] += int(nbytes)
+
+    def reset(self) -> None:
+        self._counts.clear()
+
+    def snapshot(self) -> dict:
+        return {k: dict(c) for k, c in sorted(self._counts.items())}
+
+
+COLLECTIVES = CollectiveCounter()
+
+
+def _group(mesh: LiveMesh, axes):
+    """The process group over ``axes``; None where they hold one rank."""
+    group = mesh.group(axes)
+    if group is None and _axes_size(mesh, tuple(spec_axes(axes))) > 1:
+        raise RuntimeError(f"the mesh has no process group over {axes!r}")
+    return group
+
+
+def block_of(mesh: LiveMesh, axes, extent: int, rank: int | None = None):
+    """``(start, size)`` of ``rank``'s block of a dim of ``extent`` split
+    over ``axes``."""
+    n = _axes_size(mesh, axes or None)
+    if extent % n:
+        raise ValueError(f"{extent} does not divide over {axes!r} ({n})")
+    size = extent // n
+    return (mesh.index(axes, rank) * size if axes else 0), size
+
+
+def place(t: Tensor, mesh: LiveMesh, spec: P) -> Tensor:
+    """This rank's block of the whole tensor ``t`` laid out by ``spec``,
+    a copy (so ``t`` can be freed); its shape is `shard_shape`'s."""
+    shard_shape(mesh, tuple(t.shape), spec)       # raises where it cannot
+    for i, d in enumerate(spec):
+        if d is not None:
+            start, size = block_of(mesh, d, t.shape[i])
+            t = t.narrow(i, start, size)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _bytes_of(t: Tensor) -> Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def gather_tree(shards: dict, mesh: LiveMesh, specs: dict, axes) -> dict:
+    """`gather` of several shards in one collective: every shard whose
+    spec splits a dim over one of ``axes`` is reassembled over those
+    axes; the others are returned as they are.  The shards travel as one
+    byte buffer (each padded to 16 bytes), so leaves of any dtypes share
+    the ``all_gather``; `COLLECTIVES` counts their bytes unpadded."""
+    axes = set(spec_axes(axes))
+    todo = {}
+    for k, t in shards.items():
+        spec = specs[k]
+        cut = set()
+        for d in spec:
+            names = set(spec_axes(d))
+            if names & axes and not names <= axes:
+                raise ValueError(f"{k}: spec {spec!r} splits one dim over "
+                                 f"gathered and kept axes ({sorted(axes)})")
+            cut |= names & axes
+        if cut:
+            todo[k] = cut
+    out = dict(shards)
+    if not todo:
+        return out
+    over = tuple(a for a in mesh.axis_names
+                 if any(a in c for c in todo.values()))
+    group = _group(mesh, over)
+    if group is None:
+        return out
+    sizes, offsets, parts, off = {}, {}, [], 0
+    for k in todo:
+        b = _bytes_of(shards[k])
+        sizes[k], offsets[k] = b.numel(), off
+        parts += [b, b.new_zeros(-b.numel() % 16)]
+        off += b.numel() + parts[-1].numel()
+    buf = torch.cat(parts)
+    ranks = mesh.group_ranks(over)
+    pieces = [torch.empty_like(buf) for _ in ranks]
+    torch.distributed.all_gather(pieces, buf, group=group)
+    COLLECTIVES.record("all_gather", sum(sizes.values()))
+    mine = mesh.coord()
+    for k, cut in todo.items():
+        t, spec = shards[k], specs[k]
+        full = list(t.shape)
+        for i, d in enumerate(spec):
+            if set(spec_axes(d)) & cut:
+                full[i] *= _axes_size(mesh, d)
+        res = t.new_empty(full)
+        off = offsets[k]
+        for r, piece in zip(ranks, pieces):
+            c = mesh.coord(r)
+            # a rank that differs only on axes this leaf is whole over
+            # holds the same block: take it from the rank on our coord
+            if any(c[a] != mine[a] for a in over if a not in cut):
+                continue
+            blk = piece[off:off + sizes[k]].view(t.dtype).reshape(t.shape)
+            view = res
+            for i, d in enumerate(spec):
+                if set(spec_axes(d)) & cut:
+                    view = view.narrow(i, mesh.index(d, r) * t.shape[i],
+                                       t.shape[i])
+            view.copy_(blk)
+        out[k] = res
+    return out
+
+
+def gather(shard: Tensor, mesh: LiveMesh, spec: P, axes=None) -> Tensor:
+    """The blocks of ``shard`` (laid out by ``spec``) reassembled over
+    ``axes`` (default: every axis the spec names) by one ``all_gather``:
+    the dims split over them come back whole, in the order `place` cut
+    them.  A dim split over gathered and kept axes at once raises."""
+    if axes is None:
+        axes = tuple(a for d in spec for a in spec_axes(d))
+    return gather_tree({"x": shard}, mesh, {"x": spec}, axes)["x"]
+
+
+def all_reduce(t: Tensor, mesh: LiveMesh, axes) -> Tensor:
+    """The sum of ``t`` over the ranks of ``axes`` (one ``all_reduce``),
+    taken in float32 and returned in ``t``'s dtype, so the ranks hold the
+    same result whatever the backend sums a narrower float in."""
+    group = _group(mesh, axes)
+    if group is None:
+        return t
+    x = t.float() if t.is_floating_point() else t.clone()
+    torch.distributed.all_reduce(x, group=group)
+    COLLECTIVES.record("all_reduce", x.numel() * x.element_size())
+    return x.to(t.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Live meshes: batch rows <-> KV planes
+# ---------------------------------------------------------------------------
+#
+# An activation ``[B, S, C]`` (C = kh * w: kh heads, or head groups, of w
+# columns) lies on the mesh in a row layout ``(bax, cax)``: rows split
+# over the axes ``bax``, columns over ``cax``.  The KV cache's plane
+# layout puts plane ``p = b * kh + h`` (row b, head h) on the rank whose
+# block of the ``[B*kh]`` plane dim over ``pax`` holds it.  A rank keeps
+# the planes it holds rows for in place; where any rank lacks a row or a
+# head of its planes, the activation is first gathered whole (one
+# collective; every rank takes the same branch, decided from the mesh's
+# shape alone).
+
+def _row_block(mesh, layout, b: int, c: int, rank):
+    bax, cax = layout
+    r0, bl = block_of(mesh, bax, b, rank)
+    c0, cl = block_of(mesh, cax, c, rank)
+    return r0, bl, c0, cl
+
+
+def _holds_planes(mesh, layout, b, c, kh, pax, rank) -> bool:
+    """Does ``rank``'s row block hold every (row, head) of its planes?"""
+    w = c // kh
+    r0, bl, c0, cl = _row_block(mesh, layout, b, c, rank)
+    p0, n = block_of(mesh, pax, b * kh, rank)
+    ra, rb = p0 // kh, (p0 + n - 1) // kh
+    if c0 % w or cl % w or ra < r0 or rb >= r0 + bl:
+        return False
+    h0, nh = c0 // w, cl // w
+    if ra != rb:
+        return nh == kh
+    return h0 <= p0 % kh and (p0 + n - 1) % kh < h0 + nh
+
+
+def planes_of(x: Tensor, mesh: LiveMesh, layout, kh: int, pax) -> Tensor:
+    """This rank's KV planes ``[n, S, w]`` of the activation whose row
+    block ``[bl, S, cl]`` is ``x`` (`layout` ``(bax, cax)``)."""
+    bax, cax = layout
+    b = x.shape[0] * _axes_size(mesh, bax or None)
+    c = x.shape[2] * _axes_size(mesh, cax or None)
+    if not all(_holds_planes(mesh, layout, b, c, kh, pax, r)
+               for r in range(mesh.size)):
+        x = gather(x, mesh, P(bax or None, None, cax or None))
+        layout = ((), ())
+    r0, bl, c0, cl = _row_block(mesh, layout, b, c, None)
+    w = c // kh
+    p0, n = block_of(mesh, pax, b * kh)
+    p = torch.arange(p0, p0 + n, device=x.device)
+    heads = x.reshape(x.shape[0], x.shape[1], -1, w)
+    return heads[p // kh - r0, :, p % kh - c0 // w]
+
+
+def _holds_rows(mesh, layout, b, c, kh, pax, rank) -> bool:
+    """Do ``rank``'s planes hold every (row, head) of its row block?"""
+    w = c // kh
+    r0, bl, c0, cl = _row_block(mesh, layout, b, c, rank)
+    p0, n = block_of(mesh, pax, b * kh, rank)
+    if c0 % w or cl % w:
+        return False
+    first = r0 * kh + c0 // w
+    last = (r0 + bl - 1) * kh + (c0 + cl) // w - 1
+    return p0 <= first and last < p0 + n
+
+
+def rows_of(planes: Tensor, mesh: LiveMesh, pax, kh: int,
+            layout) -> Tensor:
+    """The row block ``[bl, S, cl]`` (`layout` ``(bax, cax)``) of the
+    activation whose planes ``[n, S, w]`` this rank holds: the inverse of
+    `planes_of`."""
+    n, s, w = planes.shape
+    b = n * _axes_size(mesh, pax or None) // kh
+    c = kh * w
+    if all(_holds_rows(mesh, layout, b, c, kh, pax, r)
+           for r in range(mesh.size)):
+        p0 = block_of(mesh, pax, b * kh)[0]
+    else:
+        planes = gather(planes, mesh, P(pax or None, None, None))
+        p0 = 0
+    r0, bl, c0, cl = _row_block(mesh, layout, b, c, None)
+    h0, h1 = c0 // w, -(-(c0 + cl) // w)        # the heads the block cuts
+    rows = torch.arange(r0, r0 + bl, device=planes.device)
+    heads = torch.arange(h0, h1, device=planes.device)
+    idx = rows[:, None] * kh + heads[None, :] - p0          # [bl, nh]
+    out = planes[idx].transpose(1, 2).reshape(bl, s, (h1 - h0) * w)
+    return out[..., c0 - h0 * w:c0 - h0 * w + cl]
 
 
 __all__ = ["P", "dp_axes", "fsdp_axes", "dim_spec", "logical_spec",
            "shard_batch", "shard_shape", "with_hidden_sharding",
            "with_channel_sharding", "kv_plane_spec", "page_table_spec",
-           "named", "tree_shardings"]
+           "named", "tree_shardings", "Placement", "place_tree",
+           "place", "gather", "gather_tree", "all_reduce", "planes_of",
+           "rows_of", "block_of", "spec_axes", "COLLECTIVES",
+           "CollectiveCounter"]

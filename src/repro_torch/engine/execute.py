@@ -11,7 +11,9 @@ through the chunked im2col GEMM of `kernels.sparse_conv`, the dense ones
 through ``F.conv2d`` on the masked weight).  `STATS` counts balanced-sparse
 dispatches per call
 (PyTorch runs eagerly, so this is per execution, not per trace);
-`launch/serve.py` asserts on it that the sparse path really ran.  A layer
+`launch/serve.py` asserts on it that the sparse path really ran.  On a
+live mesh `apply_fc` gathers a placed layer's encoding before the kernel
+(`engine.plan.gather_layer`).  A layer
 whose blocks came from the autotuner ticks ``tuned_blocks``; a layer the
 guard ladder demoted or quarantined (``spec.degraded_from``) ticks
 ``degraded_dispatch`` on every dispatch, dense ones included.
@@ -41,7 +43,7 @@ from ..kernels.sparse_conv import _pad_nhwc, _resolve_padding
 from ..kernels.sparse_conv import sparse_conv2d as _sparse_conv2d
 from ..kernels.tile_format import TiledBalanced, tiled_to_flat
 from ..launch.cost_model import IMPL_LADDER
-from .plan import LayerPlan, ModelPlan
+from .plan import LayerPlan, ModelPlan, gather_layer
 
 Tensor = torch.Tensor
 
@@ -192,7 +194,11 @@ def apply_fc(x: Tensor, lp: LayerPlan) -> Tensor:
     """``y = x @ W.T`` for one planned linear layer, ``[..., N] ->
     [..., O]``.  ``block_m`` is clamped to the live M's power-of-two bucket
     (8-row floor), so a small live M never pads to a stale prefill tile;
-    this changes which tile the kernel pads to, not the result."""
+    this changes which tile the kernel pads to, not the result.  A layer
+    placed on a live mesh (`plan.shard_plan`) is gathered whole first
+    (`plan.gather_layer`, ZeRO-3), and the kernel runs on this rank's
+    rows of ``x``; the counts are those of the whole layer."""
+    lp = gather_layer(lp)
     spec = lp.spec
     if spec.impl == "dense":
         _count_dense(spec, "dense_matmul")

@@ -56,6 +56,8 @@ from ..kernels.tile_format import (_KB_ROUND, QUANT_MODES, _round_up,
                                    quantize_tiled, tiled_to_dense)
 from ..launch import cost_model as _cost
 from ..launch.cost_model import IMPL_LADDER
+from ..launch.mesh import LiveMesh
+from ..distributed.sharding import P
 
 Tensor = torch.Tensor
 
@@ -158,9 +160,13 @@ class PlanSpec:
 class LayerPlan:
     """One layer's frozen execution decision + its pre-encoded weights
     (`TiledBalanced`, `BalancedSparse` or a dense ``[..., O, N]`` tensor;
-    leaves may carry a leading stacked-layer axis)."""
+    leaves may carry a leading stacked-layer axis).  ``placement`` is
+    ``(mesh, weight specs)`` when the weights are one rank's shards of a
+    live mesh (`shard_plan`; `gather_layer` reassembles them), None when
+    they are whole."""
     spec: PlanSpec
     weights: Any
+    placement: Any = None
 
     def dense_weights(self) -> Tensor:
         """Densify back to ``[..., O, N]`` (the stored ``[Co, Ci, Hk, Wk]``
@@ -184,19 +190,17 @@ class LayerPlan:
         return hit[1]
 
     def layer(self, i: int) -> "LayerPlan":
-        """The plan of stacked layer ``i`` (views of the stacked leaves)."""
-        w = self.weights
-        if isinstance(w, TiledBalanced):
-            w = TiledBalanced(w.values[i], w.indices[i], w.counts[i],
-                              n_in=w.n_in, bn=w.bn,
-                              perm=None if w.perm is None else w.perm[i],
-                              scales=None if w.scales is None
-                              else w.scales[i], quant=w.quant)
-        elif isinstance(w, BalancedSparse):
-            w = BalancedSparse(w.values[i], w.indices[i], w.n_in)
-        else:
-            w = w[i]
-        return LayerPlan(spec=self.spec, weights=w)
+        """The plan of stacked layer ``i`` (views of the stacked leaves;
+        a placed plan's specs lose their stacked dim with them)."""
+        def pick(t):
+            return P(*t[1:]) if isinstance(t, P) else t[i]
+        placement = None
+        if self.placement is not None:
+            mesh, specs = self.placement
+            placement = (mesh, _map_weights(specs, pick))
+        return LayerPlan(spec=self.spec,
+                         weights=_map_weights(self.weights, pick),
+                         placement=placement)
 
 
 @dataclasses.dataclass
@@ -1104,10 +1108,74 @@ def plan_specs(plan: ModelPlan, mesh) -> ModelPlan:
         meta=plan.meta)
 
 
+def _map_weights(w, fn):
+    """The weights (`TiledBalanced`, `BalancedSparse` or one tensor) with
+    ``fn`` applied to each tensor (or spec) leaf."""
+    if isinstance(w, TiledBalanced):
+        return TiledBalanced(
+            fn(w.values), fn(w.indices), fn(w.counts), n_in=w.n_in,
+            bn=w.bn, perm=None if w.perm is None else fn(w.perm),
+            scales=None if w.scales is None else fn(w.scales),
+            quant=w.quant)
+    if isinstance(w, BalancedSparse):
+        return BalancedSparse(fn(w.values), fn(w.indices), w.n_in)
+    return fn(w)
+
+
+def weight_leaves(w) -> Dict[str, Any]:
+    """The tensor (or spec) leaves of the weights by field name."""
+    if isinstance(w, TiledBalanced):
+        return {k: getattr(w, k) for k in ("values", "indices", "counts",
+                                           "perm", "scales")
+                if getattr(w, k) is not None}
+    if isinstance(w, BalancedSparse):
+        return {"values": w.values, "indices": w.indices}
+    return {"w": w}
+
+
+def _with_leaves(w, leaves: Dict[str, Any]):
+    if isinstance(w, (TiledBalanced, BalancedSparse)):
+        return dataclasses.replace(w, **leaves)
+    return leaves["w"]
+
+
 def shard_plan(plan: ModelPlan, mesh) -> ModelPlan:
-    """The reference places the plan on its `plan_specs`; on one device
-    the plan already lies whole on the card, and is returned as it is."""
-    return plan
+    """The plan placed on its `plan_specs`: on a live mesh
+    (`launch.mesh.LiveMesh`) each rank keeps its shard of every encoded
+    leaf (values, indices, counts and scales over the FSDP axes, ``perm``
+    whole), and every `LayerPlan` carries its placement for
+    `gather_layer`; on a description nothing is placed, and the plan is
+    returned as it is."""
+    from ..distributed import sharding as shd
+    if not isinstance(mesh, LiveMesh):
+        return plan
+    specs = plan_specs(plan, mesh)
+    layers = {}
+    for nm, lp in plan.layers.items():
+        ws = specs.layers[nm].weights
+        spec_leaves = weight_leaves(ws)
+        shards = {k: shd.place(t, mesh, spec_leaves[k])
+                  for k, t in weight_leaves(lp.weights).items()}
+        layers[nm] = LayerPlan(spec=lp.spec,
+                               weights=_with_leaves(lp.weights, shards),
+                               placement=(mesh, ws))
+    return ModelPlan(layers=layers, meta=plan.meta)
+
+
+def gather_layer(lp: LayerPlan) -> LayerPlan:
+    """ZeRO-3 ("zero redundancy", stage 3): a placed layer's encoding
+    gathered whole over the axes its `plan_specs` split it on, one
+    ``all_gather`` a layer, just before use (the reference's
+    ``gather_for_use`` for plans); bit for bit the one-process encoding.
+    A whole layer is returned as it is."""
+    if lp.placement is None:
+        return lp
+    from ..distributed import sharding as shd
+    mesh, ws = lp.placement
+    specs = weight_leaves(ws)
+    axes = {a for sp in specs.values() for d in sp for a in shd.spec_axes(d)}
+    whole = shd.gather_tree(weight_leaves(lp.weights), mesh, specs, axes)
+    return LayerPlan(spec=lp.spec, weights=_with_leaves(lp.weights, whole))
 
 
 __all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "TrainPlan", "IMPL_LADDER",
@@ -1115,6 +1183,6 @@ __all__ = ["LayerPlan", "ModelPlan", "PlanSpec", "TrainPlan", "IMPL_LADDER",
            "build_layer_plan", "plan_from_balanced", "plan_smallcnn",
            "plan_transformer", "plan_rwkv6", "plan_zamba2", "plan_model",
            "masked_dense_params", "plan_specs", "shard_plan",
-           "ATTN_PROJ_NAMES", "MLP_PROJ_NAMES",
-           "MOE_SHARED_NAMES", "MOE_EXPERT_NAMES", "RWKV6_PROJ_NAMES",
-           "ZAMBA2_PROJ_NAMES"]
+           "gather_layer", "weight_leaves", "ATTN_PROJ_NAMES",
+           "MLP_PROJ_NAMES", "MOE_SHARED_NAMES", "MOE_EXPERT_NAMES",
+           "RWKV6_PROJ_NAMES", "ZAMBA2_PROJ_NAMES"]

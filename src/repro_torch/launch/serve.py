@@ -32,6 +32,18 @@ logits after the prefill and every decode step, bisecting a NaN to the
 layer that made it and quarantining that layer to dense;
 ``--inject-nan`` (only under ``--guard``) poisons one planned layer first.
 Without ``--guard`` nothing of the ladder runs.
+
+``--mesh data=2,model=2 --dist-init URL`` serves the static greedy path
+(a prefill, then ``--gen-steps`` decode steps) on a live mesh of that
+many `torch.distributed` ranks, one process each (`launch.ranks`), over
+``gloo``: each rank holds its shards of the params, the plan and the KV
+cache by the reference's specs and runs the dense family's sharded
+program (`models.transformer`); on a GPU every rank uses the card of its
+rank modulo the card count.  The report carries rank 0's tokens and
+prefill logits held against a one-process run of the same plan, each
+rank's resident bytes beside the dry run's `shard_bytes`, its collectives
+(`distributed.sharding.COLLECTIVES`), kernel launches, peak memory and
+wall.  ``--traffic``, ``--guard`` and ``--tune`` are refused with it.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ import torch
 from ..configs import ARCHS, TRANSFORMER_FAMILIES, get_config, get_smoke
 from ..core.compression import compressed_bits
 from ..device import resolve_device
+from ..distributed import sharding as shd
 from ..engine import execute as engine_execute
 from ..engine import plan as engine_plan
 from ..kernels import balanced_spmm, kv_cache_update
@@ -64,8 +77,11 @@ def _sync(device: torch.device) -> None:
 
 
 def greedy_generate(bundle, params, prompt: torch.Tensor, steps: int,
-                    max_len: int) -> torch.Tensor:
-    """Greedy decode of ``steps`` tokens after the prompt.
+                    max_len: int, logits_out: list | None = None
+                    ) -> torch.Tensor:
+    """Greedy decode of ``steps`` tokens after the prompt; ``logits_out``,
+    when given, receives the logits the prefill and each decode step
+    chose from.
 
     ``max_len`` must cover every KV row written: prompt rows 0..p-1 plus
     one row per decode step (step i writes at ``p + i``), so the bound is
@@ -86,11 +102,15 @@ def greedy_generate(bundle, params, prompt: torch.Tensor, steps: int,
         clen = torch.full((b,), prompt.shape[1], dtype=torch.long,
                           device=prompt.device)
         for _ in range(steps):
+            if logits_out is not None:
+                logits_out.append(logits)
             logits, cache = bundle.decode_step(
                 params, {"tokens": toks, "cache_len": clen}, cache)
             toks = logits.argmax(dim=-1)[:, None]
             clen = clen + 1
             out.append(toks)
+        if logits_out is not None:
+            logits_out.append(logits)
     return torch.cat(out, dim=1)
 
 
@@ -472,6 +492,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="traffic: prompt tokens cached per prefill tick")
     ap.add_argument("--seed", type=int, default=0,
                     help="traffic: scenario seed (arrivals + shapes)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve on a live mesh of torch.distributed ranks, "
+                         "e.g. data=2,model=2 (the axes in order, each "
+                         "name=size)")
+    ap.add_argument("--dist-init", default=None,
+                    help="the ranks' rendezvous with --mesh: file://PATH "
+                         "(a path that does not exist yet) or "
+                         "tcp://HOST:PORT")
     return ap
 
 
@@ -494,6 +522,19 @@ def main(argv=None) -> dict:
         ap.error("--inject-nan poisons the serving path by design; it is "
                  "only meaningful (and only safe) under --guard")
     cfg = config(args)
+    if args.mesh is not None:
+        refused = [f for f, on in (("--traffic", args.traffic),
+                                   ("--guard", args.guard),
+                                   ("--tune", args.tune != "off")) if on]
+        if refused:
+            ap.error(f"--mesh serves the static greedy path; {refused} on "
+                     f"a live mesh waits for a later slice")
+        if args.dist_init is None:
+            ap.error("--mesh needs --dist-init (file://PATH or "
+                     "tcp://HOST:PORT)")
+        if cfg.family != "dense":
+            ap.error(f"--mesh serves the dense family; {args.arch} is "
+                     f"{cfg.family}")
     if args.traffic and cfg.family not in TRANSFORMER_FAMILIES:
         ap.error(f"--traffic serves the transformer families "
                  f"{TRANSFORMER_FAMILIES}; {cfg.family} has O(1) recurrent "
@@ -505,30 +546,224 @@ def _launch_counts() -> dict:
     return {**balanced_spmm.LAUNCHES, **kv_cache_update.LAUNCHES}
 
 
+def _plan_kwargs(args: argparse.Namespace, cfg) -> dict:
+    """`engine.plan.plan_model`'s arguments as the parsed ones say."""
+    kw = dict(sparsity=args.sparsity,
+              impl=None if args.impl == "auto" else args.impl,
+              m_hint=args.batch * args.prompt_len,
+              tune=args.tune, tune_cache=args.tune_cache,
+              quant=args.quant, objective=args.objective,
+              deployment=args.deployment)
+    if cfg.family in TRANSFORMER_FAMILIES:
+        kw["include_mlp"] = not args.attn_only
+    return kw
+
+
+def _prompt(args: argparse.Namespace, cfg, device) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(1)
+    return torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                         generator=gen).to(device)
+
+
+# ---------------------------------------------------------------------------
+# --mesh: the sharded serve program on live ranks
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT_S = 600.0      # the launcher's limit on the ranks' run
+
+
+def parse_mesh(spec: str) -> tuple:
+    """``"data=2,model=2"`` -> ``(("data", "model"), (2, 2))``."""
+    names, sizes = [], []
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        if not name or not size.isdigit() or int(size) < 1:
+            raise ValueError(f"--mesh {spec!r}: expected name=size,...")
+        names.append(name.strip())
+        sizes.append(int(size))
+    if len(set(names)) != len(names) or not set(names) <= {"pod", "data",
+                                                            "model"}:
+        raise ValueError(f"--mesh {spec!r}: axes are distinct names of "
+                         f"pod, data, model")
+    return tuple(names), tuple(sizes)
+
+
+def _serve_rank(rank: int, world_size: int, init_method: str,
+                args: argparse.Namespace, cfg) -> dict:
+    """One rank of ``--mesh``: make the params from the seed and build
+    the plan whole, place both (and free the whole ones), then time the
+    greedy path (its tokens and the logits they were chosen from) with
+    this rank's counts zeroed just before and read just after.  Returns
+    the rank's report (numpy for the tensors)."""
+    from ..engine import plan as engine_plan
+    from .dryrun import shard_bytes, tree_bytes
+    from .mesh import init_mesh
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names, sizes = parse_mesh(args.mesh)
+    mesh = init_mesh(names, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device=device)
+    try:
+        t0 = time.monotonic()
+        whole = build_model(cfg, device).init(0)
+        plan = engine_plan.plan_model(cfg, whole, **_plan_kwargs(args, cfg))
+        bundle = build_model(cfg, device, mesh=mesh)
+        pspecs = bundle.param_specs()
+        want = {"params": shard_bytes(mesh, whole, pspecs)}
+        pl_specs = engine_plan.plan_specs(plan, mesh)
+        want["plan"] = sum(shard_bytes(
+            mesh, engine_plan.weight_leaves(lp.weights),
+            engine_plan.weight_leaves(pl_specs.layers[nm].weights))
+            for nm, lp in plan.layers.items())
+        params = shd.place_tree(whole, shd.tree_shardings(mesh, pspecs))
+        splan = engine_plan.shard_plan(plan, mesh)
+        del whole, plan
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        sparams = {**params, "sparse_plan": splan}
+        prompt = _prompt(args, cfg, device)
+        max_len = args.prompt_len + args.gen_steps
+        cache = bundle.init_cache(args.batch, max_len)
+        want["cache"] = shard_bytes(
+            mesh, {k: torch.empty((cfg.n_layers, args.batch * cfg.n_kv_heads,
+                                   max_len, cfg.head_dim),
+                                  dtype=v.dtype, device="meta")
+                   for k, v in cache.items()},
+            bundle.cache_specs(args.batch))
+        setup_peak = torch.cuda.max_memory_allocated(device) / 2**30 \
+            if device.type == "cuda" else None
+        resident = {"params": tree_bytes(params),
+                    "plan": sum(tree_bytes(engine_plan.weight_leaves(
+                        lp.weights)) for lp in splan.layers.values()),
+                    "cache": tree_bytes(cache)}
+        del cache
+        setup_s = time.monotonic() - t0
+        _sync(device)
+        balanced_spmm.reset_launches()
+        kv_cache_update.reset_launches()
+        shd.COLLECTIVES.reset()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.monotonic()
+        logits = []
+        toks = greedy_generate(bundle, sparams, prompt, args.gen_steps,
+                               max_len, logits)
+        _sync(device)
+        wall = time.monotonic() - t0
+        return {"rank": rank, "coord": mesh.coord(),
+                "collectives": shd.COLLECTIVES.snapshot(),
+                "kernel_launches": _launch_counts(),
+                "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30
+                if device.type == "cuda" else None,
+                "setup_peak_gib": setup_peak, "setup_s": setup_s,
+                "wall_s": wall, "resident_bytes": resident,
+                "shard_bytes": want, "tokens": toks.cpu().numpy(),
+                "logits": torch.stack(logits).float().cpu().numpy()}
+    finally:
+        mesh.close()
+
+
+def one_process(args: argparse.Namespace, cfg) -> tuple:
+    """``(greedy tokens, the logits they were chosen from)`` of one
+    process serving the same params, plan and prompt as ``--mesh`` does
+    (the yardstick of its ranks)."""
+    from ..engine import plan as engine_plan
+    device = resolve_device(args.device)
+    bundle = build_model(cfg, device)
+    params = bundle.init(0)
+    plan = engine_plan.plan_model(cfg, params, **_plan_kwargs(args, cfg))
+    sparams = {**params, "sparse_plan": plan}
+    prompt = _prompt(args, cfg, device)
+    logits = []
+    toks = greedy_generate(bundle, sparams, prompt, args.gen_steps,
+                           args.prompt_len + args.gen_steps, logits)
+    return toks.cpu().numpy(), torch.stack(logits).float().cpu().numpy()
+
+
+def run_mesh(args: argparse.Namespace, cfg) -> dict:
+    """``--mesh``: this process's one-process run of the plan first
+    (`one_process`, its memory freed before the ranks start), then the
+    ranks' greedy path (`_serve_rank`); raises unless every rank's tokens
+    equal the one-process run's, the logits each step chose from (the
+    prefill's and every decode step's) lie within the parity tolerance
+    (1e-4 at float32, 2e-2 at bfloat16) and every rank's resident bytes
+    equal its `launch.dryrun.shard_bytes`."""
+    from .ranks import run_ranks
+    device = resolve_device(args.device)
+    names, sizes = parse_mesh(args.mesh)
+    if device.type == "cuda":
+        from ..kernels import _build
+        _build.build()      # once here, not in every rank
+    ref_toks, ref_logits = one_process(args, cfg)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = run_ranks(_serve_rank, math.prod(sizes),
+                      init_method=args.dist_init, args=(args, cfg),
+                      timeout_s=MESH_TIMEOUT_S)
+    ranks_s = time.monotonic() - t0
+    tol = 1e-4 if cfg.compute_dtype == "float32" else 2e-2
+    step_err = np.max([np.abs(r["logits"] - ref_logits).max(axis=(1, 2))
+                       for r in ranks], axis=0)
+    tokens_equal = all(np.array_equal(r["tokens"], ref_toks) for r in ranks)
+    bytes_equal = all(r["resident_bytes"] == r["shard_bytes"]
+                      for r in ranks)
+    per_rank = [{k: v for k, v in r.items() if k not in ("tokens", "logits")}
+                for r in ranks]
+    for r in per_rank:
+        print(f"[serve/mesh] rank {r['rank']} {r['coord']}: resident "
+              f"{r['resident_bytes']} B (shard_bytes {r['shard_bytes']}), "
+              f"launches {r['kernel_launches']}, collectives "
+              f"{r['collectives']}, peak {r['peak_gib']} GiB (set-up "
+              f"{r['setup_peak_gib']} GiB), set-up "
+              f"{r['setup_s']:.2f} s, greedy {r['wall_s']:.3f} s")
+    print(f"[serve/mesh] {cfg.name} on {dict(zip(names, sizes))} over gloo "
+          f"({device.type}): tokens equal to one process {tokens_equal}, "
+          f"logits max |diff| prefill {step_err[0]:.3g}, decode steps "
+          f"{float(step_err[1:].max(initial=0.0)):.3g} (tol {tol:g}), "
+          f"resident bytes equal to shard_bytes {bytes_equal}; ranks "
+          f"{ranks_s:.1f} s")
+    report = {"model": cfg.name, "n_layers": cfg.n_layers,
+              "mesh": dict(zip(names, sizes)), "backend": "gloo",
+              "device": str(device), "tokens": ranks[0]["tokens"].tolist(),
+              "one_process_tokens": ref_toks.tolist(),
+              "logits_max_abs_diff": float(step_err[0]),
+              "step_logits_max_abs_diff": [float(e) for e in step_err],
+              "parity_tol": tol, "tokens_equal": tokens_equal,
+              "bytes_equal": bytes_equal, "ranks_s": ranks_s,
+              "ranks": per_rank}
+    if not (tokens_equal and float(step_err.max()) <= tol and bytes_equal):
+        raise AssertionError(f"the mesh run differs from one process or "
+                             f"from its shard bytes: {json.dumps(report)}")
+    if args.report:
+        out = pathlib.Path(args.report)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"mesh": report}, indent=1, default=str)
+                       + "\n")
+    return {"mesh": report}
+
+
 def run(args: argparse.Namespace, cfg) -> dict:
     """Serve ``cfg`` as the parsed arguments say (`main` with a config it
     does not build itself, e.g. ``cache_update="scatter"``)."""
+    if args.mesh is not None:
+        return run_mesh(args, cfg)
     device = resolve_device(args.device)
     # exact f32 matmuls for the dense yardstick and the masked-dense reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bundle = build_model(cfg, device)
     params = bundle.init(0)
-    gen = torch.Generator().manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen).to(device)
+    prompt = _prompt(args, cfg, device)
     max_len = args.prompt_len + args.gen_steps
 
     # ---- the offline pass: build the plan once, serve from it ------------
-    plan_kwargs = dict(sparsity=args.sparsity,
-                       impl=None if args.impl == "auto" else args.impl,
-                       m_hint=args.batch * args.prompt_len,
-                       tune=args.tune, tune_cache=args.tune_cache,
-                       quant=args.quant, objective=args.objective,
-                       deployment=args.deployment)
-    if cfg.family in TRANSFORMER_FAMILIES:
-        plan_kwargs["include_mlp"] = not args.attn_only
-    elif args.attn_only:
+    plan_kwargs = _plan_kwargs(args, cfg)
+    if cfg.family not in TRANSFORMER_FAMILIES and args.attn_only:
         print(f"[serve] --attn-only is inapplicable to family {cfg.family} "
               "(no separate attention projections are planned); planning "
               "the full projection family")

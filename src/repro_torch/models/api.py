@@ -15,7 +15,17 @@ tensors:
 * ``param_specs() -> specs`` / ``cache_specs(batch) -> specs``  (the
   reference's sharding decisions for the params and the cache on the
   mesh the bundle was built with, ``build_model(cfg, device, mesh=...)``;
-  ``P()`` leaves without a mesh: descriptions, nothing is placed)
+  ``P()`` leaves without a mesh)
+
+On a description (`launch.mesh.Mesh`) the specs are decisions only.  On a
+live mesh (`launch.mesh.LiveMesh`) the dense family's bundle runs the
+reference's sharded serve program (`models.transformer`): ``init(seed)``
+makes the params whole from the seed on every rank and places them
+(`distributed.sharding.place_tree`; converted params are placed the same
+way), ``init_cache`` gives this rank's planes, and ``prefill`` /
+``decode_step`` take and return the whole batch, each rank computing its
+block of rows (`distributed.sharding.shard_batch`, as
+`batch_partition_spec` splits it).
 
 ``input_specs(cfg, shape)`` gives one (arch, shape) cell's batch as
 tensors on the ``meta`` device (no allocation), ``init_shapes(cfg)`` the
@@ -147,7 +157,8 @@ def _family_module(cfg: ModelConfig):
 def build_model(cfg: ModelConfig, device=None, mesh=None) -> ModelBundle:
     """The family's bundle on ``device`` (default: the GPU; a missing GPU
     raises unless ``device="cpu"``), its specs decided on ``mesh`` (a
-    `launch.mesh.Mesh`; None: ``P()`` leaves)."""
+    `launch.mesh.Mesh`; None: ``P()`` leaves), or sharded over it (a
+    `launch.mesh.LiveMesh`: this rank's part of the program)."""
     return _family_build(cfg)(cfg, resolve_device(device), mesh=mesh)
 
 

@@ -37,9 +37,18 @@ def embed_init(generator: torch.Generator, vocab: int, dim: int,
     return (w * 0.02).to(dtype)
 
 
+def _row_mean(x: Tensor) -> Tensor:
+    """The mean over the last dim, summed in float64 and rounded to
+    float32: a row's mean then does not depend on how many rows share the
+    call (the GPU's float32 reductions split a few rows' sums otherwise
+    than many rows'), so a live mesh's ranks, which normalize their own
+    rows, match one process bit for bit."""
+    return x.double().mean(dim=-1, keepdim=True).float()
+
+
 def rms_norm(x: Tensor, gamma: Tensor | None, *, eps: float = 1e-6) -> Tensor:
     xf = x.float()
-    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    y = xf * torch.rsqrt(_row_mean(xf.square()) + eps)
     if gamma is not None:
         y = y * gamma
     return y.to(x.dtype)
@@ -47,10 +56,11 @@ def rms_norm(x: Tensor, gamma: Tensor | None, *, eps: float = 1e-6) -> Tensor:
 
 def layer_norm(x: Tensor, gamma: Tensor | None = None,
                beta: Tensor | None = None, *, eps: float = 1e-5) -> Tensor:
-    """LayerNorm; with gamma=beta=None it is OLMo's non-parametric LN."""
+    """LayerNorm; with gamma=beta=None it is OLMo's non-parametric LN.
+    Its mean and variance are `_row_mean`'s."""
     xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    mu = _row_mean(xf)
+    var = _row_mean((xf - mu).square())
     y = (xf - mu) * torch.rsqrt(var + eps)
     if gamma is not None:
         y = y * gamma
@@ -165,7 +175,8 @@ def _q_block(qc: Tensor, k: Tensor, v: Tensor, q_lo: int, kv_chunk: int,
 
 def blocked_causal_attention(q: Tensor, k: Tensor, v: Tensor, *,
                              q_chunk: int = 512, kv_chunk: int = 1024,
-                             causal: bool = True) -> Tensor:
+                             causal: bool = True,
+                             q_part: Tuple[int, int] = (0, 1)) -> Tensor:
     """Flash-style attention, q ``[B, S, H, dh]``, k/v ``[B, S, KH, dh]``
     with H = KH * G (grouped, no KV repetition) — the reference's
     ``blocked_causal_attention``.  An online softmax over kv chunks inside
@@ -181,37 +192,46 @@ def blocked_causal_attention(q: Tensor, k: Tensor, v: Tensor, *,
     after which every later chunk's correction is 0, so with a poisoned k
     the result depends on the chunking (`causal_attention`, the unchunked
     rule, agrees only when S is one kv chunk).  The reference's ``mesh=``
-    argument (sharding constraints) has no counterpart: on one device it
-    does nothing.  On the ``meta`` device (`launch.dryrun`) tensors hold
+    argument (sharding constraints) has no counterpart here: on a live
+    mesh the transformer splits attention by the cache's planes, and where
+    ``model`` splits no plane it splits the query groups (the q heads of
+    a plane) or, with ``q_part = (i, n)``, each q chunk's rows into ``n``
+    parts of which this call computes part ``i`` (``[B, S / n, H, dh]``,
+    chunk by chunk): the reference's query-sequence split of each chunk
+    over ``model``.  On the ``meta`` device (`launch.dryrun`) tensors hold
     no values, and only the two products of each computed chunk run."""
     b, s, h, dh = q.shape
     kh = k.shape[2]
-    if s % q_chunk or s % kv_chunk:
+    part, parts = q_part
+    if s % q_chunk or s % kv_chunk or q_chunk % parts:
         raise ValueError(f"chunks ({q_chunk}, {kv_chunk}) must divide the "
-                         f"sequence {s}")
+                         f"sequence {s}, and {parts} parts the q chunk")
+    rows = q_chunk // parts
     scale = 1.0 / math.sqrt(dh)
     qs = q.reshape(b, s, kh, h // kh, dh).float()
     kf, vf = k.float(), v.float()
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     outs = []
-    for q_lo in range(0, s, q_chunk):
-        qc = qs[:, q_lo:q_lo + q_chunk]
+    for q_lo in range(part * rows, s, q_chunk):
+        qc = qs[:, q_lo:q_lo + rows]
         if grad:
             outs.append(checkpoint(_q_block, qc, kf, vf, q_lo, kv_chunk,
                                    causal, scale, use_reentrant=False))
         else:
             outs.append(_q_block(qc, kf, vf, q_lo, kv_chunk, causal, scale))
-    return torch.cat(outs, dim=1).reshape(b, s, h, dh).to(q.dtype)
+    return torch.cat(outs, dim=1).reshape(b, s // parts, h, dh).to(q.dtype)
 
 
 def prefill_attention(q: Tensor, k: Tensor, v: Tensor, *, q_chunk: int,
-                      kv_chunk: int) -> Tensor:
+                      kv_chunk: int, q_part: Tuple[int, int] = (0, 1)
+                      ) -> Tensor:
     """The models' prefill (and training) attention: the reference's one
     form, `blocked_causal_attention` at the chunks `attention_chunks`
     picks for the sequence, a one-chunk prompt included."""
     qc, kc = attention_chunks(q.shape[1], q_chunk, kv_chunk)
-    return blocked_causal_attention(q, k, v, q_chunk=qc, kv_chunk=kc)
+    return blocked_causal_attention(q, k, v, q_chunk=qc, kv_chunk=kc,
+                                    q_part=q_part)
 
 
 def decode_attention_planes(q: Tensor, k_planes: Tensor, v_planes: Tensor,
@@ -222,13 +242,19 @@ def decode_attention_planes(q: Tensor, k_planes: Tensor, v_planes: Tensor,
     written at ``cache_len .. cache_len + C - 1``; k/v planes ``[B*KH, Smax,
     dh]`` (plane ``b * KH + h``); query i attends to positions
     ``j <= cache_len + i``.
+
+    The scores, the softmax and the weighted sum are taken in float64 and
+    the result rounded to q's dtype, so a row's output does not depend on
+    how many rows share the call: on the GPU a batched float32 product
+    rounds by its batch's size, and a live mesh's ranks decode their rows
+    alone yet must match one process bit for bit.
     """
     b, c, h, dh = q.shape
     kh = k_planes.shape[0] // b
     smax = k_planes.shape[1]
-    k4 = k_planes.reshape(b, kh, smax, dh).float()
-    v4 = v_planes.reshape(b, kh, smax, dh).float()
-    qg = q.reshape(b, c, kh, h // kh, dh).float()
+    k4 = k_planes.reshape(b, kh, smax, dh).double()
+    v4 = v_planes.reshape(b, kh, smax, dh).double()
+    qg = q.reshape(b, c, kh, h // kh, dh).double()
     sc = torch.einsum("bqhgd,bhkd->bhgqk", qg, k4) / math.sqrt(dh)
     pos = torch.arange(smax, device=q.device)
     last = cache_len[:, None] + torch.arange(c, device=q.device)[None, :]

@@ -40,12 +40,14 @@ from ..configs.base import TRANSFORMER_FAMILIES, ModelConfig
 from ..distributed import sharding as shd
 from ..distributed.sharding import P
 from ..kernels.kv_cache_update import kv_cache_write_chunk, to_planes
+from ..launch.mesh import LiveMesh
 from ..tree import tree_map
 from .api import (BlockDiff, ModelBundle, planned_proj as _proj,
                   register_family, serving_plan)
-from .layers import (apply_rope, causal_lm_labels, chunked_cross_entropy,
-                     decode_attention_planes, dense_init, embed_init,
-                     layer_norm, prefill_attention, rms_norm)
+from .layers import (apply_rope, attention_chunks, causal_lm_labels,
+                     chunked_cross_entropy, decode_attention_planes,
+                     dense_init, embed_init, layer_norm, prefill_attention,
+                     rms_norm)
 
 Tensor = torch.Tensor
 KV_DTYPE = torch.bfloat16       # the cache is bf16 by construction
@@ -199,10 +201,23 @@ def use_specs(cfg: ModelConfig, mesh) -> Dict[str, P]:
 
 def gather_for_use(cfg: ModelConfig, mesh, lp: Dict[str, Tensor],
                    specs: Dict[str, P]) -> Dict[str, Tensor]:
-    """The reference gathers each layer's FSDP-sharded weights (cast to the
-    compute dtype) before use; on one device every weight is whole, and
-    the layer is returned as it is."""
-    return lp
+    """ZeRO-3 style per-layer weight materialization, in the compute
+    dtype: on a live mesh (`launch.mesh.LiveMesh`) each of the layer's
+    placed weights ``lp`` is cast to the compute dtype *then* gathered
+    over the FSDP axes to its use-time spec ``specs`` (one ``all_gather``
+    for the layer, half the bytes of a float32 one); dims split over
+    ``model`` stay split.  On a description or no mesh the layer is
+    returned as it is."""
+    if not isinstance(mesh, LiveMesh):
+        return lp
+    cd = _cdtype(cfg)
+    placed = {k: P(*list(sp)[1:])
+              for k, sp in param_specs(cfg, mesh)["blocks"].items()}
+    cast = {k: v.to(cd) if v.is_floating_point() else v
+            for k, v in lp.items()}
+    axes = {a for k in lp for d in placed[k] for a in shd.spec_axes(d)} \
+        - {a for k in lp for d in specs[k] for a in shd.spec_axes(d)}
+    return shd.gather_tree(cast, mesh, {k: placed[k] for k in lp}, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -228,29 +243,9 @@ def _attn(cfg: ModelConfig, lp, h: Tensor, positions: Tensor,
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     if kv_override is not None:
         k_cache, v_cache, clen = kv_override
-        k_t = to_planes(k).to(k_cache.dtype)                # [B*KH, s, dh]
-        v_t = to_planes(v).to(v_cache.dtype)
-        pos_rep = clen.repeat_interleave(nkv)               # [B*KH]
-        if cfg.cache_update == "scatter":
-            # row-sized write, in place: O(B*KH*s*dh) bytes instead of a
-            # rewrite of the whole cache
-            k_cache = kv_cache_write_chunk(k_cache, k_t, pos_rep)
-            v_cache = kv_cache_write_chunk(v_cache, v_t, pos_rep)
-        elif cfg.cache_update == "mask":
-            # the one-hot einsum is exact (products with 1.0 and 0.0), so
-            # this and the scatter write are bitwise identical
-            smax = k_cache.shape[1]
-            rows = pos_rep[:, None] + torch.arange(s, device=h.device)[None, :]
-            oh = rows[:, :, None] == torch.arange(smax, device=h.device)
-            written = oh.any(dim=1)[..., None]              # [B*KH, Smax, 1]
-            ohf = oh.to(k_cache.dtype)
-            k_cache = torch.where(
-                written, torch.einsum("pcs,pcd->psd", ohf, k_t), k_cache)
-            v_cache = torch.where(
-                written, torch.einsum("pcs,pcd->psd", ohf, v_t), v_cache)
-        else:
-            raise ValueError(f"cache_update must be 'mask' or 'scatter', got "
-                             f"{cfg.cache_update!r}")
+        k_cache, v_cache = _write_kv(cfg, k_cache, v_cache, to_planes(k),
+                                     to_planes(v),
+                                     clen.repeat_interleave(nkv))
         o = decode_attention_planes(q, k_cache.to(cd), v_cache.to(cd), clen)
         kv_out = (k_cache, v_cache)
     else:
@@ -259,6 +254,33 @@ def _attn(cfg: ModelConfig, lp, h: Tensor, positions: Tensor,
         kv_out = (k, v)
     o = o.reshape(b, s, nh * dh)
     return _proj(lp, plan_layers, "wo", o, cd), kv_out
+
+
+def _write_kv(cfg: ModelConfig, k_cache: Tensor, v_cache: Tensor,
+              k_t: Tensor, v_t: Tensor, pos: Tensor) -> tuple:
+    """The new rows ``k_t`` / ``v_t`` ``[P, s, dh]`` of each plane written
+    at ``pos .. pos + s - 1`` (``pos`` ``[P]``) of the planes ``[P, Smax,
+    dh]``, as ``cfg.cache_update`` says; returns the caches."""
+    k_t, v_t = k_t.to(k_cache.dtype), v_t.to(v_cache.dtype)
+    if cfg.cache_update == "scatter":
+        # row-sized write, in place: O(P*s*dh) bytes instead of a rewrite
+        # of the whole cache
+        return (kv_cache_write_chunk(k_cache, k_t, pos),
+                kv_cache_write_chunk(v_cache, v_t, pos))
+    if cfg.cache_update != "mask":
+        raise ValueError(f"cache_update must be 'mask' or 'scatter', got "
+                         f"{cfg.cache_update!r}")
+    # the one-hot einsum is exact (products with 1.0 and 0.0), so this and
+    # the scatter write are bitwise identical
+    s, smax = k_t.shape[1], k_cache.shape[1]
+    rows = pos[:, None] + torch.arange(s, device=k_cache.device)[None, :]
+    oh = rows[:, :, None] == torch.arange(smax, device=k_cache.device)
+    written = oh.any(dim=1)[..., None]                      # [P, Smax, 1]
+    ohf = oh.to(k_cache.dtype)
+    return (torch.where(written, torch.einsum("pcs,pcd->psd", ohf, k_t),
+                        k_cache),
+            torch.where(written, torch.einsum("pcs,pcd->psd", ohf, v_t),
+                        v_cache))
 
 
 def _mlp(cfg: ModelConfig, lp, h: Tensor, plan_layers=None) -> Tensor:
@@ -474,6 +496,8 @@ def cache_specs(cfg: ModelConfig, mesh, batch_size: int) -> Dict[str, P]:
 
 @register_family(*TRANSFORMER_FAMILIES)
 def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
+    if isinstance(mesh, LiveMesh):
+        return _build_live(cfg, device, mesh)
     cd = _cdtype(cfg)
 
     def init(seed: int = 0):
@@ -568,4 +592,245 @@ def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
                        train_loss=train_loss, prefill=prefill,
                        decode_step=decode_step, init_cache=init_cache,
                        param_specs=lambda: param_specs(cfg, mesh),
+                       cache_specs=lambda b: cache_specs(cfg, mesh, b))
+
+
+# ---------------------------------------------------------------------------
+# Live mesh: the dense family's sharded serve program
+# ---------------------------------------------------------------------------
+
+def _cols(mesh: LiveMesh, x: Tensor, have: tuple, want: tuple) -> Tensor:
+    """``x`` with its last dim re-laid from a split over the axes ``have``
+    to one over ``want`` (``()``: whole): gathered where ``have`` splits
+    it, then cut to this rank's block of ``want``."""
+    if have == want:
+        return x
+    if have:
+        x = shd.gather(x, mesh, P(*([None] * (x.dim() - 1)), have))
+    if want:
+        start, size = shd.block_of(mesh, want, x.shape[-1])
+        x = x.narrow(-1, start, size)
+    return x
+
+
+def _build_live(cfg: ModelConfig, device: torch.device,
+                mesh: LiveMesh) -> ModelBundle:
+    """The dense family's bundle on a live mesh: the reference's sharded
+    serve program, each collective explicit (`distributed.sharding`).
+
+    Params are this rank's blocks by `param_specs` (``init`` makes them
+    whole from the seed on every rank, then places them); the plan is
+    placed by `engine.plan.shard_plan`; the KV cache is this rank's planes
+    by `cache_specs`.  ``prefill`` and ``decode_step`` take and return the
+    whole batch as the one-device bundle does; inside, a rank computes the
+    rows of its block of the batch (`distributed.sharding.shard_batch`;
+    every row where it does not divide the data axes):
+
+    * each layer's dense weights are gathered to their use-time specs
+      (`gather_for_use`): ``wq``, ``wk``, ``wv``, ``w_gate`` and ``w_up``
+      (``w_in``) are then column-parallel over ``model``, ``wo`` and
+      ``w_down`` (``w_out``) row-parallel, with one ``all_reduce`` over
+      ``model``; a planned projection gathers its encoding
+      (`engine.execute.apply_fc`) and runs whole;
+    * attention runs on the KV planes `cache_specs` put on the rank
+      (`distributed.sharding.planes_of` / `rows_of`): no cache plane
+      crosses ranks, and the output returns to the batch rows in one
+      collective over the plane axes where a rank lacks a row of it.
+      Where ``model`` splits no plane, a prefill splits the query groups
+      or each q chunk's rows over it as the reference's branches do
+      (`prefill_planes`);
+    * the embedding, split by vocab over ``model`` and by ``d`` over the
+      FSDP axes, is a masked local lookup of every row plus one
+      ``all_reduce``; the logits are each rank's vocab and ``d`` block's
+      partial product, summed by one ``all_reduce`` (the last positions
+      gathered over the batch axes first).
+
+    Only prefill and decode run here (no training step), for the dense
+    family (no experts, no frontend)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"a live mesh serves the dense family; {cfg.name} is "
+            f"{cfg.family}")
+    cd = _cdtype(cfg)
+    dh, kh = cfg.head_dim, cfg.n_kv_heads
+    g = cfg.n_heads // kh
+    pspecs = param_specs(cfg, mesh)
+    uspecs = use_specs(cfg, mesh)
+    v_ax, d_ax = (shd.spec_axes(d) for d in pspecs["embed"])
+    emb_axes = tuple(a for a in mesh.axis_names if a in v_ax + d_ax)
+    v0, vl = shd.block_of(mesh, v_ax, cfg.vocab_size)
+    d0, dl = shd.block_of(mesh, d_ax, cfg.d_model)
+
+    def batch_axes(b: int) -> tuple:
+        return shd.shard_batch(mesh, b) or ()
+
+    def plane_axes(b: int) -> tuple:
+        return shd.spec_axes(cache_specs(cfg, mesh, b)["k"][1])
+
+    def proj(lp, plp, name: str, x: Tensor, have: tuple) -> tuple:
+        """``(x @ W, the axes its columns are split over)``, ``x``'s
+        columns split over ``have``."""
+        if plp is not None and name in plp:
+            from ..engine.execute import apply_fc
+            return apply_fc(_cols(mesh, x, have, ()), plp[name]).to(cd), ()
+        w_in, w_out = (shd.spec_axes(d) for d in uspecs[name])
+        y = _cols(mesh, x, have, w_in) @ lp[name]
+        if w_in:                                    # row-parallel
+            y = shd.all_reduce(y, mesh, w_in)
+        return y, w_out
+
+    def prefill_planes(q, k, v, pax):
+        """Prefill attention on this rank's planes (one plane a batch row
+        of `layers.prefill_attention`: q ``[n, s, g, dh]``, k / v ``[n, s,
+        1, dh]``); where ``model`` splits no plane (its ranks hold the same
+        ones), the reference's other splits over it (layers.py:131-144):
+        the query groups when ``model`` divides them, else each q chunk's
+        rows, else none."""
+        def attend(q, q_part=(0, 1)):
+            return prefill_attention(q, k, v, q_chunk=cfg.q_chunk,
+                                     kv_chunk=cfg.kv_chunk, q_part=q_part)
+        m = mesh.shape.get("model", 1)
+        if m == 1 or "model" in pax:
+            return attend(q)
+        i = mesh.coord()["model"]
+        split = P(None, None, "model", None)
+        if g % m == 0:
+            gl = g // m
+            return shd.gather(attend(q[:, :, i * gl:(i + 1) * gl]), mesh,
+                              split)
+        n, s = q.shape[:2]
+        qc, _ = attention_chunks(s, cfg.q_chunk, cfg.kv_chunk)
+        if qc % m:
+            return attend(q)
+        o = attend(q, (i, m)).reshape(n, s // qc, qc // m, g * dh)
+        return shd.gather(o, mesh, split).reshape(n, s, g, dh)
+
+    def attn(lp, plp, h, bax, b, pos_fn, kv=None):
+        s = h.shape[1]
+        pax = plane_axes(b)
+        p0, n = shd.block_of(mesh, pax, b * kh)
+        x = _norm(cfg, h, lp["attn_norm"]).to(cd)
+
+        def planes(name: str, heads: int) -> Tensor:
+            y, have = proj(lp, plp, name, x, ())
+            return shd.planes_of(y, mesh, (bax, have), kh, pax).reshape(
+                n, s, heads, dh)
+
+        q, k, v = planes("wq", g), planes("wk", 1), planes("wv", 1)
+        if cfg.qk_norm:
+            q = rms_norm(q, lp["q_norm"])
+            k = rms_norm(k, lp["k_norm"])
+        rows = torch.arange(p0, p0 + n, device=device) // kh
+        positions = pos_fn(rows)                            # [n, s]
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, theta=cfg.rope_theta)
+        k, v = k[:, :, 0], v[:, :, 0]                       # [n, s, dh]
+        if kv is not None:
+            k_cache, v_cache, clen = kv
+            pos = clen[rows]
+            k_cache, v_cache = _write_kv(cfg, k_cache, v_cache, k, v, pos)
+            o = decode_attention_planes(q, k_cache.to(cd), v_cache.to(cd),
+                                        pos)
+            kv_out = (k_cache, v_cache)
+        else:
+            o = prefill_planes(q, k[:, :, None], v[:, :, None], pax)
+            kv_out = (k, v)
+        want = () if plp is not None and "wo" in plp \
+            else shd.spec_axes(uspecs["wo"][0])
+        o = shd.rows_of(o.reshape(n, s, g * dh), mesh, pax, kh, (bax, want))
+        return proj(lp, plp, "wo", o, want)[0], kv_out
+
+    def mlp(lp, plp, h):
+        x = _norm(cfg, h, lp["mlp_norm"]).to(cd)
+        if cfg.mlp == "swiglu":
+            a, have = proj(lp, plp, "w_gate", x, ())
+            u, have_u = proj(lp, plp, "w_up", x, ())
+            if have != have_u:
+                a, u, have = _cols(mesh, a, have, ()), \
+                    _cols(mesh, u, have_u, ()), ()
+            return proj(lp, plp, "w_down", F.silu(a) * u, have)[0]
+        a, have = proj(lp, plp, "w_in", x, ())
+        return proj(lp, plp, "w_out", F.gelu(a, approximate="tanh"),
+                    have)[0]
+
+    def forward(params, tokens, pos_fn, cache=None):
+        """``(logits [B, V], per-layer (k, v) planes)`` of the whole batch
+        ``tokens`` ``[B, s]``; ``cache`` is ``(k, v, cache_len)`` for a
+        decode step."""
+        b = tokens.shape[0]
+        bax = batch_axes(b)
+        r0, bl = shd.block_of(mesh, bax, b)
+        # the embedding: this rank's vocab block and d block of every row
+        e = params["embed"]
+        t = tokens.long() - v0
+        hit = (t >= 0) & (t < vl)
+        emb = torch.zeros((*tokens.shape, cfg.d_model), dtype=torch.float32,
+                          device=device)
+        emb[..., d0:d0 + dl] = torch.where(
+            hit[..., None], e[t.clamp(0, vl - 1)].float(), 0.0)
+        h = shd.all_reduce(emb, mesh, emb_axes)[r0:r0 + bl].to(cd)
+        plan = serving_plan(cfg, params)
+        kvs = []
+        for i in range(cfg.n_layers):
+            plp = plan.per_layer[i] if plan is not None else None
+            lp = gather_for_use(
+                cfg, mesh, {nm: w[i] for nm, w in params["blocks"].items()
+                            if plp is None or nm not in plp}, uspecs)
+            kv = None if cache is None else (cache[0][i], cache[1][i],
+                                             cache[2])
+            a, kv_out = attn(lp, plp, h, bax, b, pos_fn, kv)
+            h = h + a.to(h.dtype)
+            h = h + mlp(lp, plp, h).to(h.dtype)
+            kvs.append(kv_out)
+        last = _norm(cfg, h, params["final_norm"])[:, -1].float()
+        if bax:
+            last = shd.gather(last, mesh, P(bax, None))
+        logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
+                             device=device)
+        logits[:, v0:v0 + vl] = last[:, d0:d0 + dl] @ e.float().T
+        return shd.all_reduce(logits, mesh, emb_axes), kvs
+
+    def init(seed: int = 0):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return shd.place_tree(init_params(cfg, gen, device),
+                              shd.tree_shardings(mesh, pspecs))
+
+    def train_loss(params, batch):
+        raise NotImplementedError("the sharded train step is not ported; "
+                                  "a live mesh serves prefill and decode")
+
+    def prefill(params, batch):
+        s = batch["tokens"].shape[1]
+        logits, kvs = forward(
+            params, batch["tokens"],
+            lambda rows: torch.arange(s, device=device).expand(len(rows), s))
+        return logits, {"k": torch.stack([k for k, _ in kvs]).to(KV_DTYPE),
+                        "v": torch.stack([v for _, v in kvs]).to(KV_DTYPE)}
+
+    def init_cache(batch_size: int, max_len: int):
+        shape = shd.shard_shape(
+            mesh, (cfg.n_layers, batch_size * kh, max_len, dh),
+            cache_specs(cfg, mesh, batch_size)["k"])
+        return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
+                "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
+
+    def decode_step(params, batch, cache):
+        """As the one-device bundle's; ``cache`` is this rank's planes."""
+        tokens, clen = batch["tokens"], batch["cache_len"]
+        s = tokens.shape[1]
+        logits, kvs = forward(
+            params, tokens,
+            lambda rows: clen[rows][:, None]
+            + torch.arange(s, device=device)[None, :],
+            cache=(cache["k"], cache["v"], clen))
+        if cfg.cache_update == "scatter":
+            return logits, cache
+        return logits, {"k": torch.stack([k for k, _ in kvs]),
+                        "v": torch.stack([v for _, v in kvs])}
+
+    return ModelBundle(cfg=cfg, device=device, init=init,
+                       train_loss=train_loss, prefill=prefill,
+                       decode_step=decode_step, init_cache=init_cache,
+                       param_specs=lambda: pspecs,
                        cache_specs=lambda b: cache_specs(cfg, mesh, b))

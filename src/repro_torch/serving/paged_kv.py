@@ -29,8 +29,11 @@ contiguous cache is the degenerate configuration ``page_size == max_len``
 (one page per request).
 
 `paged_pool_specs` gives the reference's specs of the pool over a mesh
-description (`launch.mesh.Mesh`); on one GPU the pool is one tensor per
-leaf on that card, so nothing is placed by them.
+(`launch.mesh.Mesh` or `LiveMesh`).  The continuous-batching engine
+serves on one device, so its pool is one tensor per leaf there; a live
+mesh places tensors by such specs (`distributed.sharding.place`, as the
+static serve path places its params, plan and cache), and placing the
+pool by these waits for the engine to run on one.
 """
 from __future__ import annotations
 

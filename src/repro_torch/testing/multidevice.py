@@ -1,0 +1,225 @@
+"""Rank functions of the multi-device tests (`tests/test_torch_multidevice.py`):
+each runs in a process of its own under `launch.ranks.run_ranks`, which
+needs it importable by its module path, and returns numpy arrays (a
+bf16 tensor as its int16 bits, so shards compare bit for bit).
+
+* `mesh_case` — one smoke model on a live mesh over ``gloo`` on the CPU:
+  every placed shard (params, plan leaves, a one-process prefill's cache)
+  with its `shard_shape`, whether every gathered plan encoding equals the
+  unsharded one, the sharded prefill's logits, cache and `COLLECTIVES`,
+  the greedy tokens, and the prefill logits without a plan;
+* `prefill_cases` — several smoke configs' sharded prefill and one
+  decode step on one live mesh, each with its plan or without;
+* `raise_on` / `hang_on` — one rank raises, or never joins, while the
+  others wait for it in the rendezvous;
+* `gloo_cuda_probe` — which ``gloo`` collectives take CUDA tensors (the
+  GPU smoke's mesh phase runs it on the card).
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..distributed import sharding as shd
+from ..engine import plan as engine_plan
+from ..launch.mesh import init_mesh
+from ..models import build_model
+from ..models.api import merge_prefill_cache
+from ..models.convert import params_from_numpy
+from ..tree import flatten_with_paths
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _key(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def mesh_case(rank: int, world_size: int, init_method: str, axes, sizes,
+              cfg, params_np, prompt: np.ndarray, steps: int,
+              plan_kwargs: dict) -> dict:
+    """See the module docstring; the plan is built on every rank from the
+    converted params (`engine.plan.plan_transformer`), then placed."""
+    from ..launch.serve import greedy_generate
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    try:
+        whole = params_from_numpy(params_np, "cpu")
+        plan = engine_plan.plan_transformer(cfg, whole, **plan_kwargs)
+        bundle = build_model(cfg, "cpu", mesh=mesh)
+        pspecs = bundle.param_specs()
+        params = shd.place_tree(whole, shd.tree_shardings(mesh, pspecs))
+        splan = engine_plan.shard_plan(plan, mesh)
+        out: dict = {"coord": mesh.coord(), "params": {}, "plan": {},
+                     "shapes": {}}
+        for path, t in flatten_with_paths(params):
+            out["params"][_key(path)] = _bits(t)
+        for path, t in flatten_with_paths(whole):
+            spec = pspecs
+            for p in path:
+                spec = spec[p]
+            out["shapes"][_key(path)] = shd.shard_shape(mesh, tuple(t.shape),
+                                                        spec)
+        specs = engine_plan.plan_specs(plan, mesh)
+        for nm, lp in splan.layers.items():
+            leaf_specs = engine_plan.weight_leaves(specs.layers[nm].weights)
+            whole_leaves = engine_plan.weight_leaves(plan.layers[nm].weights)
+            for leaf, t in engine_plan.weight_leaves(lp.weights).items():
+                out["plan"][f"{nm}/{leaf}"] = _bits(t)
+                out["shapes"][f"{nm}/{leaf}"] = shd.shard_shape(
+                    mesh, tuple(whole_leaves[leaf].shape), leaf_specs[leaf])
+        out["gathered_equal"] = {}
+        for i in range(cfg.n_layers):
+            for nm, lp in splan.per_layer[i].items():
+                got = engine_plan.weight_leaves(
+                    engine_plan.gather_layer(lp).weights)
+                want = engine_plan.weight_leaves(
+                    plan.per_layer[i][nm].weights)
+                for leaf, t in want.items():
+                    out["gathered_equal"][f"{i}/{nm}/{leaf}"] = bool(
+                        got[leaf].dtype == t.dtype
+                        and torch.equal(got[leaf], t))
+        tokens = torch.from_numpy(prompt)
+        b = tokens.shape[0]
+        with torch.no_grad():
+            _, whole_cache = build_model(cfg, "cpu").prefill(
+                {**whole, "sparse_plan": plan}, {"tokens": tokens})
+            cspecs = bundle.cache_specs(b)
+            out["cache_placed"] = {k: _bits(shd.place(v, mesh, cspecs[k]))
+                                   for k, v in whole_cache.items()}
+            out["whole_cache"] = {k: _bits(v) for k, v in whole_cache.items()}
+            sparams = {**params, "sparse_plan": splan}
+            shd.COLLECTIVES.reset()
+            logits, cache = bundle.prefill(sparams, {"tokens": tokens})
+            out["collectives"] = shd.COLLECTIVES.snapshot()
+            out["logits"] = logits.numpy()
+            out["cache"] = {k: _bits(v) for k, v in cache.items()}
+            out["tokens"] = greedy_generate(
+                bundle, sparams, tokens, steps,
+                tokens.shape[1] + steps).numpy()
+            out["dense_logits"] = bundle.prefill(
+                params, {"tokens": tokens})[0].numpy()
+    finally:
+        mesh.close()
+    return out
+
+
+def prefill_cases(rank: int, world_size: int, init_method: str, axes,
+                  sizes, cases) -> list:
+    """``[(prefill logits, decode logits)]`` of each case ``(cfg,
+    params_np, prompt, plan_kwargs or None)`` on one live mesh: the
+    prefill of ``prompt``, then one decode step of token 3 for every row
+    on its cache."""
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    out = []
+    try:
+        for cfg, params_np, prompt, plan_kwargs in cases:
+            whole = params_from_numpy(params_np, "cpu")
+            bundle = build_model(cfg, "cpu", mesh=mesh)
+            params = shd.place_tree(
+                whole, shd.tree_shardings(mesh, bundle.param_specs()))
+            if plan_kwargs is not None:
+                params["sparse_plan"] = engine_plan.shard_plan(
+                    engine_plan.plan_transformer(cfg, whole, **plan_kwargs),
+                    mesh)
+            tokens = torch.from_numpy(prompt)
+            b, s = tokens.shape
+            with torch.no_grad():
+                logits, pf = bundle.prefill(params, {"tokens": tokens})
+                cache = merge_prefill_cache(bundle.init_cache(b, s + 1), pf)
+                step, _ = bundle.decode_step(
+                    params, {"tokens": torch.full((b, 1), 3),
+                             "cache_len": torch.full((b,), s)}, cache)
+            out.append((logits.numpy(), step.numpy()))
+    finally:
+        mesh.close()
+    return out
+
+
+def raise_on(rank: int, world_size: int, init_method: str, bad: int):
+    """Rank ``bad`` raises; the others wait for it in the rendezvous."""
+    if rank == bad:
+        raise RuntimeError(f"rank {bad} fails on purpose")
+    init_mesh(("data",), (world_size,), rank=rank, world_size=world_size,
+              backend="gloo", init_method=init_method, device="cpu")
+
+
+def hang_on(rank: int, world_size: int, init_method: str, bad: int):
+    """Rank ``bad`` never joins; the others wait for it in the
+    rendezvous."""
+    if rank == bad:
+        time.sleep(3600)
+    init_mesh(("data",), (world_size,), rank=rank, world_size=world_size,
+              backend="gloo", init_method=init_method, device="cpu")
+
+
+def gloo_cuda_probe(rank: int, world_size: int, init_method: str) -> dict:
+    """Each collective of `torch.distributed` on CUDA tensors over
+    ``gloo``: ``{op: "ok"}``, or the start of the error it raised, or
+    ``"wrong"`` where it returned a wrong result."""
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    mesh = init_mesh(("data",), (world_size,), rank=rank,
+                     world_size=world_size, backend="gloo",
+                     init_method=init_method, device=dev)
+    dist = torch.distributed
+    x = torch.full((4,), float(rank + 1), device=dev)
+    total = float(sum(range(1, world_size + 1)))
+
+    def gather():
+        out = [torch.empty_like(x) for _ in range(world_size)]
+        dist.all_gather(out, x)
+        return all(bool((o == r + 1).all()) for r, o in enumerate(out))
+
+    def gather_into():
+        out = x.new_empty(4 * world_size)
+        dist.all_gather_into_tensor(out, x)
+        return bool((out.reshape(world_size, 4)[:, 0]
+                     == torch.arange(1, world_size + 1, device=dev)).all())
+
+    def reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y == total).all())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        return bool((y == 1).all())
+
+    def reduce_scatter():
+        out = x.new_empty(4)
+        dist.reduce_scatter(out, [x.clone() for _ in range(world_size)])
+        return bool((out == total).all())
+
+    def all_to_all():
+        out = x.new_empty(4 * world_size)
+        dist.all_to_all_single(out, x.repeat(world_size))
+        return bool((out.reshape(world_size, 4)[:, 0]
+                     == torch.arange(1, world_size + 1, device=dev)).all())
+
+    found = {}
+    try:
+        for name, op in (("all_gather", gather),
+                         ("all_gather_into_tensor", gather_into),
+                         ("all_reduce", reduce), ("broadcast", broadcast),
+                         ("reduce_scatter", reduce_scatter),
+                         ("all_to_all_single", all_to_all)):
+            try:
+                found[name] = "ok" if op() else "wrong"
+            except RuntimeError as e:     # the backend refuses the op
+                found[name] = f"{type(e).__name__}: {str(e)[:100]}"
+            dist.barrier()
+    finally:
+        mesh.close()
+    return found
+
+
+__all__ = ["mesh_case", "prefill_cases", "raise_on", "hang_on",
+           "gloo_cuda_probe"]

@@ -240,6 +240,21 @@ Then the mesh, after phase 21, fatal as above:
              the device count, the backend, each rank's collectives, peak
              memory and wall printed.
 
+Then the MoE mesh, after phase 22, fatal as above:
+
+23. moe mesh — ``serve --mesh data=2,model=2`` of deepseek-moe-16b at
+             published width (depth `MOE_MESH_LAYERS` of 28), bf16, batch
+             4, prompt 32, 8 new tokens through the kv kernel, on the same
+             four ranks sharing cuda:0, the ranks setting up in turns
+             (rank 0 alone, then as many as the card holds): the routed
+             experts split over ``model`` (32 a rank, their encodings
+             gathered over ``data`` only), every rank routing the whole
+             batch; the gates of phase 22, each rank's
+             launches of rows 1, 2, 5 and 8 equal to the plan's count,
+             every batched launch fed the rank's 32 experts; the routing
+             agreement with one process, each rank's collectives, set-up
+             and serving peaks and wall printed.
+
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -472,6 +487,29 @@ MESH_LAUNCHES = {
     "tiled_balanced_spmm_skinny": MESH_PROJECTIONS * MESH_LAYERS
     * MESH_GEN_STEPS,
     "kv_cache_update": 2 * MESH_LAYERS * MESH_GEN_STEPS}
+# phase 23, the MoE mesh: deepseek-moe-16b at published width, depth cut
+# to MOE_MESH_LAYERS of 28 (28 layers are about 200 GB of whole f32 params
+# and plan; 2, not 4, so that the script, phases 21 and 22 at published
+# depth included, ends within its time limit: each rank gathers its
+# experts' encodings over data every forward), the same cell and mesh as
+# phase 22, its 64 routed experts split over model (MOE_MESH_EXPERTS a
+# rank)
+MOE_MESH_LAYERS, MOE_MESH_EXPERTS = 2, 32
+MOE_MESH_ARGS = ["--arch", "deepseek-moe-16b", "--batch", "4",
+                 "--prompt-len", "32", "--gen-steps", str(MESH_GEN_STEPS),
+                 "--sparsity", str(SPARSITY), "--n-layers",
+                 str(MOE_MESH_LAYERS), "--mesh", MESH]
+# each rank's launches: the 4 attention and 3 shared-expert projections as
+# phase 22's 7 (wide M = 2 rows x 32, skinny M = 2), and one batched launch
+# a routed-expert projection, layer and forward (the prefill and every
+# decode step) on the rank's 32 experts
+MOE_MESH_FORWARDS = 1 + MESH_GEN_STEPS
+MOE_MESH_LAUNCHES = {
+    "tiled_balanced_spmm": MESH_PROJECTIONS * MOE_MESH_LAYERS,
+    "tiled_balanced_spmm_skinny": MESH_PROJECTIONS * MOE_MESH_LAYERS
+    * MESH_GEN_STEPS,
+    "tiled_balanced_spmm_batched": 3 * MOE_MESH_LAYERS * MOE_MESH_FORWARDS,
+    "kv_cache_update": 2 * MOE_MESH_LAYERS * MESH_GEN_STEPS}
 
 
 def log(msg: str) -> None:
@@ -3293,6 +3331,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 22. mesh: {time.monotonic() - t0:.1f} s")
 
+    # 23. the MoE mesh: deepseek-moe-16b's experts split over model on
+    # the same four ranks (counts zeroed just before each rank's greedy
+    # path and read just after, in the rank)
+    t0 = time.monotonic()
+    moe_mesh_phase(torch, serve, paths)
+    torch.cuda.empty_cache()
+    log(f"phase 23. moe mesh: {time.monotonic() - t0:.1f} s")
+
     # 10. result: launches summed over the paths' runs; each kernel's timed
     # row at bf16, at the quant mode its serve path runs, at the shape its
     # main path runs (the kv kernel: a decode write into a 4096-row cache)
@@ -3377,7 +3423,9 @@ def mesh_phase(torch, serve, paths: dict) -> None:
         log(f"mesh rank {r['rank']} {r['coord']}: launches {got}, resident "
             f"{r['resident_bytes']} B (shard_bytes {r['shard_bytes']}), peak "
             f"{r['peak_gib']} GiB serving, {r['setup_peak_gib']} GiB in set-up"
-            f" (whole params and plan), set-up {r['setup_s']:.1f} s, greedy "
+            f" (whole params and plan), set-up {r['setup_s']:.1f} s of "
+            f"{r['setup_wall_s']:.1f} s in turns of {r['setup_turns']} ranks, "
+            f"greedy "
             f"{r['wall_s']:.3f} s "
             f"({ns.batch * MESH_GEN_STEPS / r['wall_s']:.2f} tok/s)")
         log(f"mesh rank {r['rank']} collectives " + ", ".join(
@@ -3387,6 +3435,68 @@ def mesh_phase(torch, serve, paths: dict) -> None:
             raise AssertionError(f"rank {r['rank']} launched {got}, the "
                                  f"plan's count is {MESH_LAUNCHES}")
     paths["olmo-1b mesh"] = {
+        k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
+        for k in launches()}
+
+
+def moe_mesh_phase(torch, serve, paths: dict) -> None:
+    """Phase 23: ``serve --mesh`` of deepseek-moe-16b on four ranks
+    sharing the card, its routed experts split over ``model``: serve's
+    own gates (every rank's greedy tokens equal to a one-process run of
+    the same plan in this process, the logits of the prefill and of every
+    decode step within 2e-2 of its, each rank's resident bytes equal to
+    the dry run's `shard_bytes`), held again here, each rank's launches
+    of rows 1, 2, 5 and 8 equal to the plan's count (`MOE_MESH_LAUNCHES`)
+    and every batched launch of a rank fed its `MOE_MESH_EXPERTS`
+    experts; the routing agreement with one process, each rank's
+    collectives, set-up and serving peaks and wall printed."""
+    import dataclasses
+    import tempfile
+    log(f"phase 23 moe mesh: {torch.cuda.device_count()} device(s), backend "
+        f"gloo, {MESH_RANKS} ranks on cuda:0, deepseek-moe-16b "
+        f"{MOE_MESH_LAYERS} of 28 layers, {MOE_MESH_EXPERTS} experts a rank")
+    with tempfile.TemporaryDirectory() as tmp:
+        ns = serve.build_parser().parse_args(
+            MOE_MESH_ARGS + ["--dist-init", f"file://{tmp}/mesh"])
+        cfg = dataclasses.replace(serve.config(ns), cache_update="scatter")
+        res = serve.run(ns, cfg)["mesh"]
+    steps = res["step_logits_max_abs_diff"]
+    log(f"moe mesh {res['mesh']} over {res['backend']}: tokens equal to one "
+        f"process {res['tokens_equal']}, logits max |diff| prefill "
+        f"{steps[0]:.6g}, decode steps "
+        f"{[round(e, 6) for e in steps[1:]]} (tol {res['parity_tol']:g}), "
+        f"resident bytes equal to shard_bytes {res['bytes_equal']}, routing "
+        f"agreement with one process {res['routing_agreement']:.6f}, the "
+        f"card's peak in set-up {res['setup_card_peak_gib']} GiB, ranks "
+        f"{res['ranks_s']:.1f} s; tokens[0] {res['tokens'][0]}")
+    if not res["tokens_equal"] or not res["bytes_equal"] \
+            or max(steps) > TOL["bfloat16"]:
+        raise AssertionError(f"the moe mesh run failed its gates: {res}")
+    want_fed = {MOE_MESH_EXPERTS: 3 * MOE_MESH_LAYERS * MOE_MESH_FORWARDS}
+    for r in res["ranks"]:
+        got = {k: r["kernel_launches"][k] for k in MOE_MESH_LAUNCHES}
+        log(f"moe mesh rank {r['rank']} {r['coord']}: experts "
+            f"{r['expert_block']}, experts a batched dispatch "
+            f"{r['experts_per_dispatch']}, routing agreement "
+            f"{r['routing_agreement']:.6f}, launches {got}, resident "
+            f"{r['resident_bytes']} B (shard_bytes {r['shard_bytes']}), peak "
+            f"{r['peak_gib']} GiB serving, {r['setup_peak_gib']} GiB in its "
+            f"set-up turn (the card {r['setup_card_gib']} GiB), set-up "
+            f"{r['setup_s']:.1f} s of {r['setup_wall_s']:.1f} s in turns of "
+            f"{r['setup_turns']} ranks, "
+            f"greedy {r['wall_s']:.3f} s "
+            f"({ns.batch * MESH_GEN_STEPS / r['wall_s']:.2f} tok/s)")
+        log(f"moe mesh rank {r['rank']} collectives " + ", ".join(
+            f"{k}: {c['ops']} ops {c['bytes']} B"
+            for k, c in r["collectives"].items()))
+        if got != MOE_MESH_LAUNCHES:
+            raise AssertionError(f"rank {r['rank']} launched {got}, the "
+                                 f"plan's count is {MOE_MESH_LAUNCHES}")
+        if r["experts_per_dispatch"] != want_fed:
+            raise AssertionError(f"rank {r['rank']}'s batched dispatches ran "
+                                 f"{r['experts_per_dispatch']} experts, not "
+                                 f"its block of {MOE_MESH_EXPERTS}")
+    paths["deepseek-moe-16b mesh"] = {
         k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
         for k in launches()}
 

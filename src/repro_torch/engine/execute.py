@@ -12,8 +12,9 @@ through ``F.conv2d`` on the masked weight).  `STATS` counts balanced-sparse
 dispatches per call
 (PyTorch runs eagerly, so this is per execution, not per trace);
 `launch/serve.py` asserts on it that the sparse path really ran.  On a
-live mesh `apply_fc` gathers a placed layer's encoding before the kernel
-(`engine.plan.gather_layer`).  A layer
+live mesh `apply_fc` and `apply_expert_fc` gather a placed layer's
+encoding before the kernel (`engine.plan.gather_layer`; an expert layer
+keeps its experts split over ``model``).  A layer
 whose blocks came from the autotuner ticks ``tuned_blocks``; a layer the
 guard ladder demoted or quarantined (``spec.degraded_from``) ticks
 ``degraded_dispatch`` on every dispatch, dense ones included.
@@ -52,10 +53,14 @@ STATS: "collections.Counter[str]" = collections.Counter()
 # per-layer streamed-byte counters (see module docstring)
 BYTE_STATS: Dict[str, "collections.Counter[str]"] = {}
 
+# experts a dispatch of `apply_expert_fc` ran -> dispatches
+EXPERT_BLOCKS: "collections.Counter[int]" = collections.Counter()
+
 
 def reset_stats() -> None:
     STATS.clear()
     BYTE_STATS.clear()
+    EXPERT_BLOCKS.clear()
 
 
 def stats() -> dict:
@@ -231,9 +236,16 @@ def apply_expert_fc(x: Tensor, lp: LayerPlan) -> Tensor:
     `kernels.ops.tiled_spmm_batched` (the expert is a grid axis of one
     kernel launch), the eager rungs `kernels.ops.balanced_spmm_batched`.
     The same live-M clamp of ``block_m`` as `apply_fc`, with M the
-    per-expert capacity.  Counts ``expert_balanced_spmm`` in `STATS`."""
+    per-expert capacity.  Counts ``expert_balanced_spmm`` in `STATS`, and
+    the experts it ran in `EXPERT_BLOCKS`.  A layer placed on a live mesh
+    is gathered first (`plan.gather_layer`): its experts stay split over
+    ``model``, so ``x`` holds this rank's block of experts (``E / model``)
+    and the kernel runs on that block; as in `apply_fc`, the counts are
+    those of the gathered layer."""
+    lp = gather_layer(lp)
     spec = lp.spec
     e = x.shape[0]
+    EXPERT_BLOCKS[e] += 1
     if spec.impl == "dense":
         _count_dense(spec, "dense_matmul")
         x3 = x.reshape(e, -1, x.shape[-1])
@@ -320,4 +332,5 @@ def apply_named(x: Tensor, plan: ModelPlan, name: str) -> Tensor:
 
 __all__ = ["apply_fc", "apply_expert_fc", "apply_conv", "apply_layer",
            "apply_named", "stats", "reset_stats", "bytes_stats", "STATS",
-           "BYTE_STATS", "IMPL_LADDER", "next_impl", "demote_layer"]
+           "BYTE_STATS", "EXPERT_BLOCKS", "IMPL_LADDER", "next_impl",
+           "demote_layer"]

@@ -1164,16 +1164,23 @@ def shard_plan(plan: ModelPlan, mesh) -> ModelPlan:
 
 def gather_layer(lp: LayerPlan) -> LayerPlan:
     """ZeRO-3 ("zero redundancy", stage 3): a placed layer's encoding
-    gathered whole over the axes its `plan_specs` split it on, one
+    gathered over the axes its `plan_specs` split it on, one
     ``all_gather`` a layer, just before use (the reference's
-    ``gather_for_use`` for plans); bit for bit the one-process encoding.
-    A whole layer is returned as it is."""
+    ``gather_for_use`` for plans).  A layer without experts comes back
+    whole, bit for bit the one-process encoding.  An expert layer is
+    gathered over the FSDP axes only: its expert axis stays split over
+    ``model`` (expert parallelism), so it comes back as this rank's block
+    of experts, each whole, bit for bit the one-process encoding's slice
+    of them (``perm`` and ``scales`` follow their specs as the other
+    leaves do).  A whole layer is returned as it is."""
     if lp.placement is None:
         return lp
     from ..distributed import sharding as shd
     mesh, ws = lp.placement
     specs = weight_leaves(ws)
     axes = {a for sp in specs.values() for d in sp for a in shd.spec_axes(d)}
+    if lp.spec.experts:
+        axes &= set(shd.fsdp_axes(mesh))
     whole = shd.gather_tree(weight_leaves(lp.weights), mesh, specs, axes)
     return LayerPlan(spec=lp.spec, weights=_with_leaves(lp.weights, whole))
 

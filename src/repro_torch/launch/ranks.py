@@ -9,7 +9,10 @@ nothing is read from the environment.  Each rank runs on one CPU thread
 (`torch.set_num_threads`): the ranks share the host's cores.
 
 ``fn`` must be importable by its module path (a spawned process starts
-from a fresh import), and its result picklable.
+from a fresh import), and its result picklable.  ``fn`` and ``args``
+reach the ranks through a queue after every process has started, so a
+large argument (a model's params) does not hold each start until the
+rank before it has imported what unpickling it needs.
 
 A rank that raises or exits non-zero, or a run past ``timeout_s``, ends
 every rank that is still running and raises `RankError` with the rank's
@@ -32,10 +35,11 @@ class RankError(RuntimeError):
     """A rank raised, died or outlived the launcher's time limit."""
 
 
-def _entry(fn, rank: int, world_size: int, init_method: str, args,
+def _entry(rank: int, world_size: int, init_method: str, inbox,
            results) -> None:
     torch.set_num_threads(1)
     try:
+        fn, args = inbox.get()
         out = fn(rank, world_size, init_method, *args)
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -62,13 +66,14 @@ def run_ranks(fn, world_size: int, *, init_method: str, args=(),
     docstring)."""
     _check_rendezvous(init_method)
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    results, inbox = ctx.Queue(), ctx.Queue()
     procs = [ctx.Process(target=_entry, daemon=True,
-                         args=(fn, r, world_size, init_method, args,
-                               results))
+                         args=(r, world_size, init_method, inbox, results))
              for r in range(world_size)]
     for p in procs:
         p.start()
+    for _ in procs:
+        inbox.put((fn, tuple(args)))
     deadline = time.monotonic() + timeout_s
     out: dict = {}
     try:
@@ -105,6 +110,9 @@ def run_ranks(fn, world_size: int, *, init_method: str, args=(),
         for p in procs:
             p.join(timeout=30)
         results.close()
+        # a rank that died before it read its arguments leaves them queued
+        inbox.cancel_join_thread()
+        inbox.close()
     return [out[r] for r in range(world_size)]
 
 

@@ -37,13 +37,19 @@ Without ``--guard`` nothing of the ladder runs.
 (a prefill, then ``--gen-steps`` decode steps) on a live mesh of that
 many `torch.distributed` ranks, one process each (`launch.ranks`), over
 ``gloo``: each rank holds its shards of the params, the plan and the KV
-cache by the reference's specs and runs the dense family's sharded
-program (`models.transformer`); on a GPU every rank uses the card of its
-rank modulo the card count.  The report carries rank 0's tokens and
-prefill logits held against a one-process run of the same plan, each
-rank's resident bytes beside the dry run's `shard_bytes`, its collectives
-(`distributed.sharding.COLLECTIVES`), kernel launches, peak memory and
-wall.  ``--traffic``, ``--guard`` and ``--tune`` are refused with it.
+cache by the reference's specs and runs the dense or MoE family's
+sharded program (`models.transformer`; the MoE's routed experts split
+over ``model``); on a GPU every rank uses the card of its rank modulo
+the card count.  The ranks set up in turns: rank 0 alone, then as
+many at once as the card holds by rank 0's set-up peak.  The report carries
+rank 0's tokens and prefill logits held against a one-process run of
+the same plan, each rank's resident bytes beside the dry run's
+`shard_bytes`, its collectives (`distributed.sharding.COLLECTIVES`),
+kernel launches, set-up and serving peak memory and wall, and for the
+MoE its block of experts, the experts each batched dispatch ran and its
+routing's agreement with one process.  ``--traffic``, ``--guard`` and
+``--tune`` are refused with it, and so are the families a live mesh
+does not serve yet.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import time
 
@@ -66,8 +73,9 @@ from ..engine import plan as engine_plan
 from ..kernels import balanced_spmm, kv_cache_update
 from ..kernels.ops import SKINNY_M
 from ..kernels.tile_format import QUANT_MODES, TiledBalanced
-from ..models import build_model
+from ..models import build_model, transformer
 from ..models.api import merge_prefill_cache, sublayer_diffs
+from ..models.transformer import LIVE_FAMILIES
 from . import cost_model
 
 
@@ -532,9 +540,10 @@ def main(argv=None) -> dict:
         if args.dist_init is None:
             ap.error("--mesh needs --dist-init (file://PATH or "
                      "tcp://HOST:PORT)")
-        if cfg.family != "dense":
-            ap.error(f"--mesh serves the dense family; {args.arch} is "
-                     f"{cfg.family}")
+        if cfg.family not in LIVE_FAMILIES:
+            ap.error(f"--mesh serves the {' and '.join(LIVE_FAMILIES)} "
+                     f"families; {args.arch} is {cfg.family}, which waits "
+                     f"for the slice that ports {MESH_WAITS[cfg.family]}")
     if args.traffic and cfg.family not in TRANSFORMER_FAMILIES:
         ap.error(f"--traffic serves the transformer families "
                  f"{TRANSFORMER_FAMILIES}; {cfg.family} has O(1) recurrent "
@@ -570,6 +579,11 @@ def _prompt(args: argparse.Namespace, cfg, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 MESH_TIMEOUT_S = 600.0      # the launcher's limit on the ranks' run
+# what a family that --mesh refuses waits for
+MESH_WAITS = {"ssm": "the recurrent families' channel sharding",
+              "hybrid": "the recurrent families' channel sharding",
+              "audio": "the frontend projection's placement",
+              "vlm": "the frontend projection's placement"}
 
 
 def parse_mesh(spec: str) -> tuple:
@@ -590,14 +604,25 @@ def parse_mesh(spec: str) -> tuple:
 
 def _serve_rank(rank: int, world_size: int, init_method: str,
                 args: argparse.Namespace, cfg) -> dict:
-    """One rank of ``--mesh``: make the params from the seed and build
-    the plan whole, place both (and free the whole ones), then time the
-    greedy path (its tokens and the logits they were chosen from) with
-    this rank's counts zeroed just before and read just after.  Returns
-    the rank's report (numpy for the tensors)."""
+    """One rank of ``--mesh``.  Set-up runs in turns, each closed by a
+    barrier: in its turn a rank makes the params from the seed and builds
+    the plan whole, places both, frees the whole ones and empties its
+    cache.  Rank 0 goes alone; the rest go as many at a time as the card
+    holds by rank 0's measured set-up peak (`_setup_group`), so the card
+    never holds more whole sets than fit beside the ranks' shards.  Then
+    it times the greedy path (its tokens, the
+    logits they were chosen from and, for the MoE family, the experts it
+    routed) with this rank's counts zeroed just before and read just
+    after.  Returns the rank's report (numpy for the tensors)."""
     from ..engine import plan as engine_plan
     from .dryrun import shard_bytes, tree_bytes
     from .mesh import init_mesh
+    # before the rank's first CUDA allocation: the whole params and plan,
+    # freed after placement, go back to the card page by page (a fixed
+    # segment that also holds one of the rank's shards could not be
+    # released)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -608,22 +633,44 @@ def _serve_rank(rank: int, world_size: int, init_method: str,
     mesh = init_mesh(names, sizes, rank=rank, world_size=world_size,
                      backend="gloo", init_method=init_method, device=device)
     try:
-        t0 = time.monotonic()
-        whole = build_model(cfg, device).init(0)
-        plan = engine_plan.plan_model(cfg, whole, **_plan_kwargs(args, cfg))
+        t_start = time.monotonic()
         bundle = build_model(cfg, device, mesh=mesh)
         pspecs = bundle.param_specs()
-        want = {"params": shard_bytes(mesh, whole, pspecs)}
-        pl_specs = engine_plan.plan_specs(plan, mesh)
-        want["plan"] = sum(shard_bytes(
-            mesh, engine_plan.weight_leaves(lp.weights),
-            engine_plan.weight_leaves(pl_specs.layers[nm].weights))
-            for nm, lp in plan.layers.items())
-        params = shd.place_tree(whole, shd.tree_shardings(mesh, pspecs))
-        splan = engine_plan.shard_plan(plan, mesh)
-        del whole, plan
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+        setup_peak = setup_card = None
+        group, start, turns = 1, 0, []  # rank 0 alone first
+        while start < world_size:
+            turns.append(min(group, world_size - start))
+            if start <= rank < start + turns[-1]:
+                t0 = time.monotonic()
+                whole = build_model(cfg, device).init(0)
+                plan = engine_plan.plan_model(cfg, whole,
+                                              **_plan_kwargs(args, cfg))
+                want = {"params": shard_bytes(mesh, whole, pspecs)}
+                pl_specs = engine_plan.plan_specs(plan, mesh)
+                want["plan"] = sum(shard_bytes(
+                    mesh, engine_plan.weight_leaves(lp.weights),
+                    engine_plan.weight_leaves(pl_specs.layers[nm].weights))
+                    for nm, lp in plan.layers.items())
+                params = shd.place_tree(whole,
+                                        shd.tree_shardings(mesh, pspecs))
+                splan = engine_plan.shard_plan(plan, mesh)
+                if device.type == "cuda":
+                    setup_peak = torch.cuda.max_memory_allocated(device) \
+                        / 2**30
+                    # the card as every process uses it: the other ranks'
+                    # shards and contexts, the whole sets of this turn's
+                    # ranks, this one's still held
+                    free, total = torch.cuda.mem_get_info(device)
+                    setup_card = (total - free) / 2**30
+                del whole, plan
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                setup_s = time.monotonic() - t0
+            torch.distributed.barrier()
+            if start == 0 and world_size > 1:
+                group = _setup_group(device, world_size, setup_peak)
+            start += turns[-1]
+        setup_wall = time.monotonic() - t_start
         sparams = {**params, "sparse_plan": splan}
         prompt = _prompt(args, cfg, device)
         max_len = args.prompt_len + args.gen_steps
@@ -634,43 +681,69 @@ def _serve_rank(rank: int, world_size: int, init_method: str,
                                   dtype=v.dtype, device="meta")
                    for k, v in cache.items()},
             bundle.cache_specs(args.batch))
-        setup_peak = torch.cuda.max_memory_allocated(device) / 2**30 \
-            if device.type == "cuda" else None
         resident = {"params": tree_bytes(params),
                     "plan": sum(tree_bytes(engine_plan.weight_leaves(
                         lp.weights)) for lp in splan.layers.values()),
                     "cache": tree_bytes(cache)}
         del cache
-        setup_s = time.monotonic() - t0
+        expert_block = None
+        if cfg.family == "moe":
+            e0, el = shd.block_of(
+                mesh, shd.spec_axes(pspecs["blocks"]["we_gate"][1]),
+                cfg.n_experts)
+            expert_block = [e0, e0 + el]
         _sync(device)
         balanced_spmm.reset_launches()
         kv_cache_update.reset_launches()
         shd.COLLECTIVES.reset()
+        engine_execute.reset_stats()
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.monotonic()
         logits = []
-        toks = greedy_generate(bundle, sparams, prompt, args.gen_steps,
-                               max_len, logits)
+        with transformer.record_routes() as routes:
+            toks = greedy_generate(bundle, sparams, prompt, args.gen_steps,
+                                   max_len, logits)
         _sync(device)
         wall = time.monotonic() - t0
         return {"rank": rank, "coord": mesh.coord(),
                 "collectives": shd.COLLECTIVES.snapshot(),
                 "kernel_launches": _launch_counts(),
+                "expert_block": expert_block,
+                "experts_per_dispatch": dict(engine_execute.EXPERT_BLOCKS),
                 "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30
                 if device.type == "cuda" else None,
-                "setup_peak_gib": setup_peak, "setup_s": setup_s,
+                "setup_peak_gib": setup_peak,
+                "setup_card_gib": setup_card, "setup_s": setup_s,
+                "setup_wall_s": setup_wall, "setup_turns": turns,
                 "wall_s": wall, "resident_bytes": resident,
                 "shard_bytes": want, "tokens": toks.cpu().numpy(),
-                "logits": torch.stack(logits).float().cpu().numpy()}
+                "logits": torch.stack(logits).float().cpu().numpy(),
+                "routes": [r.cpu().numpy() for r in routes]}
     finally:
         mesh.close()
 
 
+def _setup_group(device: torch.device, world_size: int,
+                 peak_gib: float | None) -> int:
+    """How many ranks of ``--mesh`` set up at once after rank 0's turn:
+    off the card, all of them; on cards, as many of rank 0's measured
+    set-up peaks (``peak_gib``, sent from rank 0) as 85% of the free
+    memory of its card holds, on each card (a rank's card is its rank
+    modulo the card count), at least one."""
+    if device.type != "cuda":
+        return world_size - 1
+    info = torch.tensor([peak_gib or 0.0, torch.cuda.mem_get_info(device)[0]
+                         / 2**30], dtype=torch.float64)
+    torch.distributed.broadcast(info, 0)
+    peak, free = info.tolist()
+    return max(1, int(0.85 * free // peak)) * torch.cuda.device_count()
+
+
 def one_process(args: argparse.Namespace, cfg) -> tuple:
-    """``(greedy tokens, the logits they were chosen from)`` of one
-    process serving the same params, plan and prompt as ``--mesh`` does
-    (the yardstick of its ranks)."""
+    """``(greedy tokens, the logits they were chosen from, the experts
+    each MoE dispatch routed)`` of one process serving the same params,
+    plan and prompt as ``--mesh`` does (the yardstick of its ranks)."""
     from ..engine import plan as engine_plan
     device = resolve_device(args.device)
     bundle = build_model(cfg, device)
@@ -679,9 +752,24 @@ def one_process(args: argparse.Namespace, cfg) -> tuple:
     sparams = {**params, "sparse_plan": plan}
     prompt = _prompt(args, cfg, device)
     logits = []
-    toks = greedy_generate(bundle, sparams, prompt, args.gen_steps,
-                           args.prompt_len + args.gen_steps, logits)
-    return toks.cpu().numpy(), torch.stack(logits).float().cpu().numpy()
+    with transformer.record_routes() as routes:
+        toks = greedy_generate(bundle, sparams, prompt, args.gen_steps,
+                               args.prompt_len + args.gen_steps, logits)
+    return (toks.cpu().numpy(), torch.stack(logits).float().cpu().numpy(),
+            [r.cpu().numpy() for r in routes])
+
+
+def routing_agreement(routes: list, ref_routes: list) -> float | None:
+    """The share of (token, k) choices in which ``routes`` (one ``[T, K]``
+    array a MoE dispatch) picked the expert ``ref_routes`` did; None
+    without experts."""
+    if not ref_routes:
+        return None
+    if len(routes) != len(ref_routes):
+        raise ValueError(f"{len(routes)} routed dispatches against "
+                         f"{len(ref_routes)}")
+    same = sum(int((a == b).sum()) for a, b in zip(routes, ref_routes))
+    return same / sum(a.size for a in ref_routes)
 
 
 def run_mesh(args: argparse.Namespace, cfg) -> dict:
@@ -698,7 +786,7 @@ def run_mesh(args: argparse.Namespace, cfg) -> dict:
     if device.type == "cuda":
         from ..kernels import _build
         _build.build()      # once here, not in every rank
-    ref_toks, ref_logits = one_process(args, cfg)
+    ref_toks, ref_logits, ref_routes = one_process(args, cfg)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.monotonic()
@@ -712,21 +800,38 @@ def run_mesh(args: argparse.Namespace, cfg) -> dict:
     tokens_equal = all(np.array_equal(r["tokens"], ref_toks) for r in ranks)
     bytes_equal = all(r["resident_bytes"] == r["shard_bytes"]
                       for r in ranks)
-    per_rank = [{k: v for k, v in r.items() if k not in ("tokens", "logits")}
+    per_rank = [{k: v for k, v in r.items()
+                 if k not in ("tokens", "logits", "routes")}
                 for r in ranks]
+    for r, full in zip(per_rank, ranks):
+        r["routing_agreement"] = routing_agreement(full["routes"],
+                                                   ref_routes)
+    setup_card = max((r["setup_card_gib"] for r in per_rank
+                      if r["setup_card_gib"] is not None), default=None)
     for r in per_rank:
+        moe = "" if r["expert_block"] is None else (
+            f", experts {r['expert_block']} (experts a batched dispatch: "
+            f"{r['experts_per_dispatch']}), routing agreement with one "
+            f"process {r['routing_agreement']:.6f}")
         print(f"[serve/mesh] rank {r['rank']} {r['coord']}: resident "
               f"{r['resident_bytes']} B (shard_bytes {r['shard_bytes']}), "
               f"launches {r['kernel_launches']}, collectives "
               f"{r['collectives']}, peak {r['peak_gib']} GiB (set-up "
-              f"{r['setup_peak_gib']} GiB), set-up "
-              f"{r['setup_s']:.2f} s, greedy {r['wall_s']:.3f} s")
+              f"{r['setup_peak_gib']} GiB, the card {r['setup_card_gib']} "
+              f"GiB), set-up {r['setup_s']:.2f} s of "
+              f"{r['setup_wall_s']:.2f} s in turns of "
+              f"{r['setup_turns']} ranks, greedy "
+              f"{r['wall_s']:.3f} s{moe}")
     print(f"[serve/mesh] {cfg.name} on {dict(zip(names, sizes))} over gloo "
           f"({device.type}): tokens equal to one process {tokens_equal}, "
           f"logits max |diff| prefill {step_err[0]:.3g}, decode steps "
           f"{float(step_err[1:].max(initial=0.0)):.3g} (tol {tol:g}), "
-          f"resident bytes equal to shard_bytes {bytes_equal}; ranks "
-          f"{ranks_s:.1f} s")
+          f"resident bytes equal to shard_bytes {bytes_equal}"
+          + ("" if not ref_routes else ", routing agreement with one "
+             f"process {min(r['routing_agreement'] for r in per_rank):.6f}")
+          + ("" if setup_card is None else
+             f", the card's peak in set-up {setup_card:.2f} GiB")
+          + f"; ranks {ranks_s:.1f} s")
     report = {"model": cfg.name, "n_layers": cfg.n_layers,
               "mesh": dict(zip(names, sizes)), "backend": "gloo",
               "device": str(device), "tokens": ranks[0]["tokens"].tolist(),
@@ -735,7 +840,9 @@ def run_mesh(args: argparse.Namespace, cfg) -> dict:
               "step_logits_max_abs_diff": [float(e) for e in step_err],
               "parity_tol": tol, "tokens_equal": tokens_equal,
               "bytes_equal": bytes_equal, "ranks_s": ranks_s,
-              "ranks": per_rank}
+              "routing_agreement": None if not ref_routes else min(
+                  r["routing_agreement"] for r in per_rank),
+              "setup_card_peak_gib": setup_card, "ranks": per_rank}
     if not (tokens_equal and float(step_err.max()) <= tol and bytes_equal):
         raise AssertionError(f"the mesh run differs from one process or "
                              f"from its shard bytes: {json.dumps(report)}")

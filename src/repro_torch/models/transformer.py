@@ -29,6 +29,7 @@ and every planned expert tensor through `engine.execute.apply_expert_fc`
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict
 
@@ -51,6 +52,7 @@ from .layers import (apply_rope, attention_chunks, causal_lm_labels,
 
 Tensor = torch.Tensor
 KV_DTYPE = torch.bfloat16       # the cache is bf16 by construction
+LIVE_FAMILIES = ("dense", "moe")    # the families a live mesh serves
 
 
 def _norm(cfg: ModelConfig, x: Tensor, gamma: Tensor | None) -> Tensor:
@@ -305,6 +307,79 @@ def _expert_proj(lp, plan_layers, name: str, x: Tensor, cd) -> Tensor:
 
 
 _MOE_SEG = 65536
+_ROUTES: list | None = None         # the sink of `record_routes`, when on
+
+
+@contextlib.contextmanager
+def record_routes():
+    """``with record_routes() as routes:`` collects into ``routes`` the
+    expert ids ``[T, K]`` that every MoE dispatch routes, one a layer and
+    segment in call order, on one device or on a live mesh (where every
+    rank routes the whole batch's tokens), so two runs' choices compare
+    entry for entry."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def _capacity_dispatch(cfg: ModelConfig, eidx: Tensor) -> tuple:
+    """``(cap, valid, slot)`` of the routed ``eidx [T, K]``: the capacity
+    ``max(8, ceil(T*K/E * capacity_factor))``; whether each assignment's
+    position within its expert (a token-major cumsum over the ``[T*K, E]``
+    one-hot) is under it (0 / 1 in the compute dtype); and its row
+    ``[T*K]`` of the ``[E*cap]`` dispatch buffer (past the capacity:
+    clipped to the expert's last row)."""
+    t, k = eidx.shape
+    e = cfg.n_experts
+    cap = max(8, int(math.ceil(t * k / e * cfg.capacity_factor)))
+    oh = F.one_hot(eidx.reshape(-1), e)                          # [T*K, E]
+    pos = ((oh.cumsum(dim=0) * oh).sum(-1) - 1).reshape(t, k)
+    valid = (pos < cap).to(_cdtype(cfg))
+    slot = (eidx * cap + pos.clamp(0, cap - 1)).reshape(-1)      # [T*K]
+    return cap, valid, slot
+
+
+def _routed_experts(cfg: ModelConfig, lp, plan_layers, xf: Tensor,
+                    gate: Tensor, eidx: Tensor, block=None,
+                    gather_out=None, rows=slice(None)) -> Tensor:
+    """The routed experts' output for tokens ``xf [T, d]`` routed to
+    ``eidx`` with ``gate`` (each ``[T, K]``): capacity dispatch
+    (`_capacity_dispatch`), the three per-expert projections
+    (`_expert_proj`) and the combine (each ``(t, k)`` slot weighted by its
+    gate, summed over k), in the reference's operation order.
+
+    One device fills and runs the whole ``[E, cap, d]`` buffer.  A rank of
+    a live mesh passes ``block(cap) -> (e0, el, c0, cl)``, its block of
+    experts and capacity rows, which it fills and runs alone;
+    ``gather_out(eout [el, cl, d], cap)`` brings the blocks' outputs back
+    to ``[E, cap, d]``, and ``rows`` selects the tokens the rank combines.
+    Dropped assignments add a zeroed input and weigh 0."""
+    cd = _cdtype(cfg)
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap, valid, slot = _capacity_dispatch(cfg, eidx)
+    xin = xf[:, None, :].expand(t, k, d).reshape(t * k, d) \
+        * valid.reshape(-1, 1)
+    e0, el, c0, cl = (0, e, 0, cap) if block is None else block(cap)
+    at = slot
+    if (el, cl) != (e, cap):
+        ex, px = slot // cap, slot % cap
+        mine = (ex >= e0) & (ex < e0 + el) & (px >= c0) & (px < c0 + cl)
+        at, xin = ((ex - e0) * cl + px - c0)[mine], xin[mine]
+    # dispatch: scatter-add tokens into [el*cl, d] (dropped ones add 0)
+    buf = torch.zeros((el * cl, d), dtype=cd, device=xf.device)
+    buf = buf.index_add_(0, at, xin).reshape(el, cl, d)
+    hidden = F.silu(_expert_proj(lp, plan_layers, "we_gate", buf, cd)) \
+        * _expert_proj(lp, plan_layers, "we_up", buf, cd)
+    eout = _expert_proj(lp, plan_layers, "we_down", hidden, cd)
+    if gather_out is not None:
+        eout = gather_out(eout, cap)
+    # combine: gather each (t, k) slot, weight by its gate
+    y = eout.reshape(e * cap, d)[slot.reshape(t, k)[rows]]
+    return (y * (gate[rows].to(cd) * valid[rows])[..., None]).sum(dim=1)
 
 
 def _moe(cfg: ModelConfig, lp, h: Tensor, plan_layers=None,
@@ -360,33 +435,18 @@ def _moe_tokens(cfg: ModelConfig, lp, xf: Tensor, plan_layers=None,
     ``[T*K, E]`` one-hot; assignments past the capacity are clipped to the
     last slot with a zeroed input and a zeroed gate."""
     cd = _cdtype(cfg)
-    t, d = xf.shape
-    e, k = cfg.n_experts, cfg.top_k
+    t, e = xf.shape[0], cfg.n_experts
     probs, gate, eidx = _route(cfg, lp, xf)
     own = (gate, eidx)
     # load-balancing auxiliary (Switch): E * sum_e f_e * p_e
     assign = torch.zeros((t, e), dtype=torch.float32, device=xf.device)
     assign.scatter_(1, eidx, 1.0)
     aux = e * torch.mean(assign.mean(0) * probs.mean(0))
+    if _ROUTES is not None:
+        _ROUTES.append(eidx)
     if route is not None:
         gate, eidx = route
-    # capacity + position within expert
-    cap = max(8, int(math.ceil(t * k / e * cfg.capacity_factor)))
-    oh = F.one_hot(eidx.reshape(-1), e)                          # [T*K, E]
-    pos = ((oh.cumsum(dim=0) * oh).sum(-1) - 1).reshape(t, k)
-    valid = (pos < cap).to(cd)
-    slot = (eidx * cap + pos.clamp(0, cap - 1)).reshape(-1)      # [T*K]
-    # dispatch: scatter-add tokens into [E*C, d] (dropped ones add 0)
-    xin = xf[:, None, :].expand(t, k, d).reshape(t * k, d) \
-        * valid.reshape(-1, 1)
-    buf = torch.zeros((e * cap, d), dtype=cd, device=xf.device)
-    buf = buf.index_add_(0, slot, xin).reshape(e, cap, d)
-    hidden = F.silu(_expert_proj(lp, plan_layers, "we_gate", buf, cd)) \
-        * _expert_proj(lp, plan_layers, "we_up", buf, cd)
-    eout = _expert_proj(lp, plan_layers, "we_down", hidden, cd)
-    # combine: gather each (t, k) slot, weight by its gate
-    y = eout.reshape(e * cap, d)[slot].reshape(t, k, d)
-    y = (y * (gate.to(cd) * valid)[..., None]).sum(dim=1)
+    y = _routed_experts(cfg, lp, plan_layers, xf, gate, eidx)
     if cfg.n_shared_experts:
         g = F.silu(_proj(lp, plan_layers, "ws_gate", xf, cd)) \
             * _proj(lp, plan_layers, "ws_up", xf, cd)
@@ -478,6 +538,14 @@ def sublayer_diffs(cfg: ModelConfig, params, ref_params, tokens: Tensor,
                         increments=(("attn", a_got, a_ref),
                                     (name, m_got, m_ref)))
         h = want
+
+
+def dispatch_spec(cfg: ModelConfig, mesh, cap: int) -> P:
+    """The reference's constraint on the MoE dispatch buffer ``[E, cap,
+    d]`` (its `_moe_tokens`): experts over ``model``, the capacity over
+    the data axes, each where it divides."""
+    return shd.logical_spec(mesh, (cfg.n_experts, cap, cfg.d_model),
+                            [["model"], [("data", "pod")], None])
 
 
 def cache_specs(cfg: ModelConfig, mesh, batch_size: int) -> Dict[str, P]:
@@ -596,7 +664,7 @@ def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
 
 
 # ---------------------------------------------------------------------------
-# Live mesh: the dense family's sharded serve program
+# Live mesh: the dense and MoE families' sharded serve program
 # ---------------------------------------------------------------------------
 
 def _cols(mesh: LiveMesh, x: Tensor, have: tuple, want: tuple) -> Tensor:
@@ -615,8 +683,9 @@ def _cols(mesh: LiveMesh, x: Tensor, have: tuple, want: tuple) -> Tensor:
 
 def _build_live(cfg: ModelConfig, device: torch.device,
                 mesh: LiveMesh) -> ModelBundle:
-    """The dense family's bundle on a live mesh: the reference's sharded
-    serve program, each collective explicit (`distributed.sharding`).
+    """The dense and MoE families' bundle on a live mesh: the reference's
+    sharded serve program, each collective explicit
+    (`distributed.sharding`).
 
     Params are this rank's blocks by `param_specs` (``init`` makes them
     whole from the seed on every rank, then places them); the plan is
@@ -639,18 +708,27 @@ def _build_live(cfg: ModelConfig, device: torch.device,
       Where ``model`` splits no plane, a prefill splits the query groups
       or each q chunk's rows over it as the reference's branches do
       (`prefill_planes`);
+    * the MoE sublayer (`moe`) is expert-parallel: the normed rows are
+      gathered over the batch axes (one collective) and every rank
+      routes the whole batch, as one process does; each rank runs its
+      experts (``E / model``, their encodings gathered over the FSDP
+      axes only: `engine.plan.gather_layer`) on its block of the
+      dispatch buffer (`dispatch_spec`), the blocks' outputs are
+      gathered back (one collective) and each rank combines its own
+      rows; the router is gathered whole, the shared experts run as the
+      dense MLP does;
     * the embedding, split by vocab over ``model`` and by ``d`` over the
       FSDP axes, is a masked local lookup of every row plus one
       ``all_reduce``; the logits are each rank's vocab and ``d`` block's
       partial product, summed by one ``all_reduce`` (the last positions
       gathered over the batch axes first).
 
-    Only prefill and decode run here (no training step), for the dense
-    family (no experts, no frontend)."""
-    if cfg.family != "dense":
+    Only prefill and decode run here (no training step), for the
+    families of `LIVE_FAMILIES` (no frontend)."""
+    if cfg.family not in LIVE_FAMILIES:
         raise NotImplementedError(
-            f"a live mesh serves the dense family; {cfg.name} is "
-            f"{cfg.family}")
+            f"a live mesh serves the {LIVE_FAMILIES} families; {cfg.name} "
+            f"is {cfg.family}")
     cd = _cdtype(cfg)
     dh, kh = cfg.head_dim, cfg.n_kv_heads
     g = cfg.n_heads // kh
@@ -740,18 +818,71 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         o = shd.rows_of(o.reshape(n, s, g * dh), mesh, pax, kh, (bax, want))
         return proj(lp, plp, "wo", o, want)[0], kv_out
 
+    def swiglu(lp, plp, x, names=("w_gate", "w_up", "w_down")):
+        gate, up, down = names
+        a, have = proj(lp, plp, gate, x, ())
+        u, have_u = proj(lp, plp, up, x, ())
+        if have != have_u:
+            a, u, have = _cols(mesh, a, have, ()), \
+                _cols(mesh, u, have_u, ()), ()
+        return proj(lp, plp, down, F.silu(a) * u, have)[0]
+
     def mlp(lp, plp, h):
         x = _norm(cfg, h, lp["mlp_norm"]).to(cd)
         if cfg.mlp == "swiglu":
-            a, have = proj(lp, plp, "w_gate", x, ())
-            u, have_u = proj(lp, plp, "w_up", x, ())
-            if have != have_u:
-                a, u, have = _cols(mesh, a, have, ()), \
-                    _cols(mesh, u, have_u, ()), ()
-            return proj(lp, plp, "w_down", F.silu(a) * u, have)[0]
+            return swiglu(lp, plp, x)
         a, have = proj(lp, plp, "w_in", x, ())
         return proj(lp, plp, "w_out", F.gelu(a, approximate="tanh"),
                     have)[0]
+
+    def moe(lp, plp, h, bax, b):
+        """The MoE sublayer of this rank's rows ``h`` ``[bl, s, d]`` as
+        the reference's sharded `_moe` runs it: every segment of S (by
+        ``_MOE_SEG`` and the whole batch's ``b``) routes the whole
+        batch's tokens on every rank, so the capacity, the positions and
+        the drops are those of one process; the rank fills, and runs its
+        experts on, its block of the dispatch buffer ``[E, cap, d]`` (E
+        over ``model``, cap over the data axes where they divide it:
+        `dispatch_spec`); the blocks' outputs are gathered back to
+        ``[E*cap, d]`` (one collective), and the rank combines its own
+        rows in the reference's order."""
+        s, d = h.shape[1], cfg.d_model
+        x = _norm(cfg, h, lp["mlp_norm"]).to(cd)
+        xg = shd.gather(x, mesh, P(bax, None, None)) if bax else x
+        r0, bl = shd.block_of(mesh, bax, b)
+
+        def axes(cap):          # (expert axes, capacity axes) of the buffer
+            return [shd.spec_axes(a)
+                    for a in dispatch_spec(cfg, mesh, cap)][:2]
+
+        def block(cap):
+            e_ax, c_ax = axes(cap)
+            return (*shd.block_of(mesh, e_ax, cfg.n_experts),
+                    *shd.block_of(mesh, c_ax, cap))
+
+        def gather_out(eout, cap):
+            e_ax, c_ax = axes(cap)
+            return shd.gather(eout, mesh, P(e_ax, c_ax, None)) \
+                if e_ax or c_ax else eout
+        seg_s = max(1, _MOE_SEG // b)
+        while s % seg_s:
+            seg_s //= 2
+        ys = []
+        for j in range(0, s, seg_s):
+            t = b * seg_s
+            xf = xg[:, j:j + seg_s].reshape(t, d)
+            _, gate, eidx = _route(cfg, lp, xf)
+            if _ROUTES is not None:
+                _ROUTES.append(eidx)
+            rows = slice(r0 * seg_s, (r0 + bl) * seg_s)
+            y = _routed_experts(cfg, lp, plp, xf, gate, eidx, block=block,
+                                gather_out=gather_out, rows=rows)
+            if cfg.n_shared_experts:
+                y = y + swiglu(lp, plp,
+                               x[:, j:j + seg_s].reshape(bl * seg_s, d),
+                               ("ws_gate", "ws_up", "ws_down"))
+            ys.append(y.reshape(bl, seg_s, d))
+        return torch.cat(ys, dim=1)
 
     def forward(params, tokens, pos_fn, cache=None):
         """``(logits [B, V], per-layer (k, v) planes)`` of the whole batch
@@ -780,7 +911,9 @@ def _build_live(cfg: ModelConfig, device: torch.device,
                                              cache[2])
             a, kv_out = attn(lp, plp, h, bax, b, pos_fn, kv)
             h = h + a.to(h.dtype)
-            h = h + mlp(lp, plp, h).to(h.dtype)
+            m = moe(lp, plp, h, bax, b) if cfg.family == "moe" \
+                else mlp(lp, plp, h)
+            h = h + m.to(h.dtype)
             kvs.append(kv_out)
         last = _norm(cfg, h, params["final_norm"])[:, -1].float()
         if bax:

@@ -3,13 +3,19 @@ each runs in a process of its own under `launch.ranks.run_ranks`, which
 needs it importable by its module path, and returns numpy arrays (a
 bf16 tensor as its int16 bits, so shards compare bit for bit).
 
-* `mesh_case` — one smoke model on a live mesh over ``gloo`` on the CPU:
-  every placed shard (params, plan leaves, a one-process prefill's cache)
-  with its `shard_shape`, whether every gathered plan encoding equals the
-  unsharded one, the sharded prefill's logits, cache and `COLLECTIVES`,
-  the greedy tokens, and the prefill logits without a plan;
+* `mesh_case` — one smoke model (dense or MoE) on a live mesh over
+  ``gloo`` on the CPU: every placed shard (params, plan leaves, a
+  one-process prefill's cache) with its `shard_shape`, whether every
+  gathered plan encoding equals the unsharded one (an expert layer: the
+  rank's block of its experts), the sharded prefill's logits, cache,
+  `COLLECTIVES` and the experts each batched dispatch ran, the greedy
+  tokens, and the prefill logits without a plan;
 * `prefill_cases` — several smoke configs' sharded prefill and one
   decode step on one live mesh, each with its plan or without;
+
+`prefill_cases` takes the MoE segment length
+(``models.transformer._MOE_SEG``) with each case: a spawned rank imports
+the module afresh, so a test's monkeypatch does not reach it.
 * `raise_on` / `hang_on` — one rank raises, or never joins, while the
   others wait for it in the rendezvous;
 * `gloo_cuda_probe` — which ``gloo`` collectives take CUDA tensors (the
@@ -23,9 +29,10 @@ import numpy as np
 import torch
 
 from ..distributed import sharding as shd
+from ..engine import execute as engine_execute
 from ..engine import plan as engine_plan
 from ..launch.mesh import init_mesh
-from ..models import build_model
+from ..models import build_model, transformer
 from ..models.api import merge_prefill_cache
 from ..models.convert import params_from_numpy
 from ..tree import flatten_with_paths
@@ -38,6 +45,23 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 
 def _key(path) -> str:
     return "/".join(str(p) for p in path)
+
+
+_MOE_SEG = transformer._MOE_SEG       # the module's own, at import
+
+
+def _set_moe_seg(moe_seg: int | None) -> None:
+    transformer._MOE_SEG = _MOE_SEG if moe_seg is None else moe_seg
+
+
+def _kept_block(t: torch.Tensor, spec, mesh, gathered: set) -> torch.Tensor:
+    """This rank's block of the whole ``t`` over the axes of ``spec`` that
+    a gather over ``gathered`` keeps split."""
+    for i, d in enumerate(spec):
+        if d is not None and not set(shd.spec_axes(d)) & gathered:
+            start, size = shd.block_of(mesh, d, t.shape[i])
+            t = t.narrow(i, start, size)
+    return t
 
 
 def mesh_case(rank: int, world_size: int, init_method: str, axes, sizes,
@@ -74,13 +98,20 @@ def mesh_case(rank: int, world_size: int, init_method: str, axes, sizes,
                 out["shapes"][f"{nm}/{leaf}"] = shd.shard_shape(
                     mesh, tuple(whole_leaves[leaf].shape), leaf_specs[leaf])
         out["gathered_equal"] = {}
+        out["gathered_shapes"] = {}
+        fsdp = set(shd.fsdp_axes(mesh))
         for i in range(cfg.n_layers):
             for nm, lp in splan.per_layer[i].items():
                 got = engine_plan.weight_leaves(
                     engine_plan.gather_layer(lp).weights)
                 want = engine_plan.weight_leaves(
                     plan.per_layer[i][nm].weights)
+                leaf_specs = engine_plan.weight_leaves(lp.placement[1])
+                gathered = fsdp if lp.spec.experts else set(mesh.axis_names)
                 for leaf, t in want.items():
+                    t = _kept_block(t, leaf_specs[leaf], mesh, gathered)
+                    out["gathered_shapes"][f"{i}/{nm}/{leaf}"] = tuple(
+                        got[leaf].shape)
                     out["gathered_equal"][f"{i}/{nm}/{leaf}"] = bool(
                         got[leaf].dtype == t.dtype
                         and torch.equal(got[leaf], t))
@@ -95,8 +126,10 @@ def mesh_case(rank: int, world_size: int, init_method: str, axes, sizes,
             out["whole_cache"] = {k: _bits(v) for k, v in whole_cache.items()}
             sparams = {**params, "sparse_plan": splan}
             shd.COLLECTIVES.reset()
+            engine_execute.reset_stats()
             logits, cache = bundle.prefill(sparams, {"tokens": tokens})
             out["collectives"] = shd.COLLECTIVES.snapshot()
+            out["expert_blocks"] = dict(engine_execute.EXPERT_BLOCKS)
             out["logits"] = logits.numpy()
             out["cache"] = {k: _bits(v) for k, v in cache.items()}
             out["tokens"] = greedy_generate(
@@ -112,14 +145,15 @@ def mesh_case(rank: int, world_size: int, init_method: str, axes, sizes,
 def prefill_cases(rank: int, world_size: int, init_method: str, axes,
                   sizes, cases) -> list:
     """``[(prefill logits, decode logits)]`` of each case ``(cfg,
-    params_np, prompt, plan_kwargs or None)`` on one live mesh: the
-    prefill of ``prompt``, then one decode step of token 3 for every row
-    on its cache."""
+    params_np, prompt, plan_kwargs or None[, MoE segment length])`` on one
+    live mesh: the prefill of ``prompt``, then one decode step of token 3
+    for every row on its cache."""
     mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
                      backend="gloo", init_method=init_method, device="cpu")
     out = []
     try:
-        for cfg, params_np, prompt, plan_kwargs in cases:
+        for cfg, params_np, prompt, plan_kwargs, *seg in cases:
+            _set_moe_seg(seg[0] if seg else None)
             whole = params_from_numpy(params_np, "cpu")
             bundle = build_model(cfg, "cpu", mesh=mesh)
             params = shd.place_tree(

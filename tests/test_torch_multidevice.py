@@ -122,7 +122,18 @@ def _expected_collectives(cfg, plan, mesh_names, mesh_sizes, b: int,
       gathered over the plane axes when some rank's planes lack a head
       of one of its rows (``wo`` is planned and takes every head);
     * the logits: the last positions gathered over the batch axes, then
-      one ``all_reduce`` of the f32 ``[B, V]`` partials."""
+      one ``all_reduce`` of the f32 ``[B, V]`` partials.
+
+    An MoE layer adds (one segment of S):
+
+    * its unplanned weights (the router) gathered over the FSDP axes to
+      their use specs (one ``all_gather`` of the split leaves' shards);
+    * the normed rows gathered over the batch axes, so that every rank
+      routes the whole batch;
+    * the expert encodings gathered over the FSDP axes only (their
+      expert axis stays over ``model``);
+    * the experts' outputs gathered over the axes the dispatch buffer's
+      block is split on (`transformer.dispatch_spec`)."""
     sizes = dict(zip(mesh_names, mesh_sizes))
     world = math.prod(mesh_sizes)
     meshes = [_fake_mesh(mesh_names, mesh_sizes, r) for r in range(world)]
@@ -135,19 +146,47 @@ def _expected_collectives(cfg, plan, mesh_names, mesh_sizes, b: int,
     if any(sizes[a] > 1 for dd in emb for a in shd.spec_axes(dd)):
         reduces.append(b * s * d * 4)
     specs = engine_plan.plan_specs(plan, meshes[0])
+    fsdp = set(shd.fsdp_axes(meshes[0]))
     for nm, lp in plan.layers.items():
         leaf_specs = engine_plan.weight_leaves(specs.layers[nm].weights)
+        gathered = fsdp if lp.spec.experts else set(sizes)
         nbytes = 0
         for leaf, t in engine_plan.weight_leaves(lp.layer(0).weights).items():
             spec = P(*list(leaf_specs[leaf])[1:])
-            if any(sizes[a] > 1 for dd in spec for a in shd.spec_axes(dd)):
+            if any(sizes[a] > 1 for dd in spec for a in shd.spec_axes(dd)
+                   if a in gathered):
                 nbytes += math.prod(shd.shard_shape(
                     meshes[0], tuple(t.shape), spec)) * t.element_size()
         if nbytes:
             gathers.append(nbytes)
+    bl = b // math.prod(sizes[a] for a in bax) if bax else b
+    if cfg.family == "moe":
+        cd = getattr(torch, cfg.compute_dtype).itemsize
+        pspecs = transformer.param_specs(cfg, meshes[0])["blocks"]
+        uspecs = transformer.use_specs(cfg, meshes[0])
+        nbytes = 0
+        for nm, t in transformer.init_shapes(cfg)["blocks"].items():
+            placed = P(*list(pspecs[nm])[1:])
+            kept = {a for dd in uspecs[nm] for a in shd.spec_axes(dd)}
+            if nm not in plan.layers and any(
+                    sizes[a] > 1 for dd in placed for a in shd.spec_axes(dd)
+                    if a not in kept):
+                nbytes += math.prod(shd.shard_shape(
+                    meshes[0], tuple(t.shape[1:]), placed)) * cd
+        if nbytes:
+            gathers.append(nbytes)
+        if bl < b:
+            gathers.append(bl * s * d * cd)
+        t = b * s
+        cap = max(8, math.ceil(t * cfg.top_k / cfg.n_experts
+                               * cfg.capacity_factor))
+        block = shd.shard_shape(meshes[0], (cfg.n_experts, cap, d),
+                                transformer.dispatch_spec(cfg, meshes[0],
+                                                          cap))
+        if math.prod(block) < cfg.n_experts * cap * d:
+            gathers.append(math.prod(block) * cd)
     rows = [set(range(*_range(m, bax, b))) for m in meshes]
     planes = [set(range(*_range(m, pax, b * kh))) for m in meshes]
-    bl = b // math.prod(sizes[a] for a in bax) if bax else b
     n = b * kh // math.prod(sizes[a] for a in pax)
     if not all({p // kh for p in pl} <= rw for pl, rw in zip(planes, rows)):
         gathers += [bl * s * g * kh * dh * 4, bl * s * kh * dh * 4,
@@ -157,7 +196,7 @@ def _expected_collectives(cfg, plan, mesh_names, mesh_sizes, b: int,
         gathers.append(n * s * g * dh * 4)
     layer = gathers[:]
     gathers = layer * cfg.n_layers
-    if bax:
+    if bl < b:
         gathers.append(bl * d * 4)
     if any(sizes[a] > 1 for dd in emb for a in shd.spec_axes(dd)):
         reduces.append(b * cfg.vocab_size * 4)
@@ -304,7 +343,9 @@ def test_serve_mesh_entry_point(tmp_path):
 
 @pytest.mark.parametrize("argv, msg", [
     (["--traffic"], "--traffic"), (["--guard"], "--guard"),
-    (["--tune", "sweep"], "--tune"), ([], "--dist-init")])
+    (["--tune", "sweep"], "--tune"), ([], "--dist-init"),
+    (["--arch", "rwkv6-3b"], "channel sharding"),
+    (["--arch", "musicgen-medium"], "frontend")])
 def test_serve_mesh_refuses(argv, msg, capsys):
     base = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--mesh",
             "data=2,model=2"]

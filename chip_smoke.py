@@ -44,7 +44,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              sparse-vs-masked-dense prefill parity, greedy decode; the
              launch counts are zeroed just before and read just after.
              Then the same parity at float32 compute, gated end to end, and
-             a `torch.profiler` trace of one sparse generation (device busy
+             a `torch.profiler` trace of one sparse generation at
+             `PROFILE_LAYERS` of the 16 layers (device busy
              share, kernels by device time, the wide and skinny kernels by
              name: bf16 must run the tensor-core wide kernel and the skinny
              streamer, never the FMA wide or skinny ones) with the wall
@@ -64,14 +65,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
              parity exactly 0.0 (gated inside `traffic_mode`), continuous and
              static metrics, the kv, wide and skinny launch counts; then a
              `torch.profiler` trace of the continuous engine serving a batch
-             (the same wide-kernel check);
+             at `PROFILE_LAYERS` (the same wide-kernel check);
 8. quant   — ``serve --quant int8`` at full olmo-1b width: parity gate at
              5e-2 against the dequantized reference, only the ``_q``
-             kernels launch; a profile;
+             kernels launch; a profile at `PROFILE_LAYERS`;
 9. moe     — the same as 4 for deepseek-moe-16b at full published width,
              depth cut to `MOE_LAYERS`: serve (the batched kernel's launches
              must equal (prefills + decode steps) x layers x 3), peak device
-             memory, float32 end-to-end parity, a profile; then
+             memory, float32 end-to-end parity, a profile at
+             `PROFILE_LAYERS`; then
              ``serve --quant int4`` (the same launch count for the batched
              quant kernel), with its peak device memory;
 10. result — one JSON line of per-kernel numbers (the batched kernel's
@@ -134,7 +136,7 @@ batch 4, prompt 32), after phase 9, each fatal as above:
              cached`` on that cache (every sparse layer ``cached``, the
              cache untouched, the parity gate and every reached kernel
              launched; tok/s beside ``--tune off``, the two alternated
-             three runs each, a record) and on an empty cache (blocks
+             two runs each, a record) and on an empty cache (blocks
              equal to ``--tune off``'s);
 17. guard — ``serve --guard`` on olmo-1b and on deepseek-moe-16b at
              `MOE_LAYERS`: no ladder event, no quarantine, no
@@ -176,7 +178,8 @@ fatal as above:
              wide launches equal to planned projections x layers x
              prefills and the skinny ones that x decode steps, tok/s, plan
              build time and peak memory; the float32 end-to-end parity at
-             1e-4; a profile of one sparse generation (busy share, kernels
+             1e-4; a profile of one sparse generation at `PROFILE_LAYERS`
+             layers (busy share, kernels
              by device time, the tensor-core wide kernel and the streamer
              alone) with the WKV / SSD scan's own device time and a
              prefill's wall time; then ``serve --quant int8`` of
@@ -197,7 +200,9 @@ Then the long prefill, after phase 20, fatal as above:
              against its unchunked twin at B = 1, S = 4096, H = 16,
              dh = 128 (f32 within 1e-4, bf16 within 2e-2), each form's
              time and peak memory, and a NaN key row in the first of four
-             kv chunks (S = 256) on the card against the CPU at 1e-4;
+             kv chunks (S = 256) on the card against the CPU at 1e-4,
+             `LONG_POISON_REPEATS` times on the same inputs (the largest
+             reading and the spread printed);
              (b) ``serve`` of olmo-1b at published width and depth,
              bf16 compute, sparsity 0.5, batch 1 (prefill_32k's batch of
              32 cut to 1), one 32768-token prompt and 8 new tokens with
@@ -206,7 +211,8 @@ Then the long prefill, after phase 20, fatal as above:
              tensor-core kernel) equal to 7 projections x 16 layers x
              prefills, the skinny ones (the streamer) that x decode
              steps, the kv kernel's 2 x 16 x 2 x decode steps, tok/s and
-             the peak device memory; the bf16 witness: every layer of
+             the peak device memory; the bf16 witness (depth
+             `WITNESS_LAYERS` of 16): every layer of
              the bf16 sparse prefill (the tensor-core wide kernel, its
              launches counted) and of the
              bf16 masked-dense one, teacher-forced from a float32
@@ -225,10 +231,11 @@ Then the long prefill, after phase 20, fatal as above:
 
 Then the mesh, after phase 21, fatal as above:
 
-22. mesh  — which ``gloo`` collectives take CUDA tensors (two ranks on
-             the card); then ``serve --mesh data=2,model=2`` of olmo-1b at
-             published width (depth `MESH_LAYERS`), bf16, batch 4, prompt
-             32, 8 new tokens through the kv kernel: four
+22. mesh  — which ``gloo`` collectives take CUDA tensors (the mesh's
+             four ranks on the card); then ``serve --mesh
+             data=2,model=2`` of olmo-1b at published width (depth
+             `MESH_LAYERS` of 16), bf16, batch 4, prompt 32, 8 new
+             tokens through the kv kernel: four
              `torch.distributed` ranks, one process each, all on cuda:0
              over ``gloo``, each holding its shards of the params, the
              plan and the cache by the reference's specs; its greedy
@@ -254,6 +261,27 @@ Then the MoE mesh, after phase 22, fatal as above:
              every batched launch fed the rank's 32 experts; the routing
              agreement with one process, each rank's collectives, set-up
              and serving peaks and wall printed.
+
+Phases 22-24 run their four ranks on processes started once and kept
+from run to run (`launch.ranks.keep_ranks`).
+
+Then the family meshes, after phase 23, fatal as above:
+
+24. family meshes — ``serve --mesh data=2,model=2`` of rwkv6-3b,
+             zamba2-1.2b, musicgen-medium and internvl2-2b at published
+             width, depth `FAMILY_MESH_LAYERS` (zamba2: one group, the
+             shared block and two Mamba layers), bf16, sparsity 0.5,
+             batch 4, prompt 32, 8 new tokens, the scatter cache write,
+             on the same four ranks sharing cuda:0: the recurrent
+             families' channels split over ``model`` by heads, zamba2's
+             shared-block KV by sequence; the gates of phase 22 for each,
+             each rank's launches of rows 1, 2 and 8 equal to the plan's
+             count (`FAMILY_MESH_LAUNCHES`), its collectives, peaks and
+             wall printed; then one prefill of internvl2-2b on the mesh
+             with `FRONTEND_MESH_ROWS` frontend rows (batch 4, prompt
+             `FRONTEND_MESH_PROMPT`), launched as serve's ranks are, its
+             logits within 2e-2 of one process's prefill with the same
+             rows.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -455,9 +483,15 @@ LONG_KV_LAUNCHES = 2 * OLMO_LAYERS * 2 * (1 + LONG_GEN_STEPS)
 # the poisoned multi-chunk check (S, chunk), one NaN key row at LONG_POISON_ROW
 ATTN_SHAPE = (1, 4096, 16, 128)
 LONG_POISON, LONG_POISON_ROW = (256, 64), 3
+# ... repeated on the same inputs, the card's and the CPU's side each time
+LONG_POISON_REPEATS = 20
 # the profiled sparse prefill at LONG_PROMPT: depth cut to this many layers
 # (each layer is the same work; the trace of 16 holds ~340k kernels)
 LONG_PROFILE_LAYERS = 2
+# the profiled generations of phases 4, 7-9 and 19 (one prefill and 8 steps,
+# the traffic engine's batch): depth cut to this many layers (each layer is
+# the same work; the script's wall differs by a quarter between H100 hosts)
+PROFILE_LAYERS = 4
 # the float32 end-to-end check: published width, depth cut to 4, batch 1
 LONG_F32_LAYERS, LONG_F32_PROMPT = 4, 8192
 # the profiler range around each prefill attention call
@@ -469,12 +503,17 @@ ATTENTION_RANGE = "attention"
 # rounds its input, projections, SwiGLU product and residual sums to bf16)
 WITNESS_RATIO, WITNESS_REL = 1.25, TOL["bfloat16"]
 WITNESS_LABEL = "long_prefill bf16 witness"
+# ... its depth cut to WITNESS_LAYERS of 16, as phase 22's (each layer is
+# the same work; the served 32768-token path keeps all 16)
+WITNESS_LAYERS = 4
 # phase 22, the mesh: olmo-1b at published width, bf16, batch 4, prompt
 # 32, 8 new tokens through the kv kernel, served by four torch.distributed
 # ranks on a (data=2, model=2) mesh, all sharing cuda:0 over gloo (NCCL
-# refuses two ranks on one card); depth cut to MESH_LAYERS when the phase
-# would pass ~150 s
-MESH, MESH_RANKS, MESH_LAYERS, MESH_GEN_STEPS = "data=2,model=2", 4, 16, 8
+# refuses two ranks on one card); depth cut to MESH_LAYERS of 16 so that the
+# whole script ends within its time limit on a slow host (each layer is the
+# same work; the script's wall differs by a quarter from one H100 host to
+# another)
+MESH, MESH_RANKS, MESH_LAYERS, MESH_GEN_STEPS = "data=2,model=2", 4, 4, 8
 MESH_ARGS = ["--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
              "--gen-steps", str(MESH_GEN_STEPS), "--sparsity", str(SPARSITY),
              "--n-layers", str(MESH_LAYERS), "--mesh", MESH]
@@ -510,10 +549,46 @@ MOE_MESH_LAUNCHES = {
     * MESH_GEN_STEPS,
     "tiled_balanced_spmm_batched": 3 * MOE_MESH_LAYERS * MOE_MESH_FORWARDS,
     "kv_cache_update": 2 * MOE_MESH_LAYERS * MESH_GEN_STEPS}
+# phase 24, the family meshes: each family the reference shards besides the
+# dense and MoE ones, at published width, depth cut to FAMILY_MESH_LAYERS,
+# the cell and mesh of phase 22; per rank one wide launch a planned
+# projection and layer in the prefill (M = 2 rows x 32), one skinny launch
+# a projection, layer and decode step (M = 2), and for the transformer
+# families one kv launch for k and one for v a layer and step (the
+# recurrent states and zamba2's mask-select KV launch none)
+FAMILY_MESH_LAYERS = 2
+FAMILY_MESH_PROJECTIONS = {"rwkv6-3b": 8, "zamba2-1.2b": 3,
+                           "musicgen-medium": 6, "internvl2-2b": 7}
+
+
+def family_mesh_args(arch: str) -> list:
+    return ["--arch", arch, "--batch", "4", "--prompt-len", "32",
+            "--gen-steps", str(MESH_GEN_STEPS), "--sparsity", str(SPARSITY),
+            "--n-layers", str(FAMILY_MESH_LAYERS), "--mesh", MESH]
+
+
+def family_mesh_launches(arch: str) -> dict:
+    n = FAMILY_MESH_PROJECTIONS[arch] * FAMILY_MESH_LAYERS
+    kv = arch in ("musicgen-medium", "internvl2-2b")
+    return {"tiled_balanced_spmm": n,
+            "tiled_balanced_spmm_skinny": n * MESH_GEN_STEPS,
+            "kv_cache_update": 2 * FAMILY_MESH_LAYERS * MESH_GEN_STEPS * kv}
+
+
+FAMILY_MESH_LAUNCHES = {a: family_mesh_launches(a)
+                        for a in FAMILY_MESH_PROJECTIONS}
+# ... and one prefill of internvl2-2b with frontend rows on the mesh
+FRONTEND_MESH_ARCH, FRONTEND_MESH_ROWS = "internvl2-2b", 256
+FRONTEND_MESH_BATCH, FRONTEND_MESH_PROMPT = 4, 320
+
+
+T_START = time.monotonic()
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of the script's log, with the seconds since its start."""
+    print(f"[chip_smoke {time.monotonic() - T_START:7.1f} s] {msg}",
+          flush=True)
 
 
 def time_ms(torch, fn, *, flush, warmup: int = 3, runs: int = 25,
@@ -1492,17 +1567,19 @@ def scatter_vs_mask(torch, steps: int = GEN_STEPS) -> dict:
 
 
 def profile_traffic(torch, serve) -> dict:
-    """Where the device time goes in the continuous engine (phase 9): the
-    full-width olmo-1b plan, scatter config, four requests of the traffic
-    scenario's shapes (prompts 16 and 32, 8 and 32 new tokens) submitted
-    together and served to the end after a warm-up, under
+    """Where the device time goes in the continuous engine (phase 7): the
+    olmo-1b plan at full width, depth `PROFILE_LAYERS`, scatter config,
+    four requests of the traffic scenario's shapes (prompts 16 and 32, 8
+    and 32 new tokens) submitted together and served to the end after a
+    warm-up, under
     `torch.profiler`: ticks, wall time, the device's busy share and the
     kernels by device time."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
-    bundle, params, plan, _ = full_width(torch, "bfloat16")
+    bundle, params, plan, _ = full_width(torch, "bfloat16",
+                                         n_layers=PROFILE_LAYERS)
     bundle = build_model(dataclasses.replace(bundle.cfg,
                                              cache_update="scatter"), DEVICE)
     sparse = {**params, "sparse_plan": plan}
@@ -1532,8 +1609,8 @@ def profile_traffic(torch, serve) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     by_name, busy_ms, top = device_kernels(prof)
-    return {"ticks": ticks, "tokens": sum(len(r.out_tokens)
-                                          for r in eng.sched.done),
+    return {"layers": bundle.cfg.n_layers, "ticks": ticks,
+            "tokens": sum(len(r.out_tokens) for r in eng.sched.done),
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
             "top": top,
@@ -2334,11 +2411,11 @@ def tune_phase(torch, serve, tune_off: dict, paths: dict) -> None:
         if (cache.stat().st_mtime_ns, cache.stat().st_size) != \
                 (stat.st_mtime_ns, stat.st_size):
             raise AssertionError("a cached build wrote the cache")
-        # tok/s of --tune cached beside --tune off, alternated (off,
-        # cached, cached, off after the two runs above) for their spread:
-        # a record, not a gate
+        # tok/s of --tune cached beside --tune off, alternated (cached,
+        # off after the two runs above) for their spread: a record, not a
+        # gate
         toks = {"off": [tune_off], "cached": [cached]}
-        for mode in ("off", "cached", "cached", "off"):
+        for mode in ("cached", "off"):
             _, res = serve_run(
                 torch, serve, f"olmo-1b tune {mode} (repeat)",
                 SERVE_ARGS + ["--tune", mode, "--tune-cache", str(cache)])
@@ -2684,7 +2761,7 @@ def recurrent_phase(torch, serve, paths: dict) -> None:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
         log(f"{arch} profile " + json.dumps(profile_generate(
-            torch, serve, arch=arch)))
+            torch, serve, arch=arch, n_layers=PROFILE_LAYERS)))
         torch.cuda.empty_cache()
     arch, quant = RECURRENT_QUANT
     label, paths[label] = slice7_serve(torch, serve, arch, quant)
@@ -2777,7 +2854,8 @@ def attention_forms(torch) -> dict:
     and bf16 inputs within 2e-2, each form's time and peak memory; then
     the chunk-dependent non-finite rule on the card: a NaN key row in the
     first of four kv chunks, the chunked form on the card against itself
-    on the CPU at 1e-4 (f32)."""
+    on the CPU at 1e-4 (f32), `LONG_POISON_REPEATS` times on the same
+    inputs, each reading held."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers
     cfg = get_config("olmo-1b")
@@ -2821,26 +2899,32 @@ def attention_forms(torch) -> dict:
     gen = torch.Generator().manual_seed(6)
     q, k, v = (torch.randn((1, s_p, h, dh), generator=gen) for _ in range(3))
     k[:, LONG_POISON_ROW] = float("nan")
-    cpu = layers.blocked_causal_attention(q, k, v, q_chunk=chunk,
-                                          kv_chunk=chunk)
-    card = layers.blocked_causal_attention(
-        q.to(DEVICE), k.to(DEVICE), v.to(DEVICE), q_chunk=chunk,
-        kv_chunk=chunk).cpu()
-    err = float((card - cpu).abs().max())
+    readings, finite = [], True
+    for _ in range(LONG_POISON_REPEATS):
+        cpu = layers.blocked_causal_attention(q, k, v, q_chunk=chunk,
+                                              kv_chunk=chunk)
+        card = layers.blocked_causal_attention(
+            q.to(DEVICE), k.to(DEVICE), v.to(DEVICE), q_chunk=chunk,
+            kv_chunk=chunk).cpu()
+        readings.append(float((card - cpu).abs().max()))
+        finite = finite and bool(torch.isfinite(card).all())
     unchunked = float((layers.causal_attention(q, k, v) - cpu).abs().max())
     out["poisoned"] = {"S": s_p, "chunk": chunk, "row": LONG_POISON_ROW,
-                       "card_vs_cpu_max_abs_err": err,
+                       "repeats": LONG_POISON_REPEATS,
+                       "card_vs_cpu_max_abs_err": max(readings),
+                       "spread": max(readings) - min(readings),
+                       "readings": readings,
                        "unchunked_vs_chunked_max_abs_diff": unchunked}
-    if not (err <= TOL["float32"] and bool(torch.isfinite(card).all())):
+    if not (max(readings) <= TOL["float32"] and finite):
         raise AssertionError(f"the chunked attention's non-finite rule "
                              f"differs on the card: {out['poisoned']}")
     return out
 
 
 def long_bf16_witness(torch, paths: dict) -> dict:
-    """Phase 21 (b), the bf16 witness: olmo-1b at published width and
-    depth, one `LONG_PROMPT`-token prompt, planned at bf16 as serve plans
-    it.  Walks the float32 masked-dense prefill and, at every layer, runs
+    """Phase 21 (b), the bf16 witness: olmo-1b at published width, depth
+    cut to `WITNESS_LAYERS`, one `LONG_PROMPT`-token prompt, planned at
+    bf16 as serve plans it.  Walks the float32 masked-dense prefill and, at every layer, runs
     the block from its float32 input three ways: float32 masked-dense (the
     reference), bf16 masked-dense and bf16 sparse (the plan's tensor-core
     wide kernel; its launches counted from just before the first layer to
@@ -2852,7 +2936,8 @@ def long_bf16_witness(torch, paths: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.engine import plan as engine_plan
     from repro_torch.models import build_model, transformer
-    cfg16 = dataclasses.replace(get_config("olmo-1b"), sparse_serving=True)
+    cfg16 = dataclasses.replace(get_config("olmo-1b"), sparse_serving=True,
+                                n_layers=WITNESS_LAYERS)
     cfg32 = dataclasses.replace(cfg16, compute_dtype="float32")
     params = build_model(cfg16, DEVICE).init(0)
     prompt = torch.randint(0, cfg16.vocab_size, (1, LONG_PROMPT),
@@ -3224,7 +3309,8 @@ def main() -> int:
                                            SERVE_ARGS)
     parity_f32 = full_width_f32_parity(torch, serve)
     log(f"float32 compute, full width, end to end: {json.dumps(parity_f32)}")
-    log(f"profile {json.dumps(profile_generate(torch, serve))}")
+    log("profile " + json.dumps(profile_generate(
+        torch, serve, n_layers=PROFILE_LAYERS)))
 
     # 5. the bitmap format's entry at olmo-1b's projections, the same way
     paths["bitmap"] = bitmap_path(torch)
@@ -3260,8 +3346,8 @@ def main() -> int:
     # 8. the olmo-1b int8 path, the same way
     paths["olmo-1b int8"], _ = serve_run(torch, serve, "olmo-1b int8",
                                          QUANT_ARGS)
-    log("int8 profile " + json.dumps(profile_generate(torch, serve,
-                                                      quant="int8")))
+    log("int8 profile " + json.dumps(profile_generate(
+        torch, serve, n_layers=PROFILE_LAYERS, quant="int8")))
 
     # 9. the deepseek-moe-16b paths, the same way, after freeing olmo's
     want = (SERVE_PREFILLS + SERVE_DECODE_STEPS) * MOE_LAYERS * 3
@@ -3290,7 +3376,8 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
         log("moe profile " + json.dumps(profile_generate(
-            torch, serve, arch="deepseek-moe-16b", n_layers=MOE_LAYERS)))
+            torch, serve, arch="deepseek-moe-16b",
+            n_layers=min(MOE_LAYERS, PROFILE_LAYERS))))
     torch.cuda.empty_cache()
 
     # 16-18. planning and robustness at full width, each path's counts
@@ -3324,20 +3411,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 21. long prefill: {time.monotonic() - t0:.1f} s")
 
-    # 22. the mesh: olmo-1b on four ranks sharing the card (counts zeroed
-    # just before each rank's greedy path and read just after, in the rank)
-    t0 = time.monotonic()
-    mesh_phase(torch, serve, paths)
-    torch.cuda.empty_cache()
-    log(f"phase 22. mesh: {time.monotonic() - t0:.1f} s")
-
-    # 23. the MoE mesh: deepseek-moe-16b's experts split over model on
-    # the same four ranks (counts zeroed just before each rank's greedy
+    # 22-24: the meshes, on four rank processes started once and kept
+    # from run to run (`launch.ranks.keep_ranks`; each run joins its own
+    # rendezvous, and counts are zeroed just before each rank's greedy
     # path and read just after, in the rank)
-    t0 = time.monotonic()
-    moe_mesh_phase(torch, serve, paths)
-    torch.cuda.empty_cache()
-    log(f"phase 23. moe mesh: {time.monotonic() - t0:.1f} s")
+    from repro_torch.launch.ranks import keep_ranks
+    with keep_ranks(MESH_RANKS):
+        # 22. the mesh: olmo-1b on four ranks sharing the card
+        t0 = time.monotonic()
+        mesh_phase(torch, serve, paths)
+        torch.cuda.empty_cache()
+        log(f"phase 22. mesh: {time.monotonic() - t0:.1f} s")
+
+        # 23. the MoE mesh: deepseek-moe-16b's experts split over model
+        t0 = time.monotonic()
+        moe_mesh_phase(torch, serve, paths)
+        torch.cuda.empty_cache()
+        log(f"phase 23. moe mesh: {time.monotonic() - t0:.1f} s")
+
+        # 24. the family meshes: rwkv6-3b, zamba2-1.2b, musicgen-medium and
+        # internvl2-2b, and internvl2-2b's prefill with frontend rows
+        t0 = time.monotonic()
+        family_mesh_phase(torch, serve, paths)
+        torch.cuda.empty_cache()
+        log(f"phase 24. family meshes: {time.monotonic() - t0:.1f} s")
 
     # 10. result: launches summed over the paths' runs; each kernel's timed
     # row at bf16, at the quant mode its serve path runs, at the shape its
@@ -3385,8 +3482,9 @@ def main() -> int:
 
 
 def mesh_phase(torch, serve, paths: dict) -> None:
-    """Phase 22: which gloo collectives take CUDA tensors (two ranks),
-    then ``serve --mesh`` of olmo-1b on four ranks sharing the card:
+    """Phase 22: which gloo collectives take CUDA tensors (the mesh's
+    four ranks), then ``serve --mesh`` of olmo-1b on four ranks sharing
+    the card:
     serve's own gates (every rank's greedy tokens equal to a one-process
     run of the same plan in this process, the logits of the prefill and
     of every decode step within 2e-2 of its,
@@ -3401,7 +3499,7 @@ def mesh_phase(torch, serve, paths: dict) -> None:
         f"gloo, {MESH_RANKS} ranks on cuda:0, olmo-1b {MESH_LAYERS} of "
         f"{OLMO_LAYERS} layers")
     with tempfile.TemporaryDirectory() as tmp:
-        probe = run_ranks(multidevice.gloo_cuda_probe, 2,
+        probe = run_ranks(multidevice.gloo_cuda_probe, MESH_RANKS,
                           init_method=f"file://{tmp}/probe", timeout_s=180)
         log(f"gloo collectives on CUDA tensors: {json.dumps(probe[0])}")
         ns = serve.build_parser().parse_args(
@@ -3499,6 +3597,122 @@ def moe_mesh_phase(torch, serve, paths: dict) -> None:
     paths["deepseek-moe-16b mesh"] = {
         k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
         for k in launches()}
+
+
+def family_mesh_phase(torch, serve, paths: dict) -> None:
+    """Phase 24: ``serve --mesh`` of rwkv6-3b, zamba2-1.2b,
+    musicgen-medium and internvl2-2b, each on four ranks sharing the
+    card: serve's own gates (every rank's greedy tokens equal to a
+    one-process run of the same plan, the logits of the prefill and of
+    every decode step within 2e-2 of its, each rank's resident bytes equal
+    to the dry run's `shard_bytes`: the recurrent states and zamba2's
+    sequence-split KV included), held again here, and each rank's
+    launches of rows 1, 2 and 8 equal to the plan's count
+    (`FAMILY_MESH_LAUNCHES`); then internvl2-2b's prefill with frontend
+    rows on the mesh (`frontend_mesh_prefill`)."""
+    import dataclasses
+    import tempfile
+    log(f"phase 24 family meshes: {torch.cuda.device_count()} device(s), "
+        f"backend gloo, {MESH_RANKS} ranks on cuda:0, "
+        f"{FAMILY_MESH_LAYERS} layers each")
+    for arch, want in FAMILY_MESH_LAUNCHES.items():
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory() as tmp:
+            ns = serve.build_parser().parse_args(
+                family_mesh_args(arch) + ["--dist-init",
+                                          f"file://{tmp}/mesh"])
+            cfg = dataclasses.replace(serve.config(ns),
+                                      cache_update="scatter")
+            res = serve.run(ns, cfg)["mesh"]
+        steps = res["step_logits_max_abs_diff"]
+        log(f"{arch} mesh {res['mesh']} over {res['backend']}: tokens equal "
+            f"to one process {res['tokens_equal']}, logits max |diff| "
+            f"prefill {steps[0]:.6g}, decode steps "
+            f"{[round(e, 6) for e in steps[1:]]} (tol "
+            f"{res['parity_tol']:g}), resident bytes equal to shard_bytes "
+            f"{res['bytes_equal']}, the card's peak in set-up "
+            f"{res['setup_card_peak_gib']} GiB, ranks {res['ranks_s']:.1f} s "
+            f"of {time.monotonic() - t0:.1f} s; tokens[0] {res['tokens'][0]}")
+        if not res["tokens_equal"] or not res["bytes_equal"] \
+                or max(steps) > TOL["bfloat16"]:
+            raise AssertionError(f"the {arch} mesh run failed its gates: "
+                                 f"{res}")
+        for r in res["ranks"]:
+            got = {k: r["kernel_launches"][k] for k in want}
+            log(f"{arch} mesh rank {r['rank']} {r['coord']}: launches {got}, "
+                f"resident {r['resident_bytes']} B (shard_bytes "
+                f"{r['shard_bytes']}), peak {r['peak_gib']} GiB serving, "
+                f"{r['setup_peak_gib']} GiB in its set-up turn, set-up "
+                f"{r['setup_s']:.1f} s of {r['setup_wall_s']:.1f} s in turns "
+                f"of {r['setup_turns']} ranks, greedy {r['wall_s']:.3f} s "
+                f"({ns.batch * MESH_GEN_STEPS / r['wall_s']:.2f} tok/s); "
+                "collectives " + ", ".join(
+                    f"{k}: {c['ops']} ops {c['bytes']} B"
+                    for k, c in r["collectives"].items()))
+            if got != want:
+                raise AssertionError(f"{arch} rank {r['rank']} launched "
+                                     f"{got}, the plan's count is {want}")
+        paths[f"{arch} mesh"] = {
+            k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
+            for k in launches()}
+        torch.cuda.empty_cache()
+    log(f"{FRONTEND_MESH_ARCH} frontend prefill on the mesh: "
+        + json.dumps(frontend_mesh_prefill(torch, serve)))
+
+
+def frontend_mesh_prefill(torch, serve) -> dict:
+    """Phase 24's prefill of internvl2-2b (published width,
+    `FAMILY_MESH_LAYERS`, bf16) with `FRONTEND_MESH_ROWS` frontend rows on
+    the ``data=2,model=2`` mesh, its ranks set up by serve's own rank
+    set-up (`testing.multidevice.frontend_prefill`): every rank's logits within
+    2e-2 of one process's prefill of the same params, plan and rows, and
+    each rank's wide launches one a planned projection and layer."""
+    import dataclasses
+    import tempfile
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import build_model
+    from repro_torch.testing import multidevice
+    ns = serve.build_parser().parse_args(
+        family_mesh_args(FRONTEND_MESH_ARCH)
+        + ["--batch", str(FRONTEND_MESH_BATCH), "--prompt-len",
+           str(FRONTEND_MESH_PROMPT)])
+    cfg = dataclasses.replace(serve.config(ns), cache_update="scatter")
+    t0 = time.monotonic()
+    bundle = build_model(cfg, DEVICE)
+    batch = multidevice.frontend_batch(cfg, FRONTEND_MESH_BATCH,
+                                       FRONTEND_MESH_PROMPT,
+                                       FRONTEND_MESH_ROWS, DEVICE)
+    with torch.no_grad():
+        params = bundle.init(0)
+        params["sparse_plan"] = engine_plan.plan_model(
+            cfg, params, **serve._plan_kwargs(ns, cfg))
+        want = bundle.prefill(params, batch)[0].float().cpu()
+        plain = bundle.prefill(params, {"tokens": batch["tokens"]}
+                               )[0].float().cpu()
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(multidevice.frontend_prefill, MESH_RANKS,
+                          init_method=f"file://{tmp}/frontend",
+                          args=(ns, cfg, FRONTEND_MESH_BATCH,
+                                FRONTEND_MESH_PROMPT, FRONTEND_MESH_ROWS),
+                          timeout_s=serve.MESH_TIMEOUT_S)
+    errs = [float((torch.from_numpy(r["logits"]) - want).abs().max())
+            for r in ranks]
+    wide = FAMILY_MESH_PROJECTIONS[FRONTEND_MESH_ARCH] * FAMILY_MESH_LAYERS
+    out = {"rows": FRONTEND_MESH_ROWS, "batch": FRONTEND_MESH_BATCH,
+           "prompt": FRONTEND_MESH_PROMPT, "max_abs_err": errs,
+           "rows_move_logits_by": float((want - plain).abs().max()),
+           "launches": [{k: v for k, v in r["launches"].items() if v}
+                        for r in ranks],
+           "collectives": ranks[0]["collectives"],
+           "seconds": time.monotonic() - t0}
+    if max(errs) > TOL["bfloat16"] or any(
+            r["launches"]["tiled_balanced_spmm"] != wide for r in ranks) \
+            or out["rows_move_logits_by"] <= TOL["bfloat16"]:
+        raise AssertionError(f"the frontend prefill on the mesh: {out}")
+    return out
 
 
 def serve_run(torch, serve, label: str, args: list,

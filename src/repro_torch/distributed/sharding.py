@@ -163,9 +163,16 @@ def with_hidden_sharding(mesh: Mesh, h, *, seq_parallel: bool = True):
 
 
 def with_channel_sharding(mesh: Mesh, h):
-    """The reference constrains ``[B, S, D]`` with D over ``model`` (the
-    recurrent families' layout); the recurrent families do not run on a
-    live mesh yet, so this is ``h`` itself."""
+    """The reference constrains the recurrent families' hidden states
+    ``[B, S, D]`` with D over ``model`` between layers, a layout choice
+    that leaves the values as they are.  On the port's live mesh the
+    channel split happens inside each layer instead: the time mix's
+    r / k / v / g and the Mamba mixer's z / x / dt come out of their
+    projections split over ``model`` by heads (`cols` to the heads of
+    the state's spec), the recurrence and its norm run on the rank's
+    heads, and the out-projection is row-parallel over ``model``
+    (`models.rwkv6`, `models.zamba2`), so the residual between layers is
+    the rank's batch rows with D whole and this is ``h`` itself."""
     return h
 
 
@@ -354,12 +361,14 @@ def gather(shard: Tensor, mesh: LiveMesh, spec: P, axes=None) -> Tensor:
 
 def all_reduce(t: Tensor, mesh: LiveMesh, axes) -> Tensor:
     """The sum of ``t`` over the ranks of ``axes`` (one ``all_reduce``),
-    taken in float32 and returned in ``t``'s dtype, so the ranks hold the
-    same result whatever the backend sums a narrower float in."""
+    taken in float32 (float64 for a float64 ``t``) and returned in ``t``'s
+    dtype, so the ranks hold the same result whatever the backend sums a
+    narrower float in."""
     group = _group(mesh, axes)
     if group is None:
         return t
-    x = t.float() if t.is_floating_point() else t.clone()
+    x = t.float() if t.is_floating_point() and t.dtype != torch.float64 \
+        else t.clone()
     torch.distributed.all_reduce(x, group=group)
     COLLECTIVES.record("all_reduce", x.numel() * x.element_size())
     return x.to(t.dtype)
@@ -453,10 +462,145 @@ def rows_of(planes: Tensor, mesh: LiveMesh, pax, kh: int,
     return out[..., c0 - h0 * w:c0 - h0 * w + cl]
 
 
+# ---------------------------------------------------------------------------
+# Live meshes: the parts of the serve program every family shares
+# ---------------------------------------------------------------------------
+
+def use_spec(spec: P, *, stacked: bool = True) -> P:
+    """A param's use-time spec: its placed ``spec`` without the stacked
+    L dim (``stacked``) and without the data / pod (FSDP) axes; ``model``
+    is kept."""
+    def clean(d):
+        kept = tuple(n for n in spec_axes(d) if n == "model")
+        return kept[0] if len(kept) == 1 else (kept or None)
+    dims = list(spec)[1:] if stacked else list(spec)
+    return P(*[clean(d) for d in dims])
+
+
+def gather_for_use(mesh, lp: dict, placed: dict, use: dict,
+                   dtype: torch.dtype) -> dict:
+    """ZeRO-3 style per-layer weight materialization: on a live mesh each
+    of the layer's placed weights ``lp`` (laid out by ``placed``) that is
+    split over an axis its use-time spec ``use`` drops is cast to
+    ``dtype`` *then* gathered over those axes (one ``all_gather`` for the
+    layer, half the bytes of a float32 one at bf16); dims split over
+    ``model`` stay split, and a weight that is not gathered keeps its
+    dtype.  On a description or no mesh the layer is returned as it is."""
+    if not isinstance(mesh, LiveMesh):
+        return lp
+    axes = {a for k in lp for d in placed[k] for a in spec_axes(d)} \
+        - {a for k in lp for d in use[k] for a in spec_axes(d)}
+    moved = {k for k in lp
+             if axes & {a for d in placed[k] for a in spec_axes(d)}}
+    cast = {k: v.to(dtype) if k in moved and v.is_floating_point() else v
+            for k, v in lp.items()}
+    return gather_tree(cast, mesh, {k: placed[k] for k in lp}, axes)
+
+
+def cols(mesh: LiveMesh, x: Tensor, have: tuple, want: tuple) -> Tensor:
+    """``x`` with its last dim re-laid from a split over the axes ``have``
+    to one over ``want`` (``()``: whole): gathered where ``have`` splits
+    it, then cut to this rank's block of ``want``."""
+    if tuple(have) == tuple(want):
+        return x
+    if have:
+        x = gather(x, mesh, P(*([None] * (x.dim() - 1)), tuple(have)))
+    if want:
+        start, size = block_of(mesh, want, x.shape[-1])
+        x = x.narrow(-1, start, size)
+    return x
+
+
+def project(mesh: LiveMesh, x: Tensor, have: tuple, w: Tensor | None,
+            use: P, plan_layer=None, dtype: torch.dtype | None = None,
+            exact: bool = False) -> tuple:
+    """``(x @ W, the axes its columns are split over)`` for ``x`` whose
+    columns are split over ``have``.  A planned projection (``plan_layer``,
+    an `engine.plan.LayerPlan`) gathers its encoding and runs whole
+    (`engine.execute.apply_fc`) on whole columns of ``x``.  A dense
+    weight ``w`` (rounded to ``dtype``) runs at its use-time spec ``use``
+    ``(in, out)``: column-parallel over the axes of ``out``, or
+    row-parallel over those of ``in``, with one ``all_reduce`` of the
+    float32 partial products (rounded to ``dtype`` once, after the sum, as
+    one device rounds its product).  ``exact`` takes the products and the
+    sum in float64 (`models.layers.matmul_f64`'s rule); a float64 ``w``
+    holds values already rounded to ``dtype`` and is used as it is."""
+    dtype = dtype or x.dtype
+    if plan_layer is not None:
+        from ..engine.execute import apply_fc
+        return apply_fc(cols(mesh, x, have, ()), plan_layer).to(dtype), ()
+    w_in, w_out = (spec_axes(d) for d in use)
+    x = cols(mesh, x, have, w_in)
+    wide = torch.float64 if exact else torch.float32
+    w = w if w.dtype == torch.float64 else w.to(dtype)
+    if not w_in:                                    # column-parallel
+        if exact:
+            return (x.double() @ w.double()).to(dtype), w_out
+        return x @ w, w_out
+    y = all_reduce(x.to(wide) @ w.to(wide), mesh, w_in)
+    return y.to(dtype), w_out
+
+
+def sum_in_order(t: Tensor, mesh: LiveMesh, axes) -> Tensor:
+    """The sum of ``t`` over the ranks of ``axes`` in ``t``'s dtype, taken
+    in the order of the ranks' blocks (one ``all_gather``), so that every
+    rank holds the same bits whatever order a backend's ``all_reduce``
+    adds in (a float64 row statistic keeps its precision)."""
+    axes = tuple(a for a in mesh.axis_names if a in spec_axes(axes))
+    if _axes_size(mesh, axes or None) == 1:
+        return t
+    return gather(t[None], mesh, P(axes)).sum(dim=0)
+
+
+def embed_rows(mesh: LiveMesh, embed: Tensor, spec: P, tokens: Tensor,
+               d_model: int, rows: slice) -> Tensor:
+    """The float32 embedding rows ``[bl, s, d]`` of ``tokens[rows]`` from
+    this rank's block ``embed`` of the ``[V, d]`` embedding laid out by
+    ``spec`` (vocab over ``model`` where it divides, ``d`` over the FSDP
+    axes): a masked local lookup of every row of ``tokens`` ``[B, s]``
+    (the tokens outside the rank's vocab block look up zeros) into the
+    rank's ``d`` block, summed by one ``all_reduce`` over the axes the
+    spec names.  A vocab that ``model`` does not divide is replicated
+    (``spec``'s first dim None): every rank looks every token up."""
+    v_ax, d_ax = (spec_axes(d) for d in spec)
+    v0 = mesh.index(v_ax) * embed.shape[0] if v_ax else 0
+    vl = embed.shape[0]
+    d0, dl = block_of(mesh, d_ax, d_model)
+    t = tokens.long() - v0
+    hit = (t >= 0) & (t < vl)
+    emb = torch.zeros((*tokens.shape, d_model), dtype=torch.float32,
+                      device=embed.device)
+    emb[..., d0:d0 + dl] = torch.where(
+        hit[..., None], embed[t.clamp(0, vl - 1)].float(), 0.0)
+    axes = tuple(a for a in mesh.axis_names if a in v_ax + d_ax)
+    return all_reduce(emb, mesh, axes)[rows]
+
+
+def vocab_logits(mesh: LiveMesh, last: Tensor, embed: Tensor, spec: P,
+                 bax: tuple, vocab: int) -> Tensor:
+    """The whole batch's float32 logits ``[B, V]`` of the normed last
+    positions ``last`` ``[bl, d]`` (this rank's rows of the batch split
+    over ``bax``) against the embedding block ``embed`` laid out by
+    ``spec``: the rows gathered over ``bax``, each rank's vocab and ``d``
+    block's partial product, summed by one ``all_reduce``."""
+    v_ax, d_ax = (spec_axes(d) for d in spec)
+    v0, vl = block_of(mesh, v_ax, vocab)
+    d0, dl = block_of(mesh, d_ax, last.shape[-1])
+    last = last.float()
+    if bax:
+        last = gather(last, mesh, P(tuple(bax), None))
+    logits = torch.zeros((last.shape[0], vocab), dtype=torch.float32,
+                         device=last.device)
+    logits[:, v0:v0 + vl] = last[:, d0:d0 + dl] @ embed.float().T
+    axes = tuple(a for a in mesh.axis_names if a in v_ax + d_ax)
+    return all_reduce(logits, mesh, axes)
+
+
 __all__ = ["P", "dp_axes", "fsdp_axes", "dim_spec", "logical_spec",
            "shard_batch", "shard_shape", "with_hidden_sharding",
            "with_channel_sharding", "kv_plane_spec", "page_table_spec",
            "named", "tree_shardings", "Placement", "place_tree",
            "place", "gather", "gather_tree", "all_reduce", "planes_of",
            "rows_of", "block_of", "spec_axes", "COLLECTIVES",
-           "CollectiveCounter"]
+           "CollectiveCounter", "use_spec", "gather_for_use", "cols",
+           "project", "sum_in_order", "embed_rows", "vocab_logits"]

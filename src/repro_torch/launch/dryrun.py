@@ -201,6 +201,16 @@ def shard_bytes(mesh, tree, specs) -> int:
     return int(total)
 
 
+def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
+    """The one-device decode cache of ``batch_size`` sequences of
+    ``max_len`` as ``meta`` tensors, for every family: the transformer's
+    KV planes, rwkv6's token-shift and WKV states, zamba2's SSM and conv
+    states and its shared block's KV.  `shard_bytes` of it under the
+    bundle's ``cache_specs`` is one device's cache of a mesh (zamba2's KV
+    split by sequence over ``model`` included)."""
+    return build_model(cfg, META).init_cache(batch_size, max_len)
+
+
 def per_device_bytes(cfg, shape: ShapeSpec, mesh, state: dict,
                      out: dict) -> dict:
     """Each resident part's bytes on one device of ``mesh`` under the

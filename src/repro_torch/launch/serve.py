@@ -37,9 +37,11 @@ Without ``--guard`` nothing of the ladder runs.
 (a prefill, then ``--gen-steps`` decode steps) on a live mesh of that
 many `torch.distributed` ranks, one process each (`launch.ranks`), over
 ``gloo``: each rank holds its shards of the params, the plan and the KV
-cache by the reference's specs and runs the dense or MoE family's
-sharded program (`models.transformer`; the MoE's routed experts split
-over ``model``); on a GPU every rank uses the card of its rank modulo
+cache by the reference's specs and runs its family's sharded program
+(`models.transformer`: the dense, MoE, audio and vlm
+families, the MoE's routed experts split over ``model``; `models.rwkv6`
+and `models.zamba2`: the recurrent families, their channels split over
+``model`` by heads); on a GPU every rank uses the card of its rank modulo
 the card count.  The ranks set up in turns: rank 0 alone, then as
 many at once as the card holds by rank 0's set-up peak.  The report carries
 rank 0's tokens and prefill logits held against a one-process run of
@@ -48,16 +50,15 @@ the same plan, each rank's resident bytes beside the dry run's
 kernel launches, set-up and serving peak memory and wall, and for the
 MoE its block of experts, the experts each batched dispatch ran and its
 routing's agreement with one process.  ``--traffic``, ``--guard`` and
-``--tune`` are refused with it, and so are the families a live mesh
-does not serve yet.
+``--tune`` are refused with it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
-import os
 import pathlib
 import time
 
@@ -75,8 +76,23 @@ from ..kernels.ops import SKINNY_M
 from ..kernels.tile_format import QUANT_MODES, TiledBalanced
 from ..models import build_model, transformer
 from ..models.api import merge_prefill_cache, sublayer_diffs
-from ..models.transformer import LIVE_FAMILIES
 from . import cost_model
+
+
+@contextlib.contextmanager
+def exact_matmuls():
+    """Within the block, cuBLAS and cuDNN without TF32: exact float32
+    matmuls for the dense yardstick and the masked-dense reference.  The
+    flags are as they were after it."""
+    keep = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = keep
 
 
 def _sync(device: torch.device) -> None:
@@ -104,7 +120,7 @@ def greedy_generate(bundle, params, prompt: torch.Tensor, steps: int,
     b = prompt.shape[0]
     with torch.no_grad():
         logits, pf_cache = bundle.prefill(params, {"tokens": prompt})
-        cache = merge_prefill_cache(bundle.init_cache(b, max_len), pf_cache)
+        cache = bundle.merge(bundle.init_cache(b, max_len), pf_cache)
         toks = logits.argmax(dim=-1)[:, None]
         out = [toks]
         clen = torch.full((b,), prompt.shape[1], dtype=torch.long,
@@ -143,7 +159,7 @@ def guarded_generate(bundle, plan, params, prompt: torch.Tensor, steps: int,
 
     def prefill(p):
         logits, pf_cache = bundle.prefill(p, {"tokens": prompt})
-        cache = merge_prefill_cache(bundle.init_cache(b, max_len), pf_cache)
+        cache = bundle.merge(bundle.init_cache(b, max_len), pf_cache)
         clen = torch.full((b,), prompt.shape[1], dtype=torch.long,
                           device=prompt.device)
         return logits, cache, clen
@@ -540,10 +556,6 @@ def main(argv=None) -> dict:
         if args.dist_init is None:
             ap.error("--mesh needs --dist-init (file://PATH or "
                      "tcp://HOST:PORT)")
-        if cfg.family not in LIVE_FAMILIES:
-            ap.error(f"--mesh serves the {' and '.join(LIVE_FAMILIES)} "
-                     f"families; {args.arch} is {cfg.family}, which waits "
-                     f"for the slice that ports {MESH_WAITS[cfg.family]}")
     if args.traffic and cfg.family not in TRANSFORMER_FAMILIES:
         ap.error(f"--traffic serves the transformer families "
                  f"{TRANSFORMER_FAMILIES}; {cfg.family} has O(1) recurrent "
@@ -579,11 +591,6 @@ def _prompt(args: argparse.Namespace, cfg, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 MESH_TIMEOUT_S = 600.0      # the launcher's limit on the ranks' run
-# what a family that --mesh refuses waits for
-MESH_WAITS = {"ssm": "the recurrent families' channel sharding",
-              "hybrid": "the recurrent families' channel sharding",
-              "audio": "the frontend projection's placement",
-              "vlm": "the frontend projection's placement"}
 
 
 def parse_mesh(spec: str) -> tuple:
@@ -602,94 +609,111 @@ def parse_mesh(spec: str) -> tuple:
     return tuple(names), tuple(sizes)
 
 
-def _serve_rank(rank: int, world_size: int, init_method: str,
-                args: argparse.Namespace, cfg) -> dict:
-    """One rank of ``--mesh``.  Set-up runs in turns, each closed by a
-    barrier: in its turn a rank makes the params from the seed and builds
-    the plan whole, places both, frees the whole ones and empties its
-    cache.  Rank 0 goes alone; the rest go as many at a time as the card
-    holds by rank 0's measured set-up peak (`_setup_group`), so the card
-    never holds more whole sets than fit beside the ranks' shards.  Then
-    it times the greedy path (its tokens, the
-    logits they were chosen from and, for the MoE family, the experts it
-    routed) with this rank's counts zeroed just before and read just
-    after.  Returns the rank's report (numpy for the tensors)."""
-    from ..engine import plan as engine_plan
-    from .dryrun import shard_bytes, tree_bytes
+@contextlib.contextmanager
+def rank_mesh(rank: int, world_size: int, init_method: str,
+              args: argparse.Namespace):
+    """One rank of ``--mesh``: yields ``(mesh, device)``, the device the
+    card of the rank modulo the card count (on a GPU), the live mesh of
+    ``args.mesh`` over ``gloo``, under `exact_matmuls`; closes the mesh
+    after."""
     from .mesh import init_mesh
-    # before the rank's first CUDA allocation: the whole params and plan,
-    # freed after placement, go back to the card page by page (a fixed
-    # segment that also holds one of the rank's shards could not be
-    # released)
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
-                          "expandable_segments:True")
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     names, sizes = parse_mesh(args.mesh)
-    mesh = init_mesh(names, sizes, rank=rank, world_size=world_size,
-                     backend="gloo", init_method=init_method, device=device)
-    try:
-        t_start = time.monotonic()
-        bundle = build_model(cfg, device, mesh=mesh)
-        pspecs = bundle.param_specs()
-        setup_peak = setup_card = None
-        group, start, turns = 1, 0, []  # rank 0 alone first
-        while start < world_size:
-            turns.append(min(group, world_size - start))
-            if start <= rank < start + turns[-1]:
-                t0 = time.monotonic()
-                whole = build_model(cfg, device).init(0)
-                plan = engine_plan.plan_model(cfg, whole,
-                                              **_plan_kwargs(args, cfg))
-                want = {"params": shard_bytes(mesh, whole, pspecs)}
-                pl_specs = engine_plan.plan_specs(plan, mesh)
-                want["plan"] = sum(shard_bytes(
-                    mesh, engine_plan.weight_leaves(lp.weights),
-                    engine_plan.weight_leaves(pl_specs.layers[nm].weights))
-                    for nm, lp in plan.layers.items())
-                params = shd.place_tree(whole,
-                                        shd.tree_shardings(mesh, pspecs))
-                splan = engine_plan.shard_plan(plan, mesh)
-                if device.type == "cuda":
-                    setup_peak = torch.cuda.max_memory_allocated(device) \
-                        / 2**30
-                    # the card as every process uses it: the other ranks'
-                    # shards and contexts, the whole sets of this turn's
-                    # ranks, this one's still held
-                    free, total = torch.cuda.mem_get_info(device)
-                    setup_card = (total - free) / 2**30
-                del whole, plan
-                if device.type == "cuda":
-                    torch.cuda.empty_cache()
-                setup_s = time.monotonic() - t0
-            torch.distributed.barrier()
-            if start == 0 and world_size > 1:
-                group = _setup_group(device, world_size, setup_peak)
-            start += turns[-1]
-        setup_wall = time.monotonic() - t_start
-        sparams = {**params, "sparse_plan": splan}
+    with exact_matmuls():
+        mesh = init_mesh(names, sizes, rank=rank, world_size=world_size,
+                         backend="gloo", init_method=init_method,
+                         device=device)
+        try:
+            yield mesh, device
+        finally:
+            mesh.close()
+
+
+def place_rank(mesh, device: torch.device, args: argparse.Namespace,
+               cfg) -> tuple:
+    """A rank's set-up of ``--mesh``: ``(bundle, params with the placed
+    plan under "sparse_plan", the dry run's `shard_bytes` of its params
+    and plan, the set-up report)``.  Set-up runs in turns, each closed by
+    a barrier: in its turn a rank makes the params from the seed and
+    builds the plan whole, places both, frees the whole ones and empties
+    its cache.  Rank 0 goes alone; the rest go as many at a time as the
+    card holds by rank 0's measured set-up peak (`_setup_group`), so the
+    card never holds more whole sets than fit beside the ranks' shards."""
+    from .dryrun import shard_bytes
+    rank, world_size = mesh.rank, mesh.size
+    t_start = time.monotonic()
+    bundle = build_model(cfg, device, mesh=mesh)
+    pspecs = bundle.param_specs()
+    setup_peak = setup_card = setup_s = None
+    group, start, turns = 1, 0, []  # rank 0 alone first
+    while start < world_size:
+        turns.append(min(group, world_size - start))
+        if start <= rank < start + turns[-1]:
+            t0 = time.monotonic()
+            whole = build_model(cfg, device).init(0)
+            plan = engine_plan.plan_model(cfg, whole,
+                                          **_plan_kwargs(args, cfg))
+            want = {"params": shard_bytes(mesh, whole, pspecs)}
+            pl_specs = engine_plan.plan_specs(plan, mesh)
+            want["plan"] = sum(shard_bytes(
+                mesh, engine_plan.weight_leaves(lp.weights),
+                engine_plan.weight_leaves(pl_specs.layers[nm].weights))
+                for nm, lp in plan.layers.items())
+            params = shd.place_tree(whole, shd.tree_shardings(mesh, pspecs))
+            params["sparse_plan"] = engine_plan.shard_plan(plan, mesh)
+            if device.type == "cuda":
+                setup_peak = torch.cuda.max_memory_allocated(device) / 2**30
+                # the card as every process uses it: the other ranks'
+                # shards and contexts, the whole sets of this turn's
+                # ranks, this one's still held
+                free, total = torch.cuda.mem_get_info(device)
+                setup_card = (total - free) / 2**30
+            del whole, plan
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            setup_s = time.monotonic() - t0
+        torch.distributed.barrier()
+        if start == 0 and world_size > 1:
+            group = _setup_group(device, world_size, setup_peak)
+        start += turns[-1]
+    setup = {"setup_peak_gib": setup_peak, "setup_card_gib": setup_card,
+             "setup_s": setup_s,
+             "setup_wall_s": time.monotonic() - t_start,
+             "setup_turns": turns}
+    return bundle, params, want, setup
+
+
+def _serve_rank(rank: int, world_size: int, init_method: str,
+                args: argparse.Namespace, cfg) -> dict:
+    """One rank of ``--mesh`` (`rank_mesh`), set up by `place_rank`.
+    Then it times the greedy path (its tokens, the logits they were
+    chosen from and, for the MoE family, the experts it routed) with this
+    rank's counts zeroed just before and read just after.  Returns the
+    rank's report (numpy for the tensors)."""
+    from .dryrun import cache_shapes, shard_bytes, tree_bytes
+    with rank_mesh(rank, world_size, init_method, args) as (mesh, device):
+        bundle, sparams, want, setup = place_rank(mesh, device, args, cfg)
         prompt = _prompt(args, cfg, device)
         max_len = args.prompt_len + args.gen_steps
         cache = bundle.init_cache(args.batch, max_len)
-        want["cache"] = shard_bytes(
-            mesh, {k: torch.empty((cfg.n_layers, args.batch * cfg.n_kv_heads,
-                                   max_len, cfg.head_dim),
-                                  dtype=v.dtype, device="meta")
-                   for k, v in cache.items()},
-            bundle.cache_specs(args.batch))
-        resident = {"params": tree_bytes(params),
+        want["cache"] = shard_bytes(mesh,
+                                    cache_shapes(cfg, args.batch, max_len),
+                                    bundle.cache_specs(args.batch))
+        resident = {"params": tree_bytes({k: v for k, v in sparams.items()
+                                          if k != "sparse_plan"}),
                     "plan": sum(tree_bytes(engine_plan.weight_leaves(
-                        lp.weights)) for lp in splan.layers.values()),
+                        lp.weights))
+                        for lp in sparams["sparse_plan"].layers.values()),
                     "cache": tree_bytes(cache)}
         del cache
         expert_block = None
         if cfg.family == "moe":
             e0, el = shd.block_of(
-                mesh, shd.spec_axes(pspecs["blocks"]["we_gate"][1]),
+                mesh, shd.spec_axes(
+                    bundle.param_specs()["blocks"]["we_gate"][1]),
                 cfg.n_experts)
             expert_block = [e0, e0 + el]
         _sync(device)
@@ -713,15 +737,10 @@ def _serve_rank(rank: int, world_size: int, init_method: str,
                 "experts_per_dispatch": dict(engine_execute.EXPERT_BLOCKS),
                 "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30
                 if device.type == "cuda" else None,
-                "setup_peak_gib": setup_peak,
-                "setup_card_gib": setup_card, "setup_s": setup_s,
-                "setup_wall_s": setup_wall, "setup_turns": turns,
-                "wall_s": wall, "resident_bytes": resident,
+                **setup, "wall_s": wall, "resident_bytes": resident,
                 "shard_bytes": want, "tokens": toks.cpu().numpy(),
                 "logits": torch.stack(logits).float().cpu().numpy(),
                 "routes": [r.cpu().numpy() for r in routes]}
-    finally:
-        mesh.close()
 
 
 def _setup_group(device: torch.device, world_size: int,
@@ -744,7 +763,6 @@ def one_process(args: argparse.Namespace, cfg) -> tuple:
     """``(greedy tokens, the logits they were chosen from, the experts
     each MoE dispatch routed)`` of one process serving the same params,
     plan and prompt as ``--mesh`` does (the yardstick of its ranks)."""
-    from ..engine import plan as engine_plan
     device = resolve_device(args.device)
     bundle = build_model(cfg, device)
     params = bundle.init(0)
@@ -856,13 +874,17 @@ def run_mesh(args: argparse.Namespace, cfg) -> dict:
 
 def run(args: argparse.Namespace, cfg) -> dict:
     """Serve ``cfg`` as the parsed arguments say (`main` with a config it
-    does not build itself, e.g. ``cache_update="scatter"``)."""
-    if args.mesh is not None:
-        return run_mesh(args, cfg)
+    does not build itself, e.g. ``cache_update="scatter"``), under
+    `exact_matmuls`."""
+    with exact_matmuls():
+        if args.mesh is not None:
+            return run_mesh(args, cfg)
+        return _serve_one(args, cfg)
+
+
+def _serve_one(args: argparse.Namespace, cfg) -> dict:
+    """`run` on one device."""
     device = resolve_device(args.device)
-    # exact f32 matmuls for the dense yardstick and the masked-dense reference
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     bundle = build_model(cfg, device)
     params = bundle.init(0)
     prompt = _prompt(args, cfg, device)

@@ -12,17 +12,20 @@ tensors:
 * ``init_cache(batch, max_len) -> cache``   (the transformer: plane layout
   ``[L, B*KH, S, dh]``; rwkv6: token-shift and WKV states; zamba2: SSM and
   conv states plus the shared block's ``[n_attn, B, S, KH, dh]`` KV)
+* ``merge(cache, prefill_cache) -> cache`` (a decode cache seeded with a
+  prefill's: `merge_prefill_cache`, or the bundle's own ``merge_cache``)
 * ``param_specs() -> specs`` / ``cache_specs(batch) -> specs``  (the
   reference's sharding decisions for the params and the cache on the
   mesh the bundle was built with, ``build_model(cfg, device, mesh=...)``;
   ``P()`` leaves without a mesh)
 
 On a description (`launch.mesh.Mesh`) the specs are decisions only.  On a
-live mesh (`launch.mesh.LiveMesh`) the dense family's bundle runs the
-reference's sharded serve program (`models.transformer`): ``init(seed)``
+live mesh (`launch.mesh.LiveMesh`) every family's bundle runs the
+reference's sharded serve program (`models.transformer`, `models.rwkv6`,
+`models.zamba2`): ``init(seed)``
 makes the params whole from the seed on every rank and places them
 (`distributed.sharding.place_tree`; converted params are placed the same
-way), ``init_cache`` gives this rank's planes, and ``prefill`` /
+way), ``init_cache`` gives this rank's block of the cache, and ``prefill`` /
 ``decode_step`` take and return the whole batch, each rank computing its
 block of rows (`distributed.sharding.shard_batch`, as
 `batch_partition_spec` splits it).
@@ -66,6 +69,15 @@ class ModelBundle:
     init_cache: Callable[[int, int], Any]
     param_specs: Callable[[], Any]
     cache_specs: Callable[[int], Any]
+    merge_cache: Callable[[Any, Any], Any] | None = None
+
+    def merge(self, cache, prefill_cache):
+        """``cache`` (from ``init_cache``) seeded with a prefill's cache:
+        the bundle's own ``merge_cache`` where it has one (a live mesh's
+        rank whose cache holds a block of the sequence), else
+        `merge_prefill_cache`."""
+        return (self.merge_cache or merge_prefill_cache)(cache,
+                                                         prefill_cache)
 
 
 @dataclasses.dataclass(frozen=True)

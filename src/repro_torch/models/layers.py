@@ -270,17 +270,20 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     """Single-token attention on a ``[B, Smax, KH, dh]`` cache (zamba2's
     shared block): q ``[B, 1, H, dh]``; ``cache_len`` ``[B]`` masks the
     slots at and past it.  As the reference's, a plain softmax: a NaN
-    score gives a NaN output (a poisoned q / k surfaces here)."""
+    score gives a NaN output (a poisoned q / k surfaces here).  Taken in
+    float64 and rounded to q's dtype, as `decode_attention_planes`, so a
+    row's output does not depend on the rows and heads that share the
+    call."""
     b, _, h, dh = q.shape
     kh = k_cache.shape[2]
-    qg = q.reshape(b, 1, kh, h // kh, dh).float()
-    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) \
+    qg = q.reshape(b, 1, kh, h // kh, dh).double()
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.double()) \
         * (1.0 / math.sqrt(dh))
     pos = torch.arange(k_cache.shape[1], device=q.device)
     mask = pos[None, :] < cache_len[:, None]                # [B, Smax]
     sc = torch.where(mask[:, None, None, None, :], sc, float("-inf"))
     p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.float())
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.double())
     return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh).to(q.dtype)
 
 
@@ -296,6 +299,16 @@ def sparse_linear(x: Tensor, sp, *, impl: str = "cuda",
     path); `core.sparse_ops.sparse_matmul` dispatches."""
     from ..core.sparse_ops import sparse_matmul
     return sparse_matmul(x, sp, impl=impl, block_k=block_k)
+
+
+def matmul_f64(x: Tensor, w: Tensor, dtype: torch.dtype) -> Tensor:
+    """``x @ w`` summed in float64 and rounded to ``dtype`` once, so a
+    row's product does not depend on the rows and columns that share the
+    call: cuBLAS picks its reduction by the shape, and on the H100 a bf16
+    product of 2 rows and of 4 rounds some elements a bf16 ulp apart,
+    which moves a model's logits past the mesh's parity tolerance (a live
+    mesh's rank has half the rows or columns of one process)."""
+    return (x.double() @ w.double()).to(dtype)
 
 
 def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:

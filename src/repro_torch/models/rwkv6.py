@@ -24,6 +24,7 @@ not; the decay head keeps the reference's f32 product.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict
 
@@ -34,11 +35,12 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..distributed import sharding as shd
 from ..distributed.sharding import P
+from ..launch.mesh import LiveMesh
 from ..tree import tree_map
 from .api import (BlockDiff, ModelBundle, init_shapes, planned_proj,
                   register_family, serving_plan)
-from .layers import causal_lm_labels, chunked_cross_entropy, embed_init, \
-    layer_norm
+from .layers import (_row_mean, causal_lm_labels, chunked_cross_entropy,
+                     embed_init, layer_norm, matmul_f64)
 
 Tensor = torch.Tensor
 
@@ -53,8 +55,56 @@ def _mm(a: Tensor, b: Tensor) -> Tensor:
     return a.to(dt) @ b.to(dt)
 
 
-def _proj(lp, plan_layers, name: str, x: Tensor, cd) -> Tensor:
-    return planned_proj(lp, plan_layers, name, x.to(cd), cd)
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """Where a recurrent layer's channels live.  On one device (the
+    default) every column is whole and a projection is `planned_proj`.  On
+    a rank of a live mesh (``mesh``) a projection runs at its use-time
+    spec (``uspecs``, `distributed.sharding.project`) and the recurrence
+    runs on the rank's heads: the state's head dim is split over the axes
+    ``heads`` (``model`` where it divides the heads, else none: the
+    reference's ``dim_spec`` fallback), ``chans`` its channels."""
+    cd: torch.dtype
+    mesh: LiveMesh | None = None
+    uspecs: dict | None = None
+    heads: tuple = ()
+    chans: slice = slice(None)
+
+    def proj(self, lp, plan_layers, name: str, x: Tensor,
+             have: tuple = (), exact: bool = False) -> tuple:
+        """``(x @ W, the axes its columns are split over)`` in the compute
+        dtype, ``x``'s columns split over ``have``; ``exact`` (a weight no
+        plan covers) sums in float64 (`layers.matmul_f64`)."""
+        if self.mesh is None:
+            if exact:
+                return matmul_f64(x.to(self.cd), lp[name].to(self.cd),
+                                  self.cd), ()
+            return planned_proj(lp, plan_layers, name, x.to(self.cd),
+                                self.cd), ()
+        planned = None if plan_layers is None else plan_layers.get(name)
+        return shd.project(self.mesh, x.to(self.cd), have, lp.get(name),
+                           self.uspecs[name], planned, self.cd, exact=exact)
+
+    def cols(self, x: Tensor, have: tuple, want: tuple) -> Tensor:
+        """`distributed.sharding.cols` on a live mesh, else ``x``."""
+        return x if self.mesh is None else shd.cols(self.mesh, x, have,
+                                                    want)
+
+    def to_heads(self, y_have: tuple) -> Tensor:
+        """A projection's output re-laid to the rank's heads."""
+        return self.cols(*y_have, self.heads)
+
+
+def live_split(cfg: ModelConfig, mesh: LiveMesh, specs: dict,
+               n_heads: int, head_dim: int) -> Split:
+    """The `Split` of a rank of ``mesh``: the blocks' use-time specs from
+    their placed ``specs``, the heads over ``model`` where it divides
+    ``n_heads``."""
+    heads = shd.spec_axes(shd.dim_spec(mesh, n_heads, "model"))
+    h0, nhl = shd.block_of(mesh, heads, n_heads)
+    return Split(_cdtype(cfg), mesh,
+                 {k: shd.use_spec(sp) for k, sp in specs.items()}, heads,
+                 slice(h0 * head_dim, (h0 + nhl) * head_dim))
 
 
 # ---------------------------------------------------------------------------
@@ -171,25 +221,32 @@ def _wkv_scan(r, k, v, w, u, state, *, chunk: int = 64):
 
     r/k/v/w ``[B, T, H, dh]`` (w the decay in (0, 1)); u ``[H, dh]``;
     state ``[B, H, dh, dh]`` (key-major).  Returns ``(out [B, T, H, dh],
-    new state)``:
+    new state)``, its sums over ``dh`` taken in float64 and rounded to
+    float32, so that a head's output does not depend on how many rows and
+    heads share the call (on the H100 a float32 batched product of 2 rows
+    rounds otherwise than of 4, and a live mesh's rank runs its rows and
+    heads alone):
 
         out_t = r_t . (S_{t-1} + (u * k_t) (x) v_t)
         S_t   = diag(w_t) S_{t-1} + k_t (x) v_t
 
     The bonus term ``(r_t . (u * k_t)) v_t`` needs no state and is taken
     for all t at once, so a step allocates only ``k_t (x) v_t`` and the new
-    state."""
+    state; ``r_t . S_{t-1}`` is taken for a chunk at once after its steps,
+    from the states it kept, so the float64 sums cost no launches a step."""
     def chunk_step(s, rc, kc, vc, wc):
-        ys = []
+        prev = []
         for i in range(rc.shape[1]):
+            prev.append(s)
             kv = kc[:, i, ..., :, None] * vc[:, i, ..., None, :]
-            ys.append(torch.einsum("bhk,bhkv->bhv", rc[:, i], s))
             s = torch.addcmul(kv, wc[:, i, ..., None], s)
-        return torch.stack(ys, dim=1), s
+        ys = torch.einsum("bthk,bthkv->bthv", rc.double(),
+                          torch.stack(prev, dim=1).double())
+        return ys.float(), s
 
     y, state = _run_chunks(chunk_step, state, (r, k, v, w),
                            _chunk_len(r.shape[1], chunk))
-    return y + (r * u * k).sum(-1, keepdim=True) * v, state
+    return y + (r * u * k).double().sum(-1, keepdim=True).float() * v, state
 
 
 def _wkv_chunked(r, k, v, w, u, state, *, chunk: int = 32):
@@ -231,82 +288,100 @@ def _wkv_chunked(r, k, v, w, u, state, *, chunk: int = 32):
 # Time mix / channel mix
 # ---------------------------------------------------------------------------
 
+def _group_norm(out: Tensor, gamma: Tensor) -> Tensor:
+    """The per-head group norm of ``out`` ``[B, T, H, dh]`` (population
+    variance, as jnp.var; its statistics `layers._row_mean`'s, so a head's
+    do not depend on the call's rows), times ``gamma`` ``[H*dh]``."""
+    mu = _row_mean(out)
+    var = _row_mean((out - mu).square())
+    return ((out - mu) * torch.rsqrt(var + 1e-5)).flatten(-2) * gamma
+
+
 def _time_mix(cfg: ModelConfig, lp, x: Tensor, shift_last: Tensor,
-              state: Tensor, plan_layers=None) -> tuple:
-    """x ``[B, T, D]``; returns ``(out, new shift_last, new state)``."""
-    cd = _cdtype(cfg)
+              state: Tensor, plan_layers=None, split: Split | None = None
+              ) -> tuple:
+    """x ``[B, T, D]``; returns ``(out, new shift_last, new state)``.  On
+    a rank of a live mesh (``split``) r / k / v / g, the decay and the
+    bonus are cut to the rank's heads, the recurrence and the group norm
+    run on them (``state`` is the rank's heads) and ``wo`` takes them
+    split."""
+    split = split or Split(_cdtype(cfg))
+    cd = split.cd
     b, t, d = x.shape
     hd = cfg.rwkv_head_dim
-    nh = d // hd
     xs = _shift(x, shift_last)
 
     def lerp(mu):
         return x + (xs - x) * mu.to(cd)
 
-    r = _proj(lp, plan_layers, "wr", lerp(lp["mu_r"]), cd)
-    k = _proj(lp, plan_layers, "wkm", lerp(lp["mu_k"]), cd)
-    v = _proj(lp, plan_layers, "wv", lerp(lp["mu_v"]), cd)
-    g = F.silu(_proj(lp, plan_layers, "wg", lerp(lp["mu_g"]), cd))
+    def heads(name: str, mu: str) -> Tensor:
+        return split.to_heads(split.proj(lp, plan_layers, name,
+                                         lerp(lp[mu])))
+
+    r, k, v = heads("wr", "mu_r"), heads("wkm", "mu_k"), heads("wv", "mu_v")
+    g = F.silu(heads("wg", "mu_g"))
     # the data-dependent decay (the Finch contribution)
     w_log = lp["w0"].to(cd) + _mm(torch.tanh(_mm(lerp(lp["mu_w"]),
                                                  lp["wA"].to(cd))),
                                   lp["wB"].to(cd))
-    w = torch.exp(-torch.exp(w_log.float()))            # in (0, 1)
+    w = torch.exp(-torch.exp(w_log.float()))[..., split.chans]   # in (0, 1)
+    nh = r.shape[-1] // hd
     hs = (b, t, nh, hd)
     wkv = _wkv_chunked if (cfg.ssm_mode == "chunked" and t > 1) \
         else _wkv_scan
     out, state = wkv(r.reshape(hs).float(), k.reshape(hs).float(),
                      v.reshape(hs).float(), w.reshape(hs),
-                     lp["u"].float().reshape(nh, hd), state)
-    # per-head group norm (population variance, as jnp.var)
-    mu = out.mean(-1, keepdim=True)
-    var = out.var(-1, unbiased=False, keepdim=True)
-    out = ((out - mu) * torch.rsqrt(var + 1e-5)).reshape(b, t, d) \
-        * lp["gn"].float()
-    out = _proj(lp, plan_layers, "wo", out.to(cd) * g, cd)
+                     lp["u"].float()[split.chans].reshape(nh, hd), state)
+    out = _group_norm(out, lp["gn"].float()[split.chans])
+    out = split.proj(lp, plan_layers, "wo", out.to(cd) * g, split.heads)[0]
     return out, x[:, -1, :], state
 
 
 def _channel_mix(cfg: ModelConfig, lp, x: Tensor, shift_last: Tensor,
-                 plan_layers=None) -> tuple:
-    cd = _cdtype(cfg)
+                 plan_layers=None, split: Split | None = None) -> tuple:
+    """On a rank of a live mesh ``ck`` and ``cr`` are column-parallel,
+    ``cv`` row-parallel on ``ck``'s split."""
+    split = split or Split(_cdtype(cfg))
+    cd = split.cd
     xs = _shift(x, shift_last)
     xk = x + (xs - x) * lp["cmu_k"].to(cd)
     xr = x + (xs - x) * lp["cmu_r"].to(cd)
-    k = torch.square(F.relu(_proj(lp, plan_layers, "ck", xk, cd)))
-    out = torch.sigmoid(_proj(lp, plan_layers, "cr", xr, cd)) \
-        * _proj(lp, plan_layers, "cv", k, cd)
-    return out, x[:, -1, :]
+    k, have = split.proj(lp, plan_layers, "ck", xk)
+    kv = split.proj(lp, plan_layers, "cv", torch.square(F.relu(k)), have)[0]
+    r = split.cols(*split.proj(lp, plan_layers, "cr", xr), ())
+    return torch.sigmoid(r) * kv, x[:, -1, :]
 
 
 def _time_mix_inc(cfg: ModelConfig, lp, h: Tensor, att_shift: Tensor,
-                  state: Tensor, plan_layers=None) -> tuple:
+                  state: Tensor, plan_layers=None, split=None) -> tuple:
     """The time mix's increment to the residual ``h`` (in ``h``'s dtype);
     returns ``(increment, att_shift, state)``."""
     x = layer_norm(h, lp["ln1"], lp["ln1_b"]).to(_cdtype(cfg))
     att, att_shift, state = _time_mix(cfg, lp, x, att_shift, state,
-                                      plan_layers=plan_layers)
+                                      plan_layers=plan_layers, split=split)
     return att.to(h.dtype), att_shift, state
 
 
 def _channel_mix_inc(cfg: ModelConfig, lp, h: Tensor, ffn_shift: Tensor,
-                     plan_layers=None) -> tuple:
+                     plan_layers=None, split=None) -> tuple:
     """The channel mix's increment to the residual ``h``; returns
     ``(increment, ffn_shift)``."""
     x = layer_norm(h, lp["ln2"], lp["ln2_b"]).to(_cdtype(cfg))
     ffn, ffn_shift = _channel_mix(cfg, lp, x, ffn_shift,
-                                  plan_layers=plan_layers)
+                                  plan_layers=plan_layers, split=split)
     return ffn.to(h.dtype), ffn_shift
 
 
 def _block(cfg: ModelConfig, lp, h: Tensor, att_shift: Tensor,
-           ffn_shift: Tensor, state: Tensor, plan_layers=None) -> tuple:
+           ffn_shift: Tensor, state: Tensor, plan_layers=None,
+           split=None) -> tuple:
     """One layer; returns ``(h, att_shift, ffn_shift, state)``."""
     att, att_shift, state = _time_mix_inc(cfg, lp, h, att_shift, state,
-                                          plan_layers=plan_layers)
+                                          plan_layers=plan_layers,
+                                          split=split)
     h = h + att
     ffn, ffn_shift = _channel_mix_inc(cfg, lp, h, ffn_shift,
-                                      plan_layers=plan_layers)
+                                      plan_layers=plan_layers, split=split)
     return h + ffn, att_shift, ffn_shift, state
 
 
@@ -372,6 +447,8 @@ def cache_specs(cfg: ModelConfig, mesh, batch_size: int) -> Dict[str, P]:
 
 @register_family("ssm")
 def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
+    if isinstance(mesh, LiveMesh):
+        return _build_live(cfg, device, mesh)
     cd = _cdtype(cfg)
 
     def init(seed: int = 0):
@@ -434,4 +511,98 @@ def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
                        train_loss=train_loss, prefill=prefill,
                        decode_step=decode_step, init_cache=init_cache,
                        param_specs=lambda: param_specs(cfg, mesh),
+                       cache_specs=lambda b: cache_specs(cfg, mesh, b))
+
+
+# ---------------------------------------------------------------------------
+# Live mesh: the sharded serve program
+# ---------------------------------------------------------------------------
+
+def _build_live(cfg: ModelConfig, device: torch.device,
+                mesh: LiveMesh) -> ModelBundle:
+    """The bundle on a live mesh: the reference's sharded serve program
+    with its channel sharding (`distributed.sharding.with_channel_sharding`
+    says where the split happens), each collective explicit.
+
+    Params are this rank's blocks by `param_specs`; the plan is placed by
+    `engine.plan.shard_plan`; the cache is this rank's block by
+    `cache_specs`: its batch rows of the token-shift states ``[L, B, D]``
+    and its rows and heads of the WKV state.  ``prefill`` and
+    ``decode_step`` take and return the whole batch as the one-device
+    bundle does; inside, a rank computes the rows of its block of the
+    batch (`distributed.sharding.shard_batch`):
+
+    * each layer's dense weights are gathered over the FSDP axes to their
+      use-time specs (`distributed.sharding.gather_for_use`): ``wr``,
+      ``wkm``, ``wv``, ``wg``, ``ck`` and ``cr`` are column-parallel over
+      ``model``, ``wo`` and ``cv`` row-parallel (one ``all_reduce``), the
+      decay LoRA ``wA`` / ``wB`` whole; a planned projection gathers its
+      encoding and runs whole;
+    * the time mix's r / k / v / g and decay are cut to the rank's heads
+      (`Split`), on which the WKV recurrence and the group norm run;
+    * the embedding and the logits as the transformer's
+      (`distributed.sharding.embed_rows`, `vocab_logits`)."""
+    cd = _cdtype(cfg)
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    pspecs = param_specs(cfg, mesh)
+    placed = {k: P(*list(sp)[1:]) for k, sp in pspecs["blocks"].items()}
+    split = live_split(cfg, mesh, pspecs["blocks"], d // hd, hd)
+
+    def forward(params, tokens: Tensor, states: tuple) -> tuple:
+        """``(logits [B, V], the rank's new states)`` of the whole batch
+        ``tokens`` from the rank's ``states``."""
+        b = tokens.shape[0]
+        bax = shd.shard_batch(mesh, b) or ()
+        r0, bl = shd.block_of(mesh, bax, b)
+        h = shd.embed_rows(mesh, params["embed"], pspecs["embed"], tokens,
+                           d, slice(r0, r0 + bl)).to(cd)
+        plan = serving_plan(cfg, params)
+        new = ([], [], [])
+        for i in range(cfg.n_layers):
+            plp = None if plan is None else plan.per_layer[i]
+            lp = shd.gather_for_use(
+                mesh, {nm: w[i] for nm, w in params["blocks"].items()
+                       if plp is None or nm not in plp},
+                placed, split.uspecs, cd)
+            h, *st = _block(cfg, lp, h, *(s[i] for s in states),
+                            plan_layers=plp, split=split)
+            for acc, s in zip(new, st):
+                acc.append(s)
+        h = layer_norm(h, params["final_norm"], None)
+        logits = shd.vocab_logits(mesh, h[:, -1], params["embed"],
+                                  pspecs["embed"], bax, cfg.vocab_size)
+        return logits, dict(zip(("att_shift", "ffn_shift", "wkv"),
+                                (torch.stack(acc) for acc in new)))
+
+    def init(seed: int = 0):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return shd.place_tree(init_params(cfg, gen, device),
+                              shd.tree_shardings(mesh, pspecs))
+
+    def train_loss(params, batch):
+        raise NotImplementedError("the sharded train step is not ported; "
+                                  "a live mesh serves prefill and decode")
+
+    def init_cache(batch_size: int, max_len: int):
+        specs = cache_specs(cfg, mesh, batch_size)
+        whole = _zero_states(cfg, batch_size, "meta")
+        return {k: torch.zeros(shd.shard_shape(mesh, tuple(t.shape),
+                                               specs[k]),
+                               dtype=t.dtype, device=device)
+                for k, t in zip(("att_shift", "ffn_shift", "wkv"), whole)}
+
+    def prefill(params, batch):
+        cache = init_cache(batch["tokens"].shape[0], 1)
+        return forward(params, batch["tokens"],
+                       (cache["att_shift"], cache["ffn_shift"], cache["wkv"]))
+
+    def decode_step(params, batch, cache):
+        return forward(params, batch["tokens"],
+                       (cache["att_shift"], cache["ffn_shift"], cache["wkv"]))
+
+    return ModelBundle(cfg=cfg, device=device, init=init,
+                       train_loss=train_loss, prefill=prefill,
+                       decode_step=decode_step, init_cache=init_cache,
+                       param_specs=lambda: pspecs,
                        cache_specs=lambda b: cache_specs(cfg, mesh, b))

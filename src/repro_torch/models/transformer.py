@@ -52,7 +52,7 @@ from .layers import (apply_rope, attention_chunks, causal_lm_labels,
 
 Tensor = torch.Tensor
 KV_DTYPE = torch.bfloat16       # the cache is bf16 by construction
-LIVE_FAMILIES = ("dense", "moe")    # the families a live mesh serves
+LIVE_FAMILIES = ("dense", "moe", "audio", "vlm")   # `_build_live` serves
 
 
 def _norm(cfg: ModelConfig, x: Tensor, gamma: Tensor | None) -> Tensor:
@@ -183,43 +183,25 @@ def param_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
     return specs
 
 
-def _strip_fsdp(spec: P) -> P:
-    """Use-time spec: drop the stacked L dim and the data / pod (FSDP)
-    axes, keep ``model``."""
-    def clean(d):
-        if d is None:
-            return None
-        names = (d,) if isinstance(d, str) else tuple(d)
-        kept = tuple(n for n in names if n == "model")
-        return kept[0] if len(kept) == 1 else (kept or None)
-    return P(*[clean(d) for d in list(spec)[1:]])
-
-
 def use_specs(cfg: ModelConfig, mesh) -> Dict[str, P]:
-    """Per-layer use-time specs of the blocks (`_strip_fsdp`)."""
-    return {k: _strip_fsdp(s)
+    """Per-layer use-time specs of the blocks
+    (`distributed.sharding.use_spec`)."""
+    return {k: shd.use_spec(s)
             for k, s in param_specs(cfg, mesh)["blocks"].items()}
 
 
 def gather_for_use(cfg: ModelConfig, mesh, lp: Dict[str, Tensor],
                    specs: Dict[str, P]) -> Dict[str, Tensor]:
-    """ZeRO-3 style per-layer weight materialization, in the compute
-    dtype: on a live mesh (`launch.mesh.LiveMesh`) each of the layer's
-    placed weights ``lp`` is cast to the compute dtype *then* gathered
-    over the FSDP axes to its use-time spec ``specs`` (one ``all_gather``
-    for the layer, half the bytes of a float32 one); dims split over
-    ``model`` stay split.  On a description or no mesh the layer is
-    returned as it is."""
+    """The layer's placed weights ``lp`` gathered over the FSDP axes to
+    their use-time specs ``specs`` in the compute dtype
+    (`distributed.sharding.gather_for_use`, one ``all_gather``); on a
+    description or no mesh the layer is returned as it is."""
     if not isinstance(mesh, LiveMesh):
         return lp
-    cd = _cdtype(cfg)
     placed = {k: P(*list(sp)[1:])
               for k, sp in param_specs(cfg, mesh)["blocks"].items()}
-    cast = {k: v.to(cd) if v.is_floating_point() else v
-            for k, v in lp.items()}
-    axes = {a for k in lp for d in placed[k] for a in shd.spec_axes(d)} \
-        - {a for k in lp for d in specs[k] for a in shd.spec_axes(d)}
-    return shd.gather_tree(cast, mesh, {k: placed[k] for k in lp}, axes)
+    return shd.gather_for_use(mesh, lp, {k: placed[k] for k in lp},
+                              specs, _cdtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -664,26 +646,12 @@ def build(cfg: ModelConfig, device: torch.device, mesh=None) -> ModelBundle:
 
 
 # ---------------------------------------------------------------------------
-# Live mesh: the dense and MoE families' sharded serve program
+# Live mesh: the transformer families' sharded serve program
 # ---------------------------------------------------------------------------
-
-def _cols(mesh: LiveMesh, x: Tensor, have: tuple, want: tuple) -> Tensor:
-    """``x`` with its last dim re-laid from a split over the axes ``have``
-    to one over ``want`` (``()``: whole): gathered where ``have`` splits
-    it, then cut to this rank's block of ``want``."""
-    if have == want:
-        return x
-    if have:
-        x = shd.gather(x, mesh, P(*([None] * (x.dim() - 1)), have))
-    if want:
-        start, size = shd.block_of(mesh, want, x.shape[-1])
-        x = x.narrow(-1, start, size)
-    return x
-
 
 def _build_live(cfg: ModelConfig, device: torch.device,
                 mesh: LiveMesh) -> ModelBundle:
-    """The dense and MoE families' bundle on a live mesh: the reference's
+    """The transformer families' bundle on a live mesh: the reference's
     sharded serve program, each collective explicit
     (`distributed.sharding`).
 
@@ -719,12 +687,19 @@ def _build_live(cfg: ModelConfig, device: torch.device,
       dense MLP does;
     * the embedding, split by vocab over ``model`` and by ``d`` over the
       FSDP axes, is a masked local lookup of every row plus one
-      ``all_reduce``; the logits are each rank's vocab and ``d`` block's
-      partial product, summed by one ``all_reduce`` (the last positions
-      gathered over the batch axes first).
+      ``all_reduce`` (`distributed.sharding.embed_rows`; a vocab that
+      ``model`` does not divide is looked up whole); the logits are each
+      rank's vocab and ``d`` block's partial product, summed by one
+      ``all_reduce`` (`distributed.sharding.vocab_logits`, the last
+      positions gathered over the batch axes first);
+    * a prefill that carries ``frontend_embed`` (the audio and vlm
+      families) projects the rank's rows of it by ``frontend_proj``,
+      placed ``[fsdp, model]``: gathered over the FSDP axes,
+      column-parallel over ``model``, its columns gathered back, written
+      over the first n positions.
 
     Only prefill and decode run here (no training step), for the
-    families of `LIVE_FAMILIES` (no frontend)."""
+    families of `LIVE_FAMILIES`."""
     if cfg.family not in LIVE_FAMILIES:
         raise NotImplementedError(
             f"a live mesh serves the {LIVE_FAMILIES} families; {cfg.name} "
@@ -734,10 +709,6 @@ def _build_live(cfg: ModelConfig, device: torch.device,
     g = cfg.n_heads // kh
     pspecs = param_specs(cfg, mesh)
     uspecs = use_specs(cfg, mesh)
-    v_ax, d_ax = (shd.spec_axes(d) for d in pspecs["embed"])
-    emb_axes = tuple(a for a in mesh.axis_names if a in v_ax + d_ax)
-    v0, vl = shd.block_of(mesh, v_ax, cfg.vocab_size)
-    d0, dl = shd.block_of(mesh, d_ax, cfg.d_model)
 
     def batch_axes(b: int) -> tuple:
         return shd.shard_batch(mesh, b) or ()
@@ -747,15 +718,10 @@ def _build_live(cfg: ModelConfig, device: torch.device,
 
     def proj(lp, plp, name: str, x: Tensor, have: tuple) -> tuple:
         """``(x @ W, the axes its columns are split over)``, ``x``'s
-        columns split over ``have``."""
-        if plp is not None and name in plp:
-            from ..engine.execute import apply_fc
-            return apply_fc(_cols(mesh, x, have, ()), plp[name]).to(cd), ()
-        w_in, w_out = (shd.spec_axes(d) for d in uspecs[name])
-        y = _cols(mesh, x, have, w_in) @ lp[name]
-        if w_in:                                    # row-parallel
-            y = shd.all_reduce(y, mesh, w_in)
-        return y, w_out
+        columns split over ``have`` (`distributed.sharding.project`)."""
+        planned = None if plp is None else plp.get(name)
+        return shd.project(mesh, x, have, lp.get(name), uspecs[name],
+                           planned, cd)
 
     def prefill_planes(q, k, v, pax):
         """Prefill attention on this rank's planes (one plane a batch row
@@ -823,8 +789,8 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         a, have = proj(lp, plp, gate, x, ())
         u, have_u = proj(lp, plp, up, x, ())
         if have != have_u:
-            a, u, have = _cols(mesh, a, have, ()), \
-                _cols(mesh, u, have_u, ()), ()
+            a, u, have = shd.cols(mesh, a, have, ()), \
+                shd.cols(mesh, u, have_u, ()), ()
         return proj(lp, plp, down, F.silu(a) * u, have)[0]
 
     def mlp(lp, plp, h):
@@ -884,22 +850,34 @@ def _build_live(cfg: ModelConfig, device: torch.device,
             ys.append(y.reshape(bl, seg_s, d))
         return torch.cat(ys, dim=1)
 
-    def forward(params, tokens, pos_fn, cache=None):
+    def frontend_rows(params, h, frontend_embed):
+        """``h`` with its first n positions replaced by this rank's rows
+        of ``frontend_embed`` ``[bl, n, frontend_dim]`` projected by
+        ``frontend_proj`` (gathered over the FSDP axes, column-parallel
+        over ``model``, its columns gathered back), as `_embed_tokens`
+        does on one device."""
+        spec = pspecs["frontend_proj"]
+        use = shd.use_spec(spec, stacked=False)
+        w = shd.gather_for_use(mesh, {"w": params["frontend_proj"]},
+                               {"w": spec}, {"w": use}, cd)["w"]
+        y, have = shd.project(mesh, frontend_embed.to(cd), (), w, use,
+                              dtype=cd)
+        y = shd.cols(mesh, y, have, ())
+        return torch.cat([y, h[:, y.shape[1]:]], dim=1)
+
+    def forward(params, tokens, pos_fn, cache=None, frontend_embed=None):
         """``(logits [B, V], per-layer (k, v) planes)`` of the whole batch
-        ``tokens`` ``[B, s]``; ``cache`` is ``(k, v, cache_len)`` for a
-        decode step."""
+        ``tokens`` ``[B, s]`` (and its ``frontend_embed`` rows, a
+        prefill's); ``cache`` is ``(k, v, cache_len)`` for a decode
+        step."""
         b = tokens.shape[0]
         bax = batch_axes(b)
         r0, bl = shd.block_of(mesh, bax, b)
-        # the embedding: this rank's vocab block and d block of every row
         e = params["embed"]
-        t = tokens.long() - v0
-        hit = (t >= 0) & (t < vl)
-        emb = torch.zeros((*tokens.shape, cfg.d_model), dtype=torch.float32,
-                          device=device)
-        emb[..., d0:d0 + dl] = torch.where(
-            hit[..., None], e[t.clamp(0, vl - 1)].float(), 0.0)
-        h = shd.all_reduce(emb, mesh, emb_axes)[r0:r0 + bl].to(cd)
+        h = shd.embed_rows(mesh, e, pspecs["embed"], tokens, cfg.d_model,
+                           slice(r0, r0 + bl)).to(cd)
+        if cfg.frontend and frontend_embed is not None:
+            h = frontend_rows(params, h, frontend_embed[r0:r0 + bl])
         plan = serving_plan(cfg, params)
         kvs = []
         for i in range(cfg.n_layers):
@@ -915,13 +893,9 @@ def _build_live(cfg: ModelConfig, device: torch.device,
                 else mlp(lp, plp, h)
             h = h + m.to(h.dtype)
             kvs.append(kv_out)
-        last = _norm(cfg, h, params["final_norm"])[:, -1].float()
-        if bax:
-            last = shd.gather(last, mesh, P(bax, None))
-        logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
-                             device=device)
-        logits[:, v0:v0 + vl] = last[:, d0:d0 + dl] @ e.float().T
-        return shd.all_reduce(logits, mesh, emb_axes), kvs
+        last = _norm(cfg, h, params["final_norm"])[:, -1]
+        return shd.vocab_logits(mesh, last, e, pspecs["embed"], bax,
+                                cfg.vocab_size), kvs
 
     def init(seed: int = 0):
         gen = torch.Generator(device=device)
@@ -937,7 +911,8 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         s = batch["tokens"].shape[1]
         logits, kvs = forward(
             params, batch["tokens"],
-            lambda rows: torch.arange(s, device=device).expand(len(rows), s))
+            lambda rows: torch.arange(s, device=device).expand(len(rows), s),
+            frontend_embed=batch.get("frontend_embed"))
         return logits, {"k": torch.stack([k for k, _ in kvs]).to(KV_DTYPE),
                         "v": torch.stack([v for _, v in kvs]).to(KV_DTYPE)}
 

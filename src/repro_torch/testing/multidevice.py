@@ -1,5 +1,5 @@
-"""Rank functions of the multi-device tests (`tests/test_torch_multidevice.py`):
-each runs in a process of its own under `launch.ranks.run_ranks`, which
+"""Rank functions of the multi-device tests (`tests/test_torch_multidevice.py`,
+`test_torch_moe_mesh.py`, `test_torch_family_mesh.py`): each runs in a process of its own under `launch.ranks.run_ranks`, which
 needs it importable by its module path, and returns numpy arrays (a
 bf16 tensor as its int16 bits, so shards compare bit for bit).
 
@@ -12,17 +12,26 @@ bf16 tensor as its int16 bits, so shards compare bit for bit).
   tokens, and the prefill logits without a plan;
 * `prefill_cases` — several smoke configs' sharded prefill and one
   decode step on one live mesh, each with its plan or without;
+* `family_cases` — several smoke models of any family on one live mesh:
+  shards, prefill logits with the plan and without, collectives, the
+  seeded decode cache beside the one-process one, greedy tokens and a
+  prefill with frontend rows;
+* `frontend_prefill` — one planned prefill with frontend rows
+  (`frontend_batch`) of a model at any width, its ranks set up by
+  ``serve --mesh``'s own set-up (the GPU smoke's family-mesh phase runs
+  it on the card);
 
 `prefill_cases` takes the MoE segment length
 (``models.transformer._MOE_SEG``) with each case: a spawned rank imports
 the module afresh, so a test's monkeypatch does not reach it.
 * `raise_on` / `hang_on` — one rank raises, or never joins, while the
-  others wait for it in the rendezvous;
+  others wait for it in the rendezvous; `pid_of` — a rank's process;
 * `gloo_cuda_probe` — which ``gloo`` collectives take CUDA tensors (the
   GPU smoke's mesh phase runs it on the card).
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -33,7 +42,6 @@ from ..engine import execute as engine_execute
 from ..engine import plan as engine_plan
 from ..launch.mesh import init_mesh
 from ..models import build_model, transformer
-from ..models.api import merge_prefill_cache
 from ..models.convert import params_from_numpy
 from ..tree import flatten_with_paths
 
@@ -166,7 +174,7 @@ def prefill_cases(rank: int, world_size: int, init_method: str, axes,
             b, s = tokens.shape
             with torch.no_grad():
                 logits, pf = bundle.prefill(params, {"tokens": tokens})
-                cache = merge_prefill_cache(bundle.init_cache(b, s + 1), pf)
+                cache = bundle.merge(bundle.init_cache(b, s + 1), pf)
                 step, _ = bundle.decode_step(
                     params, {"tokens": torch.full((b, 1), 3),
                              "cache_len": torch.full((b,), s)}, cache)
@@ -174,6 +182,124 @@ def prefill_cases(rank: int, world_size: int, init_method: str, axes,
     finally:
         mesh.close()
     return out
+
+
+def family_cases(rank: int, world_size: int, init_method: str, axes,
+                 sizes, cases) -> list:
+    """Each case (a dict: ``cfg``, ``params_np``, ``prompt``, ``steps``,
+    ``plan_kwargs``; optional ``frontend`` rows, ``shards``) of any family
+    on one live mesh.  Per case: the sharded prefill's logits with the
+    plan (`engine.plan.plan_model`, placed) and without it, `COLLECTIVES`
+    over the planned prefill, the greedy tokens (``steps`` new ones), the
+    decode cache of ``max_len = prompt + steps`` seeded with the planned
+    prefill's (the bundle's ``merge``) beside the one-process cache of the
+    same run placed by `cache_specs`, and with ``frontend`` the planned
+    prefill's logits with those rows.  With ``shards`` also every placed
+    param and plan leaf with its `shard_shape`."""
+    from ..launch.serve import greedy_generate
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    out = []
+    try:
+        for case in cases:
+            cfg, prompt = case["cfg"], torch.from_numpy(case["prompt"])
+            b, s = prompt.shape
+            max_len = s + case["steps"]
+            whole = params_from_numpy(case["params_np"], "cpu")
+            plan = engine_plan.plan_model(cfg, whole, **case["plan_kwargs"])
+            bundle = build_model(cfg, "cpu", mesh=mesh)
+            pspecs = bundle.param_specs()
+            params = shd.place_tree(whole, shd.tree_shardings(mesh, pspecs))
+            sparams = {**params, "sparse_plan": engine_plan.shard_plan(
+                plan, mesh)}
+            got: dict = {"coord": mesh.coord()}
+            if case.get("shards"):
+                got["params"], got["plan"], got["shapes"] = {}, {}, {}
+                for path, t in flatten_with_paths(params):
+                    got["params"][_key(path)] = _bits(t)
+                for path, t in flatten_with_paths(whole):
+                    spec = pspecs
+                    for p in path:
+                        spec = spec[p]
+                    got["shapes"][_key(path)] = shd.shard_shape(
+                        mesh, tuple(t.shape), spec)
+                for nm, lp in sparams["sparse_plan"].layers.items():
+                    for leaf, t in engine_plan.weight_leaves(
+                            lp.weights).items():
+                        got["plan"][f"{nm}/{leaf}"] = _bits(t)
+            with torch.no_grad():
+                one = build_model(cfg, "cpu")
+                wplan = {**whole, "sparse_plan": plan}
+                _, pf = one.prefill(wplan, {"tokens": prompt})
+                want = one.merge(one.init_cache(b, max_len), pf)
+                cspecs = bundle.cache_specs(b)
+                got["cache_placed"] = {
+                    k: _bits(shd.place(v, mesh, cspecs[k]))
+                    for k, v in want.items()}
+                got["whole_cache"] = {k: _bits(v) for k, v in want.items()}
+                shd.COLLECTIVES.reset()
+                logits, pf = bundle.prefill(sparams, {"tokens": prompt})
+                got["collectives"] = shd.COLLECTIVES.snapshot()
+                got["logits"] = logits.numpy()
+                got["cache"] = {
+                    k: _bits(v) for k, v in bundle.merge(
+                        bundle.init_cache(b, max_len), pf).items()}
+                got["tokens"] = greedy_generate(bundle, sparams, prompt,
+                                                case["steps"],
+                                                max_len).numpy()
+                got["dense_logits"] = bundle.prefill(
+                    params, {"tokens": prompt})[0].numpy()
+                if case.get("frontend") is not None:
+                    got["frontend_logits"] = bundle.prefill(
+                        sparams, {"tokens": prompt, "frontend_embed":
+                                  torch.from_numpy(case["frontend"])}
+                    )[0].numpy()
+            out.append(got)
+    finally:
+        mesh.close()
+    return out
+
+
+def frontend_batch(cfg, batch: int, prompt_len: int, n_rows: int,
+                   device) -> dict:
+    """A seeded prefill batch of ``cfg``: tokens ``[batch, prompt_len]``
+    and ``n_rows`` frontend rows ``[batch, n_rows, frontend_dim]`` (bf16),
+    drawn on the CPU, so every process makes the same one."""
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen)
+    rows = torch.randn((batch, n_rows, cfg.frontend_dim), generator=gen)
+    return {"tokens": tokens.to(device),
+            "frontend_embed": rows.to(torch.bfloat16).to(device)}
+
+
+def frontend_prefill(rank: int, world_size: int, init_method: str, args,
+                     cfg, batch: int, prompt_len: int, n_rows: int) -> dict:
+    """One planned prefill with frontend rows (`frontend_batch`) of
+    ``cfg`` on the live mesh of ``serve --mesh``'s parsed ``args``, the
+    rank set up by serve's own `launch.serve.rank_mesh` and `place_rank`:
+    its logits, its kernel launches and collectives over the prefill."""
+    from ..kernels import balanced_spmm
+    from ..launch import serve
+    with serve.rank_mesh(rank, world_size, init_method, args) as (mesh,
+                                                                 device):
+        bundle, params, _, _ = serve.place_rank(mesh, device, args, cfg)
+        inputs = frontend_batch(cfg, batch, prompt_len, n_rows, device)
+        balanced_spmm.reset_launches()
+        shd.COLLECTIVES.reset()
+        with torch.no_grad():
+            logits = bundle.prefill(params, inputs)[0]
+        return {"logits": logits.float().cpu().numpy(),
+                "launches": dict(balanced_spmm.LAUNCHES),
+                "collectives": shd.COLLECTIVES.snapshot()}
+
+
+def pid_of(rank: int, world_size: int, init_method: str) -> int:
+    """The rank's process id, after it joined a one-axis mesh (left
+    open: the launcher tears a kept rank's groups down)."""
+    init_mesh(("data",), (world_size,), rank=rank, world_size=world_size,
+              backend="gloo", init_method=init_method, device="cpu")
+    return os.getpid()
 
 
 def raise_on(rank: int, world_size: int, init_method: str, bad: int):
@@ -255,5 +381,6 @@ def gloo_cuda_probe(rank: int, world_size: int, init_method: str) -> dict:
     return found
 
 
-__all__ = ["mesh_case", "prefill_cases", "raise_on", "hang_on",
+__all__ = ["mesh_case", "prefill_cases", "family_cases", "frontend_batch",
+           "frontend_prefill", "pid_of", "raise_on", "hang_on",
            "gloo_cuda_probe"]

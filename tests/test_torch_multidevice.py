@@ -341,11 +341,29 @@ def test_serve_mesh_entry_point(tmp_path):
     assert res["ranks"][0]["collectives"]["all_gather"]["ops"] > 0
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b",
+                                  "musicgen-medium", "internvl2-2b"])
+def test_serve_mesh_serves_every_family(arch, tmp_path):
+    """``serve --mesh`` of each family the reference shards besides the
+    dense and MoE ones, on the CPU at batch 4 (max_len 12, which
+    ``model`` divides: zamba2's KV is split by sequence over it): every
+    rank's tokens equal one process's, its logits lie within the
+    tolerance, its resident bytes (the recurrent states, zamba2's
+    sequence-split KV) equal `shard_bytes`."""
+    res = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--impl", "cuda", "--batch", "4", "--prompt-len", "8",
+                      "--gen-steps", "4", "--mesh", "data=2,model=2",
+                      "--dist-init", f"file://{tmp_path}/rendezvous"])["mesh"]
+    assert res["tokens_equal"] and res["bytes_equal"]
+    assert max(res["step_logits_max_abs_diff"]) <= res["parity_tol"]
+    assert len(res["step_logits_max_abs_diff"]) == 1 + 4
+    assert all(r["resident_bytes"]["cache"] > 0 for r in res["ranks"])
+
+
 @pytest.mark.parametrize("argv, msg", [
     (["--traffic"], "--traffic"), (["--guard"], "--guard"),
     (["--tune", "sweep"], "--tune"), ([], "--dist-init"),
-    (["--arch", "rwkv6-3b"], "channel sharding"),
-    (["--arch", "musicgen-medium"], "frontend")])
+    (["--arch", "rwkv6-3b", "--traffic"], "--traffic")])
 def test_serve_mesh_refuses(argv, msg, capsys):
     base = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--mesh",
             "data=2,model=2"]
@@ -380,6 +398,26 @@ def test_launcher_fails_within_its_limit(fn, limit, msg, tmp_path):
     assert time.monotonic() - t0 < limit + 30
     if fn == "raise_on":
         assert "fails on purpose" in str(err.value)
+
+
+def test_kept_ranks_run_several_calls_on_one_set_of_processes(tmp_path):
+    """Inside `keep_ranks` two calls run on the same four processes (each
+    joining its own rendezvous); a call whose rank raises ends them, and
+    the next call starts new ones; the block's end ends them too."""
+    from repro_torch.launch.ranks import keep_ranks
+
+    def run(name, fn=multidevice.pid_of, args=()):
+        return run_ranks(fn, 4, init_method=f"file://{tmp_path}/{name}",
+                         args=args, timeout_s=120.0)
+    with keep_ranks(4):
+        first, second = run("a"), run("b")
+        assert first == second and len(set(first)) == 4
+        with pytest.raises(RankError, match="rank 1 raised"):
+            run("c", multidevice.raise_on, (1,))
+        third = run("d")
+        assert not set(third) & set(first)
+    fresh = run("e")
+    assert not set(fresh) & set(third)
 
 
 def test_launcher_refuses_a_stale_rendezvous(tmp_path):

@@ -60,8 +60,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              path's; then the serve entry point, whose kv kernel launches
              must equal 2 x layers x decode steps and whose tiled kernel
              launches must equal the mask path's;
-7. traffic — ``serve --traffic`` at full olmo-1b width on the scatter
-             config (the reference's default scenario): paged-vs-contiguous
+7. traffic — ``serve --traffic`` at full olmo-1b width, depth
+             `PROFILE_LAYERS` of 16, on the scatter config (the
+             reference's default scenario): paged-vs-contiguous
              parity exactly 0.0 (gated inside `traffic_mode`), continuous and
              static metrics, the kv, wide and skinny launch counts; then a
              `torch.profiler` trace of the continuous engine serving a batch
@@ -135,8 +136,8 @@ batch 4, prompt 32), after phase 9, each fatal as above:
              quarantined, every key naming the card; then ``--tune
              cached`` on that cache (every sparse layer ``cached``, the
              cache untouched, the parity gate and every reached kernel
-             launched; tok/s beside ``--tune off``, the two alternated
-             two runs each, a record) and on an empty cache (blocks
+             launched; tok/s beside ``--tune off``'s, a record) and
+             on an empty cache (blocks
              equal to ``--tune off``'s);
 17. guard — ``serve --guard`` on olmo-1b and on deepseek-moe-16b at
              `MOE_LAYERS`: no ladder event, no quarantine, no
@@ -224,7 +225,7 @@ Then the long prefill, after phase 20, fatal as above:
              its bound) and a profile of one prefill at 2 layers (the
              attention's and the wide kernel's shares of the device
              time); (c) float32 end
-             to end at 4 layers and 8192 tokens against the masked-dense
+             to end at 2 layers and 8192 tokens against the masked-dense
              reference at 1e-4; (d) the meta-device dry run of the cell
              (`launch.dryrun`, batch 1): its param and cache bytes equal to
              the card's tensors', beside the measured peak.
@@ -282,6 +283,28 @@ Then the family meshes, after phase 23, fatal as above:
              `FRONTEND_MESH_PROMPT`), launched as serve's ranks are, its
              logits within 2e-2 of one process's prefill with the same
              rows.
+
+Then continuous batching on the mesh, after phase 24, fatal as above:
+
+25. traffic mesh — ``serve --traffic --mesh data=2,model=2`` of olmo-1b
+             at published width, depth `TRAFFIC_MESH_LAYERS` of 16, bf16,
+             sparsity 0.5, the scatter cache write, on the same four ranks
+             sharing cuda:0 (`TRAFFIC_MESH_ARGS`: 4 requests at 8 a
+             second, prompts 8 and 16, pages of 8, 2 slots, prefill
+             chunks of 16, 8 new tokens at most): each rank holds its
+             block of the paged pool by `paged_pool_specs` (7 pages, 28
+             of the 112 planes a rank) and of the contiguous pool (12 of
+             48), gathers its view's pages and sends its written rows in
+             one ``all_to_all`` each, and runs by rank 0's clock; serve's
+             own gates (paged vs contiguous exactly 0.0 on every rank, the
+             replay's tokens equal to a one-process replay in this
+             process, its logits within 2e-2, both pools' resident bytes
+             equal to `shard_bytes`, the replay's launches equal to the one
+             process's, every rank's ticks of the continuous run equal to
+             rank 0's), held again here with each of rows 1, 2 and 8
+             launched; each rank's launches, exchange ops and bytes,
+             peaks and wall and rank 0's continuous and static metrics
+             printed.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -391,7 +414,10 @@ OLMO_LAYERS = 16
 # the scatter serve: the dense and the sparse generation, each a warm-up
 # decode step and GEN_STEPS timed ones, write K and V of every layer
 SCATTER_KV_LAUNCHES = 2 * OLMO_LAYERS * 2 * (1 + GEN_STEPS)
-# the reference's default traffic scenario (launch/serve.py --traffic)
+# the reference's default traffic scenario (launch/serve.py --traffic),
+# depth cut as the profiles' (PROFILE_LAYERS; its gates are per layer:
+# parity exactly 0.0, launches that scale with depth) so that the whole
+# script, phase 25 included, ends within its time limit
 TRAFFIC_ARGS = ["--arch", "olmo-1b", "--traffic", "--requests", "12",
                 "--rate", "8", "--page-size", "8", "--slots", "4",
                 "--prefill-chunk", "8", "--seed", "0", "--prompt-len", "32",
@@ -491,9 +517,10 @@ LONG_PROFILE_LAYERS = 2
 # the profiled generations of phases 4, 7-9 and 19 (one prefill and 8 steps,
 # the traffic engine's batch): depth cut to this many layers (each layer is
 # the same work; the script's wall differs by a quarter between H100 hosts)
-PROFILE_LAYERS = 4
-# the float32 end-to-end check: published width, depth cut to 4, batch 1
-LONG_F32_LAYERS, LONG_F32_PROMPT = 4, 8192
+PROFILE_LAYERS = 2
+TRAFFIC_ARGS += ["--n-layers", str(PROFILE_LAYERS)]
+# the float32 end-to-end check: published width, depth cut to 2, batch 1
+LONG_F32_LAYERS, LONG_F32_PROMPT = 2, 8192
 # the profiler range around each prefill attention call
 ATTENTION_RANGE = "attention"
 # the bf16 witness at LONG_PROMPT: per layer, the relative RMS error against
@@ -505,7 +532,7 @@ WITNESS_RATIO, WITNESS_REL = 1.25, TOL["bfloat16"]
 WITNESS_LABEL = "long_prefill bf16 witness"
 # ... its depth cut to WITNESS_LAYERS of 16, as phase 22's (each layer is
 # the same work; the served 32768-token path keeps all 16)
-WITNESS_LAYERS = 4
+WITNESS_LAYERS = 2
 # phase 22, the mesh: olmo-1b at published width, bf16, batch 4, prompt
 # 32, 8 new tokens through the kv kernel, served by four torch.distributed
 # ranks on a (data=2, model=2) mesh, all sharing cuda:0 over gloo (NCCL
@@ -513,7 +540,7 @@ WITNESS_LAYERS = 4
 # whole script ends within its time limit on a slow host (each layer is the
 # same work; the script's wall differs by a quarter from one H100 host to
 # another)
-MESH, MESH_RANKS, MESH_LAYERS, MESH_GEN_STEPS = "data=2,model=2", 4, 4, 8
+MESH, MESH_RANKS, MESH_LAYERS, MESH_GEN_STEPS = "data=2,model=2", 4, 2, 8
 MESH_ARGS = ["--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
              "--gen-steps", str(MESH_GEN_STEPS), "--sparsity", str(SPARSITY),
              "--n-layers", str(MESH_LAYERS), "--mesh", MESH]
@@ -580,6 +607,19 @@ FAMILY_MESH_LAUNCHES = {a: family_mesh_launches(a)
 # ... and one prefill of internvl2-2b with frontend rows on the mesh
 FRONTEND_MESH_ARCH, FRONTEND_MESH_ROWS = "internvl2-2b", 256
 FRONTEND_MESH_BATCH, FRONTEND_MESH_PROMPT = 4, 320
+# phase 25, continuous batching on the mesh: olmo-1b at published width,
+# depth cut to TRAFFIC_MESH_LAYERS of 16, the mesh of phase 22; prompts of
+# 8 and 16 in chunks of 16 (a prefill of 2 requests is 16 rows on a rank:
+# the wide kernel), 2 slots of 3 pages of 8 (a 7-page pool)
+TRAFFIC_MESH_LAYERS = 2
+TRAFFIC_MESH_ARGS = ["--arch", "olmo-1b", "--traffic", "--requests", "4",
+                     "--rate", "8", "--page-size", "8", "--slots", "2",
+                     "--prefill-chunk", "16", "--prompt-len", "16",
+                     "--gen-steps", "8", "--seed", "0",
+                     "--sparsity", str(SPARSITY),
+                     "--n-layers", str(TRAFFIC_MESH_LAYERS), "--mesh", MESH]
+TRAFFIC_MESH_KERNELS = ("tiled_balanced_spmm", "tiled_balanced_spmm_skinny",
+                        "kv_cache_update")
 
 
 T_START = time.monotonic()
@@ -2363,7 +2403,7 @@ def tune_phase(torch, serve, tune_off: dict, paths: dict) -> None:
     candidates timed on the card: none may be quarantined, every key names
     the card), then ``--tune cached`` on it (every layer ``cached``,
     nothing timed, the parity gate, every reached kernel launched; tok/s
-    beside ``--tune off``, three runs of each alternated), then ``--tune
+    beside ``--tune off``'s, a record), then ``--tune
     cached`` on an empty cache (blocks equal ``--tune off``'s)."""
     import tempfile
     from repro_torch.kernels import autotune
@@ -2411,21 +2451,12 @@ def tune_phase(torch, serve, tune_off: dict, paths: dict) -> None:
         if (cache.stat().st_mtime_ns, cache.stat().st_size) != \
                 (stat.st_mtime_ns, stat.st_size):
             raise AssertionError("a cached build wrote the cache")
-        # tok/s of --tune cached beside --tune off, alternated (cached,
-        # off after the two runs above) for their spread: a record, not a
-        # gate
-        toks = {"off": [tune_off], "cached": [cached]}
-        for mode in ("cached", "off"):
-            _, res = serve_run(
-                torch, serve, f"olmo-1b tune {mode} (repeat)",
-                SERVE_ARGS + ["--tune", mode, "--tune-cache", str(cache)])
-            toks[mode].append(res)
-        for mode, runs in toks.items():
-            for k in ("sparse", "dense"):
-                v = [r[k]["tokens_per_s"] for r in runs]
-                log(f"tune {mode}: {k} tok/s {v} (median "
-                    f"{statistics.median(v)}, range {min(v)}-{max(v)}; a "
-                    f"record, not a gate)")
+        # tok/s of --tune cached beside --tune off (phase 4's run): a
+        # record, not a gate
+        for mode, res in (("off", tune_off), ("cached", cached)):
+            log(f"tune {mode}: sparse tok/s "
+                f"{res['sparse']['tokens_per_s']}, dense tok/s "
+                f"{res['dense']['tokens_per_s']} (a record, not a gate)")
         empty = pathlib.Path(tmp) / "empty.json"
         label = "olmo-1b tune empty cache"
         paths[label], cold = serve_run(
@@ -3436,6 +3467,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 24. family meshes: {time.monotonic() - t0:.1f} s")
 
+        # 25. continuous batching on the mesh: the paged pool placed by
+        # paged_pool_specs, the ranks in lock step
+        t0 = time.monotonic()
+        traffic_mesh_phase(torch, serve, paths)
+        torch.cuda.empty_cache()
+        log(f"phase 25. traffic mesh: {time.monotonic() - t0:.1f} s")
+
     # 10. result: launches summed over the paths' runs; each kernel's timed
     # row at bf16, at the quant mode its serve path runs, at the shape its
     # main path runs (the kv kernel: a decode write into a 4096-row cache)
@@ -3533,6 +3571,71 @@ def mesh_phase(torch, serve, paths: dict) -> None:
             raise AssertionError(f"rank {r['rank']} launched {got}, the "
                                  f"plan's count is {MESH_LAUNCHES}")
     paths["olmo-1b mesh"] = {
+        k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
+        for k in launches()}
+
+
+def traffic_mesh_phase(torch, serve, paths: dict) -> None:
+    """Phase 25: ``serve --traffic --mesh`` of olmo-1b on four ranks
+    sharing the card, the scatter config: serve's own gates (paged vs
+    contiguous exactly 0.0 on every rank, the parity replay's tokens equal
+    to a one-process replay in this process and its logits within 2e-2,
+    both pools' resident bytes equal to the dry run's `shard_bytes` under
+    `paged_pool_specs`, the replay's launches equal to the one process's,
+    every rank's ticks of the continuous run equal to rank 0's),
+    held again here with each of rows 1, 2 and 8 launched in the replay;
+    each rank's launches, exchange (``all_to_all``) ops and bytes, peaks
+    and wall, and rank 0's continuous and static metrics printed."""
+    import dataclasses
+    import tempfile
+    log(f"phase 25 traffic mesh: backend gloo, {MESH_RANKS} ranks on "
+        f"cuda:0, olmo-1b {TRAFFIC_MESH_LAYERS} of {OLMO_LAYERS} layers")
+    with tempfile.TemporaryDirectory() as tmp:
+        ns = serve.build_parser().parse_args(
+            TRAFFIC_MESH_ARGS + ["--dist-init", f"file://{tmp}/mesh"])
+        cfg = dataclasses.replace(serve.config(ns), cache_update="scatter")
+        res = serve.run(ns, cfg)["mesh"]
+    want = res["one_process_launches"]
+    cont, static = res["continuous"], res["static"]
+    log(f"traffic mesh {res['mesh']} over {res['backend']}: paged vs "
+        f"contiguous {res['parity_max_abs_diff']} on every rank, replay "
+        f"tokens equal to one process {res['tokens_equal']}, logits max "
+        f"|diff| {res['logits_max_abs_diff']:.6g} (tol "
+        f"{res['parity_tol']:g}), pool bytes equal to shard_bytes "
+        f"{res['bytes_equal']}, replay launches equal to one process "
+        f"{res['launches_equal']} "
+        f"({ {k: want[k] for k in TRAFFIC_MESH_KERNELS} }), every rank's "
+        f"ticks equal to rank 0's {res['lock_step']}, ranks "
+        f"{res['ranks_s']:.1f} s; rank 0 continuous "
+        f"{cont['sustained_tok_per_s']:.3f} tok/s (latency p50 "
+        f"{cont['latency_s']['p50']:.3f} s, p99 {cont['latency_s']['p99']:.3f}"
+        f" s, ttft p50 {cont['ttft_s']['p50']:.3f} s), static "
+        f"{static['sustained_tok_per_s']:.3f} tok/s (latency p50 "
+        f"{static['latency_s']['p50']:.3f} s, p99 "
+        f"{static['latency_s']['p99']:.3f} s)")
+    quiet = [k for k in TRAFFIC_MESH_KERNELS if want[k] == 0]
+    if res["parity_max_abs_diff"] != 0.0 or not res["tokens_equal"] \
+            or not res["bytes_equal"] or not res["launches_equal"] \
+            or not res["lock_step"] \
+            or res["logits_max_abs_diff"] > TOL["bfloat16"] or quiet:
+        raise AssertionError(f"the traffic mesh run failed its gates "
+                             f"(never launched: {quiet}): {res}")
+    for r in res["ranks"]:
+        got = {k: r["replay_launches"][k] for k in TRAFFIC_MESH_KERNELS}
+        run = {k: r["kernel_launches"][k] for k in TRAFFIC_MESH_KERNELS}
+        ex = r["replay_collectives"].get("all_to_all", {})
+        log(f"traffic mesh rank {r['rank']} {r['coord']}: replay launches "
+            f"{got} (the whole traffic run {run}), replay exchange "
+            f"{ex.get('ops', 0)} ops "
+            f"{ex.get('bytes', 0)} B in {r['replay_s']:.2f} s, pools "
+            f"{r['pool_bytes']}, peak {r['peak_gib']} GiB serving, "
+            f"{r['setup_peak_gib']} GiB in set-up, set-up "
+            f"{r['setup_s']:.1f} s of {r['setup_wall_s']:.1f} s in turns of "
+            f"{r['setup_turns']} ranks, traffic {r['wall_s']:.1f} s")
+        log(f"traffic mesh rank {r['rank']} collectives " + ", ".join(
+            f"{k}: {c['ops']} ops {c['bytes']} B"
+            for k, c in r["collectives"].items()))
+    paths["olmo-1b traffic mesh"] = {
         k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
         for k in launches()}
 

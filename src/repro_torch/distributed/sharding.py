@@ -21,7 +21,10 @@ On a live mesh the decisions are carried out: `place` cuts a rank's block
 of a whole tensor, `gather` reassembles blocks over named axes
 (``all_gather``), `all_reduce` sums over named axes, `planes_of` /
 `rows_of` move an activation between the batch-row layout and the
-cache's plane layout, and `named` / `tree_shardings` give placements.  A
+cache's plane layout, `route` / `exchange` bring each rank the items of
+other ranks' blocks it wants (one ``all_to_all`` of copies: the paged KV
+pool's pages and written rows), and `named` / `tree_shardings` give
+placements.  A
 dim split over a tuple of axes is split first axis major, as the
 reference splits it.  Every collective ticks `COLLECTIVES` (per kind, its
 ops and operand bytes: the counterpart of the reference's
@@ -37,6 +40,7 @@ import dataclasses
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..launch.mesh import LiveMesh, Mesh, spec_axes
@@ -375,6 +379,104 @@ def all_reduce(t: Tensor, mesh: LiveMesh, axes) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Live meshes: a copy-exact exchange of items between blocks
+# ---------------------------------------------------------------------------
+#
+# Items (pool planes, cache rows) lie along a dim of ``extent`` split over
+# ``axes``; each rank wants some of them, in an order of its own, and the
+# wants of every rank are known on every rank (they follow from host-side
+# indices that every rank builds alike).  A wanted item comes from the
+# rank that holds its block and agrees with the wanting rank on every
+# other axis (the rank itself where it holds the block), so one
+# ``all_to_all`` carries each item once to each rank that wants it.  It
+# moves bytes: copies, never sums (a sum with zeros would turn -0.0 into
+# +0.0).
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """This rank's part of one exchange (`route`): ``send`` the local
+    indices it sends, to rank 0 first, ``send_counts`` / ``recv_counts``
+    the items it sends to / takes from each rank, ``order`` the position
+    in the received items of each item it wants (its want order), and
+    ``moves`` whether any item crosses ranks anywhere on the mesh (the
+    same on every rank: where it is False nobody calls the collective)."""
+    send: np.ndarray
+    send_counts: tuple
+    recv_counts: tuple
+    order: np.ndarray
+    moves: bool
+
+
+def _source_ranks(mesh: LiveMesh, axes: tuple, extent: int, ids,
+                  dst: int) -> np.ndarray:
+    """The rank each of ``ids`` (items of a dim of ``extent`` split over
+    ``axes``) comes from for rank ``dst``: the holder of its block whose
+    coordinates on the other axes are ``dst``'s."""
+    block = extent // _axes_size(mesh, axes or None)
+    idx = np.asarray(ids, np.int64) // block
+    coord = {a: np.full(idx.shape, c, np.int64)
+             for a, c in mesh.coord(dst).items()}
+    for a in reversed(axes):          # the first axis is the major one
+        coord[a] = idx % mesh.shape[a]
+        idx = idx // mesh.shape[a]
+    rank = np.zeros(idx.shape, np.int64)
+    for a in mesh.axis_names:
+        rank = rank * mesh.shape[a] + coord[a]
+    return rank
+
+
+def route(mesh: LiveMesh, axes, extent: int, wants: list) -> Route:
+    """This rank's `Route` of the exchange in which rank ``r`` wants the
+    items ``wants[r]`` (ids along a dim of ``extent`` laid out over
+    ``axes``, in the order it wants them); host-side numpy, the same
+    decisions on every rank."""
+    axes = tuple(spec_axes(axes))
+    me = mesh.rank
+    start, _ = block_of(mesh, axes, extent)
+    sends, send_counts, moves, mine = [], [], False, None
+    for dst in range(mesh.size):
+        ids = np.asarray(wants[dst], np.int64)
+        src = _source_ranks(mesh, axes, extent, ids, dst)
+        moves = moves or bool((src != dst).any())
+        sel = ids[src == me] - start
+        sends.append(sel)
+        send_counts.append(len(sel))
+        if dst == me:
+            mine = src
+    # the received items lie by source rank, each source's in want order
+    by_src = np.argsort(mine, kind="stable")
+    order = np.empty_like(by_src)
+    order[by_src] = np.arange(len(by_src))
+    recv_counts = tuple(int((mine == s).sum()) for s in range(mesh.size))
+    return Route(np.concatenate(sends) if sends else np.zeros(0, np.int64),
+                 tuple(send_counts), recv_counts, order, moves)
+
+
+def exchange(items: Tensor, mesh: LiveMesh, rt: Route) -> Tensor:
+    """The items this rank wants, in its want order, of the exchange
+    ``rt`` (`route`); ``items`` ``[n, ...]`` are the ones it sends
+    (``items[i]`` the item of local index ``rt.send[i]``).  One
+    ``all_to_all`` of the items' bytes over every rank (skipped where no
+    item crosses ranks); `COLLECTIVES` counts the bytes this rank sends
+    to other ranks."""
+    flat = items.contiguous().reshape(items.shape[0],
+                                      math.prod(items.shape[1:]))
+    raw = flat.view(torch.uint8)
+    if not rt.moves:
+        got = raw
+    else:
+        got = raw.new_empty((sum(rt.recv_counts), raw.shape[1]))
+        torch.distributed.all_to_all_single(
+            got, raw, output_split_sizes=list(rt.recv_counts),
+            input_split_sizes=list(rt.send_counts))
+        out = sum(n for r, n in enumerate(rt.send_counts) if r != mesh.rank)
+        COLLECTIVES.record("all_to_all", out * raw.shape[1])
+    order = torch.as_tensor(rt.order, device=items.device)
+    return got[order].view(items.dtype).reshape(len(rt.order),
+                                                *items.shape[1:])
+
+
+# ---------------------------------------------------------------------------
 # Live meshes: batch rows <-> KV planes
 # ---------------------------------------------------------------------------
 #
@@ -603,4 +705,5 @@ __all__ = ["P", "dp_axes", "fsdp_axes", "dim_spec", "logical_spec",
            "place", "gather", "gather_tree", "all_reduce", "planes_of",
            "rows_of", "block_of", "spec_axes", "COLLECTIVES",
            "CollectiveCounter", "use_spec", "gather_for_use", "cols",
-           "project", "sum_in_order", "embed_rows", "vocab_logits"]
+           "project", "sum_in_order", "embed_rows", "vocab_logits",
+           "Route", "route", "exchange"]

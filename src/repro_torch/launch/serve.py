@@ -49,8 +49,23 @@ the same plan, each rank's resident bytes beside the dry run's
 `shard_bytes`, its collectives (`distributed.sharding.COLLECTIVES`),
 kernel launches, set-up and serving peak memory and wall, and for the
 MoE its block of experts, the experts each batched dispatch ran and its
-routing's agreement with one process.  ``--traffic``, ``--guard`` and
-``--tune`` are refused with it.
+routing's agreement with one process.  ``--guard`` and ``--tune`` are
+refused with it (the reference's guard and autotuner take no mesh).
+
+``--traffic --mesh`` runs `traffic_mode` on every rank (the transformer
+families): both engines' pools are placed by `paged_pool_specs` (each
+rank holds its block of the pool planes; a step gathers the pages of
+its view planes and sends its written rows back in one ``all_to_all``
+each, `serving.paged_kv`), and the arrival clock is rank 0's
+(`serving.traffic.Clock`), so every rank runs the same schedule.  It
+raises unless on every rank the paged replay equals the contiguous one
+exactly, its tokens equal a one-process replay of the same schedule
+with the logits within the parity tolerance, both pools' resident bytes
+equal `shard_bytes` and its kernel launches equal the one-process
+replay's; the report carries rank 0's continuous and static metrics and
+each rank's exchange, launches, peaks and wall.  On the CPU (``--smoke
+--device cpu``) the kernels' plain versions run; on the card the CUDA
+kernels.
 """
 from __future__ import annotations
 
@@ -333,17 +348,13 @@ def kernels_reached(plan, m_prefill: int, m_decode: int) -> set:
     return need
 
 
-def traffic_mode(bundle, serve_params, cfg, args) -> dict:
-    """``--traffic``: the continuous-batching runtime under a seeded
-    Poisson arrival scenario, A/B'd against the static batch loop at
-    equal load, plus the paged-vs-contiguous bitwise parity gate.
-
-    Returns ``continuous`` / ``static`` metric blocks (p50/p99 latency,
-    TTFT, sustained tok/s) and ``parity_max_abs_diff``, which must be 0.0:
-    the paged pool is a copy-exact rearrangement of the contiguous cache
-    (see serving/paged_kv.py).  Raises if it is not.
-    """
-    from ..serving import ServingEngine, contiguous_engine
+def traffic_scenario(cfg, args: argparse.Namespace) -> dict:
+    """``--traffic``'s seeded scenario and the engines' geometry: the
+    requests and their Poisson arrivals, the prompt lengths and budgets
+    drawn from, the page size, the view's pages and padded width, the
+    slots, the chunk widths the scenario can produce and the parity
+    replay's request count.  The same on every rank of a mesh and in a
+    one-process run of the same arguments."""
     from ..serving import traffic as tr
     rng = np.random.default_rng(args.seed)
     prompt_lens = (args.prompt_len // 2, args.prompt_len)
@@ -355,39 +366,121 @@ def traffic_mode(bundle, serve_params, cfg, args) -> dict:
     budget = max(r["prompt"].shape[0] + r["max_new_tokens"] - 1
                  for r in reqs)
     view_pages = -(-budget // ps)
-    max_len = view_pages * ps        # shared padded width -> exact parity
-    slots = args.slots
-
-    shared_steps: dict = {}      # step functions shared across paged engines
-
-    def paged(**kw):
-        return ServingEngine(bundle, serve_params,
-                             num_pages=slots * view_pages + 1, page_size=ps,
-                             max_slots=slots, max_pages_per_slot=view_pages,
-                             prefill_chunk=args.prefill_chunk,
-                             step_cache=shared_steps, **kw)
-
     # chunk widths this scenario can produce: full prefill chunks, each
     # prompt length's remainder chunk, and single-token decode
     pc = args.prefill_chunk
     widths = {1} | {pc for p in prompt_lens if p >= pc} \
         | {p % pc for p in prompt_lens if p % pc} \
         | {p for p in prompt_lens if p < pc}
+    return {"reqs": reqs, "arrivals": arrivals, "prompt_lens": prompt_lens,
+            "gen_steps": gen_steps, "page_size": ps,
+            "view_pages": view_pages,
+            "max_len": view_pages * ps,   # shared padded width: exact parity
+            "slots": args.slots, "widths": widths,
+            "n_par": min(len(reqs), 2 * args.slots)}
+
+
+def paged_engine(bundle, params, sc: dict, args: argparse.Namespace,
+                 mesh=None, **kw):
+    """The scenario's paged engine (`serving.ServingEngine`), its pool
+    placed on ``mesh`` where one is given."""
+    from ..serving import ServingEngine
+    return ServingEngine(bundle, params,
+                         num_pages=sc["slots"] * sc["view_pages"] + 1,
+                         page_size=sc["page_size"], max_slots=sc["slots"],
+                         max_pages_per_slot=sc["view_pages"],
+                         prefill_chunk=args.prefill_chunk, mesh=mesh, **kw)
+
+
+def replay(eng, sc: dict) -> dict:
+    """The parity replay's schedule on ``eng``: the scenario's first
+    ``n_par`` requests submitted at once and served to the end, no
+    arrival clock (deterministic).  Returns each request's tokens."""
+    for r in sc["reqs"][:sc["n_par"]]:
+        eng.submit(r["prompt"], r["max_new_tokens"])
+    eng.run()
+    return {r.rid: list(r.out_tokens) for r in eng.sched.done}
+
+
+def _counts_since(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _collectives_since(before: dict, after: dict) -> dict:
+    return {k: {f: c[f] - before.get(k, {}).get(f, 0) for f in c}
+            for k, c in after.items()
+            if c != before.get(k)}
+
+
+def traffic_mode(bundle, serve_params, cfg, args, mesh=None) -> dict:
+    """``--traffic``: the continuous-batching runtime under a seeded
+    Poisson arrival scenario, A/B'd against the static batch loop at
+    equal load, plus the paged-vs-contiguous bitwise parity gate.
+
+    Returns ``continuous`` / ``static`` metric blocks (p50/p99 latency,
+    TTFT, sustained tok/s) and ``parity_max_abs_diff``, which must be 0.0:
+    the paged pool is a copy-exact rearrangement of the contiguous cache
+    (see serving/paged_kv.py).  Raises if it is not.  The report also
+    carries the paged replay's tokens, the kernel launches and
+    collectives it made, and the pools' resident bytes (with ``mesh``
+    beside the dry run's `shard_bytes` under `paged_pool_specs`) and, on
+    a mesh, the replay's logits (``replay_logits``: request id -> one row
+    a step, numpy) and the continuous run's tick log.
+
+    ``mesh``: a live mesh, ``bundle`` built on it and ``serve_params``
+    placed on it.  Both engines' pools are then placed on it (the
+    reference's ``mesh=``), every rank runs this function alike and the
+    loops run by rank 0's clock (`serving.traffic.Clock`).
+    """
+    from ..serving import contiguous_engine
+    from ..serving import paged_kv
+    from ..serving import traffic as tr
+    from .dryrun import shard_bytes, tree_bytes
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    sc = traffic_scenario(cfg, args)
+    reqs, arrivals, slots = sc["reqs"], sc["arrivals"], sc["slots"]
+    prompt_lens, max_len, n_par = sc["prompt_lens"], sc["max_len"], \
+        sc["n_par"]
+
+    shared_steps: dict = {}      # step functions shared across paged engines
+
+    def paged(**kw):
+        return paged_engine(bundle, serve_params, sc, args, mesh=mesh,
+                            step_cache=shared_steps, **kw)
 
     # -- parity gate: replay a slice through both cache structures ---------
-    n_par = min(len(reqs), 2 * slots)
     diff = 0.0
-    traces = {}
+    traces, pools = {}, {}
     for mk in ("paged", "contig"):
         eng = paged(record_logits=True) if mk == "paged" else \
             contiguous_engine(bundle, serve_params, max_slots=slots,
                               max_len=max_len,
-                              prefill_chunk=args.prefill_chunk,
+                              prefill_chunk=args.prefill_chunk, mesh=mesh,
                               record_logits=True)
-        for r in reqs[:n_par]:
-            eng.submit(r["prompt"], r["max_new_tokens"])
-        eng.run()
+        if mk == "paged":
+            _sync(bundle.device)
+            before = (_launch_counts(), shd.COLLECTIVES.snapshot())
+            t0 = time.monotonic()
+            replay_tokens = replay(eng, sc)
+            _sync(bundle.device)
+            replay_s = time.monotonic() - t0
+            replay_launches = _counts_since(before[0], _launch_counts())
+            replay_coll = _collectives_since(before[1],
+                                             shd.COLLECTIVES.snapshot())
+        else:
+            replay(eng, sc)
         traces[mk] = eng.logits_trace
+        pools[mk] = {"resident": tree_bytes(eng.pool)}
+        if mesh is not None:
+            num_pages = eng.pool_planes // eng.kh
+            whole = paged_kv.init_pool(cfg.n_layers, num_pages, eng.kh,
+                                       eng.page_size, cfg.head_dim,
+                                       device="meta")
+            pools[mk]["shard_bytes"] = shard_bytes(
+                mesh, whole, paged_kv.paged_pool_specs(mesh, num_pages,
+                                                       eng.kh))
+            pools[mk]["planes"] = list(paged_kv.plane_block(
+                mesh, eng.pool_planes))
     for rid, rows in traces["paged"].items():
         ref = traces["contig"][rid]
         if len(rows) != len(ref):
@@ -397,17 +490,17 @@ def traffic_mode(bundle, serve_params, cfg, args) -> dict:
     if diff != 0.0:
         raise AssertionError(f"paged KV diverged from the contiguous cache: "
                              f"max|dlogit|={diff}")
-    print(f"[serve/traffic] paged-vs-contiguous parity over {n_par} "
-          f"requests: max |dlogit| = {diff} (gate: exact)")
+    say(f"[serve/traffic] paged-vs-contiguous parity over {n_par} "
+        f"requests: max |dlogit| = {diff} (gate: exact)")
 
     # -- equal-load A/B: continuous runtime vs the static batch loop -------
     # both sides warm up off the timed path: the engine runs every (batch
     # bucket, chunk width) step, the static loop a prefill and a decode
     # step per prompt length
     eng = paged()
-    n_fns = eng.warmup(chunk_widths=widths)
-    print(f"[serve/traffic] warmed {n_fns} step fns "
-          f"(buckets x chunk widths {sorted(widths)})")
+    n_fns = eng.warmup(chunk_widths=sc["widths"])
+    say(f"[serve/traffic] warmed {n_fns} step fns "
+        f"(buckets x chunk widths {sorted(sc['widths'])})")
     with torch.no_grad():
         for p in prompt_lens:
             wtoks = torch.zeros((slots, p), dtype=torch.long,
@@ -423,20 +516,28 @@ def traffic_mode(bundle, serve_params, cfg, args) -> dict:
             lg.cpu()
     cont = tr.run_continuous(eng, reqs, arrivals)
     static = tr.run_static(bundle, serve_params, reqs, arrivals,
-                           batch=slots, max_len=max_len)
+                           batch=slots, max_len=max_len, mesh=mesh)
     for name, m in (("continuous", cont), ("static", static)):
-        print(f"[serve/traffic/{name}] {m['sustained_tok_per_s']:.1f} tok/s "
-              f"sustained; latency p50={m['latency_s']['p50']:.3f}s "
-              f"p99={m['latency_s']['p99']:.3f}s; "
-              f"ttft p50={m['ttft_s']['p50']:.3f}s "
-              f"p99={m['ttft_s']['p99']:.3f}s")
+        say(f"[serve/traffic/{name}] {m['sustained_tok_per_s']:.1f} tok/s "
+            f"sustained; latency p50={m['latency_s']['p50']:.3f}s "
+            f"p99={m['latency_s']['p99']:.3f}s; "
+            f"ttft p50={m['ttft_s']['p50']:.3f}s "
+            f"p99={m['ttft_s']['p99']:.3f}s")
+    on_mesh = {} if mesh is None else {
+        "replay_logits": {rid: np.stack(rows)
+                          for rid, rows in traces["paged"].items()},
+        "ticks": eng.ticks}
     return {"scenario": {"requests": args.requests, "rate_per_s": args.rate,
                          "seed": args.seed, "prompt_lens": list(prompt_lens),
-                         "gen_steps": list(gen_steps), "page_size": ps,
+                         "gen_steps": list(sc["gen_steps"]),
+                         "page_size": sc["page_size"],
                          "slots": slots, "prefill_chunk": args.prefill_chunk,
                          "max_len": max_len},
             "parity_max_abs_diff": diff, "parity_requests": n_par,
-            "continuous": cont, "static": static,
+            "replay_tokens": replay_tokens, "replay_s": replay_s,
+            "replay_launches": replay_launches,
+            "replay_collectives": replay_coll, "pool_bytes": pools,
+            **on_mesh, "continuous": cont, "static": static,
             "speedup_sustained": cont["sustained_tok_per_s"]
             / max(static["sustained_tok_per_s"], 1e-9)}
 
@@ -547,12 +648,12 @@ def main(argv=None) -> dict:
                  "only meaningful (and only safe) under --guard")
     cfg = config(args)
     if args.mesh is not None:
-        refused = [f for f, on in (("--traffic", args.traffic),
-                                   ("--guard", args.guard),
+        refused = [f for f, on in (("--guard", args.guard),
                                    ("--tune", args.tune != "off")) if on]
         if refused:
-            ap.error(f"--mesh serves the static greedy path; {refused} on "
-                     f"a live mesh waits for a later slice")
+            ap.error(f"--mesh serves the greedy path and --traffic; "
+                     f"{refused} take no mesh (the reference's guard and "
+                     f"autotuner run on one device)")
         if args.dist_init is None:
             ap.error("--mesh needs --dist-init (file://PATH or "
                      "tcp://HOST:PORT)")
@@ -686,13 +787,31 @@ def place_rank(mesh, device: torch.device, args: argparse.Namespace,
     return bundle, params, want, setup
 
 
+def _zero_counts(device: torch.device) -> None:
+    """A rank's prologue to the run it reports: the kernels' launch
+    counts, the collectives, the engine's dispatch stats and the card's
+    peak memory statistics set to zero."""
+    _sync(device)
+    balanced_spmm.reset_launches()
+    kv_cache_update.reset_launches()
+    shd.COLLECTIVES.reset()
+    engine_execute.reset_stats()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak_gib(device: torch.device) -> float | None:
+    return torch.cuda.max_memory_allocated(device) / 2**30 \
+        if device.type == "cuda" else None
+
+
 def _serve_rank(rank: int, world_size: int, init_method: str,
                 args: argparse.Namespace, cfg) -> dict:
     """One rank of ``--mesh`` (`rank_mesh`), set up by `place_rank`.
     Then it times the greedy path (its tokens, the logits they were
     chosen from and, for the MoE family, the experts it routed) with this
-    rank's counts zeroed just before and read just after.  Returns the
-    rank's report (numpy for the tensors)."""
+    rank's counts zeroed just before (`_zero_counts`) and read just
+    after.  Returns the rank's report (numpy for the tensors)."""
     from .dryrun import cache_shapes, shard_bytes, tree_bytes
     with rank_mesh(rank, world_size, init_method, args) as (mesh, device):
         bundle, sparams, want, setup = place_rank(mesh, device, args, cfg)
@@ -716,13 +835,7 @@ def _serve_rank(rank: int, world_size: int, init_method: str,
                     bundle.param_specs()["blocks"]["we_gate"][1]),
                 cfg.n_experts)
             expert_block = [e0, e0 + el]
-        _sync(device)
-        balanced_spmm.reset_launches()
-        kv_cache_update.reset_launches()
-        shd.COLLECTIVES.reset()
-        engine_execute.reset_stats()
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
+        _zero_counts(device)
         t0 = time.monotonic()
         logits = []
         with transformer.record_routes() as routes:
@@ -735,8 +848,7 @@ def _serve_rank(rank: int, world_size: int, init_method: str,
                 "kernel_launches": _launch_counts(),
                 "expert_block": expert_block,
                 "experts_per_dispatch": dict(engine_execute.EXPERT_BLOCKS),
-                "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30
-                if device.type == "cuda" else None,
+                "peak_gib": _peak_gib(device),
                 **setup, "wall_s": wall, "resident_bytes": resident,
                 "shard_bytes": want, "tokens": toks.cpu().numpy(),
                 "logits": torch.stack(logits).float().cpu().numpy(),
@@ -790,29 +902,62 @@ def routing_agreement(routes: list, ref_routes: list) -> float | None:
     return same / sum(a.size for a in ref_routes)
 
 
-def run_mesh(args: argparse.Namespace, cfg) -> dict:
-    """``--mesh``: this process's one-process run of the plan first
-    (`one_process`, its memory freed before the ranks start), then the
-    ranks' greedy path (`_serve_rank`); raises unless every rank's tokens
-    equal the one-process run's, the logits each step chose from (the
-    prefill's and every decode step's) lie within the parity tolerance
-    (1e-4 at float32, 2e-2 at bfloat16) and every rank's resident bytes
-    equal its `launch.dryrun.shard_bytes`."""
+def _mesh_against_one_process(args: argparse.Namespace, cfg, one_fn,
+                              rank_fn) -> tuple:
+    """The run of ``--mesh``: the kernels built once here (not in
+    every rank), ``one_fn(args, cfg)``, this process's run of the same
+    params and plan (its yardstick; its memory freed before the ranks
+    start), then ``rank_fn`` on every rank of the mesh, within
+    `MESH_TIMEOUT_S`.  Returns ``(one_fn's result, the ranks' reports,
+    the report's head)``: model, depth, mesh, backend, device, the ranks'
+    seconds and the parity tolerance (1e-4 at float32, 2e-2 at
+    bfloat16)."""
     from .ranks import run_ranks
     device = resolve_device(args.device)
     names, sizes = parse_mesh(args.mesh)
     if device.type == "cuda":
         from ..kernels import _build
-        _build.build()      # once here, not in every rank
-    ref_toks, ref_logits, ref_routes = one_process(args, cfg)
+        _build.build()
+    ref = one_fn(args, cfg)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.monotonic()
-    ranks = run_ranks(_serve_rank, math.prod(sizes),
+    ranks = run_ranks(rank_fn, math.prod(sizes),
                       init_method=args.dist_init, args=(args, cfg),
                       timeout_s=MESH_TIMEOUT_S)
-    ranks_s = time.monotonic() - t0
-    tol = 1e-4 if cfg.compute_dtype == "float32" else 2e-2
+    head = {"model": cfg.name, "n_layers": cfg.n_layers,
+            "mesh": dict(zip(names, sizes)), "backend": "gloo",
+            "device": str(device), "ranks_s": time.monotonic() - t0,
+            "parity_tol": 1e-4 if cfg.compute_dtype == "float32" else 2e-2}
+    return ref, ranks, head
+
+
+def _mesh_verdict(args: argparse.Namespace, report: dict, ok: bool,
+                  what: str) -> dict:
+    """Raise with ``report`` unless ``ok``; else write it to ``--report``
+    (if given) and return it under ``mesh``."""
+    if not ok:
+        raise AssertionError(f"the {what} differs from one process or from "
+                             f"its shard bytes: "
+                             f"{json.dumps(report, default=str)}")
+    if args.report:
+        out = pathlib.Path(args.report)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"mesh": report}, indent=1, default=str)
+                       + "\n")
+    return {"mesh": report}
+
+
+def run_mesh(args: argparse.Namespace, cfg) -> dict:
+    """``--mesh``: `one_process`, then the ranks' greedy path
+    (`_serve_rank`), by `_mesh_against_one_process`; raises unless every
+    rank's tokens equal the one-process run's, the logits each step chose
+    from (the prefill's and every decode step's) lie within the parity
+    tolerance and every rank's resident bytes equal its
+    `launch.dryrun.shard_bytes`."""
+    (ref_toks, ref_logits, ref_routes), ranks, head = \
+        _mesh_against_one_process(args, cfg, one_process, _serve_rank)
+    tol = head["parity_tol"]
     step_err = np.max([np.abs(r["logits"] - ref_logits).max(axis=(1, 2))
                        for r in ranks], axis=0)
     tokens_equal = all(np.array_equal(r["tokens"], ref_toks) for r in ranks)
@@ -840,36 +985,136 @@ def run_mesh(args: argparse.Namespace, cfg) -> dict:
               f"{r['setup_wall_s']:.2f} s in turns of "
               f"{r['setup_turns']} ranks, greedy "
               f"{r['wall_s']:.3f} s{moe}")
-    print(f"[serve/mesh] {cfg.name} on {dict(zip(names, sizes))} over gloo "
-          f"({device.type}): tokens equal to one process {tokens_equal}, "
-          f"logits max |diff| prefill {step_err[0]:.3g}, decode steps "
-          f"{float(step_err[1:].max(initial=0.0)):.3g} (tol {tol:g}), "
-          f"resident bytes equal to shard_bytes {bytes_equal}"
+    print(f"[serve/mesh] {cfg.name} on {head['mesh']} over gloo "
+          f"({head['device']}): tokens equal to one process "
+          f"{tokens_equal}, logits max |diff| prefill {step_err[0]:.3g}, "
+          f"decode steps {float(step_err[1:].max(initial=0.0)):.3g} (tol "
+          f"{tol:g}), resident bytes equal to shard_bytes {bytes_equal}"
           + ("" if not ref_routes else ", routing agreement with one "
              f"process {min(r['routing_agreement'] for r in per_rank):.6f}")
           + ("" if setup_card is None else
              f", the card's peak in set-up {setup_card:.2f} GiB")
-          + f"; ranks {ranks_s:.1f} s")
-    report = {"model": cfg.name, "n_layers": cfg.n_layers,
-              "mesh": dict(zip(names, sizes)), "backend": "gloo",
-              "device": str(device), "tokens": ranks[0]["tokens"].tolist(),
+          + f"; ranks {head['ranks_s']:.1f} s")
+    report = {**head, "tokens": ranks[0]["tokens"].tolist(),
               "one_process_tokens": ref_toks.tolist(),
               "logits_max_abs_diff": float(step_err[0]),
               "step_logits_max_abs_diff": [float(e) for e in step_err],
-              "parity_tol": tol, "tokens_equal": tokens_equal,
-              "bytes_equal": bytes_equal, "ranks_s": ranks_s,
+              "tokens_equal": tokens_equal, "bytes_equal": bytes_equal,
               "routing_agreement": None if not ref_routes else min(
                   r["routing_agreement"] for r in per_rank),
               "setup_card_peak_gib": setup_card, "ranks": per_rank}
-    if not (tokens_equal and float(step_err.max()) <= tol and bytes_equal):
-        raise AssertionError(f"the mesh run differs from one process or "
-                             f"from its shard bytes: {json.dumps(report)}")
-    if args.report:
-        out = pathlib.Path(args.report)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"mesh": report}, indent=1, default=str)
-                       + "\n")
-    return {"mesh": report}
+    return _mesh_verdict(args, report, tokens_equal
+                         and float(step_err.max()) <= tol and bytes_equal,
+                         "mesh run")
+
+
+def _traffic_rank(rank: int, world_size: int, init_method: str,
+                  args: argparse.Namespace, cfg) -> dict:
+    """One rank of ``--traffic --mesh`` (`rank_mesh`), set up by
+    `place_rank`: `traffic_mode` on the live mesh, this rank's counts
+    zeroed just before (`_zero_counts`) and read just after.  Returns the
+    rank's report: the traffic report, its whole run's launches and
+    collectives, its peak memory and wall."""
+    with rank_mesh(rank, world_size, init_method, args) as (mesh, device):
+        bundle, sparams, _, setup = place_rank(mesh, device, args, cfg)
+        _zero_counts(device)
+        t0 = time.monotonic()
+        res = traffic_mode(bundle, sparams, cfg, args, mesh=mesh)
+        _sync(device)
+        return {"rank": rank, "coord": mesh.coord(), "traffic": res,
+                "kernel_launches": _launch_counts(),
+                "collectives": shd.COLLECTIVES.snapshot(),
+                "peak_gib": _peak_gib(device), **setup,
+                "wall_s": time.monotonic() - t0}
+
+
+def one_process_replay(args: argparse.Namespace, cfg) -> tuple:
+    """``(tokens, logits, kernel launches)`` of `traffic_mode`'s paged
+    replay in one process serving the same params and plan as ``--traffic
+    --mesh`` does (the yardstick of its ranks)."""
+    device = resolve_device(args.device)
+    bundle = build_model(cfg, device)
+    params = bundle.init(0)
+    plan = engine_plan.plan_model(cfg, params, **_plan_kwargs(args, cfg))
+    sc = traffic_scenario(cfg, args)
+    eng = paged_engine(bundle, {**params, "sparse_plan": plan}, sc, args,
+                       record_logits=True)
+    _sync(device)
+    before = _launch_counts()
+    tokens = replay(eng, sc)
+    _sync(device)
+    return (tokens, {rid: np.stack(rows)
+                     for rid, rows in eng.logits_trace.items()},
+            _counts_since(before, _launch_counts()))
+
+
+def run_traffic_mesh(args: argparse.Namespace, cfg) -> dict:
+    """``--traffic --mesh``: `one_process_replay`, then `traffic_mode` on
+    every rank (`_traffic_rank`), by `_mesh_against_one_process`; raises
+    unless on every rank the paged replay equals the contiguous one
+    exactly (`traffic_mode` raises otherwise), its tokens equal the
+    one-process replay's, the logits of every step lie within the parity
+    tolerance of its, both pools' resident bytes equal the dry run's
+    `shard_bytes` under `serving.paged_kv.paged_pool_specs`, its replay's
+    kernel launches equal the one-process replay's, and every rank's
+    continuous run ticked as rank 0's did.  Continuous batching is not
+    gated against the static loop here (as in the reference's
+    `traffic_mode`)."""
+    (ref_toks, ref_logits, ref_launches), ranks, head = \
+        _mesh_against_one_process(args, cfg, one_process_replay,
+                                  _traffic_rank)
+    tol = head["parity_tol"]
+    ts = [r["traffic"] for r in ranks]
+    step_err = max(float(np.abs(t["replay_logits"][rid] - want).max())
+                   if t["replay_logits"][rid].shape == want.shape
+                   else math.inf
+                   for t in ts for rid, want in ref_logits.items())
+    tokens_equal = all(t["replay_tokens"] == ref_toks for t in ts)
+    bytes_equal = all(p["resident"] == p["shard_bytes"]
+                      for t in ts for p in t["pool_bytes"].values())
+    launches_equal = all(t["replay_launches"] == ref_launches for t in ts)
+    # the continuous run's ticks (rank 0's clock, kinds, requests, shapes)
+    lock_step = all(t["ticks"] == ts[0]["ticks"] for t in ts)
+    parity = max(t["parity_max_abs_diff"] for t in ts)
+    per_rank = []
+    for r, t in zip(ranks, ts):
+        per_rank.append({
+            **{k: v for k, v in r.items() if k != "traffic"},
+            **{k: t[k] for k in ("parity_max_abs_diff", "replay_launches",
+                                 "replay_collectives", "replay_s",
+                                 "pool_bytes", "ticks")}})
+        ex = t["replay_collectives"].get("all_to_all", {})
+        print(f"[serve/traffic-mesh] rank {r['rank']} {r['coord']}: paged "
+              f"vs contiguous {t['parity_max_abs_diff']}, pool planes "
+              f"{t['pool_bytes']['paged']['planes']}, pools "
+              f"{t['pool_bytes']} B, replay launches "
+              f"{t['replay_launches']}, replay exchange "
+              f"{ex.get('ops', 0)} ops {ex.get('bytes', 0)} B, collectives "
+              f"{r['collectives']}, peak {r['peak_gib']} GiB (set-up "
+              f"{r['setup_peak_gib']} GiB), set-up {r['setup_s']:.2f} s, "
+              f"replay {t['replay_s']:.2f} s, traffic {r['wall_s']:.2f} s")
+    cont, static = ts[0]["continuous"], ts[0]["static"]
+    print(f"[serve/traffic-mesh] {cfg.name} on {head['mesh']} over gloo "
+          f"({head['device']}): paged vs contiguous {parity} on every "
+          f"rank, replay tokens equal to one process {tokens_equal}, "
+          f"logits max |diff| {step_err:.3g} (tol {tol:g}), pool bytes "
+          f"equal to shard_bytes {bytes_equal}, replay launches equal to "
+          f"one process {launches_equal} ({ref_launches}), every rank's "
+          f"ticks equal to rank 0's {lock_step}; rank 0 "
+          f"continuous {cont['sustained_tok_per_s']:.2f} tok/s, static "
+          f"{static['sustained_tok_per_s']:.2f} tok/s; ranks "
+          f"{head['ranks_s']:.1f} s")
+    report = {**head, "mode": "traffic", "scenario": ts[0]["scenario"],
+              "parity_max_abs_diff": parity,
+              "replay_tokens": ref_toks, "tokens_equal": tokens_equal,
+              "logits_max_abs_diff": step_err, "bytes_equal": bytes_equal,
+              "launches_equal": launches_equal, "lock_step": lock_step,
+              "one_process_launches": ref_launches,
+              "continuous": cont, "static": static, "ranks": per_rank}
+    return _mesh_verdict(args, report, parity == 0.0 and tokens_equal
+                         and step_err <= tol and bytes_equal
+                         and launches_equal and lock_step,
+                         "traffic mesh run")
 
 
 def run(args: argparse.Namespace, cfg) -> dict:
@@ -878,7 +1123,8 @@ def run(args: argparse.Namespace, cfg) -> dict:
     `exact_matmuls`."""
     with exact_matmuls():
         if args.mesh is not None:
-            return run_mesh(args, cfg)
+            return (run_traffic_mesh if args.traffic else run_mesh)(args,
+                                                                    cfg)
         return _serve_one(args, cfg)
 
 

@@ -31,6 +31,18 @@ plain Python step functions cached per (batch bucket, chunk, ksteps); a
 fused decode tick runs ``ksteps`` decode steps in a loop that feeds the
 argmax back on the device, and each tick reads its tokens and finite
 flags to the host once.
+
+``mesh`` (a `launch.mesh.LiveMesh`, the bundle built on it) places the
+pool as the reference's ``mesh=`` does, by `paged_kv.paged_pool_specs`:
+each rank holds its block of the pool planes.  Every rank runs the same
+schedule (the scheduler is deterministic; `serving.traffic` keeps the
+ranks' clocks in lock step) and builds the same host indices; a step
+gathers the rank's block of the view (its planes of the model's
+``cache_specs``) from the ranks that hold those pages, runs the live
+``decode_step`` and sends each written row to the ranks that hold its
+page (`paged_kv.gather_view_live` / `scatter_rows_live`).  The logits
+come whole to every rank (the model's vocab ``all_reduce``), so the
+tokens and finite flags, and with them each quarantine, agree.
 """
 from __future__ import annotations
 
@@ -49,7 +61,8 @@ from .scheduler import DECODE, PREFILL, Request, Scheduler
 class ServingEngine:
     def __init__(self, bundle, params, *, num_pages: int, page_size: int,
                  max_slots: int, max_pages_per_slot: int,
-                 prefill_chunk: int = 8, record_logits: bool = False,
+                 prefill_chunk: int = 8, mesh=None,
+                 record_logits: bool = False,
                  step_cache: Optional[dict] = None):
         cfg = bundle.cfg
         if cfg.family not in TRANSFORMER_FAMILIES:
@@ -64,15 +77,21 @@ class ServingEngine:
         self.view_pages = max_pages_per_slot
         self.page_size = page_size
         self.decode_fuse = 8        # max decode steps fused per tick
+        self.mesh = mesh
+        self.pool_planes = num_pages * self.kh
         self.pool = paged_kv.init_pool(cfg.n_layers, num_pages, self.kh,
                                        page_size, cfg.head_dim,
-                                       dtype=KV_DTYPE, device=self.device)
+                                       dtype=KV_DTYPE, device=self.device,
+                                       mesh=mesh)
         self.table = PageTable(max_slots, max_pages_per_slot, page_size)
         self.alloc = PageAllocator(num_pages)
         self.sched = Scheduler(self.table, self.alloc,
                                prefill_chunk=prefill_chunk,
                                max_batch=max_slots)
         self.events: list[dict] = []
+        # on a mesh, one entry a tick: (now, kind, request ids, chunk,
+        # fused steps), the ranks' lock step compared by it
+        self.ticks: Optional[list[tuple]] = [] if mesh is not None else None
         self.logits_trace: dict[int, list] = {} if record_logits else None
         # engines with identical geometry (the parity replay + the timed
         # run) can share step functions: pass the same dict to both
@@ -95,8 +114,11 @@ class ServingEngine:
 
     def warmup(self, chunk_widths=(1,)) -> int:
         """Run the step for every (pow-2 batch bucket, chunk width, fused
-        decode steps) the scenario can hit, off the timed path (the
-        first call of a shape pays for the library's one-time set-up).
+        decode steps) the scenario can hit, off the timed path (the first
+        call of a shape pays for the library's one-time set-up).  On a
+        mesh a fused decode step is made, not run: it is ``ksteps`` calls
+        of the one-step decode's shapes, which leave it no set-up to pay,
+        and each of its forwards would cost the ranks' collectives.
         All-padding batches (every slot -1) make the calls side-effect
         free: gather and scatter touch only the reserved null page.
         Returns the number of step functions now resident."""
@@ -113,11 +135,13 @@ class ServingEngine:
             + [(1, k) for k in fuse]
         for chunk, ksteps in keys:
             for b in buckets:
-                slots = [-1] * b
-                clen = np.zeros(b, np.int32)
+                if ksteps > 1 and self.mesh is not None:
+                    self._step_fn(b, chunk, ksteps)
+                    continue
                 _, toks, _ = self._run_step(b, chunk, ksteps,
                                             np.zeros((b, chunk), np.int32),
-                                            clen, slots, chunk * ksteps)
+                                            np.zeros(b, np.int32), [-1] * b,
+                                            chunk * ksteps)
                 toks.cpu()
         return len(self._steps)
 
@@ -145,6 +169,9 @@ class ServingEngine:
             ksteps = 1 << (min(rem, self.decode_fuse).bit_length() - 1)
         else:
             ksteps = 1
+        if self.ticks is not None:
+            self.ticks.append((now, kind, [r.rid for r in reqs], chunk,
+                               ksteps))
         slots = [r.slot for r in reqs] + [-1] * (b - n)
         clen = np.array([r.pos for r in reqs] + [0] * (b - n), np.int32)
         toks = np.zeros((b, chunk), np.int32)
@@ -166,15 +193,18 @@ class ServingEngine:
     def _run_step(self, b: int, chunk: int, ksteps: int, toks: np.ndarray,
                   clen: np.ndarray, slots: list, rows: int) -> tuple:
         """Build the step's indices on the host, move them to the device
-        and run the cached step function (which updates the pool)."""
+        (on a mesh the exchanges route by the host's) and run the cached
+        step function (which updates the pool)."""
         gplanes = paged_kv.gather_planes(self.table, slots, self.kh,
                                          self.view_pages)
         splanes, srows = paged_kv.scatter_indices(self.table, slots, clen,
                                                   self.kh, rows)
         dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        if self.mesh is None:
+            gplanes, splanes, srows = dev(gplanes), dev(splanes), dev(srows)
         return self._step_fn(b, chunk, ksteps)(
             self.params, self.pool, dev(toks).long(), dev(clen).long(),
-            dev(gplanes), dev(splanes), dev(srows))
+            gplanes, splanes, srows)
 
     def _absorb(self, kind: str, reqs: list[Request], chunk: int,
                 ksteps: int, toks: np.ndarray, bad: np.ndarray,
@@ -207,12 +237,17 @@ class ServingEngine:
                     gone.add(r.rid)     # retired at its deterministic step
 
     def _wipe_slot(self, r: Request) -> None:
+        """Zero the request's pool planes (on a mesh, those of the rank's
+        block)."""
         pages = [int(p) for p in self.table.table[r.slot] if p != NULL_PAGE]
-        if not pages:
+        planes = np.array([p * self.kh + h for p in pages
+                           for h in range(self.kh)], np.int64)
+        if self.mesh is not None:
+            p0, m = paged_kv.plane_block(self.mesh, self.pool_planes)
+            planes = planes[(planes >= p0) & (planes < p0 + m)] - p0
+        if not planes.size:
             return
-        planes = torch.tensor([p * self.kh + h
-                               for p in pages for h in range(self.kh)],
-                              device=self.device)
+        planes = torch.from_numpy(planes).to(self.device)
         for leaf in self.pool.values():
             leaf[:, planes] = 0
 
@@ -230,12 +265,20 @@ class ServingEngine:
         if key not in self._steps:
             assert ksteps == 1 or chunk == 1, "fusion is decode-only"
             decode_step, kh = self.bundle.decode_step, self.kh
+            mesh, n_pool = self.mesh, self.pool_planes
             rows = chunk * ksteps
+            # the rank's view planes (on one device, all of them)
+            p0, n = (0, b * kh) if mesh is None else \
+                paged_kv.plane_block(mesh, b * kh)
 
             @torch.no_grad()
             def step(params, pool, tokens, clen, gplanes, splanes, srows):
-                cache = {k: paged_kv.gather_view(leaf, gplanes)
-                         for k, leaf in pool.items()}
+                if mesh is None:
+                    cache = {k: paged_kv.gather_view(leaf, gplanes)
+                             for k, leaf in pool.items()}
+                else:
+                    cache = paged_kv.gather_view_live(pool, gplanes, mesh,
+                                                      n_pool)
                 lg, tk, fin = [], [], []
                 tok, cl = tokens, clen
                 for _ in range(ksteps):
@@ -246,16 +289,21 @@ class ServingEngine:
                     tk.append(nxt)
                     fin.append(torch.isfinite(logits).all(dim=-1))
                     tok, cl = nxt[:, None], cl + 1
-                clen_rep = clen.repeat_interleave(kh)
-                for k, leaf in pool.items():
-                    # nan_to_num is the identity on healthy rows (exactness
-                    # kept) and keeps the pool finite while a poisoned
-                    # request is in flight: batch-padding rows gather
-                    # unmapped pages, and a masked NaN would still poison
-                    # attention through 0 * NaN
-                    new = torch.nan_to_num(
-                        paged_kv.extract_rows(cache[k], clen_rep, rows))
-                    paged_kv.scatter_rows(leaf, new, splanes, srows)
+                clen_rep = clen.repeat_interleave(kh)[p0:p0 + n]
+                # nan_to_num is the identity on healthy rows (exactness
+                # kept) and keeps the pool finite while a poisoned request
+                # is in flight: batch-padding rows gather unmapped pages,
+                # and a masked NaN would still poison attention through
+                # 0 * NaN
+                new = {k: torch.nan_to_num(
+                    paged_kv.extract_rows(cache[k], clen_rep, rows))
+                    for k in pool}
+                if mesh is None:
+                    for k, leaf in pool.items():
+                        paged_kv.scatter_rows(leaf, new[k], splanes, srows)
+                else:
+                    paged_kv.scatter_rows_live(pool, new, splanes, srows,
+                                               mesh, n_pool)
                 return torch.stack(lg), torch.stack(tk), torch.stack(fin)
 
             self._steps[key] = step
@@ -263,11 +311,12 @@ class ServingEngine:
 
 
 def contiguous_engine(bundle, params, *, max_slots: int, max_len: int,
-                      prefill_chunk: int = 8, **kw) -> ServingEngine:
+                      prefill_chunk: int = 8, mesh=None,
+                      **kw) -> ServingEngine:
     """The degenerate paged engine: one ``max_len``-row page per slot —
     a contiguous per-slot cache running the *identical* schedule and step
     functions.  The parity baseline for the paged A/B."""
     return ServingEngine(bundle, params, num_pages=max_slots + 1,
                          page_size=max_len, max_slots=max_slots,
                          max_pages_per_slot=1, prefill_chunk=prefill_chunk,
-                         **kw)
+                         mesh=mesh, **kw)

@@ -29,17 +29,23 @@ contiguous cache is the degenerate configuration ``page_size == max_len``
 (one page per request).
 
 `paged_pool_specs` gives the reference's specs of the pool over a mesh
-(`launch.mesh.Mesh` or `LiveMesh`).  The continuous-batching engine
-serves on one device, so its pool is one tensor per leaf there; a live
-mesh places tensors by such specs (`distributed.sharding.place`, as the
-static serve path places its params, plan and cache), and placing the
-pool by these waits for the engine to run on one.
+(`launch.mesh.Mesh` or `LiveMesh`).  On a live mesh (`init_pool` with
+``mesh``) a rank holds only its block of the pool planes by them, and
+the step's view is the rank's block of the view planes by the model's
+``cache_specs``: a view plane is a copy of ``V`` pool planes that may lie
+on any rank.  `gather_view_live` brings each rank the pool planes of its
+view planes, `scatter_rows_live` takes each written row to every rank
+that holds its pool plane, each in one ``all_to_all`` of copies
+(`distributed.sharding.route` / `exchange`: a rank receives only the
+planes and rows it lacks, never the whole pool); `extract_rows` stays
+local.  The host-side indices are built alike on every rank.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..distributed import sharding as shd
 from .pages import NULL_PAGE, PageTable
 
 Tensor = torch.Tensor
@@ -47,8 +53,13 @@ Tensor = torch.Tensor
 
 def init_pool(n_layers: int, num_pages: int, n_kv_heads: int,
               page_size: int, head_dim: int, dtype=torch.bfloat16,
-              device=None) -> dict:
+              device=None, mesh=None) -> dict:
+    """The zeroed pool; on a live ``mesh`` this rank's block of it by
+    `paged_pool_specs` (`distributed.sharding.shard_shape`)."""
     shape = (n_layers, num_pages * n_kv_heads, page_size, head_dim)
+    if mesh is not None:
+        shape = shd.shard_shape(mesh, shape, paged_pool_specs(
+            mesh, num_pages, n_kv_heads)["k"])
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -128,10 +139,81 @@ def scatter_rows(pool_leaf: Tensor, rows_val: Tensor, planes: Tensor,
     return pool_leaf
 
 
+# ---------------------------------------------------------------------------
+# Live meshes: the view and the written rows between the ranks' blocks
+# ---------------------------------------------------------------------------
+
+def _plane_axes(mesh, n_planes: int) -> tuple:
+    return shd.spec_axes(shd.kv_plane_spec(mesh, n_planes)[1])
+
+
+def plane_block(mesh, n_planes: int) -> tuple:
+    """``(start, size)`` of this rank's block of ``n_planes`` KV planes
+    laid out by `sharding.kv_plane_spec`: the pool's (`paged_pool_specs`)
+    or a view's (the model's ``cache_specs``)."""
+    return shd.block_of(mesh, _plane_axes(mesh, n_planes), n_planes)
+
+
+def gather_view_live(pool: dict, planes: np.ndarray, mesh,
+                     n_pool_planes: int) -> dict:
+    """This rank's block of the contiguous view ``[L, n, V*ps, dh]`` (its
+    `plane_block` of the view planes) of the host-side pool-plane ids
+    ``planes`` ``[B*KH, V]`` (`gather_planes`), from the ranks' pool
+    blocks ``pool`` (`paged_pool_specs`): both leaves' planes in one
+    exchange (`distributed.sharding.exchange`), a copy."""
+    bkh, v = planes.shape
+    wants = []
+    for r in range(mesh.size):
+        p0, n = shd.block_of(mesh, _plane_axes(mesh, bkh), bkh, r)
+        wants.append(planes[p0:p0 + n].reshape(-1))
+    rt = shd.route(mesh, _plane_axes(mesh, n_pool_planes), n_pool_planes,
+                   wants)
+    idx = torch.as_tensor(rt.send, device=pool["k"].device)
+    items = torch.stack([pool[k][:, idx].transpose(0, 1)
+                         for k in ("k", "v")], dim=1)   # [m, 2, L, ps, dh]
+    got = shd.exchange(items, mesh, rt)                 # [n*V, 2, L, ps, dh]
+    l, _, ps, dh = pool["k"].shape
+    n = got.shape[0] // v
+    got = got.reshape(n, v, 2, l, ps, dh).permute(2, 3, 0, 1, 4, 5)
+    # contiguous: the kv kernel writes the view in place
+    return {k: got[i].reshape(l, n, v * ps, dh).contiguous()
+            for i, k in enumerate(("k", "v"))}
+
+
+def scatter_rows_live(pool: dict, rows_val: dict, planes: np.ndarray,
+                      row_ids: np.ndarray, mesh, n_pool_planes: int) -> dict:
+    """Write the rows each rank took out of its view block (``rows_val``
+    ``[L, n, C, dh]`` a leaf, `extract_rows` of its `plane_block`) at their
+    pool ``(planes, row_ids)`` (host-side, both ``[B*KH, C]``:
+    `scatter_indices`) in the pool block of every rank that holds the
+    plane, in place: the rows cross ranks in one exchange
+    (`distributed.sharding.exchange`) and land in the order one device
+    writes them.  Returns ``pool``."""
+    bkh, c = planes.shape
+    l, _, _, dh = pool["k"].shape
+    pax = _plane_axes(mesh, n_pool_planes)
+    p0, m = plane_block(mesh, n_pool_planes)
+    flat = planes.reshape(-1).astype(np.int64)
+    wants = [np.flatnonzero(flat // m == mesh.index(pax, r))
+             for r in range(mesh.size)]
+    rt = shd.route(mesh, _plane_axes(mesh, bkh), bkh * c, wants)
+    idx = torch.as_tensor(rt.send, device=pool["k"].device)
+    items = torch.stack([rows_val[k].permute(1, 2, 0, 3).reshape(-1, l, dh)
+                         [idx] for k in ("k", "v")], dim=1)  # [s, 2, L, dh]
+    got = shd.exchange(items, mesh, rt)                 # [w, 2, L, dh]
+    mine = wants[mesh.rank]
+    dev = pool["k"].device
+    tp = torch.as_tensor(flat[mine] - p0, device=dev)
+    tr = torch.as_tensor(row_ids.reshape(-1)[mine].astype(np.int64),
+                         device=dev)
+    for i, k in enumerate(("k", "v")):
+        pool[k][:, tp, tr] = got[:, i].transpose(0, 1).to(pool[k].dtype)
+    return pool
+
+
 def paged_pool_specs(mesh, num_pages: int, n_kv_heads: int) -> dict:
     """The pool leaves' specs: planes over the dp axes, then ``model``
     (`distributed.sharding.kv_plane_spec`, one leading L dim); the page
     table stays host-side (`sharding.page_table_spec` if mirrored)."""
-    from ..distributed import sharding as shd
     spec = shd.kv_plane_spec(mesh, num_pages * n_kv_heads, lead_dims=1)
     return {"k": spec, "v": spec}

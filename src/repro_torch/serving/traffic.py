@@ -23,6 +23,14 @@ Latency is wall-clock against the simulated arrival times; ``tok/s
 first arrival to last retirement.  The host clock is read after each
 tick's tokens reached the host (each engine tick and each static batch's
 first and last tokens sync), so it measures the device's work too.
+
+On a live mesh (`launch.mesh.LiveMesh`: the engine's ``mesh``, or
+`run_static`'s) every rank runs the loop, and each decision (what has
+arrived, whether to wait, a batch's shape) must be the same on every
+rank, or the ranks' collectives would part: a hang or a wrong answer.  So
+rank 0's clock decides: each reading of the clock is rank 0's, sent to
+every rank (`Clock`, one ``broadcast`` of a float64 a reading, counted in
+`distributed.sharding.COLLECTIVES`).  On one process nothing changes.
 """
 from __future__ import annotations
 
@@ -31,7 +39,28 @@ import time
 import numpy as np
 import torch
 
+from ..distributed import sharding as shd
 from ..models.api import merge_prefill_cache
+
+
+class Clock:
+    """Seconds since the clock was made: this process's monotonic clock,
+    or on a live ``mesh`` of more than one rank rank 0's, broadcast to
+    every rank at each reading (every rank reads it at the same points of
+    the same schedule)."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.t0 = time.monotonic()
+
+    def __call__(self) -> float:
+        now = time.monotonic() - self.t0
+        if self.mesh is None:
+            return now
+        t = torch.tensor([now], dtype=torch.float64)
+        torch.distributed.broadcast(t, 0)
+        shd.COLLECTIVES.record("broadcast", t.element_size())
+        return float(t[0])
 
 
 def poisson_arrivals(n: int, rate_per_s: float, rng: np.random.Generator
@@ -77,18 +106,19 @@ def _metrics(reqs, wall_s: float) -> dict:
 
 
 def run_continuous(engine, requests: list[dict], arrivals: np.ndarray) -> dict:
-    """Feed ``requests`` at their arrival times; serve until drained."""
-    t0 = time.monotonic()
+    """Feed ``requests`` at their arrival times; serve until drained (on
+    the engine's live mesh, by rank 0's clock: `Clock`)."""
+    clock = Clock(engine.mesh)
     i, n = 0, len(requests)
     while i < n or not engine.sched.idle:
-        now = time.monotonic() - t0
+        now = clock()
         while i < n and arrivals[i] <= now:
             engine.submit(requests[i]["prompt"],
                           requests[i]["max_new_tokens"], arrival=arrivals[i])
             i += 1
         if not engine.tick(now=now) and i < n:
             time.sleep(min(arrivals[i] - now, 0.001))
-    wall = time.monotonic() - t0
+    wall = clock()
     done = sorted(engine.sched.done, key=lambda r: r.rid)
     rows = [{"arrival": r.arrival, "finished_at": r.finished_at,
              "first_token_at": r.first_token_at,
@@ -100,19 +130,17 @@ def run_continuous(engine, requests: list[dict], arrivals: np.ndarray) -> dict:
 
 
 def run_static(bundle, params, requests: list[dict], arrivals: np.ndarray,
-               *, batch: int, max_len: int) -> dict:
+               *, batch: int, max_len: int, mesh=None) -> dict:
     """Static-loop baseline: batches of ``batch`` grouped by prompt
-    length, FIFO; each batch decodes to its longest request's budget."""
-    import torch
-    from ..models.api import merge_prefill_cache
-
+    length, FIFO; each batch decodes to its longest request's budget (on
+    a live ``mesh``, the bundle built on it, by rank 0's clock)."""
     device = bundle.device
-    t0 = time.monotonic()
+    clock = Clock(mesh)
     queue: list[int] = []
     rows: list[dict | None] = [None] * len(requests)
     i, n = 0, len(requests)
     while i < n or queue:
-        now = time.monotonic() - t0
+        now = clock()
         while i < n and arrivals[i] <= now:
             queue.append(i)
             i += 1
@@ -141,7 +169,7 @@ def run_static(bundle, params, requests: list[dict], arrivals: np.ndarray,
                                         pfc)
             toks = logits.argmax(dim=-1)[:, None]
             toks.cpu()                      # the first tokens reach the host
-            first_t = time.monotonic() - t0
+            first_t = clock()
             outs = [toks]
             clen = torch.full((batch,), plen, dtype=torch.long,
                               device=device)
@@ -152,10 +180,9 @@ def run_static(bundle, params, requests: list[dict], arrivals: np.ndarray,
                 clen = clen + 1
                 outs.append(toks)
             torch.cat(outs, dim=1).cpu()
-        fin = time.monotonic() - t0
+        fin = clock()
         for j in take:       # every request waits for the whole batch
             rows[j] = {"arrival": arrivals[j], "finished_at": fin,
                        "first_token_at": first_t,
                        "n_tokens": requests[j]["max_new_tokens"]}
-    return _metrics([r for r in rows if r is not None],
-                    time.monotonic() - t0)
+    return _metrics([r for r in rows if r is not None], clock())

@@ -24,6 +24,11 @@ bf16 tensor as its int16 bits, so shards compare bit for bit).
 `prefill_cases` takes the MoE segment length
 (``models.transformer._MOE_SEG``) with each case: a spawned rank imports
 the module afresh, so a test's monkeypatch does not reach it.
+* `traffic_cases` — the continuous-batching engine (`serving/`) of
+  several smoke configs on one live mesh, its pool placed by
+  `paged_pool_specs`: tokens, logits, the contiguous twin's parity, the
+  rank's pool block, a poisoned request's quarantine and a run whose one
+  rank starts late (the tick log);
 * `raise_on` / `hang_on` — one rank raises, or never joins, while the
   others wait for it in the rendezvous; `pid_of` — a rank's process;
 * `gloo_cuda_probe` — which ``gloo`` collectives take CUDA tensors (the
@@ -294,6 +299,94 @@ def frontend_prefill(rank: int, world_size: int, init_method: str, args,
                 "collectives": shd.COLLECTIVES.snapshot()}
 
 
+def traffic_cases(rank: int, world_size: int, init_method: str, axes,
+                  sizes, cases) -> list:
+    """Each case (a dict: ``cfg``, ``params_np``, ``plan_kwargs`` or None,
+    ``requests`` ``[(prompt, max_new_tokens)]``, ``engine`` the paged
+    engine's geometry (`serving.ServingEngine`'s keywords); optional
+    ``max_len``: also the contiguous engine of that width, ``poison``:
+    ``(request index, ticks)``, the request's pool planes set to NaN on
+    every rank after that many ticks (one decode step a tick), ``late``:
+    ``(rank, seconds, arrivals)``, the requests fed by
+    `serving.traffic.run_continuous` at those arrivals with that rank
+    started that much later) on one live mesh.  Per case: each request's
+    tokens, state and logits, the engine's events, its pool block
+    (int16 bits) and the block's ``(start, size)`` of the pool planes,
+    whether the pool is finite, the tick log and the max |diff| of the
+    logits against the contiguous engine's."""
+    from ..serving import ServingEngine, contiguous_engine, paged_kv
+    from ..serving import traffic as tr
+    from ..serving.pages import NULL_PAGE
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    out = []
+    try:
+        for case in cases:
+            cfg = case["cfg"]
+            whole = params_from_numpy(case["params_np"], "cpu")
+            bundle = build_model(cfg, "cpu", mesh=mesh)
+            params = shd.place_tree(
+                whole, shd.tree_shardings(mesh, bundle.param_specs()))
+            if case["plan_kwargs"] is not None:
+                params["sparse_plan"] = engine_plan.shard_plan(
+                    engine_plan.plan_model(cfg, whole, **case["plan_kwargs"]),
+                    mesh)
+            eng = ServingEngine(bundle, params, mesh=mesh, record_logits=True,
+                                **case["engine"])
+            if case.get("late") is not None:
+                late, delay, arrivals = case["late"]
+                if rank == late:
+                    time.sleep(delay)
+                tr.run_continuous(eng, [{"prompt": p, "max_new_tokens": g}
+                                        for p, g in case["requests"]],
+                                  np.asarray(arrivals))
+            else:
+                reqs = [eng.submit(p, g) for p, g in case["requests"]]
+                if case.get("poison") is not None:
+                    victim, ticks = case["poison"]
+                    eng.decode_fuse = 1
+                    for _ in range(ticks):
+                        eng.tick()
+                    r = reqs[victim]
+                    planes = np.array([p * eng.kh + h
+                                       for p in eng.table.table[r.slot]
+                                       if p != NULL_PAGE
+                                       for h in range(eng.kh)])
+                    p0, m = paged_kv.plane_block(mesh, eng.pool_planes)
+                    mine = planes[(planes >= p0) & (planes < p0 + m)] - p0
+                    for leaf in eng.pool.values():
+                        leaf[:, torch.from_numpy(mine)] = float("nan")
+                eng.run()
+            done = {r.rid: r for r in eng.sched.done}
+            got = {"coord": mesh.coord(),
+                   "tokens": {i: list(r.out_tokens) for i, r in done.items()},
+                   "states": {i: r.state for i, r in done.items()},
+                   "logits": {i: np.stack(v)
+                              for i, v in eng.logits_trace.items()},
+                   "events": eng.events, "ticks": eng.ticks,
+                   "pool": {k: _bits(v) for k, v in eng.pool.items()},
+                   "pool_block": paged_kv.plane_block(mesh, eng.pool_planes),
+                   "finite": all(bool(torch.isfinite(v).all())
+                                 for v in eng.pool.values())}
+            if case.get("max_len") is not None:
+                geo = case["engine"]
+                con = contiguous_engine(
+                    bundle, params, max_slots=geo["max_slots"],
+                    max_len=case["max_len"],
+                    prefill_chunk=geo["prefill_chunk"], mesh=mesh,
+                    record_logits=True)
+                for p, g in case["requests"]:
+                    con.submit(p, g)
+                con.run()
+                got["contiguous_diff"] = max(
+                    float(np.abs(np.stack(v) - got["logits"][i]).max())
+                    for i, v in con.logits_trace.items())
+            out.append(got)
+    finally:
+        mesh.close()
+    return out
+
+
 def pid_of(rank: int, world_size: int, init_method: str) -> int:
     """The rank's process id, after it joined a one-axis mesh (left
     open: the launcher tears a kept rank's groups down)."""
@@ -382,5 +475,5 @@ def gloo_cuda_probe(rank: int, world_size: int, init_method: str) -> dict:
 
 
 __all__ = ["mesh_case", "prefill_cases", "family_cases", "frontend_batch",
-           "frontend_prefill", "pid_of", "raise_on", "hang_on",
-           "gloo_cuda_probe"]
+           "frontend_prefill", "traffic_cases", "pid_of", "raise_on",
+           "hang_on", "gloo_cuda_probe"]

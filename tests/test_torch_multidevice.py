@@ -361,7 +361,7 @@ def test_serve_mesh_serves_every_family(arch, tmp_path):
 
 
 @pytest.mark.parametrize("argv, msg", [
-    (["--traffic"], "--traffic"), (["--guard"], "--guard"),
+    (["--traffic", "--guard"], "--guard"), (["--guard"], "--guard"),
     (["--tune", "sweep"], "--tune"), ([], "--dist-init"),
     (["--arch", "rwkv6-3b", "--traffic"], "--traffic")])
 def test_serve_mesh_refuses(argv, msg, capsys):

@@ -204,15 +204,16 @@ Then the long prefill, after phase 20, fatal as above:
              kv chunks (S = 256) on the card against the CPU at 1e-4,
              `LONG_POISON_REPEATS` times on the same inputs (the largest
              reading and the spread printed);
-             (b) ``serve`` of olmo-1b at published width and depth,
-             bf16 compute, sparsity 0.5, batch 1 (prefill_32k's batch of
-             32 cut to 1), one 32768-token prompt and 8 new tokens with
-             the scatter cache write: serve's parity gate (every
-             sublayer's increment at 2e-2), the wide launches (the
-             tensor-core kernel) equal to 7 projections x 16 layers x
-             prefills, the skinny ones (the streamer) that x decode
-             steps, the kv kernel's 2 x 16 x 2 x decode steps, tok/s and
-             the peak device memory; the bf16 witness (depth
+             (b) ``serve`` of olmo-1b at published width, depth
+             `LONG_SERVE_LAYERS` of 16, bf16 compute, sparsity 0.5,
+             batch 1 (prefill_32k's batch of 32 cut to 1), one
+             32768-token prompt and 8 new tokens with the scatter cache
+             write: serve's parity gate (every sublayer's increment at
+             2e-2), the wide launches (the tensor-core kernel) equal to 7
+             projections x layers x prefills, the skinny ones (the
+             streamer) that x decode steps, the kv kernel's 2 x layers x
+             2 x decode steps, tok/s and the peak device memory; the bf16
+             witness (depth
              `WITNESS_LAYERS` of 16): every layer of
              the bf16 sparse prefill (the tensor-core wide kernel, its
              launches counted) and of the
@@ -220,9 +221,10 @@ Then the long prefill, after phase 20, fatal as above:
              masked-dense reference, their errors against it alike
              (relative RMS of the sparse within 1.25 x the dense's, both
              within 2e-2); then in bf16 one sparse
-             prefill's wall time, the wide kernel at M = 32768 against
+             prefill's wall time at all 16 layers, the wide kernel at M = 32768 against
              its plain version at 1e-4 (timed beside ``torch.matmul`` and
-             its bound) and a profile of one prefill at 2 layers (the
+             its bound) and a profile of one prefill at
+             `LONG_PROFILE_LAYERS` layer (the
              attention's and the wide kernel's shares of the device
              time); (c) float32 end
              to end at 2 layers and 8192 tokens against the masked-dense
@@ -263,7 +265,7 @@ Then the MoE mesh, after phase 22, fatal as above:
              agreement with one process, each rank's collectives, set-up
              and serving peaks and wall printed.
 
-Phases 22-24 run their four ranks on processes started once and kept
+Phases 22-26 run their four ranks on processes started once and kept
 from run to run (`launch.ranks.keep_ranks`).
 
 Then the family meshes, after phase 23, fatal as above:
@@ -305,6 +307,23 @@ Then continuous batching on the mesh, after phase 24, fatal as above:
              launched; each rank's launches, exchange ops and bytes,
              peaks and wall and rank 0's continuous and static metrics
              printed.
+
+Then the sharded train step, after phase 25, fatal as above:
+
+26. train mesh — ``train --mesh data=2,model=2`` of olmo-1b at published
+             width (d_model 2048, d_ff 8192, vocab 50304), depth
+             `LM_TRAIN_LAYERS` of 16, batch 8, seq 128, `LM_TRAIN_STEPS`
+             steps, bf16 compute, f32 params (phase 15's arguments), on
+             the same four ranks sharing cuda:0: params, gradients and
+             AdamW moments placed by the reference's ``param_specs``, the
+             gradients reduce-scattered onto the FSDP blocks; train's own
+             gates (every step's loss and grad norm, and every rank's
+             final params, ``m`` and ``v`` blocks, within 2e-2 of a
+             one-process run in this process; replicated blocks bitwise
+             equal after every step; resident bytes equal to
+             `launch.dryrun.per_device_bytes`), held again here, and no
+             launch of rows 1-8 in the ranks' steps; each rank's step
+             walls, collectives of a step and peaks printed.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -500,11 +519,17 @@ LONG_PROMPT, LONG_GEN_STEPS = 32768, 8
 LONG_DTYPE = "bfloat16"
 # olmo-1b's projection shapes (O, N) for the wide kernel at M = LONG_PROMPT
 LONG_KERNEL_SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192))
+# the served path's depth: LONG_SERVE_LAYERS of 16 (each layer is the same
+# work; the timed sparse prefill of `long_prefill_profile` and the dry run
+# keep all 16), so that the script, phase 26 included, ends within its
+# time limit on a slow host
+LONG_SERVE_LAYERS = 4
 LONG_ARGS = ["--arch", "olmo-1b", "--batch", "1", "--prompt-len",
              str(LONG_PROMPT), "--gen-steps", str(LONG_GEN_STEPS),
-             "--sparsity", str(SPARSITY)]
+             "--sparsity", str(SPARSITY), "--n-layers",
+             str(LONG_SERVE_LAYERS)]
 LONG_LABEL = "long_prefill"
-LONG_KV_LAUNCHES = 2 * OLMO_LAYERS * 2 * (1 + LONG_GEN_STEPS)
+LONG_KV_LAUNCHES = 2 * LONG_SERVE_LAYERS * 2 * (1 + LONG_GEN_STEPS)
 # the two attention forms on the card (B, S, H, dh), both held in memory;
 # the poisoned multi-chunk check (S, chunk), one NaN key row at LONG_POISON_ROW
 ATTN_SHAPE = (1, 4096, 16, 128)
@@ -512,8 +537,9 @@ LONG_POISON, LONG_POISON_ROW = (256, 64), 3
 # ... repeated on the same inputs, the card's and the CPU's side each time
 LONG_POISON_REPEATS = 20
 # the profiled sparse prefill at LONG_PROMPT: depth cut to this many layers
-# (each layer is the same work; the trace of 16 holds ~340k kernels)
-LONG_PROFILE_LAYERS = 2
+# (each layer is the same work; the trace of 16 holds ~340k kernels, and
+# reading the trace of 2 took about 55 s of the script's limit)
+LONG_PROFILE_LAYERS = 1
 # the profiled generations of phases 4, 7-9 and 19 (one prefill and 8 steps,
 # the traffic engine's batch): depth cut to this many layers (each layer is
 # the same work; the script's wall differs by a quarter between H100 hosts)
@@ -530,9 +556,9 @@ ATTENTION_RANGE = "attention"
 # rounds its input, projections, SwiGLU product and residual sums to bf16)
 WITNESS_RATIO, WITNESS_REL = 1.25, TOL["bfloat16"]
 WITNESS_LABEL = "long_prefill bf16 witness"
-# ... its depth cut to WITNESS_LAYERS of 16, as phase 22's (each layer is
-# the same work; the served 32768-token path keeps all 16)
-WITNESS_LAYERS = 2
+# ... its depth cut to WITNESS_LAYERS of 16 (each layer is the same work;
+# the script's limit)
+WITNESS_LAYERS = 1
 # phase 22, the mesh: olmo-1b at published width, bf16, batch 4, prompt
 # 32, 8 new tokens through the kv kernel, served by four torch.distributed
 # ranks on a (data=2, model=2) mesh, all sharing cuda:0 over gloo (NCCL
@@ -620,6 +646,10 @@ TRAFFIC_MESH_ARGS = ["--arch", "olmo-1b", "--traffic", "--requests", "4",
                      "--n-layers", str(TRAFFIC_MESH_LAYERS), "--mesh", MESH]
 TRAFFIC_MESH_KERNELS = ("tiled_balanced_spmm", "tiled_balanced_spmm_skinny",
                         "kv_cache_update")
+# phase 26, the sharded train step: phase 15's run (LM_TRAIN_ARGS,
+# LM_TRAIN_STEPS) on the mesh of phase 22
+TRAIN_MESH_ARGS = LM_TRAIN_ARGS + ["--steps", str(LM_TRAIN_STEPS),
+                                   "--mesh", MESH]
 
 
 T_START = time.monotonic()
@@ -3232,7 +3262,7 @@ def long_prefill_card(torch, serve, paths: dict) -> tuple:
         f"{LONG_GEN_STEPS} steps: dense {res['dense']['wall_s']:.3f} s, "
         f"sparse {res['sparse']['wall_s']:.3f} s); serve peak device memory "
         f"{peak / 2**30:.2f} GiB ({peak} B)")
-    if (n_proj, layers) != (7, OLMO_LAYERS) \
+    if (n_proj, layers) != (7, LONG_SERVE_LAYERS) \
             or plan["impl_mix"] != {"cuda": n_proj}:
         raise AssertionError(f"{LONG_LABEL}: plan {plan['impl_mix']} over "
                              f"{layers} layers")
@@ -3442,10 +3472,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 21. long prefill: {time.monotonic() - t0:.1f} s")
 
-    # 22-24: the meshes, on four rank processes started once and kept
+    # 22-26: the meshes, on four rank processes started once and kept
     # from run to run (`launch.ranks.keep_ranks`; each run joins its own
     # rendezvous, and counts are zeroed just before each rank's greedy
-    # path and read just after, in the rank)
+    # path or train steps and read just after, in the rank)
     from repro_torch.launch.ranks import keep_ranks
     with keep_ranks(MESH_RANKS):
         # 22. the mesh: olmo-1b on four ranks sharing the card
@@ -3473,6 +3503,13 @@ def main() -> int:
         traffic_mesh_phase(torch, serve, paths)
         torch.cuda.empty_cache()
         log(f"phase 25. traffic mesh: {time.monotonic() - t0:.1f} s")
+
+        # 26. the sharded train step: gradients reduce-scattered onto the
+        # blocks, AdamW on the shards
+        t0 = time.monotonic()
+        train_mesh_phase(torch, paths)
+        torch.cuda.empty_cache()
+        log(f"phase 26. train mesh: {time.monotonic() - t0:.1f} s")
 
     # 10. result: launches summed over the paths' runs; each kernel's timed
     # row at bf16, at the quant mode its serve path runs, at the shape its
@@ -3640,6 +3677,62 @@ def traffic_mesh_phase(torch, serve, paths: dict) -> None:
         for k in launches()}
 
 
+def train_mesh_phase(torch, paths: dict) -> None:
+    """Phase 26: ``train --mesh`` of olmo-1b on four ranks sharing the
+    card (`TRAIN_MESH_ARGS`): train's own gates (every step's loss and
+    grad norm and every rank's final params, ``m`` and ``v`` blocks
+    within 2e-2 of a one-process run in this process, replicated blocks
+    bitwise equal after every step, resident bytes equal to
+    `per_device_bytes`), held again here, and no launch of rows 1-8 in
+    any rank's steps (the train step runs no plan); each rank's step
+    walls, collectives of its last step and peaks printed."""
+    import tempfile
+    from repro_torch.launch import train
+    log(f"phase 26 train mesh: backend gloo, {MESH_RANKS} ranks on cuda:0, "
+        f"olmo-1b {LM_TRAIN_LAYERS} of {OLMO_LAYERS} layers, "
+        f"{LM_TRAIN_STEPS} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        ns = train.build_parser().parse_args(
+            TRAIN_MESH_ARGS + ["--dist-init", f"file://{tmp}/mesh"])
+        res = train.run(ns)["mesh"]
+    tol = TOL["bfloat16"]
+    worst = max(res["state_rel_err"], key=res["state_rel_err"].get)
+    log(f"train mesh {res['mesh']} over {res['backend']}: loss "
+        f"{res['loss']} (one process {res['one_process_loss']}), grad norm "
+        f"{res['grad_norm']} (one process {res['one_process_grad_norm']}); "
+        f"rel err loss {res['loss_rel_err']:.6g}, grad norm "
+        f"{res['grad_norm_rel_err']:.6g}, params / m / v "
+        f"{res['state_rel_err'][worst]:.6g} ({worst}) (tol "
+        f"{res['parity_tol']:g}); replicated blocks bitwise equal "
+        f"{res['replicas_equal']}, resident bytes equal to per_device_bytes "
+        f"{res['bytes_equal']}; one process {res['one_process_s']:.1f} s "
+        f"(steps {[round(x, 3) for x in res['one_process_step_s']]} s), "
+        f"ranks {res['ranks_s']:.1f} s")
+    launched = {r["rank"]: {k: n for k, n in r["kernel_launches"].items()
+                            if n} for r in res["ranks"]}
+    if res["parity_tol"] != tol or res["held_steps"] != LM_TRAIN_STEPS \
+            or res["loss_rel_err"] > tol \
+            or res["grad_norm_rel_err"] > tol \
+            or res["state_rel_err"][worst] > tol \
+            or not res["replicas_equal"] or not res["bytes_equal"] \
+            or any(launched.values()):
+        raise AssertionError(f"the train mesh run failed its gates "
+                             f"(launched: {launched}): {res}")
+    for r in res["ranks"]:
+        log(f"train mesh rank {r['rank']} {r['coord']}: steps "
+            f"{[round(x, 3) for x in r['step_s']]} s, peak {r['peak_gib']} "
+            f"GiB training, {r['setup_peak_gib']} GiB in set-up, set-up "
+            f"{r['setup_s']:.1f} s of {r['setup_wall_s']:.1f} s in turns of "
+            f"{r['setup_turns']} ranks, resident {r['resident_bytes']} B, "
+            f"the one-process comparison {r['compare_s']:.1f} s; collectives "
+            f"of the last step " + ", ".join(
+                f"{k}: {c['ops']} ops {c['bytes']} B"
+                for k, c in r["collectives"][-1].items()))
+    paths["olmo-1b train mesh"] = {
+        k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
+        for k in launches()}
+
+
 def moe_mesh_phase(torch, serve, paths: dict) -> None:
     """Phase 23: ``serve --mesh`` of deepseek-moe-16b on four ranks
     sharing the card, its routed experts split over ``model``: serve's
@@ -3773,6 +3866,7 @@ def frontend_mesh_prefill(torch, serve) -> dict:
     import dataclasses
     import tempfile
     from repro_torch.engine import plan as engine_plan
+    from repro_torch.launch.mesh_run import MESH_TIMEOUT_S
     from repro_torch.launch.ranks import run_ranks
     from repro_torch.models import build_model
     from repro_torch.testing import multidevice
@@ -3800,7 +3894,7 @@ def frontend_mesh_prefill(torch, serve) -> dict:
                           init_method=f"file://{tmp}/frontend",
                           args=(ns, cfg, FRONTEND_MESH_BATCH,
                                 FRONTEND_MESH_PROMPT, FRONTEND_MESH_ROWS),
-                          timeout_s=serve.MESH_TIMEOUT_S)
+                          timeout_s=MESH_TIMEOUT_S)
     errs = [float((torch.from_numpy(r["logits"]) - want).abs().max())
             for r in ranks]
     wide = FAMILY_MESH_PROJECTIONS[FRONTEND_MESH_ARCH] * FAMILY_MESH_LAYERS

@@ -32,6 +32,23 @@ ops and operand bytes: the counterpart of the reference's
 rank is skipped and not counted.  On a description `named`,
 `tree_shardings`, `with_hidden_sharding` and `with_channel_sharding`
 return what they are given.
+
+Autograd goes through the collectives, each backward the exact adjoint
+of its forward: `gather` / `gather_tree` (``all_gather``) <->
+`reduce_scatter_tree` (``reduce_scatter``: each block the float32 sum of
+the group's gradients of it), `all_reduce` (a sum) <-> the same sum, and
+a cut to this rank's block (``narrow``) <-> the zero-padded block, which
+the sums further back add up to the gather of the blocks.  `cols`,
+`project`, `sum_in_order`, `embed_rows` and `vocab_logits` are built of
+these and are differentiable through them.  The convention of a sharded
+loss: the global loss is the sum of the ranks' local losses, each rank
+seeding its own backward with 1; work that several ranks repeat on the
+same rows enters each rank's loss divided by its replication count
+(powers of two: the split is exact).  A rank's gradient of a block is
+then the global loss's gradient of it once the gathers' reduce-scatters
+have run and `reduce_replicated` has summed it over the axes its spec
+leaves it replicated on.  Without grad (serving) the same functions run
+their forward only and record no graph.
 """
 from __future__ import annotations
 
@@ -289,15 +306,12 @@ def _bytes_of(t: Tensor) -> Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
-def gather_tree(shards: dict, mesh: LiveMesh, specs: dict, axes) -> dict:
-    """`gather` of several shards in one collective: every shard whose
-    spec splits a dim over one of ``axes`` is reassembled over those
-    axes; the others are returned as they are.  The shards travel as one
-    byte buffer (each padded to 16 bytes), so leaves of any dtypes share
-    the ``all_gather``; `COLLECTIVES` counts their bytes unpadded."""
-    axes = set(spec_axes(axes))
+def _cuts(tensors: dict, specs: dict, axes: set) -> dict:
+    """``{key: the axes of ``axes`` its spec splits it over}`` for every
+    tensor its spec splits over one of ``axes``; a dim split over ``axes``
+    and other axes at once raises."""
     todo = {}
-    for k, t in shards.items():
+    for k in tensors:
         spec = specs[k]
         cut = set()
         for d in spec:
@@ -307,49 +321,109 @@ def gather_tree(shards: dict, mesh: LiveMesh, specs: dict, axes) -> dict:
                                  f"gathered and kept axes ({sorted(axes)})")
             cut |= names & axes
         if cut:
-            todo[k] = cut
-    out = dict(shards)
-    if not todo:
-        return out
-    over = tuple(a for a in mesh.axis_names
-                 if any(a in c for c in todo.values()))
-    group = _group(mesh, over)
-    if group is None:
-        return out
-    sizes, offsets, parts, off = {}, {}, [], 0
-    for k in todo:
-        b = _bytes_of(shards[k])
-        sizes[k], offsets[k] = b.numel(), off
+            todo[k] = frozenset(cut)
+    return todo
+
+
+def _over(mesh: LiveMesh, cuts) -> tuple:
+    """The mesh's axes that any of the ``cuts`` names, in mesh order."""
+    return tuple(a for a in mesh.axis_names if any(a in c for c in cuts))
+
+
+def _gather_raw(shards: list, mesh: LiveMesh, specs: list, cuts: list,
+                over: tuple, group) -> list:
+    """The all_gather of `gather_tree` (see there) on the shards that a
+    cut splits."""
+    sizes, offsets, parts, off = [], [], [], 0
+    for t in shards:
+        b = _bytes_of(t)
+        sizes.append(b.numel())
+        offsets.append(off)
         parts += [b, b.new_zeros(-b.numel() % 16)]
         off += b.numel() + parts[-1].numel()
     buf = torch.cat(parts)
     ranks = mesh.group_ranks(over)
     pieces = [torch.empty_like(buf) for _ in ranks]
     torch.distributed.all_gather(pieces, buf, group=group)
-    COLLECTIVES.record("all_gather", sum(sizes.values()))
+    COLLECTIVES.record("all_gather", sum(sizes))
     mine = mesh.coord()
-    for k, cut in todo.items():
-        t, spec = shards[k], specs[k]
+    out = []
+    for t, spec, cut, off, size in zip(shards, specs, cuts, offsets, sizes):
         full = list(t.shape)
         for i, d in enumerate(spec):
             if set(spec_axes(d)) & cut:
                 full[i] *= _axes_size(mesh, d)
         res = t.new_empty(full)
-        off = offsets[k]
         for r, piece in zip(ranks, pieces):
             c = mesh.coord(r)
             # a rank that differs only on axes this leaf is whole over
             # holds the same block: take it from the rank on our coord
             if any(c[a] != mine[a] for a in over if a not in cut):
                 continue
-            blk = piece[off:off + sizes[k]].view(t.dtype).reshape(t.shape)
+            blk = piece[off:off + size].view(t.dtype).reshape(t.shape)
             view = res
             for i, d in enumerate(spec):
                 if set(spec_axes(d)) & cut:
                     view = view.narrow(i, mesh.index(d, r) * t.shape[i],
                                        t.shape[i])
             view.copy_(blk)
-        out[k] = res
+        out.append(res)
+    return out
+
+
+def _cast(t: Tensor, dtype) -> Tensor:
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+class _GatherTree(torch.autograd.Function):
+    """`gather_tree`'s cast and all_gather; its backward is the adjoint,
+    the reduce-scatter of the gradients onto the blocks
+    (`reduce_scatter_tree`: each block the float32 sum of the group's
+    gradients of it, returned in the shard's own dtype)."""
+
+    @staticmethod
+    def forward(ctx, mesh, specs, cuts, over, group, dtype, *shards):
+        ctx.mesh, ctx.specs, ctx.cuts = mesh, specs, cuts
+        ctx.dtypes = [t.dtype for t in shards]
+        return tuple(_gather_raw([_cast(t, dtype) for t in shards], mesh,
+                                 specs, cuts, over, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        keys = range(len(grads))
+        out = reduce_scatter_tree(dict(zip(keys, grads)), ctx.mesh,
+                                  dict(zip(keys, ctx.specs)),
+                                  dict(zip(keys, ctx.cuts)),
+                                  dict(zip(keys, ctx.dtypes)))
+        return (None,) * 6 + tuple(out[k] for k in keys)
+
+
+def gather_tree(shards: dict, mesh: LiveMesh, specs: dict, axes,
+                dtype: torch.dtype | None = None) -> dict:
+    """`gather` of several shards in one collective: every shard whose
+    spec splits a dim over one of ``axes`` is reassembled over those
+    axes (a floating one cast to ``dtype`` first, where given); the
+    others are returned as they are.  The shards travel as one byte
+    buffer (each padded to 16 bytes), so leaves of any dtypes share the
+    ``all_gather``; `COLLECTIVES` counts their bytes unpadded.  Under
+    autograd the backward is the reduce-scatter of the gradients
+    (`reduce_scatter_tree`), each returned in its shard's own dtype: the
+    float32 sum of a bf16 use of a float32 weight is not rounded to
+    bf16."""
+    todo = _cuts(shards, specs, set(spec_axes(axes)))
+    out = dict(shards)
+    if not todo:
+        return out
+    keys = list(todo)
+    over = _over(mesh, todo.values())
+    group = _group(mesh, over)
+    if group is None:
+        out.update((k, _cast(shards[k], dtype)) for k in keys)
+        return out
+    got = _GatherTree.apply(mesh, [specs[k] for k in keys],
+                            [todo[k] for k in keys], over, group, dtype,
+                            *(shards[k] for k in keys))
+    out.update(zip(keys, got))
     return out
 
 
@@ -357,25 +431,120 @@ def gather(shard: Tensor, mesh: LiveMesh, spec: P, axes=None) -> Tensor:
     """The blocks of ``shard`` (laid out by ``spec``) reassembled over
     ``axes`` (default: every axis the spec names) by one ``all_gather``:
     the dims split over them come back whole, in the order `place` cut
-    them.  A dim split over gathered and kept axes at once raises."""
+    them.  A dim split over gathered and kept axes raises."""
     if axes is None:
         axes = tuple(a for d in spec for a in spec_axes(d))
     return gather_tree({"x": shard}, mesh, {"x": spec}, axes)["x"]
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a sum over ranks is taken in: float32, float64 for
+    float64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def reduce_scatter_tree(wholes: dict, mesh: LiveMesh, specs: dict,
+                        cuts: dict, dtypes: dict | None = None) -> dict:
+    """The adjoint of `gather_tree`: each tensor of ``wholes`` with an
+    entry in ``cuts`` (the axes its spec splits it over that a gather
+    made whole) is whole over those axes on every rank; it comes back as
+    this rank's block of its sum over the ranks of those axes (the rest
+    are returned as they are).  The sums are taken in float32 (float64
+    for float64) and returned in each tensor's dtype (its entry of
+    ``dtypes``, where given).  Tensors cut over the same axes share one
+    ``reduce_scatter``; `COLLECTIVES` counts each rank's operand bytes
+    (the whole tensors in float32)."""
+    dtypes = dtypes or {}
+    out = dict(wholes)
+    for cut in dict.fromkeys(cuts.values()):
+        keys = [k for k, c in cuts.items() if c == cut]
+        over = _over(mesh, [cut])
+        group = _group(mesh, over)
+        if group is None:
+            out.update((k, wholes[k].to(dtypes.get(k, wholes[k].dtype)))
+                       for k in keys)
+            continue
+        wide = torch.float64 if any(wholes[k].dtype == torch.float64
+                                    for k in keys) else torch.float32
+
+        def block(t, spec, r):
+            for i, d in enumerate(spec):
+                if set(spec_axes(d)) & cut:
+                    n = t.shape[i] // _axes_size(mesh, d)
+                    t = t.narrow(i, mesh.index(d, r) * n, n)
+            return t
+        ranks = mesh.group_ranks(over)
+        ins = [torch.cat([block(wholes[k], specs[k], r).reshape(-1).to(wide)
+                          for k in keys]) for r in ranks]
+        got = torch.empty_like(ins[ranks.index(mesh.rank)])
+        torch.distributed.reduce_scatter(got, ins, group=group)
+        COLLECTIVES.record("reduce_scatter",
+                           sum(x.numel() for x in ins) * got.element_size())
+        off = 0
+        for k in keys:
+            shape = block(wholes[k], specs[k], mesh.rank).shape
+            n = math.prod(shape)
+            out[k] = got[off:off + n].reshape(shape).to(
+                dtypes.get(k, wholes[k].dtype))
+            off += n
+    return out
+
+
+def _all_reduce_raw(t: Tensor, group) -> Tensor:
+    # a copy: the sum is taken in place, and ``t`` may be a gradient
+    # another branch of the graph reads too
+    x = t.to(_wide(t.dtype), copy=True) if t.is_floating_point() \
+        else t.clone()
+    torch.distributed.all_reduce(x, group=group)
+    COLLECTIVES.record("all_reduce", x.numel() * x.element_size())
+    return x.to(t.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over ranks; its adjoint is the same sum of the gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce_raw(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_raw(g, ctx.group), None
 
 
 def all_reduce(t: Tensor, mesh: LiveMesh, axes) -> Tensor:
     """The sum of ``t`` over the ranks of ``axes`` (one ``all_reduce``),
     taken in float32 (float64 for a float64 ``t``) and returned in ``t``'s
     dtype, so the ranks hold the same result whatever the backend sums a
-    narrower float in."""
+    narrower float in.  Under autograd the backward is the same sum of
+    the gradients."""
     group = _group(mesh, axes)
     if group is None:
         return t
-    x = t.float() if t.is_floating_point() and t.dtype != torch.float64 \
-        else t.clone()
-    torch.distributed.all_reduce(x, group=group)
-    COLLECTIVES.record("all_reduce", x.numel() * x.element_size())
-    return x.to(t.dtype)
+    return _AllReduce.apply(t, group)
+
+
+def replicated_axes(mesh: LiveMesh, spec: P) -> tuple:
+    """The mesh's axes of more than one rank that ``spec`` names in no
+    dim: the ranks along them hold the same block."""
+    named = {a for d in spec for a in spec_axes(d)}
+    return tuple(a for a in mesh.axis_names
+                 if a not in named and mesh.shape[a] > 1)
+
+
+def reduce_replicated(grads, mesh: LiveMesh, specs):
+    """The gradient blocks of the global loss from each rank's gradients
+    of its own loss (the convention of `models.transformer._build_live`'s
+    ``train_loss``): each leaf's block summed over the axes its spec
+    leaves it replicated on (`replicated_axes`, one ``all_reduce`` a leaf
+    that has any), the blocks the gathers' reduce-scatters made already
+    summed over the axes that split the leaf."""
+    if isinstance(grads, dict):
+        return {k: reduce_replicated(v, mesh, specs[k])
+                for k, v in grads.items()}
+    axes = replicated_axes(mesh, specs)
+    return all_reduce(grads, mesh, axes) if axes else grads
 
 
 # ---------------------------------------------------------------------------
@@ -587,16 +756,14 @@ def gather_for_use(mesh, lp: dict, placed: dict, use: dict,
     ``dtype`` *then* gathered over those axes (one ``all_gather`` for the
     layer, half the bytes of a float32 one at bf16); dims split over
     ``model`` stay split, and a weight that is not gathered keeps its
-    dtype.  On a description or no mesh the layer is returned as it is."""
+    dtype.  Under autograd the gradients flow back as one reduce-scatter
+    onto the blocks (the ZeRO grad flow), in the blocks' dtype.  On a
+    description or no mesh the layer is returned as it is."""
     if not isinstance(mesh, LiveMesh):
         return lp
     axes = {a for k in lp for d in placed[k] for a in spec_axes(d)} \
         - {a for k in lp for d in use[k] for a in spec_axes(d)}
-    moved = {k for k in lp
-             if axes & {a for d in placed[k] for a in spec_axes(d)}}
-    cast = {k: v.to(dtype) if k in moved and v.is_floating_point() else v
-            for k, v in lp.items()}
-    return gather_tree(cast, mesh, {k: placed[k] for k in lp}, axes)
+    return gather_tree(lp, mesh, {k: placed[k] for k in lp}, axes, dtype)
 
 
 def cols(mesh: LiveMesh, x: Tensor, have: tuple, want: tuple) -> Tensor:
@@ -703,6 +870,7 @@ __all__ = ["P", "dp_axes", "fsdp_axes", "dim_spec", "logical_spec",
            "with_channel_sharding", "kv_plane_spec", "page_table_spec",
            "named", "tree_shardings", "Placement", "place_tree",
            "place", "gather", "gather_tree", "all_reduce", "planes_of",
+           "reduce_scatter_tree", "replicated_axes", "reduce_replicated",
            "rows_of", "block_of", "spec_axes", "COLLECTIVES",
            "CollectiveCounter", "use_spec", "gather_for_use", "cols",
            "project", "sum_in_order", "embed_rows", "vocab_logits",

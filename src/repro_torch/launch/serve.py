@@ -70,7 +70,6 @@ kernels.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import math
@@ -82,7 +81,7 @@ import torch
 
 from ..configs import ARCHS, TRANSFORMER_FAMILIES, get_config, get_smoke
 from ..core.compression import compressed_bits
-from ..device import resolve_device
+from ..device import exact_matmuls, resolve_device
 from ..distributed import sharding as shd
 from ..engine import execute as engine_execute
 from ..engine import plan as engine_plan
@@ -92,22 +91,8 @@ from ..kernels.tile_format import QUANT_MODES, TiledBalanced
 from ..models import build_model, transformer
 from ..models.api import merge_prefill_cache, sublayer_diffs
 from . import cost_model
-
-
-@contextlib.contextmanager
-def exact_matmuls():
-    """Within the block, cuBLAS and cuDNN without TF32: exact float32
-    matmuls for the dense yardstick and the masked-dense reference.  The
-    flags are as they were after it."""
-    keep = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = keep
+from .mesh_run import (against_one_process, in_turns, parse_mesh,
+                       peak_gib, rank_mesh, routing_agreement, zero_counts)
 
 
 def _sync(device: torch.device) -> None:
@@ -691,118 +676,31 @@ def _prompt(args: argparse.Namespace, cfg, device) -> torch.Tensor:
 # --mesh: the sharded serve program on live ranks
 # ---------------------------------------------------------------------------
 
-MESH_TIMEOUT_S = 600.0      # the launcher's limit on the ranks' run
-
-
-def parse_mesh(spec: str) -> tuple:
-    """``"data=2,model=2"`` -> ``(("data", "model"), (2, 2))``."""
-    names, sizes = [], []
-    for part in spec.split(","):
-        name, _, size = part.partition("=")
-        if not name or not size.isdigit() or int(size) < 1:
-            raise ValueError(f"--mesh {spec!r}: expected name=size,...")
-        names.append(name.strip())
-        sizes.append(int(size))
-    if len(set(names)) != len(names) or not set(names) <= {"pod", "data",
-                                                            "model"}:
-        raise ValueError(f"--mesh {spec!r}: axes are distinct names of "
-                         f"pod, data, model")
-    return tuple(names), tuple(sizes)
-
-
-@contextlib.contextmanager
-def rank_mesh(rank: int, world_size: int, init_method: str,
-              args: argparse.Namespace):
-    """One rank of ``--mesh``: yields ``(mesh, device)``, the device the
-    card of the rank modulo the card count (on a GPU), the live mesh of
-    ``args.mesh`` over ``gloo``, under `exact_matmuls`; closes the mesh
-    after."""
-    from .mesh import init_mesh
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        device = torch.device("cuda", rank % torch.cuda.device_count())
-        torch.cuda.set_device(device)
-    names, sizes = parse_mesh(args.mesh)
-    with exact_matmuls():
-        mesh = init_mesh(names, sizes, rank=rank, world_size=world_size,
-                         backend="gloo", init_method=init_method,
-                         device=device)
-        try:
-            yield mesh, device
-        finally:
-            mesh.close()
-
-
 def place_rank(mesh, device: torch.device, args: argparse.Namespace,
                cfg) -> tuple:
     """A rank's set-up of ``--mesh``: ``(bundle, params with the placed
     plan under "sparse_plan", the dry run's `shard_bytes` of its params
-    and plan, the set-up report)``.  Set-up runs in turns, each closed by
-    a barrier: in its turn a rank makes the params from the seed and
-    builds the plan whole, places both, frees the whole ones and empties
-    its cache.  Rank 0 goes alone; the rest go as many at a time as the
-    card holds by rank 0's measured set-up peak (`_setup_group`), so the
-    card never holds more whole sets than fit beside the ranks' shards."""
+    and plan, the set-up report)``.  In its turn (`in_turns`) a rank
+    makes the params from the seed and builds the plan whole, and places
+    both."""
     from .dryrun import shard_bytes
-    rank, world_size = mesh.rank, mesh.size
-    t_start = time.monotonic()
     bundle = build_model(cfg, device, mesh=mesh)
     pspecs = bundle.param_specs()
-    setup_peak = setup_card = setup_s = None
-    group, start, turns = 1, 0, []  # rank 0 alone first
-    while start < world_size:
-        turns.append(min(group, world_size - start))
-        if start <= rank < start + turns[-1]:
-            t0 = time.monotonic()
-            whole = build_model(cfg, device).init(0)
-            plan = engine_plan.plan_model(cfg, whole,
-                                          **_plan_kwargs(args, cfg))
-            want = {"params": shard_bytes(mesh, whole, pspecs)}
-            pl_specs = engine_plan.plan_specs(plan, mesh)
-            want["plan"] = sum(shard_bytes(
-                mesh, engine_plan.weight_leaves(lp.weights),
-                engine_plan.weight_leaves(pl_specs.layers[nm].weights))
-                for nm, lp in plan.layers.items())
-            params = shd.place_tree(whole, shd.tree_shardings(mesh, pspecs))
-            params["sparse_plan"] = engine_plan.shard_plan(plan, mesh)
-            if device.type == "cuda":
-                setup_peak = torch.cuda.max_memory_allocated(device) / 2**30
-                # the card as every process uses it: the other ranks'
-                # shards and contexts, the whole sets of this turn's
-                # ranks, this one's still held
-                free, total = torch.cuda.mem_get_info(device)
-                setup_card = (total - free) / 2**30
-            del whole, plan
-            if device.type == "cuda":
-                torch.cuda.empty_cache()
-            setup_s = time.monotonic() - t0
-        torch.distributed.barrier()
-        if start == 0 and world_size > 1:
-            group = _setup_group(device, world_size, setup_peak)
-        start += turns[-1]
-    setup = {"setup_peak_gib": setup_peak, "setup_card_gib": setup_card,
-             "setup_s": setup_s,
-             "setup_wall_s": time.monotonic() - t_start,
-             "setup_turns": turns}
+
+    def make():
+        whole = build_model(cfg, device).init(0)
+        plan = engine_plan.plan_model(cfg, whole, **_plan_kwargs(args, cfg))
+        want = {"params": shard_bytes(mesh, whole, pspecs)}
+        pl_specs = engine_plan.plan_specs(plan, mesh)
+        want["plan"] = sum(shard_bytes(
+            mesh, engine_plan.weight_leaves(lp.weights),
+            engine_plan.weight_leaves(pl_specs.layers[nm].weights))
+            for nm, lp in plan.layers.items())
+        params = shd.place_tree(whole, shd.tree_shardings(mesh, pspecs))
+        params["sparse_plan"] = engine_plan.shard_plan(plan, mesh)
+        return params, want
+    (params, want), setup = in_turns(mesh, device, make)
     return bundle, params, want, setup
-
-
-def _zero_counts(device: torch.device) -> None:
-    """A rank's prologue to the run it reports: the kernels' launch
-    counts, the collectives, the engine's dispatch stats and the card's
-    peak memory statistics set to zero."""
-    _sync(device)
-    balanced_spmm.reset_launches()
-    kv_cache_update.reset_launches()
-    shd.COLLECTIVES.reset()
-    engine_execute.reset_stats()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-
-
-def _peak_gib(device: torch.device) -> float | None:
-    return torch.cuda.max_memory_allocated(device) / 2**30 \
-        if device.type == "cuda" else None
 
 
 def _serve_rank(rank: int, world_size: int, init_method: str,
@@ -810,7 +708,7 @@ def _serve_rank(rank: int, world_size: int, init_method: str,
     """One rank of ``--mesh`` (`rank_mesh`), set up by `place_rank`.
     Then it times the greedy path (its tokens, the logits they were
     chosen from and, for the MoE family, the experts it routed) with this
-    rank's counts zeroed just before (`_zero_counts`) and read just
+    rank's counts zeroed just before (`zero_counts`) and read just
     after.  Returns the rank's report (numpy for the tensors)."""
     from .dryrun import cache_shapes, shard_bytes, tree_bytes
     with rank_mesh(rank, world_size, init_method, args) as (mesh, device):
@@ -835,7 +733,7 @@ def _serve_rank(rank: int, world_size: int, init_method: str,
                     bundle.param_specs()["blocks"]["we_gate"][1]),
                 cfg.n_experts)
             expert_block = [e0, e0 + el]
-        _zero_counts(device)
+        zero_counts(device)
         t0 = time.monotonic()
         logits = []
         with transformer.record_routes() as routes:
@@ -848,27 +746,11 @@ def _serve_rank(rank: int, world_size: int, init_method: str,
                 "kernel_launches": _launch_counts(),
                 "expert_block": expert_block,
                 "experts_per_dispatch": dict(engine_execute.EXPERT_BLOCKS),
-                "peak_gib": _peak_gib(device),
+                "peak_gib": peak_gib(device),
                 **setup, "wall_s": wall, "resident_bytes": resident,
                 "shard_bytes": want, "tokens": toks.cpu().numpy(),
                 "logits": torch.stack(logits).float().cpu().numpy(),
                 "routes": [r.cpu().numpy() for r in routes]}
-
-
-def _setup_group(device: torch.device, world_size: int,
-                 peak_gib: float | None) -> int:
-    """How many ranks of ``--mesh`` set up at once after rank 0's turn:
-    off the card, all of them; on cards, as many of rank 0's measured
-    set-up peaks (``peak_gib``, sent from rank 0) as 85% of the free
-    memory of its card holds, on each card (a rank's card is its rank
-    modulo the card count), at least one."""
-    if device.type != "cuda":
-        return world_size - 1
-    info = torch.tensor([peak_gib or 0.0, torch.cuda.mem_get_info(device)[0]
-                         / 2**30], dtype=torch.float64)
-    torch.distributed.broadcast(info, 0)
-    peak, free = info.tolist()
-    return max(1, int(0.85 * free // peak)) * torch.cuda.device_count()
 
 
 def one_process(args: argparse.Namespace, cfg) -> tuple:
@@ -889,49 +771,6 @@ def one_process(args: argparse.Namespace, cfg) -> tuple:
             [r.cpu().numpy() for r in routes])
 
 
-def routing_agreement(routes: list, ref_routes: list) -> float | None:
-    """The share of (token, k) choices in which ``routes`` (one ``[T, K]``
-    array a MoE dispatch) picked the expert ``ref_routes`` did; None
-    without experts."""
-    if not ref_routes:
-        return None
-    if len(routes) != len(ref_routes):
-        raise ValueError(f"{len(routes)} routed dispatches against "
-                         f"{len(ref_routes)}")
-    same = sum(int((a == b).sum()) for a, b in zip(routes, ref_routes))
-    return same / sum(a.size for a in ref_routes)
-
-
-def _mesh_against_one_process(args: argparse.Namespace, cfg, one_fn,
-                              rank_fn) -> tuple:
-    """The run of ``--mesh``: the kernels built once here (not in
-    every rank), ``one_fn(args, cfg)``, this process's run of the same
-    params and plan (its yardstick; its memory freed before the ranks
-    start), then ``rank_fn`` on every rank of the mesh, within
-    `MESH_TIMEOUT_S`.  Returns ``(one_fn's result, the ranks' reports,
-    the report's head)``: model, depth, mesh, backend, device, the ranks'
-    seconds and the parity tolerance (1e-4 at float32, 2e-2 at
-    bfloat16)."""
-    from .ranks import run_ranks
-    device = resolve_device(args.device)
-    names, sizes = parse_mesh(args.mesh)
-    if device.type == "cuda":
-        from ..kernels import _build
-        _build.build()
-    ref = one_fn(args, cfg)
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    t0 = time.monotonic()
-    ranks = run_ranks(rank_fn, math.prod(sizes),
-                      init_method=args.dist_init, args=(args, cfg),
-                      timeout_s=MESH_TIMEOUT_S)
-    head = {"model": cfg.name, "n_layers": cfg.n_layers,
-            "mesh": dict(zip(names, sizes)), "backend": "gloo",
-            "device": str(device), "ranks_s": time.monotonic() - t0,
-            "parity_tol": 1e-4 if cfg.compute_dtype == "float32" else 2e-2}
-    return ref, ranks, head
-
-
 def _mesh_verdict(args: argparse.Namespace, report: dict, ok: bool,
                   what: str) -> dict:
     """Raise with ``report`` unless ``ok``; else write it to ``--report``
@@ -950,13 +789,13 @@ def _mesh_verdict(args: argparse.Namespace, report: dict, ok: bool,
 
 def run_mesh(args: argparse.Namespace, cfg) -> dict:
     """``--mesh``: `one_process`, then the ranks' greedy path
-    (`_serve_rank`), by `_mesh_against_one_process`; raises unless every
+    (`_serve_rank`), by `against_one_process`; raises unless every
     rank's tokens equal the one-process run's, the logits each step chose
     from (the prefill's and every decode step's) lie within the parity
     tolerance and every rank's resident bytes equal its
     `launch.dryrun.shard_bytes`."""
     (ref_toks, ref_logits, ref_routes), ranks, head = \
-        _mesh_against_one_process(args, cfg, one_process, _serve_rank)
+        against_one_process(args, cfg, one_process, _serve_rank)
     tol = head["parity_tol"]
     step_err = np.max([np.abs(r["logits"] - ref_logits).max(axis=(1, 2))
                        for r in ranks], axis=0)
@@ -1012,19 +851,19 @@ def _traffic_rank(rank: int, world_size: int, init_method: str,
                   args: argparse.Namespace, cfg) -> dict:
     """One rank of ``--traffic --mesh`` (`rank_mesh`), set up by
     `place_rank`: `traffic_mode` on the live mesh, this rank's counts
-    zeroed just before (`_zero_counts`) and read just after.  Returns the
+    zeroed just before (`zero_counts`) and read just after.  Returns the
     rank's report: the traffic report, its whole run's launches and
     collectives, its peak memory and wall."""
     with rank_mesh(rank, world_size, init_method, args) as (mesh, device):
         bundle, sparams, _, setup = place_rank(mesh, device, args, cfg)
-        _zero_counts(device)
+        zero_counts(device)
         t0 = time.monotonic()
         res = traffic_mode(bundle, sparams, cfg, args, mesh=mesh)
         _sync(device)
         return {"rank": rank, "coord": mesh.coord(), "traffic": res,
                 "kernel_launches": _launch_counts(),
                 "collectives": shd.COLLECTIVES.snapshot(),
-                "peak_gib": _peak_gib(device), **setup,
+                "peak_gib": peak_gib(device), **setup,
                 "wall_s": time.monotonic() - t0}
 
 
@@ -1050,7 +889,7 @@ def one_process_replay(args: argparse.Namespace, cfg) -> tuple:
 
 def run_traffic_mesh(args: argparse.Namespace, cfg) -> dict:
     """``--traffic --mesh``: `one_process_replay`, then `traffic_mode` on
-    every rank (`_traffic_rank`), by `_mesh_against_one_process`; raises
+    every rank (`_traffic_rank`), by `against_one_process`; raises
     unless on every rank the paged replay equals the contiguous one
     exactly (`traffic_mode` raises otherwise), its tokens equal the
     one-process replay's, the logits of every step lie within the parity
@@ -1061,7 +900,7 @@ def run_traffic_mesh(args: argparse.Namespace, cfg) -> dict:
     gated against the static loop here (as in the reference's
     `traffic_mode`)."""
     (ref_toks, ref_logits, ref_launches), ranks, head = \
-        _mesh_against_one_process(args, cfg, one_process_replay,
+        against_one_process(args, cfg, one_process_replay,
                                   _traffic_rank)
     tol = head["parity_tol"]
     ts = [r["traffic"] for r in ranks]
@@ -1123,6 +962,9 @@ def run(args: argparse.Namespace, cfg) -> dict:
     `exact_matmuls`."""
     with exact_matmuls():
         if args.mesh is not None:
+            if resolve_device(args.device).type == "cuda":
+                from ..kernels import _build
+                _build.build()      # once here, not in every rank
             return (run_traffic_mesh if args.traffic else run_mesh)(args,
                                                                     cfg)
         return _serve_one(args, cfg)

@@ -334,12 +334,16 @@ def _ce_chunk(xc: Tensor, emb: Tensor, lc: Tensor, mc: Tensor,
 
 def chunked_cross_entropy(x: Tensor, emb: Tensor, labels: Tensor, *,
                           chunk: int = 512, z_loss: float = 1e-4,
-                          mask: Tensor | None = None) -> Tensor:
+                          mask: Tensor | None = None,
+                          denom: Tensor | None = None) -> Tensor:
     """Mean next-token cross-entropy without holding ``[B, S, V]`` logits:
     x ``[B, S, D]`` final hidden states, emb ``[V, D]`` (tied softmax
     weights), labels ``[B, S]``.  Runs over S in ``chunk`` pieces, each
     recomputed in the backward (`torch.utils.checkpoint`), so no chunk's
-    logits are kept for it; ``z_loss`` is the logit-norm stabilizer."""
+    logits are kept for it; ``z_loss`` is the logit-norm stabilizer.  The
+    summed loss is divided by ``denom`` where given (a rank of a live
+    mesh: the whole batch's token count times the number of ranks that
+    repeat these rows), else by the tokens ``mask`` keeps."""
     b, s, d = x.shape
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
@@ -351,7 +355,7 @@ def chunked_cross_entropy(x: Tensor, emb: Tensor, labels: Tensor, *,
         loss_sum = loss_sum + checkpoint(_ce_chunk, x[:, sl], emb,
                                          labels[:, sl], ms[:, sl], z_loss,
                                          use_reentrant=False)
-    return loss_sum / ms.sum().clamp(min=1.0)
+    return loss_sum / (ms.sum().clamp(min=1.0) if denom is None else denom)
 
 
 def causal_lm_labels(tokens: Tensor, pad_id: int = -1) -> Tuple[Tensor,

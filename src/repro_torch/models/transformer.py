@@ -19,7 +19,8 @@ Training: ``train_loss`` is the mean next-token cross-entropy (chunked
 over the sequence, z-loss included) plus ``router_aux_weight`` times the
 MoE blocks' summed load-balancing loss, through dense projections (no
 serving plan), each block recomputed in the backward when ``cfg.remat``
-(`torch.utils.checkpoint`, the reference's ``jax.checkpoint``).
+(`torch.utils.checkpoint`, the reference's ``jax.checkpoint``).  On a
+live mesh it is a rank's share of that loss (`_build_live`).
 
 Sense integration: with ``cfg.sparse_serving`` and a plan attached
 (``params["sparse_plan"]``), prefill *and* decode run every planned
@@ -406,6 +407,15 @@ def _route(cfg: ModelConfig, lp, xf: Tensor) -> tuple:
     return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), eidx
 
 
+def _router_aux(probs: Tensor, eidx: Tensor) -> Tensor:
+    """The load-balancing auxiliary (Switch), ``E * sum_e f_e * p_e``, of
+    tokens routed with ``probs [T, E]`` to ``eidx [T, K]``."""
+    t, e = probs.shape
+    assign = torch.zeros((t, e), dtype=torch.float32, device=probs.device)
+    assign.scatter_(1, eidx, 1.0)
+    return e * torch.mean(assign.mean(0) * probs.mean(0))
+
+
 def _moe_tokens(cfg: ModelConfig, lp, xf: Tensor, plan_layers=None,
                 route=None) -> tuple:
     """Router, top-k, capacity dispatch, experts, combine, shared experts
@@ -417,13 +427,9 @@ def _moe_tokens(cfg: ModelConfig, lp, xf: Tensor, plan_layers=None,
     ``[T*K, E]`` one-hot; assignments past the capacity are clipped to the
     last slot with a zeroed input and a zeroed gate."""
     cd = _cdtype(cfg)
-    t, e = xf.shape[0], cfg.n_experts
     probs, gate, eidx = _route(cfg, lp, xf)
     own = (gate, eidx)
-    # load-balancing auxiliary (Switch): E * sum_e f_e * p_e
-    assign = torch.zeros((t, e), dtype=torch.float32, device=xf.device)
-    assign.scatter_(1, eidx, 1.0)
-    aux = e * torch.mean(assign.mean(0) * probs.mean(0))
+    aux = _router_aux(probs, eidx)
     if _ROUTES is not None:
         _ROUTES.append(eidx)
     if route is not None:
@@ -698,7 +704,12 @@ def _build_live(cfg: ModelConfig, device: torch.device,
       column-parallel over ``model``, its columns gathered back, written
       over the first n positions.
 
-    Only prefill and decode run here (no training step), for the
+    ``train_loss`` is this rank's share of the reference's loss of the
+    whole batch, differentiable through every collective (the convention
+    of `distributed.sharding`): each gather's backward reduce-scatters
+    the gradients onto the blocks, and `runtime.trainer.grad_step` sums
+    each leaf's over the axes its spec leaves it replicated on.  It runs
+    without a plan (dense weights), as the reference's does.  For the
     families of `LIVE_FAMILIES`."""
     if cfg.family not in LIVE_FAMILIES:
         raise NotImplementedError(
@@ -811,7 +822,9 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         over ``model``, cap over the data axes where they divide it:
         `dispatch_spec`); the blocks' outputs are gathered back to
         ``[E*cap, d]`` (one collective), and the rank combines its own
-        rows in the reference's order."""
+        rows in the reference's order.  Returns ``(y, aux)``: ``aux`` the
+        whole batch's router auxiliary, the segments' mean, as one
+        process's `_moe` has it."""
         s, d = h.shape[1], cfg.d_model
         x = _norm(cfg, h, lp["mlp_norm"]).to(cd)
         xg = shd.gather(x, mesh, P(bax, None, None)) if bax else x
@@ -833,11 +846,12 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         seg_s = max(1, _MOE_SEG // b)
         while s % seg_s:
             seg_s //= 2
-        ys = []
+        ys, auxes = [], []
         for j in range(0, s, seg_s):
             t = b * seg_s
             xf = xg[:, j:j + seg_s].reshape(t, d)
-            _, gate, eidx = _route(cfg, lp, xf)
+            probs, gate, eidx = _route(cfg, lp, xf)
+            auxes.append(_router_aux(probs, eidx))
             if _ROUTES is not None:
                 _ROUTES.append(eidx)
             rows = slice(r0 * seg_s, (r0 + bl) * seg_s)
@@ -848,7 +862,8 @@ def _build_live(cfg: ModelConfig, device: torch.device,
                                x[:, j:j + seg_s].reshape(bl * seg_s, d),
                                ("ws_gate", "ws_up", "ws_down"))
             ys.append(y.reshape(bl, seg_s, d))
-        return torch.cat(ys, dim=1)
+        aux = auxes[0] if len(auxes) == 1 else torch.stack(auxes).mean()
+        return torch.cat(ys, dim=1), aux
 
     def frontend_rows(params, h, frontend_embed):
         """``h`` with its first n positions replaced by this rank's rows
@@ -889,7 +904,7 @@ def _build_live(cfg: ModelConfig, device: torch.device,
                                              cache[2])
             a, kv_out = attn(lp, plp, h, bax, b, pos_fn, kv)
             h = h + a.to(h.dtype)
-            m = moe(lp, plp, h, bax, b) if cfg.family == "moe" \
+            m = moe(lp, plp, h, bax, b)[0] if cfg.family == "moe" \
                 else mlp(lp, plp, h)
             h = h + m.to(h.dtype)
             kvs.append(kv_out)
@@ -903,9 +918,68 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         return shd.place_tree(init_params(cfg, gen, device),
                               shd.tree_shardings(mesh, pspecs))
 
+    def train_block(h, lp, b, bax, pos_fn):
+        """One layer of the train step on this rank's rows ``h``: its
+        placed weights ``lp`` gathered to their use-time specs, attention
+        and the MLP or MoE as the serve program runs them; returns ``(h,
+        the router auxiliary)``."""
+        lp = gather_for_use(cfg, mesh, lp, uspecs)
+        a, _ = attn(lp, None, h, bax, b, pos_fn)
+        h = h + a.to(h.dtype)
+        if cfg.family == "moe":
+            m, aux = moe(lp, None, h, bax, b)
+        else:
+            m = mlp(lp, None, h)
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return h + m.to(h.dtype), aux
+
     def train_loss(params, batch):
-        raise NotImplementedError("the sharded train step is not ported; "
-                                  "a live mesh serves prefill and decode")
+        """This rank's share of the mean next-token loss of the whole
+        ``batch`` (the convention of `distributed.sharding`: the ranks'
+        shares sum to one process's `train_loss`).  The rank runs every
+        position of the rows `api.batch_partition_spec` gives it (its
+        block of `shard_batch`) through the layers, each remat'd per
+        layer when ``cfg.remat`` (`torch.utils.checkpoint`: the backward
+        repeats the layer's collectives, in the same order on every
+        rank).  The CE runs against the tied embedding gathered whole
+        over every axis (its backward one reduce-scatter onto the
+        blocks), divided by the whole batch's token count times the
+        ranks that repeat these rows; the router auxiliary, which every
+        rank takes of the whole batch, enters divided by the mesh's
+        size."""
+        tokens = batch["tokens"].long()
+        b, s = tokens.shape
+        bax = batch_axes(b)
+        r0, bl = shd.block_of(mesh, bax, b)
+        rows = slice(r0, r0 + bl)
+        h = shd.embed_rows(mesh, params["embed"], pspecs["embed"], tokens,
+                           cfg.d_model, rows).to(cd)
+        fe = batch.get("frontend_embed") if cfg.frontend else None
+        if fe is not None:
+            h = frontend_rows(params, h, fe[rows])
+
+        def pos_fn(prows):
+            return torch.arange(s, device=device).expand(len(prows), s)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(cfg.n_layers):
+            lp = {nm: w[i] for nm, w in params["blocks"].items()}
+            if cfg.remat:
+                h, a = checkpoint(train_block, h, lp, b, bax, pos_fn,
+                                  use_reentrant=False)
+            else:
+                h, a = train_block(h, lp, b, bax, pos_fn)
+            aux = aux + a
+        h = _norm(cfg, h, params["final_norm"])
+        labels, mask = causal_lm_labels(tokens)
+        if fe is not None:
+            # the frontend rows carry no token: no loss on predicting them
+            mask[:, :max(fe.shape[1] - 1, 0)] = 0.0
+        repeats = mesh.size // math.prod(mesh.shape[x] for x in bax)
+        emb = shd.gather(params["embed"], mesh, pspecs["embed"])
+        loss = chunked_cross_entropy(
+            h, emb, labels[rows], chunk=min(cfg.loss_chunk, s),
+            mask=mask[rows], denom=mask.sum().clamp(min=1.0) * repeats)
+        return loss + cfg.router_aux_weight * aux / mesh.size
 
     def prefill(params, batch):
         s = batch["tokens"].shape[1]

@@ -22,7 +22,9 @@ from typing import Callable
 
 import torch
 
-from ..tree import flatten_with_paths, leaves, tree_map, unflatten
+from ..distributed import sharding as shd
+from ..tree import (at_path, flatten_with_paths, leaves, tree_map,
+                    unflatten)
 
 Tensor = torch.Tensor
 
@@ -63,18 +65,49 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> Tensor:
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+def global_norm(tree, mesh=None, specs=None) -> Tensor:
+    """The L2 norm of every leaf of ``tree`` together.  On a live
+    ``mesh`` the leaves are this rank's blocks laid out by ``specs`` (a
+    tree of `distributed.sharding.P` of ``tree``'s structure): each
+    leaf's sum of squares of its block is summed over the ranks of the
+    axes its spec splits it over, in the order of their blocks (the sums
+    of every leaf in one ``all_gather``), and the leaves are summed in
+    tree order, so every rank holds the same bits and a replicated leaf
+    counts once."""
+    if mesh is None:
+        return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+    flat = flatten_with_paths(tree)
+    parts = torch.stack([x.float().square().sum() for _, x in flat])
+    every = shd.gather(parts[None], mesh, shd.P(tuple(mesh.axis_names)))
+    mine = mesh.coord()
+    total = 0.0
+    for i, (path, _) in enumerate(flat):
+        split = [a for d in at_path(specs, path) for a in shd.spec_axes(d)]
+        split = tuple(a for a in mesh.axis_names if a in split)
+        ranks = sorted((r for r in range(mesh.size)
+                        if all(c == mine[a] for a, c in mesh.coord(r).items()
+                               if a not in split)),
+                       key=lambda r: mesh.index(split, r))
+        leaf = every[ranks[0], i]
+        for r in ranks[1:]:
+            leaf = leaf + every[r, i]
+        total = total + leaf
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state, *,
-                 grad_transform: Callable | None = None):
+                 grad_transform: Callable | None = None, mesh=None,
+                 specs=None):
     """One AdamW step.  Returns ``(new_params, new_state, metrics)`` with
-    ``metrics = {"grad_norm", "lr"}`` (0-d f32 tensors)."""
+    ``metrics = {"grad_norm", "lr"}`` (0-d f32 tensors).  On a live
+    ``mesh`` the params, gradients and moments are this rank's blocks
+    laid out by ``specs`` (the reference's ``opt_sh``: the moments placed
+    as the params, ``step`` replicated): the update is elementwise on the
+    blocks, with the clip scale of `global_norm` on the mesh."""
     if grad_transform is not None:
         grads, state = grad_transform(grads, state)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / gnorm.clamp(min=1e-9), max=1.0)
         grads = tree_map(lambda g: g.float() * scale, grads)

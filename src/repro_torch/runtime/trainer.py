@@ -15,9 +15,18 @@
 * mask-preserving sparse training — the Sense pruning masks are re-applied
   after every update (paper Fig. 5 retraining).
 
-The step runs eagerly: ``loss_fn(params, batch)`` under autograd
-(`optim.value_and_grad`), the optional error-feedback compression, then
-`optim.adamw_update`.
+The step runs eagerly: ``loss_fn(params, batch)`` under autograd over
+``grad_accum`` microbatches (`grad_step`), the optional error-feedback
+compression, then `optim.adamw_update`.
+
+On a live mesh (``mesh=``, with the params' ``specs``) the step is the
+live twin of the reference's dry-run ``train_step``: the params, the
+gradients and the AdamW moments are this rank's blocks by ``specs``, the
+loss is a rank's share (`models.transformer._build_live`), the gradients
+are summed over the axes each leaf is replicated on, and AdamW updates
+the blocks with the mesh's global norm.  A trainer on a mesh takes no
+checkpoint (``checkpoint_every`` 0: a sharded checkpoint is not ported)
+and no gradient compression.
 """
 from __future__ import annotations
 
@@ -32,8 +41,10 @@ import torch
 
 from ..checkpoint import CheckpointManager
 from ..distributed import compress
+from ..distributed import sharding as shd
 from ..optim import (AdamWConfig, adamw_init, adamw_update, apply_masks,
                      value_and_grad)
+from ..tree import leaves, tree_map
 
 
 def _default_dir() -> str:
@@ -43,19 +54,58 @@ def _default_dir() -> str:
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int = 100
-    checkpoint_every: int = 50
+    checkpoint_every: int = 50         # 0 = no checkpoints
     checkpoint_dir: str = dataclasses.field(default_factory=_default_dir)
     step_deadline_s: float = 0.0       # 0 = no deadline
     max_retries: int = 2
     log_every: int = 10
     grad_compression: bool = False
+    grad_accum: int = 1                # microbatches per step
+
+
+def grad_step(loss_fn: Callable, params, batch: dict, *, accum: int = 1,
+              mesh=None, specs=None) -> tuple:
+    """``(loss, grads)`` of one train step, as the reference's dry-run
+    ``train_step`` takes them (reference launch/dryrun.py:184-198): with
+    ``accum`` > 1 the batch is cut into ``accum`` microbatches of
+    consecutive rows, each one's gradients summed in float32, and the
+    sum and the loss divided by ``accum``.  On a live ``mesh`` each rank
+    holds its share of the loss and the gradients of its blocks (laid
+    out by ``specs``): the gradients are summed over the axes each leaf
+    is replicated on (`distributed.sharding.reduce_replicated`) and the
+    loss over every rank in rank order, so every rank returns the global
+    loss and the blocks of the global gradients."""
+    if accum == 1:
+        loss, grads = value_and_grad(loss_fn, params, batch)
+    else:
+        grads, loss = None, 0.0
+        for i in range(accum):
+            mb = {k: v.reshape(accum, v.shape[0] // accum,
+                               *v.shape[1:])[i] for k, v in batch.items()}
+            mloss, g = value_and_grad(loss_fn, params, mb)
+            g = tree_map(lambda x: x.float(), g)
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+            loss = loss + mloss
+        grads = tree_map(lambda g: g / accum, grads)
+        loss = loss / accum
+    if mesh is not None:
+        grads = shd.reduce_replicated(grads, mesh, specs)
+        loss = shd.sum_in_order(loss, mesh, mesh.axis_names)
+    return loss, grads
 
 
 class Trainer:
     def __init__(self, *, loss_fn: Callable, params, data,
                  opt_cfg: AdamWConfig | None = None,
-                 cfg: TrainerConfig | None = None, masks=None):
+                 cfg: TrainerConfig | None = None, masks=None, mesh=None,
+                 specs=None):
         self.cfg = cfg or TrainerConfig()
+        if mesh is not None and (self.cfg.checkpoint_every
+                                 or self.cfg.grad_compression):
+            raise ValueError("a trainer on a live mesh takes no checkpoint "
+                             "(checkpoint_every must be 0) and no gradient "
+                             "compression: neither is ported to the mesh")
+        self.mesh, self.specs = mesh, specs
         self.opt_cfg = opt_cfg or AdamWConfig()
         self.loss_fn = loss_fn
         self.data = data
@@ -67,7 +117,8 @@ class Trainer:
         self.straggler_steps: list[int] = []
         self.preempted = False
         self._ckpt = CheckpointManager(self.cfg.checkpoint_dir,
-                                       every=self.cfg.checkpoint_every)
+                                       every=self.cfg.checkpoint_every) \
+            if self.cfg.checkpoint_every else None
         self._residuals = compress.zero_residuals(params) \
             if self.cfg.grad_compression else None
         self._sigterm = False
@@ -76,11 +127,16 @@ class Trainer:
         self._sigterm = True
 
     def _train_step(self, params, opt_state, residuals, batch):
-        loss, grads = value_and_grad(self.loss_fn, params, batch)
+        loss, grads = grad_step(self.loss_fn, params, batch,
+                                accum=self.cfg.grad_accum, mesh=self.mesh,
+                                specs=self.specs)
         if residuals is not None:
             grads, residuals = compress.compress_tree(grads, residuals)
-        params, opt_state, metrics = adamw_update(self.opt_cfg, params,
-                                                  grads, opt_state)
+        params, opt_state, metrics = adamw_update(
+            self.opt_cfg, params, grads, opt_state, mesh=self.mesh,
+            specs=self.specs)
+        metrics["grad_bytes"] = sum(g.numel() * g.element_size()
+                                    for g in leaves(grads))
         if self.masks is not None:
             params = apply_masks(params, self.masks)
         return params, opt_state, residuals, loss, metrics
@@ -90,6 +146,8 @@ class Trainer:
         return {"params": self.params, "opt": self.opt_state}
 
     def resume(self) -> bool:
+        if self._ckpt is None:
+            return False
         step, tree, extra = self._ckpt.restore_latest(self._state())
         if step is None:
             return False
@@ -101,6 +159,8 @@ class Trainer:
         return True
 
     def _save(self, force=False):
+        if self._ckpt is None:
+            return False
         extra = {}
         if hasattr(self.data, "state_dict"):
             extra["data_state"] = self.data.state_dict()
@@ -108,12 +168,15 @@ class Trainer:
                                      force=force)
 
     # -- main loop -----------------------------------------------------------
-    def run(self, *, fault_hook: Callable[[int], None] | None = None) -> dict:
+    def run(self, *, fault_hook: Callable[[int], None] | None = None,
+            on_step: Callable[[int], None] | None = None) -> dict:
         """Run to ``total_steps``.  ``fault_hook(step)`` may raise
         `TransientError` to simulate a transient failure: the step retries
-        from the last good state.  SIGTERM is bound to the preemption flag
-        while the run lasts (from the main thread) and the earlier handler
-        is restored when it ends."""
+        from the last good state.  ``on_step(step)``, where given, is
+        called after each step with the number of steps taken, once the
+        step is logged and before its checkpoint.  SIGTERM is bound to
+        the preemption flag while the run lasts (from the main thread) and
+        the earlier handler is restored when it ends."""
         previous = signal.getsignal(signal.SIGTERM)
         try:
             signal.signal(signal.SIGTERM, self._on_sigterm)
@@ -121,13 +184,13 @@ class Trainer:
         except ValueError:
             bound = False            # not the main thread
         try:
-            return self._run(fault_hook)
+            return self._run(fault_hook, on_step)
         finally:
             if bound:
                 signal.signal(signal.SIGTERM, previous
                               if previous is not None else signal.SIG_DFL)
 
-    def _run(self, fault_hook) -> dict:
+    def _run(self, fault_hook, on_step) -> dict:
         while self.step < self.cfg.total_steps:
             if self._sigterm or self.preempted:
                 self._save(force=True)
@@ -159,7 +222,10 @@ class Trainer:
                 self.metrics_log.append({
                     "step": self.step, "loss": float(loss),
                     "grad_norm": float(metrics["grad_norm"]),
-                    "lr": float(metrics["lr"]), "step_time_s": dt})
+                    "lr": float(metrics["lr"]), "step_time_s": dt,
+                    "grad_bytes": metrics["grad_bytes"]})
+            if on_step is not None:
+                on_step(self.step)
             self._save()
         self._save(force=True)
         return {"status": "done", "step": self.step,

@@ -29,6 +29,19 @@ the module afresh, so a test's monkeypatch does not reach it.
   `paged_pool_specs`: tokens, logits, the contiguous twin's parity, the
   rank's pool block, a poisoned request's quarantine and a run whose one
   rank starts late (the tick log);
+* `train_cases` — the sharded train step (`runtime.grad_step` and
+  `optim.adamw_update` on the mesh) of several smoke configs on one live
+  mesh: per step the loss, the grad norm, every leaf's gradient block
+  and whether the replicated blocks equal the other ranks' bit for bit;
+  the last step's `COLLECTIVES`;
+  the params, ``m`` and ``v`` blocks after the last step; the resident
+  bytes beside `launch.train.mesh_bytes`;
+* `adjoint_cases` — each differentiable collective of
+  `distributed.sharding` (gathers over some axes and over all, two cuts
+  in one `gather_tree`, `all_reduce`, `cols` both ways, `embed_rows`) at
+  float64: this rank's ``<f(x), dy>`` and ``<x, grad>`` (``grad`` by
+  autograd from ``dy``), whose sums over the ranks agree where the
+  backward is the forward's adjoint;
 * `raise_on` / `hang_on` — one rank raises, or never joins, while the
   others wait for it in the rendezvous; `pid_of` — a rank's process;
 * `gloo_cuda_probe` — which ``gloo`` collectives take CUDA tensors (the
@@ -282,12 +295,13 @@ def frontend_prefill(rank: int, world_size: int, init_method: str, args,
                      cfg, batch: int, prompt_len: int, n_rows: int) -> dict:
     """One planned prefill with frontend rows (`frontend_batch`) of
     ``cfg`` on the live mesh of ``serve --mesh``'s parsed ``args``, the
-    rank set up by serve's own `launch.serve.rank_mesh` and `place_rank`:
+    rank set up as serve's own (`launch.mesh_run.rank_mesh`,
+    `launch.serve.place_rank`):
     its logits, its kernel launches and collectives over the prefill."""
     from ..kernels import balanced_spmm
     from ..launch import serve
-    with serve.rank_mesh(rank, world_size, init_method, args) as (mesh,
-                                                                 device):
+    from ..launch.mesh_run import rank_mesh
+    with rank_mesh(rank, world_size, init_method, args) as (mesh, device):
         bundle, params, _, _ = serve.place_rank(mesh, device, args, cfg)
         inputs = frontend_batch(cfg, batch, prompt_len, n_rows, device)
         balanced_spmm.reset_launches()
@@ -387,6 +401,104 @@ def traffic_cases(rank: int, world_size: int, init_method: str, axes,
     return out
 
 
+def train_cases(rank: int, world_size: int, init_method: str, axes, sizes,
+                cases: list) -> list:
+    """See the module docstring.  A case is ``{"cfg", "params_np",
+    "batches": [{name: numpy}], "opt": optim.AdamWConfig}``; the params
+    are converted on every rank (`params_from_numpy`) and placed."""
+    from ..launch.dryrun import tree_bytes
+    from ..launch.train import mesh_bytes, replicas_equal
+    from ..optim import adamw_init, adamw_update
+    from ..runtime import grad_step
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    out = []
+    try:
+        for case in cases:
+            cfg = case["cfg"]
+            bundle = build_model(cfg, "cpu", mesh=mesh)
+            specs = bundle.param_specs()
+            params = shd.place_tree(params_from_numpy(case["params_np"],
+                                                      "cpu"),
+                                    shd.tree_shardings(mesh, specs))
+            opt = adamw_init(params)
+            res: dict = {"coord": mesh.coord(), "loss": [], "grad_norm": [],
+                         "grads": [], "replicas_equal": []}
+            for batch in case["batches"]:
+                shd.COLLECTIVES.reset()
+                loss, grads = grad_step(
+                    bundle.train_loss, params,
+                    {k: torch.from_numpy(v) for k, v in batch.items()},
+                    accum=cfg.grad_accum, mesh=mesh, specs=specs)
+                params, opt, metrics = adamw_update(
+                    case["opt"], params, grads, opt, mesh=mesh, specs=specs)
+                res["collectives"] = shd.COLLECTIVES.snapshot()
+                res["loss"].append(float(loss))
+                res["grad_norm"].append(float(metrics["grad_norm"]))
+                res["grads"].append({_key(p): _bits(t) for p, t in
+                                     flatten_with_paths(grads)})
+                res["replicas_equal"].append(all(
+                    replicas_equal(t, mesh, specs)
+                    for t in (params, opt["m"], opt["v"], grads)))
+            res["state"] = {_key(p): _bits(t) for p, t in flatten_with_paths(
+                {"params": params, "m": opt["m"], "v": opt["v"]})}
+            res["resident_bytes"] = {"param_bytes": tree_bytes(params),
+                                     "opt_bytes": tree_bytes(opt),
+                                     "grad_bytes": tree_bytes(grads)}
+            b, s = next(iter(case["batches"]))["tokens"].shape
+            res["shard_bytes"] = mesh_bytes(cfg, mesh, s, b)
+            out.append(res)
+    finally:
+        mesh.close()
+    return out
+
+
+def adjoint_cases(rank: int, world_size: int, init_method: str, axes,
+                  sizes) -> dict:
+    """See the module docstring: ``{case: (<f(x), dy>, <x, grad>)}`` of
+    this rank, and the `COLLECTIVES` the backward ran."""
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    gen = torch.Generator().manual_seed(100 + rank)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64)
+    both = tuple(axes)
+    cases = {
+        "gather_data": lambda x: shd.gather(x[0], mesh, shd.P("data",
+                                                               "model"),
+                                            ("data",)),
+        "gather_all": lambda x: shd.gather(x[0], mesh, shd.P(both, None)),
+        "gather_tree_two_cuts": lambda x: torch.cat([
+            t.reshape(-1) for t in shd.gather_tree(
+                {"a": x[0], "b": x[1]}, mesh,
+                {"a": shd.P("data", None), "b": shd.P("data", "model")},
+                both).values()]),
+        "all_reduce_model": lambda x: shd.all_reduce(x[0], mesh, "model"),
+        "cols_gather": lambda x: shd.cols(mesh, x[0], ("model",), ()),
+        "cols_cut": lambda x: shd.cols(mesh, x[0], (), ("model",)),
+        "embed_rows": lambda x: shd.embed_rows(
+            mesh, x[0], shd.P("model", "data"),
+            torch.tensor([[0, 3, 5], [7, 2, 2]]), 4, slice(0, 2)),
+    }
+    out = {}
+    try:
+        for name, f in cases.items():
+            xs = [rand(4, 2).requires_grad_(True),
+                  rand(2, 2).requires_grad_(True)]
+            shd.COLLECTIVES.reset()
+            y = f(xs)
+            dy = rand(*y.shape)
+            y.backward(dy)
+            out[name] = (float((y.detach() * dy).sum()),
+                         sum(float((x.detach() * x.grad).sum())
+                             for x in xs if x.grad is not None),
+                         shd.COLLECTIVES.snapshot())
+    finally:
+        mesh.close()
+    return out
+
+
 def pid_of(rank: int, world_size: int, init_method: str) -> int:
     """The rank's process id, after it joined a one-axis mesh (left
     open: the launcher tears a kept rank's groups down)."""
@@ -475,5 +587,6 @@ def gloo_cuda_probe(rank: int, world_size: int, init_method: str) -> dict:
 
 
 __all__ = ["mesh_case", "prefill_cases", "family_cases", "frontend_batch",
-           "frontend_prefill", "traffic_cases", "pid_of", "raise_on",
-           "hang_on", "gloo_cuda_probe"]
+           "frontend_prefill", "traffic_cases", "train_cases",
+           "adjoint_cases", "pid_of", "raise_on", "hang_on",
+           "gloo_cuda_probe"]

@@ -25,6 +25,13 @@ def flatten_with_paths(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     return [(prefix, tree)]
 
 
+def at_path(tree, path: Tuple) -> Any:
+    """The subtree of ``tree`` at the key path ``path``."""
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def leaves(tree) -> list:
     return [leaf for _, leaf in flatten_with_paths(tree)]
 

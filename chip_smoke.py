@@ -265,7 +265,7 @@ Then the MoE mesh, after phase 22, fatal as above:
              agreement with one process, each rank's collectives, set-up
              and serving peaks and wall printed.
 
-Phases 22-26 run their four ranks on processes started once and kept
+Phases 22-27 run their four ranks on processes started once and kept
 from run to run (`launch.ranks.keep_ranks`).
 
 Then the family meshes, after phase 23, fatal as above:
@@ -324,6 +324,31 @@ Then the sharded train step, after phase 25, fatal as above:
              `launch.dryrun.per_device_bytes`), held again here, and no
              launch of rows 1-8 in the ranks' steps; each rank's step
              walls, collectives of a step and peaks printed.
+
+Then the rest of the reference Trainer's contract on the mesh, on the same
+kept ranks, fatal as above:
+
+27. trainer mesh — ``train --mesh data=2,model=2`` of the recurrent
+             families at published width, depth `TRAINER_MESH_LAYERS`,
+             batch 8, seq 128, float32 compute, f32 params
+             (`TRAINER_MESH_ARGS`): (a) rwkv6-3b, 2 steps, each rank
+             checkpointing its own blocks every step; then, in this
+             process, `verify_checkpoint` of step 2 clean and the step-2
+             checkpoint restored as one process on the card, every leaf
+             within train's `F32_STATE_TOL` of the one-process step-2
+             state; (b) rwkv6-3b ``--resume --steps 3`` from it: starts
+             at step 2, one step, held against one process's
+             uninterrupted 3 steps (one yardstick for (a) and (b), its
+             states kept on the card); (c) zamba2-1.2b, 2 steps,
+             ``--grad-compression`` against a one-process run that
+             compresses too.  Train's own gates held again here: loss
+             and grad norm within 1e-4, params / ``m`` / ``v`` within
+             `F32_STATE_TOL` (`COMPRESSED_STATE_TOL` compressed),
+             replicated blocks bitwise equal, resident bytes equal to
+             `per_device_bytes`; no launch of rows 1-8; each rank's
+             step walls, collectives of a step (the preemption flag's
+             ``all_reduce``, the compression's), checkpoint writes and
+             restore (seconds, bytes) and peaks printed.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -649,7 +674,21 @@ TRAFFIC_MESH_KERNELS = ("tiled_balanced_spmm", "tiled_balanced_spmm_skinny",
 # phase 26, the sharded train step: phase 15's run (LM_TRAIN_ARGS,
 # LM_TRAIN_STEPS) on the mesh of phase 22
 TRAIN_MESH_ARGS = LM_TRAIN_ARGS + ["--steps", str(LM_TRAIN_STEPS),
-                                   "--mesh", MESH]
+                                   "--ckpt-every", "0", "--mesh", MESH]
+# phase 27, the mesh trainer: rwkv6-3b and zamba2-1.2b at published width,
+# depth TRAINER_MESH_LAYERS (zamba2: one group, the shared block and two
+# Mamba layers), batch 8, seq 128, f32 params on the mesh of phase 22, at
+# float32 compute (at bf16 train refuses them: their zero-initialized
+# leaves take Adam's sign-like first step, which a rounding flips), the
+# loss and grad norm held at TRAINER_MESH_TOL, the state at train's own
+# F32_STATE_TOL.  (a) rwkv6-3b 2 steps, a checkpoint every step; (b)
+# resumed from it to 3 steps; (c) zamba2-1.2b 2 steps compressed.  (a) and
+# (b) share one one-process yardstick of 3 steps.
+TRAINER_MESH_LAYERS, TRAINER_MESH_STEPS = 2, 2
+TRAINER_MESH_TOL = TOL["float32"]
+TRAINER_MESH_ARGS = ["--n-layers", str(TRAINER_MESH_LAYERS), "--batch", "8",
+                     "--seq", "128", "--compute-dtype", "float32",
+                     "--mesh", MESH]
 
 
 T_START = time.monotonic()
@@ -3472,7 +3511,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 21. long prefill: {time.monotonic() - t0:.1f} s")
 
-    # 22-26: the meshes, on four rank processes started once and kept
+    # 22-27: the meshes, on four rank processes started once and kept
     # from run to run (`launch.ranks.keep_ranks`; each run joins its own
     # rendezvous, and counts are zeroed just before each rank's greedy
     # path or train steps and read just after, in the rank)
@@ -3510,6 +3549,13 @@ def main() -> int:
         train_mesh_phase(torch, paths)
         torch.cuda.empty_cache()
         log(f"phase 26. train mesh: {time.monotonic() - t0:.1f} s")
+
+        # 27. the mesh trainer: the recurrent families, a sharded
+        # checkpoint with resume and restore, compression on the blocks
+        t0 = time.monotonic()
+        trainer_mesh_phase(torch, paths)
+        torch.cuda.empty_cache()
+        log(f"phase 27. trainer mesh: {time.monotonic() - t0:.1f} s")
 
     # 10. result: launches summed over the paths' runs; each kernel's timed
     # row at bf16, at the quant mode its serve path runs, at the shape its
@@ -3731,6 +3777,150 @@ def train_mesh_phase(torch, paths: dict) -> None:
     paths["olmo-1b train mesh"] = {
         k: sum(r["kernel_launches"].get(k, 0) for r in res["ranks"])
         for k in launches()}
+
+
+def _trainer_mesh_run(torch, train, label: str, argv: list,
+                      yardstick: dict | None, *, compressed=False) -> dict:
+    """One ``train --mesh`` run of phase 27 (``argv``, a fresh
+    rendezvous) with train's own gates, held again here; logs its gate
+    numbers and each rank's walls, collectives, checkpoints and peaks,
+    and returns the report."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        ns = train.build_parser().parse_args(
+            argv + ["--dist-init", f"file://{tmp}/mesh"])
+        res = train.run_mesh(ns, yardstick=yardstick)["mesh"]
+    worst = max(res["state_rel_err"], key=res["state_rel_err"].get)
+    want_state = train.COMPRESSED_STATE_TOL if compressed \
+        else train.F32_STATE_TOL
+    launched = {r["rank"]: {k: n for k, n in r["kernel_launches"].items()
+                            if n} for r in res["ranks"]}
+    log(f"trainer mesh {label}: steps {res['ran_steps']} from step "
+        f"{res['start_step']}, loss {res['loss']} (one process "
+        f"{res['one_process_loss']}); rel err loss {res['loss_rel_err']:.6g}"
+        f", grad norm {res['grad_norm_rel_err']:.6g} (tol "
+        f"{res['parity_tol']:g}), params / m / v "
+        f"{res['state_rel_err'][worst]:.6g} ({worst}, tol "
+        f"{res['state_tol']:g}); replicated blocks bitwise equal "
+        f"{res['replicas_equal']}, resident bytes equal to per_device_bytes "
+        f"{res['bytes_equal']}; one process {res['one_process_s']:.1f} s, "
+        f"ranks {res['ranks_s']:.1f} s")
+    if res["parity_tol"] != TRAINER_MESH_TOL \
+            or res["state_tol"] != want_state \
+            or res["held_step"] != res["ran_steps"][-1] \
+            or res["loss_rel_err"] > res["parity_tol"] \
+            or res["grad_norm_rel_err"] > res["parity_tol"] \
+            or res["state_rel_err"][worst] > want_state \
+            or not res["replicas_equal"] or not res["bytes_equal"] \
+            or any(launched.values()):
+        raise AssertionError(f"the trainer mesh run {label} failed its "
+                             f"gates (launched: {launched}): {res}")
+    for r in res["ranks"]:
+        ck = r["checkpoints"]
+        log(f"trainer mesh {label} rank {r['rank']} {r['coord']}: steps "
+            f"{[round(x, 3) for x in r['step_s']]} s, peak {r['peak_gib']} "
+            f"GiB, set-up {r['setup_s']:.1f} s of {r['setup_wall_s']:.1f} s; "
+            f"checkpoint writes " + (", ".join(
+                f"step {c['step']} {c['bytes']} B {c['s']:.2f} s"
+                for c in ck["saves"]) or "none")
+            + (f"; restore step {ck['restored']['step']} "
+               f"{ck['restored']['bytes']} B {ck['restored']['s']:.2f} s"
+               if ck["restored"] else "")
+            + "; collectives of the last step " + ", ".join(
+                f"{k}: {c['ops']} ops {c['bytes']} B"
+                for k, c in r["collectives"][-1].items()))
+    return res
+
+
+def trainer_mesh_phase(torch, paths: dict) -> None:
+    """Phase 27: the mesh trainer of rwkv6-3b and zamba2-1.2b on four
+    ranks sharing the card (see the module docstring): a checkpoint of
+    every rank's blocks, verified and restored as one process on the
+    card, a resumed run, a compressed run, each with train's own gates
+    held again here, and no launch of rows 1-8."""
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint, verify_checkpoint
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.tree import flatten_with_paths
+    log(f"phase 27 trainer mesh: backend gloo, {MESH_RANKS} ranks on "
+        f"cuda:0, rwkv6-3b and zamba2-1.2b at {TRAINER_MESH_LAYERS} layers, "
+        f"float32 compute")
+    steps = TRAINER_MESH_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/ckpt"
+        rwkv = ["--arch", "rwkv6-3b"] + TRAINER_MESH_ARGS + [
+            "--ckpt-dir", ckpt, "--ckpt-every", "1"]
+        # (a) and (b)'s one yardstick: one process's 3 uninterrupted steps,
+        # its states after steps 2 and 3 (kept on the card)
+        t0 = time.monotonic()
+        ns = train.build_parser().parse_args(rwkv + ["--steps",
+                                                     str(steps + 1)])
+        yardstick = train.one_process(ns, train.config(ns),
+                                      compared=[steps, steps + 1])
+        torch.cuda.empty_cache()
+        log(f"trainer mesh yardstick: rwkv6-3b one process, {steps + 1} "
+            f"steps, {time.monotonic() - t0:.1f} s (steps "
+            f"{[round(x, 3) for x in yardstick['step_s']]} s)")
+        first = _trainer_mesh_run(torch, train, "(a) rwkv6-3b", rwkv + [
+            "--steps", str(steps)], yardstick)
+        problems = verify_checkpoint(ckpt, steps)
+        t0 = time.monotonic()
+        cfg = train.config(ns)
+        shapes = api.init_shapes(cfg)
+
+        def zeros(tree):
+            return {k: zeros(v) for k, v in tree.items()} \
+                if isinstance(tree, dict) else torch.zeros(
+                    tree.shape, dtype=tree.dtype, device=DEVICE)
+        stats: dict = {}
+        whole, _ = restore_checkpoint(ckpt, steps, {
+            "params": zeros(shapes), "opt": {
+                "m": zeros(shapes), "v": zeros(shapes),
+                "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}},
+            stats=stats)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        want = yardstick["states"][steps]
+        flat = {"params": whole["params"], "m": whole["opt"]["m"],
+                "v": whole["opt"]["v"]}
+        errs = {train._key(p): float((t.float() - want[train._key(p)])
+                                     .abs().max())
+                / yardstick["scale"][steps][train._key(p)]
+                for p, t in flatten_with_paths(flat)}
+        worst = max(errs, key=errs.get)
+        log(f"trainer mesh checkpoint: step {steps} verify "
+            f"{problems or 'clean'}; restored as one process on the card "
+            f"in {restore_s:.2f} s ({stats['bytes']} B read), every leaf "
+            f"against the one-process step-{steps} state: {errs[worst]:.6g} "
+            f"({worst}; tol {train.F32_STATE_TOL:g}), step count "
+            f"{int(whole['opt']['step'])}")
+        if problems or errs[worst] > train.F32_STATE_TOL \
+                or int(whole["opt"]["step"]) != steps:
+            raise AssertionError(f"the step-{steps} mesh checkpoint failed: "
+                                 f"{problems}, {errs[worst]} ({worst})")
+        del whole, flat, want
+        torch.cuda.empty_cache()
+        second = _trainer_mesh_run(torch, train, "(b) rwkv6-3b resumed",
+                                   rwkv + ["--steps", str(steps + 1),
+                                           "--resume"], yardstick)
+        if second["start_step"] != steps or second["ran_steps"] \
+                != [steps + 1] or any(
+                    r["checkpoints"]["restored"].get("step") != steps
+                    for r in second["ranks"]):
+            raise AssertionError(f"the resumed run did not start at step "
+                                 f"{steps}: {second}")
+    del yardstick
+    torch.cuda.empty_cache()
+    third = _trainer_mesh_run(torch, train, "(c) zamba2-1.2b compressed", [
+        "--arch", "zamba2-1.2b"] + TRAINER_MESH_ARGS + [
+        "--steps", str(steps), "--ckpt-every", "0", "--grad-compression"],
+        None, compressed=True)
+    for label, res in (("rwkv6-3b trainer mesh", first),
+                       ("rwkv6-3b trainer mesh resumed", second),
+                       ("zamba2-1.2b trainer mesh", third)):
+        paths[label] = {k: sum(r["kernel_launches"].get(k, 0)
+                               for r in res["ranks"]) for k in launches()}
 
 
 def moe_mesh_phase(torch, serve, paths: dict) -> None:

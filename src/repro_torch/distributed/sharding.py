@@ -269,6 +269,16 @@ class CollectiveCounter:
     def snapshot(self) -> dict:
         return {k: dict(c) for k, c in sorted(self._counts.items())}
 
+    def since(self, before: dict) -> dict:
+        """The collectives run since ``before`` (a `snapshot`)."""
+        out = {}
+        for k, c in self.snapshot().items():
+            was = before.get(k, {})
+            d = {f: n - was.get(f, 0) for f, n in c.items()}
+            if any(d.values()):
+                out[k] = d
+        return out
+
 
 COLLECTIVES = CollectiveCounter()
 
@@ -289,6 +299,22 @@ def block_of(mesh: LiveMesh, axes, extent: int, rank: int | None = None):
         raise ValueError(f"{extent} does not divide over {axes!r} ({n})")
     size = extent // n
     return (mesh.index(axes, rank) * size if axes else 0), size
+
+
+def block_region(mesh: LiveMesh, shape, spec: P,
+                 rank: int | None = None) -> list:
+    """``[(start, size)]`` per dim of ``rank``'s (default: this one's)
+    block of a tensor of whole ``shape`` laid out by ``spec``."""
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    return [block_of(mesh, d, n, rank) if d is not None else (0, n)
+            for n, d in zip(shape, dims)]
+
+
+def whole_shape(mesh, shape, spec: P) -> list:
+    """The whole tensor's shape of a block of ``shape`` laid out by
+    ``spec`` (the inverse of `shard_shape`)."""
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    return [n * _axes_size(mesh, d) for n, d in zip(shape, dims)]
 
 
 def place(t: Tensor, mesh: LiveMesh, spec: P) -> Tensor:
@@ -523,6 +549,19 @@ def all_reduce(t: Tensor, mesh: LiveMesh, axes) -> Tensor:
     if group is None:
         return t
     return _AllReduce.apply(t, group)
+
+
+def all_max(t: Tensor, mesh: LiveMesh, axes) -> Tensor:
+    """The elementwise max of ``t`` over the ranks of ``axes`` (one
+    ``all_reduce``, exact in any order; no autograd)."""
+    group = _group(mesh, axes)
+    if group is None:
+        return t
+    x = t.clone()
+    torch.distributed.all_reduce(x, op=torch.distributed.ReduceOp.MAX,
+                                 group=group)
+    COLLECTIVES.record("all_reduce", x.numel() * x.element_size())
+    return x
 
 
 def replicated_axes(mesh: LiveMesh, spec: P) -> tuple:
@@ -869,9 +908,11 @@ __all__ = ["P", "dp_axes", "fsdp_axes", "dim_spec", "logical_spec",
            "shard_batch", "shard_shape", "with_hidden_sharding",
            "with_channel_sharding", "kv_plane_spec", "page_table_spec",
            "named", "tree_shardings", "Placement", "place_tree",
-           "place", "gather", "gather_tree", "all_reduce", "planes_of",
+           "place", "gather", "gather_tree", "all_reduce", "all_max",
+           "planes_of",
            "reduce_scatter_tree", "replicated_axes", "reduce_replicated",
-           "rows_of", "block_of", "spec_axes", "COLLECTIVES",
+           "rows_of", "block_of", "block_region", "whole_shape",
+           "spec_axes", "COLLECTIVES",
            "CollectiveCounter", "use_spec", "gather_for_use", "cols",
            "project", "sum_in_order", "embed_rows", "vocab_logits",
            "Route", "route", "exchange"]

@@ -153,11 +153,14 @@ def routing_agreement(routes: list, ref_routes: list) -> float | None:
 
 
 def against_one_process(args: argparse.Namespace, cfg, one_fn, rank_fn,
-                        rank_args: tuple = ()) -> tuple:
+                        rank_args=()) -> tuple:
     """The run of ``--mesh``: ``one_fn(args, cfg)``, this process's run of
     the same arguments (its yardstick; its memory freed before the ranks
-    start), then ``rank_fn(rank, world_size, init_method, args, cfg,
-    *rank_args)`` on every rank of the mesh, within `MESH_TIMEOUT_S`.
+    start, but for what its result holds), then ``rank_fn(rank,
+    world_size, init_method, args, cfg, *rank_args)`` on every rank of
+    the mesh, within `MESH_TIMEOUT_S`; ``rank_args`` may be a function
+    of ``one_fn``'s result (tensors in it reach the ranks by
+    `torch.multiprocessing`'s sharing: on the card by CUDA IPC).
     Returns ``(one_fn's result, the ranks' reports, the report's head)``:
     model, depth, mesh, backend, device, the one process's and the ranks'
     seconds and the parity tolerance (1e-4 at float32, 2e-2 at
@@ -168,6 +171,8 @@ def against_one_process(args: argparse.Namespace, cfg, one_fn, rank_fn,
     t0 = time.monotonic()
     ref = one_fn(args, cfg)
     one_s = time.monotonic() - t0
+    if callable(rank_args):
+        rank_args = rank_args(ref)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.monotonic()

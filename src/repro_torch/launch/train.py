@@ -13,23 +13,26 @@ GPU unless ``--device cpu`` is given (a missing GPU raises), with TF32 off
 so f32 matmuls are exact.  A step takes the config's ``grad_accum``
 microbatches (`runtime.grad_step`).
 
-``--mesh data=2,model=2 --dist-init file://PATH`` trains the transformer
-families on a live mesh of `torch.distributed` ranks over ``gloo``, one
-process a rank (all on the one card, or the CPU), the reference's sharded
-train step (`run_mesh`): params, gradients and AdamW moments placed by
-``param_specs``.  It gates itself against a one-process run of the same
-arguments in this process and raises where a gate fails; for the MoE
-family the gate holds the steps before the ranks' routes first differ
-from the one process's (at bf16 a near tie flips once the params differ
-by a rounding), and reports the routing agreement.  It takes no
-checkpoint; it refuses ``--resume``, ``--grad-compression`` and the
-recurrent families.
+``--mesh data=2,model=2 --dist-init file://PATH`` trains any family
+(rwkv6 and zamba2 at ``--compute-dtype float32`` only: `refuse_mesh`) on
+a live mesh of `torch.distributed` ranks over ``gloo``, one process a
+rank (all on the one card, or the CPU), as the reference's `Trainer`
+does on sharded arrays (`run_mesh`): params, gradients, AdamW moments
+and the compression's residuals placed by ``param_specs``; each rank
+checkpoints its own blocks every ``--ckpt-every`` steps and at the end
+(a replicated block once), ``--resume`` restores them, from a
+checkpoint of any mesh or of one process, and ``--grad-compression``
+quantizes each leaf as the whole leaf would be.  It gates itself
+against a one-process run of the same arguments in this process (from
+step 0, uninterrupted) and raises where a gate fails; for the MoE family
+the gate holds the steps before the ranks' routes first differ from the
+one process's (at bf16 a near tie flips once the params differ by a
+rounding), and reports the routing agreement.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import math
 import tempfile
 import time
@@ -44,7 +47,7 @@ from ..device import exact_matmuls, resolve_device
 from ..distributed import sharding as shd
 from ..kernels import balanced_spmm, bitmap_spmm, kv_cache_update
 from ..models import build_model, transformer
-from ..models.api import input_specs
+from ..models.api import init_shapes, input_specs
 from ..optim import AdamWConfig, adamw_init
 from ..runtime import Trainer, TrainerConfig
 from ..tree import at_path, flatten_with_paths, leaves, tree_map
@@ -69,6 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth to this many layers (default: the "
                          "config's); the widths stay as published")
+    ap.add_argument("--compute-dtype", choices=("bfloat16", "float32"),
+                    default=None,
+                    help="the activations' dtype (default: the config's)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--mesh", default=None,
@@ -81,19 +87,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config(args: argparse.Namespace):
-    """The model config the arguments name, depth cut to ``--n-layers``."""
+    """The model config the arguments name, depth cut to ``--n-layers``,
+    its compute dtype ``--compute-dtype`` where given."""
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers is not None:
         if not 0 < args.n_layers <= cfg.n_layers:
             raise ValueError(f"--n-layers must be in [1, {cfg.n_layers}]")
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    if getattr(args, "compute_dtype", None):
+        cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     return cfg
 
 
 def _trainer(args: argparse.Namespace, cfg, bundle, params, device, *,
              mesh=None, checkpoint_every: int | None = None) -> Trainer:
     """The trainer of ``bundle``'s ``params`` on the synthetic stream
-    (``--batch`` x ``--seq`` a step) with the arguments' AdamW."""
+    (``--batch`` x ``--seq`` a step) with the arguments' AdamW, on a live
+    ``mesh`` with the bundle's ``param_specs``."""
     data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
                                       seq_len=args.seq,
                                       global_batch=args.batch),
@@ -148,21 +158,32 @@ def run(args: argparse.Namespace, trainer: Trainer | None = None) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# The families (rwkv6's ``ssm``, zamba2's ``hybrid``) whose train state a
+# mesh run cannot be held to one process's at bfloat16 compute: their
+# zero-initialized leaves (rwkv6's ``ln1_b`` / ``ln2_b``, zamba2's
+# ``conv_b`` / ``A_log`` / ``dt_bias``) take Adam's sign-like first step,
+# so a bf16 rounding that flips the sign of a near-zero gradient moves
+# such a param by 2 lr, about its leaf's whole max; one process at bf16
+# differs from itself at float32 by 40-70% of such a leaf's max, so no
+# tolerance tells a fault from rounding there.
+FLOAT32_ONLY_MESH_FAMILIES = ("ssm", "hybrid")
+
+
 def refuse_mesh(args: argparse.Namespace, cfg) -> None:
-    """Raise ValueError where ``--mesh`` cannot run these arguments."""
-    if args.resume:
-        raise ValueError("--mesh does not take --resume: a sharded "
-                         "checkpoint is not ported yet")
-    if args.grad_compression:
-        raise ValueError("--mesh does not take --grad-compression: the "
-                         "compression is not ported to the mesh yet")
-    if cfg.family not in transformer.LIVE_FAMILIES:
-        raise ValueError(f"--mesh trains the {transformer.LIVE_FAMILIES} "
-                         f"families; {cfg.name} is {cfg.family}, whose "
-                         f"live train_loss is not ported yet")
+    """Raise ValueError where ``--mesh`` cannot run these arguments: a
+    missing rendezvous, or a family of `FLOAT32_ONLY_MESH_FAMILIES` at
+    bfloat16 compute (before any rank starts)."""
     if not args.dist_init:
         raise ValueError("--mesh needs --dist-init (file://PATH or "
                          "tcp://HOST:PORT)")
+    if cfg.family in FLOAT32_ONLY_MESH_FAMILIES \
+            and cfg.compute_dtype != "float32":
+        raise ValueError(
+            f"--mesh holds {cfg.name}'s train state against one process "
+            f"only at float32 compute: at {cfg.compute_dtype} its "
+            f"zero-initialized leaves take Adam's sign-like first step, "
+            f"which a rounding of a near-zero gradient flips; pass "
+            f"--compute-dtype float32")
 
 
 def _state(trainer: Trainer) -> dict:
@@ -173,7 +194,8 @@ def _state(trainer: Trainer) -> dict:
 def compared_steps(cfg, steps: int) -> list:
     """The steps after which the ranks' blocks are held against one
     process's state: every step for the MoE family (the gate takes the
-    last one before the routes first differ), else the last."""
+    last one before the routes first differ), else the last (any family:
+    the recurrent ones route nothing)."""
     return list(range(1, steps + 1)) if cfg.family == "moe" else [steps]
 
 
@@ -181,29 +203,36 @@ def _key(path) -> str:
     return "/".join(map(str, path))
 
 
-def one_process(args: argparse.Namespace, cfg, state_dir: str) -> dict:
+def one_process(args: argparse.Namespace, cfg,
+                compared: list | None = None) -> dict:
     """One process's run of the same seed-0 params, stream and steps as
-    ``--mesh`` (its yardstick): per step the loss, the grad norm and the
-    experts each MoE dispatch chose; after each of `compared_steps` its
-    params and AdamW moments (float32, on the host) saved to
-    ``state_dir/<step>.pt`` and each leaf's max |value|."""
+    ``--mesh`` (its yardstick), from step 0 to ``--steps`` uninterrupted
+    and without a checkpoint, with ``--grad-compression`` where given:
+    per step the loss, the grad norm and the experts each MoE dispatch
+    chose (none for the families without experts); after each step of
+    ``compared`` (default `compared_steps`) its params and AdamW moments
+    (float32, kept in memory on its device, under ``states``: the ranks
+    read them where they lie) and each leaf's max |value|.  A yardstick
+    with several compared steps serves several mesh runs (a run and its
+    resumed continuation)."""
     device = resolve_device(args.device)
     bundle = build_model(cfg, device)
     trainer = _trainer(args, cfg, bundle, bundle.init(0), device,
                        checkpoint_every=0)
     trainer.cfg.log_every = 1
-    compared = compared_steps(cfg, args.steps)
-    routes, scale = [], {}
+    compared = compared or compared_steps(cfg, args.steps)
+    routes, scale, states = [], {}, {}
 
     def on_step(step):
         routes.append([r.cpu().numpy() for r in sink])
         sink.clear()
         if step in compared:
-            state = {_key(p): t.detach().float().cpu()
-                     for p, t in flatten_with_paths(_state(trainer))}
+            # a step replaces the state's tensors (`adamw_update` writes
+            # none in place), so these stay the step's
+            states[step] = {_key(p): t.detach().float()
+                            for p, t in flatten_with_paths(_state(trainer))}
             scale[step] = {k: max(float(t.abs().max()), 1e-30)
-                           for k, t in state.items()}
-            torch.save(state, f"{state_dir}/{step}.pt")
+                           for k, t in states[step].items()}
     with transformer.record_routes() as sink:
         res = trainer.run(on_step=on_step)
     if res["status"] != "done":
@@ -212,7 +241,7 @@ def one_process(args: argparse.Namespace, cfg, state_dir: str) -> dict:
     return {"loss": [m["loss"] for m in log_],
             "grad_norm": [m["grad_norm"] for m in log_],
             "step_s": [m["step_time_s"] for m in log_],
-            "routes": routes, "scale": scale}
+            "routes": routes, "scale": scale, "states": states}
 
 
 def replicas_equal(tree, mesh, specs) -> bool:
@@ -234,7 +263,7 @@ def mesh_bytes(cfg, mesh, seq: int, batch: int) -> dict:
     ``batch`` x ``seq`` (the gradients in float32 where ``grad_accum``
     sums them)."""
     from .dryrun import per_device_bytes
-    shapes = transformer.init_shapes(cfg)
+    shapes = init_shapes(cfg)
     shape = ShapeSpec("train", "train", seq, batch)
     grads = shapes if cfg.grad_accum == 1 \
         else tree_map(lambda p: p.float(), shapes)
@@ -245,27 +274,30 @@ def mesh_bytes(cfg, mesh, seq: int, batch: int) -> dict:
     return {k: want[k] for k in ("param_bytes", "opt_bytes", "grad_bytes")}
 
 
-def block_errors(state: dict, mesh, specs: dict, path: str) -> dict:
+def block_errors(state: dict, mesh, specs: dict, whole: dict) -> dict:
     """Per leaf of ``state`` (this rank's params, ``m`` and ``v`` blocks):
-    max |block - its block of the one-process leaf|, taken on the host
-    (``path``: the one-process state as `torch.save` wrote it, read
-    memory-mapped, so a rank reads its blocks only)."""
-    whole = torch.load(path, mmap=True, weights_only=True)
-    return {_key(p): float((t.detach().float().cpu() - shd.place(
+    max |block - its block of the one-process leaf| (``whole``: the
+    one-process state of `one_process`, shared with the ranks where it
+    lies: on the card by CUDA IPC, on the CPU in shared memory)."""
+    return {_key(p): float((t.detach().float() - shd.place(
         whole[_key(p)], mesh, at_path(specs, p[1:]))).abs().max())
         for p, t in flatten_with_paths(state)}
 
 
 def _train_rank(rank: int, world_size: int, init_method: str,
-                args: argparse.Namespace, cfg, state_dir: str) -> dict:
+                args: argparse.Namespace, cfg, states: dict) -> dict:
     """One rank of ``--mesh`` (`mesh_run.rank_mesh`): the live bundle's
     seed-0 params made whole and placed in turns (`mesh_run.in_turns`),
-    then ``--steps`` steps of the mesh's `runtime.Trainer`, this rank's
-    counts zeroed just before the first step.  After each step it notes
-    the step's collectives, the experts each MoE dispatch chose, and
-    whether its params' and moments' blocks equal, bit for bit, those of
-    the ranks that hold the same ones; after each of `compared_steps`,
-    each block's distance to the one-process state of that step
+    resumed from the newest checkpoint of ``--ckpt-dir`` with
+    ``--resume`` (every rank its own blocks, on any saving mesh), then
+    the mesh's `runtime.Trainer` to ``--steps``, checkpointing every
+    ``--ckpt-every`` steps, this rank's counts zeroed just before the
+    first step.  After each step it notes the step's collectives (the
+    preemption flag's, the compression's and the checkpoint's among
+    them), the experts each MoE dispatch chose, and whether its params'
+    and moments' blocks equal, bit for bit, those of the ranks that hold
+    the same ones; after each step that ``states`` (the one-process
+    states by step) holds, each block's distance to that state
     (`block_errors`).  Returns the rank's report."""
     from .dryrun import tree_bytes
     t_start = time.monotonic()
@@ -275,11 +307,12 @@ def _train_rank(rank: int, world_size: int, init_method: str,
         specs = bundle.param_specs()
         params, setup = mesh_run.in_turns(mesh, device,
                                           lambda: bundle.init(0))
-        trainer = _trainer(args, cfg, bundle, params, device, mesh=mesh,
-                           checkpoint_every=0)
+        trainer = _trainer(args, cfg, bundle, params, device, mesh=mesh)
         trainer.cfg.log_every = 1
         del params
-        compared = compared_steps(cfg, args.steps)
+        if args.resume:
+            trainer.resume()
+        start = trainer.step
         equal, collectives, routes, errors = [], [], [], {}
         compare_s = 0.0
 
@@ -290,10 +323,10 @@ def _train_rank(rank: int, world_size: int, init_method: str,
             sink.clear()
             equal.append(all(replicas_equal(t, mesh, specs)
                              for t in _state(trainer).values()))
-            if step in compared:
+            if step in states:
                 t0 = time.monotonic()
                 errors[step] = block_errors(_state(trainer), mesh, specs,
-                                            f"{state_dir}/{step}.pt")
+                                            states[step])
                 compare_s += time.monotonic() - t0
             shd.COLLECTIVES.reset()
         mesh_run.zero_counts(device)
@@ -302,12 +335,13 @@ def _train_rank(rank: int, world_size: int, init_method: str,
         if res["status"] != "done":
             raise RuntimeError(f"rank {rank} ended {res}")
         log_ = trainer.metrics_log
-        return {"rank": rank, "coord": mesh.coord(),
+        return {"rank": rank, "coord": mesh.coord(), "start_step": start,
+                "steps": [m["step"] for m in log_],
                 "loss": [m["loss"] for m in log_],
                 "grad_norm": [m["grad_norm"] for m in log_],
                 "step_s": [m["step_time_s"] for m in log_],
                 "collectives": collectives, "replicas_equal": equal,
-                "routes": routes,
+                "routes": routes, "checkpoints": trainer.checkpoints,
                 "kernel_launches": {**balanced_spmm.LAUNCHES,
                                     **bitmap_spmm.LAUNCHES,
                                     **kv_cache_update.LAUNCHES},
@@ -321,51 +355,97 @@ def _train_rank(rank: int, world_size: int, init_method: str,
                 "rank_s": time.monotonic() - t_start}
 
 
+# A compressed step quantizes each gradient to int8 levels of 1/127 of
+# its 256-element block's max: where the mesh's gradient differs from one
+# process's by a rounding, an element may land one level apart, which
+# moves ``m`` and ``v`` by up to about that share of a leaf's max (and the
+# error feedback carries it into the next step).  The params, ``m`` and
+# ``v`` of a compressed run are held at this tolerance, the loss and grad
+# norm at the compute dtype's.
+COMPRESSED_STATE_TOL = 2e-2
+# At float32 a mesh's state drifts from one process's by what its
+# gradients' sums round apart: a gradient that sums many tokens' terms
+# which cancel (rwkv6's bias ``ln1_b``) differs between the two by up to a
+# few percent of its value on an H100 (rwkv6-3b at 2 layers), and a leaf
+# that starts at zero holds only a few Adam updates of it.  There the H100
+# read 3.04e-3 of the leaf's max after one step and 1.19e-3 / 1.29e-3
+# after two / three (``m`` and ``v`` within 6.7e-4); the CPU's smoke config
+# 1.6e-5 (`tools/mesh_state_gap.py` takes the gap apart by step and
+# element).  The params, ``m`` and ``v`` of a float32 run are held at this
+# tolerance, 1.6x the largest reading; the loss and grad norm at 1e-4.
+F32_STATE_TOL = 5e-3
+
+
+def state_tol(args: argparse.Namespace, cfg, tol: float) -> float:
+    """The tolerance of a mesh run's params, ``m`` and ``v`` (relative to
+    each leaf's max |value|): `COMPRESSED_STATE_TOL` where
+    ``--grad-compression`` quantizes, `F32_STATE_TOL` at float32 compute,
+    else ``tol``, the compute dtype's (that of the loss and grad norm)."""
+    if args.grad_compression:
+        return max(tol, COMPRESSED_STATE_TOL)
+    return F32_STATE_TOL if cfg.compute_dtype == "float32" else tol
+
+
 def _rel(got: float, want: float) -> float:
     return abs(got - want) / max(abs(want), 1e-30)
 
 
-def run_mesh(args: argparse.Namespace) -> dict:
-    """``--mesh``: `one_process` in this process, then `_train_rank` on
-    every rank, by `mesh_run.against_one_process`.  The steps held
-    against one process are those before the first in which a rank's
-    MoE routes differ from its (every step without experts; a flip is
-    what bf16 rounding of a near tie does once the params differ by it).
-    Raises unless, at the parity tolerance (1e-4 at float32 compute, 2e-2
-    at bfloat16), every rank's loss and grad norm of each held step match
-    the one-process run's (relative to its value) and its params, ``m``
-    and ``v`` blocks after the last held step match the one-process tree
-    cut by ``param_specs`` (relative to each leaf's max |value|), the
-    first step is held, every rank routed as rank 0 did, every rank's
-    replicated blocks equal after every step, bit for bit, those of the
-    ranks that hold the same ones, and every rank's resident params,
-    moments and gradients equal `dryrun.per_device_bytes` for the config
-    and mesh.  Prints per rank the step's collectives, walls and peak;
-    returns the report under ``mesh``."""
+def _fmt_collectives(counts: dict) -> str:
+    return ", ".join(f"{k}: {c['ops']} ops {c['bytes']} B"
+                     for k, c in counts.items()) or "none"
+
+
+def run_mesh(args: argparse.Namespace, yardstick: dict | None = None
+             ) -> dict:
+    """``--mesh``: `one_process` in this process (or ``yardstick``, an
+    earlier `one_process` of the same config that kept every step this
+    run compares), then `_train_rank` on every rank with the yardstick's
+    states, by `mesh_run.against_one_process`.  The steps held against
+    one process are those the ranks ran (from the checkpoint ``--resume``
+    restored, if any) before the first in which a rank's MoE routes
+    differ from its (every step without experts; a flip is what bf16
+    rounding of a near tie does once the params differ by it).  Raises
+    unless, at the parity tolerance (1e-4 at float32 compute, 2e-2 at
+    bfloat16), every rank's loss and grad norm of each held step match
+    the one-process run's (relative to its value); its params, ``m`` and
+    ``v`` blocks after the last held step match the one-process tree cut
+    by ``param_specs`` at `state_tol` (relative to each leaf's max
+    |value|); the first step is held; every rank started at the same
+    step and routed as rank 0 did; every rank's replicated blocks equal
+    after every step, bit for bit, those of the ranks that hold the same
+    ones; and every rank's resident params, moments and gradients equal
+    `dryrun.per_device_bytes` for the config and mesh.  Prints per rank
+    the step's collectives, walls, checkpoint writes and restore and the
+    peak; returns the report under ``mesh``."""
     cfg = config(args)
     refuse_mesh(args, cfg)
-    with tempfile.TemporaryDirectory() as tmp:
-        ref, ranks, head = mesh_run.against_one_process(
-            args, cfg, functools.partial(one_process, state_dir=tmp),
-            _train_rank, rank_args=(tmp,))
+    one_fn = one_process if yardstick is None \
+        else lambda *_: yardstick   # noqa: E731
+    ref, ranks, head = mesh_run.against_one_process(
+        args, cfg, one_fn, _train_rank,
+        rank_args=lambda ref: (ref["states"],))
     tol = head["parity_tol"]
-    agreement = [None if not want else min(
-        mesh_run.routing_agreement(r["routes"][i], want) for r in ranks)
-        for i, want in enumerate(ref["routes"])]
+    s_tol = state_tol(args, cfg, tol)
+    steps = ranks[0]["steps"]
+    agreement = [None if not ref["routes"][s - 1] else min(
+        mesh_run.routing_agreement(r["routes"][i], ref["routes"][s - 1])
+        for r in ranks) for i, s in enumerate(steps)]
     held = next((i for i, a in enumerate(agreement)
-                 if a is not None and a < 1.0), args.steps)
+                 if a is not None and a < 1.0), len(steps))
+    held_step = steps[held - 1] if held else None
     routes_alike = all(
         len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
         for r in ranks for a, b in zip(r["routes"], ranks[0]["routes"]))
-    steps_equal = all(len(r["loss"]) == args.steps for r in ranks)
-    loss_err = max((_rel(g, w) for r in ranks
-                    for g, w in zip(r["loss"][:held], ref["loss"][:held])),
+    steps_equal = all(r["steps"] == steps for r in ranks) and steps == list(
+        range(ranks[0]["start_step"] + 1, args.steps + 1))
+    loss_err = max((_rel(g, ref["loss"][s - 1]) for r in ranks
+                    for g, s in zip(r["loss"][:held], steps)),
                    default=math.inf)
-    gnorm_err = max((_rel(g, w) for r in ranks for g, w in
-                     zip(r["grad_norm"][:held], ref["grad_norm"][:held])),
+    gnorm_err = max((_rel(g, ref["grad_norm"][s - 1]) for r in ranks
+                     for g, s in zip(r["grad_norm"][:held], steps)),
                     default=math.inf)
-    scale = ref["scale"].get(held, {})
-    state_err = {k: max(r["block_errors"][held][k] for r in ranks) / s
+    scale = ref["scale"].get(held_step, {})
+    state_err = {k: max(r["block_errors"][held_step][k] for r in ranks) / s
                  for k, s in scale.items()} or {"-": math.inf}
     replicas = all(all(r["replicas_equal"]) for r in ranks)
     bytes_equal = all(r["resident_bytes"] == r["shard_bytes"]
@@ -373,42 +453,57 @@ def run_mesh(args: argparse.Namespace) -> dict:
     per_rank = [{k: v for k, v in r.items()
                  if k not in ("block_errors", "routes")} for r in ranks]
     for r in per_rank:
+        ck = r["checkpoints"]
+        saves = "; ".join(
+            f"step {c['step']} {c['bytes']} B in {c['files']} files "
+            f"{c['s']:.2f} s ({_fmt_collectives(c.get('collectives', {}))})"
+            for c in ck["saves"]) or "none"
+        restored = ck["restored"]
+        restore = f"step {restored['step']} {restored['bytes']} B " \
+            f"{restored['s']:.2f} s" if restored else "none"
         print(f"[train/mesh] rank {r['rank']} {r['coord']}: steps "
-              f"{[round(s, 3) for s in r['step_s']]} s, collectives of the "
-              f"last step " + ", ".join(
-                  f"{k}: {c['ops']} ops {c['bytes']} B"
-                  for k, c in r["collectives"][-1].items())
-              + f", peak {r['peak_gib']} GiB (set-up {r['setup_peak_gib']} "
-              f"GiB), set-up {r['setup_s']:.2f} s of "
-              f"{r['setup_wall_s']:.2f} s in turns of {r['setup_turns']}, "
-              f"resident {r['resident_bytes']} (per_device_bytes "
-              f"{r['shard_bytes']}), compare {r['compare_s']:.2f} s, rank "
+              f"{r['steps']} walls {[round(s, 3) for s in r['step_s']]} s, "
+              f"collectives of the last step "
+              f"{_fmt_collectives(r['collectives'][-1])}, peak "
+              f"{r['peak_gib']} GiB (set-up {r['setup_peak_gib']} GiB), "
+              f"set-up {r['setup_s']:.2f} s of {r['setup_wall_s']:.2f} s "
+              f"in turns of {r['setup_turns']}, resident "
+              f"{r['resident_bytes']} (per_device_bytes "
+              f"{r['shard_bytes']}), checkpoint writes [{saves}], restore "
+              f"[{restore}], compare {r['compare_s']:.2f} s, rank "
               f"{r['rank_s']:.2f} s")
     worst = max(state_err, key=state_err.get)
     report = {**head, "steps": args.steps, "grad_accum": cfg.grad_accum,
+              "start_step": ranks[0]["start_step"], "ran_steps": steps,
+              "grad_compression": args.grad_compression,
               "loss": ranks[0]["loss"], "one_process_loss": ref["loss"],
               "grad_norm": ranks[0]["grad_norm"],
               "one_process_grad_norm": ref["grad_norm"],
               "one_process_step_s": ref["step_s"],
               "routing_agreement": agreement, "held_steps": held,
-              "routes_alike": routes_alike,
+              "held_step": held_step, "routes_alike": routes_alike,
               "loss_rel_err": loss_err, "grad_norm_rel_err": gnorm_err,
-              "state_rel_err": state_err, "replicas_equal": replicas,
+              "state_rel_err": state_err, "state_tol": s_tol,
+              "replicas_equal": replicas,
               "bytes_equal": bytes_equal, "ranks": per_rank}
     routing = "" if cfg.family != "moe" else (
         f"; routing agreement with one process a step {agreement}, "
         f"every rank routed as rank 0 {routes_alike}")
     print(f"[train/mesh] {cfg.name} on {head['mesh']} over gloo "
-          f"({head['device']}), {args.steps} steps: loss {report['loss']} "
-          f"(one process {ref['loss']}), held {held} steps{routing}: rel "
-          f"err loss {loss_err:.3g}, grad norm {gnorm_err:.3g}, params / m "
-          f"/ v {state_err[worst]:.3g} ({worst}) (tol {tol:g}); replicated "
-          f"blocks bitwise equal {replicas}, resident bytes equal to "
-          f"per_device_bytes {bytes_equal}; one process "
-          f"{head['one_process_s']:.1f} s, ranks {head['ranks_s']:.1f} s")
+          f"({head['device']}), steps {steps} from step "
+          f"{report['start_step']}"
+          f"{', compressed' if args.grad_compression else ''}: loss "
+          f"{report['loss']} (one process {ref['loss']}), held {held} "
+          f"steps{routing}: rel err loss {loss_err:.3g}, grad norm "
+          f"{gnorm_err:.3g} (tol {tol:g}), params / m / v "
+          f"{state_err[worst]:.3g} ({worst}) (tol {s_tol:g}); "
+          f"replicated blocks bitwise equal "
+          f"{replicas}, resident bytes equal to per_device_bytes "
+          f"{bytes_equal}; one process {head['one_process_s']:.1f} s, "
+          f"ranks {head['ranks_s']:.1f} s")
     if not (steps_equal and held >= 1 and routes_alike and replicas
             and bytes_equal and loss_err <= tol and gnorm_err <= tol
-            and state_err[worst] <= tol):
+            and state_err[worst] <= s_tol):
         raise AssertionError(f"the mesh's train run failed its gates: "
                              f"{report}")
     return {"mesh": report}

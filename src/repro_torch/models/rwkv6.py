@@ -541,7 +541,12 @@ def _build_live(cfg: ModelConfig, device: torch.device,
     * the time mix's r / k / v / g and decay are cut to the rank's heads
       (`Split`), on which the WKV recurrence and the group norm run;
     * the embedding and the logits as the transformer's
-      (`distributed.sharding.embed_rows`, `vocab_logits`)."""
+      (`distributed.sharding.embed_rows`, `vocab_logits`).
+
+    ``train_loss`` is this rank's share of the reference's loss, the same
+    program without a plan, differentiable through every collective (each
+    gather's backward reduce-scatters onto the blocks, each sum's is the
+    same sum) and through the float64 products and scan sums."""
     cd = _cdtype(cfg)
     d, hd = cfg.d_model, cfg.rwkv_head_dim
     pspecs = param_specs(cfg, mesh)
@@ -580,9 +585,46 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         return shd.place_tree(init_params(cfg, gen, device),
                               shd.tree_shardings(mesh, pspecs))
 
+    def train_block(h, lp, states):
+        """One layer of the train step on this rank's rows ``h`` from
+        zero ``states``: its placed weights gathered to their use-time
+        specs, then the serve program's `_block`."""
+        lp = shd.gather_for_use(mesh, lp, placed, split.uspecs, cd)
+        return _block(cfg, lp, h, *states, split=split)[0]
+
     def train_loss(params, batch):
-        raise NotImplementedError("the sharded train step is not ported; "
-                                  "a live mesh serves prefill and decode")
+        """This rank's share of the reference's mean next-token loss of
+        the whole ``batch`` (the convention of `distributed.sharding`, as
+        `transformer._build_live`'s ``train_loss``): the rank's rows of the
+        batch through every layer from zero states, the channel split by
+        heads as `forward` runs it and the WKV recurrence the train-time
+        one (`_wkv_scan`, chunk-checkpointed; `_wkv_chunked` where
+        ``cfg.ssm_mode`` is ``"chunked"``), each layer remat'd when
+        ``cfg.remat`` (its collectives repeated in the backward, in the
+        same order on every rank); then the CE against the tied
+        embedding gathered whole, divided by the whole batch's token
+        count times the ranks that repeat these rows."""
+        tokens = batch["tokens"].long()
+        b, s = tokens.shape
+        bax = shd.shard_batch(mesh, b) or ()
+        r0, bl = shd.block_of(mesh, bax, b)
+        rows = slice(r0, r0 + bl)
+        h = shd.embed_rows(mesh, params["embed"], pspecs["embed"], tokens,
+                           d, rows).to(cd)
+        zeros = init_cache(b, 1)
+        for i in range(cfg.n_layers):
+            lp = _layer(params, i)
+            states = tuple(zeros[k][i] for k in ("att_shift", "ffn_shift",
+                                                  "wkv"))
+            h = checkpoint(train_block, h, lp, states, use_reentrant=False) \
+                if cfg.remat else train_block(h, lp, states)
+        h = layer_norm(h, params["final_norm"], None)
+        labels, mask = causal_lm_labels(tokens)
+        repeats = mesh.size // math.prod(mesh.shape[x] for x in bax)
+        emb = shd.gather(params["embed"], mesh, pspecs["embed"])
+        return chunked_cross_entropy(
+            h, emb, labels[rows], chunk=min(cfg.loss_chunk, s),
+            mask=mask[rows], denom=mask.sum().clamp(min=1.0) * repeats)
 
     def init_cache(batch_size: int, max_len: int):
         specs = cache_specs(cfg, mesh, batch_size)

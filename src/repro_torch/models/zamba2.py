@@ -623,6 +623,12 @@ def _build_live(cfg: ModelConfig, device: torch.device,
       ``cache_len``, attends with the rank's heads and keeps its S block;
     * the embedding and the logits as the transformer's.
 
+    ``train_loss`` is this rank's share of the reference's loss, the same
+    program without a plan and without the KV's sequence split (that
+    split is the serving cache's), differentiable through every
+    collective and through the float64 products, scan sums and the gate
+    norm's sum across ranks.
+
     ``model`` must divide the cache's ``max_len`` (the reference's spec
     splits S over it without a fallback): `init_cache` raises where it
     does not."""
@@ -640,11 +646,13 @@ def _build_live(cfg: ModelConfig, device: torch.device,
     seq_ax = ("model",) if "model" in mesh.shape else ()
     sh_split = dataclasses.replace(split, uspecs=sh_use)
 
-    def shared_block(sp, h, positions, kv=None):
+    def shared_block(sp, h, positions, kv=None, keep_kv=True):
         """The shared attention and SwiGLU block with its residuals on
         the rank's rows ``h``; returns ``(h, (k, v))``: the prompt's KV
         (``kv`` None) or the rank's new cache block (``kv`` ``(k block,
-        v block, cache_len of the rows)``)."""
+        v block, cache_len of the rows)``).  Without ``keep_kv`` (a train
+        step: the block attends over the whole sequence, and no cache
+        is kept) the KV is not gathered and ``(h, None)`` returns."""
         bl, s, _ = h.shape
         x = rms_norm(h, sp["attn_norm"]).to(cd)
 
@@ -660,11 +668,12 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         split4 = P(None, None, att or None, None)
         whole = shd.gather_tree({"k": k, "v": v}, mesh,
                                 {"k": split4, "v": split4}, att) \
-            if att else {"k": k, "v": v}
+            if att and keep_kv else {"k": k, "v": v}
         if kv is None:
             o = prefill_attention(q, k, v, q_chunk=cfg.q_chunk,
                                   kv_chunk=cfg.kv_chunk)
-            kv_out = (whole["k"].to(KV_DTYPE), whole["v"].to(KV_DTYPE))
+            kv_out = (whole["k"].to(KV_DTYPE), whole["v"].to(KV_DTYPE)) \
+                if keep_kv else None
         else:
             k_blk, v_blk, clen = kv
             seq4 = P(None, seq_ax or None, None, None)
@@ -737,9 +746,58 @@ def _build_live(cfg: ModelConfig, device: torch.device,
         return shd.place_tree(init_params(cfg, gen, device),
                               shd.tree_shardings(mesh, pspecs))
 
+    def train_mamba(h, lp, ssm, conv):
+        """One Mamba layer of the train step on this rank's rows from
+        zero states: its placed weights gathered to their use-time
+        specs, then the serve program's `_mamba_block`."""
+        lp = shd.gather_for_use(mesh, lp, placed, split.uspecs, cd)
+        return _mamba_block(cfg, lp, h, ssm, conv, split=split)[0]
+
     def train_loss(params, batch):
-        raise NotImplementedError("the sharded train step is not ported; "
-                                  "a live mesh serves prefill and decode")
+        """This rank's share of the reference's mean next-token loss of
+        the whole ``batch`` (the convention of `distributed.sharding`, as
+        `transformer._build_live`'s ``train_loss``): the rank's rows
+        through the group structure from zero states, the shared block's
+        weights gathered once and used at every application (their
+        gradients summed over the applications, then reduce-scattered
+        once), its attention over the whole sequence on the rank's
+        heads; each Mamba layer channel-split by heads as `forward` runs
+        it, remat'd when ``cfg.remat``; then the CE against the tied
+        embedding gathered whole, divided by the whole batch's token
+        count times the ranks that repeat these rows."""
+        tokens = batch["tokens"].long()
+        b, s = tokens.shape
+        bax = shd.shard_batch(mesh, b) or ()
+        r0, bl = shd.block_of(mesh, bax, b)
+        rows = slice(r0, r0 + bl)
+        positions = torch.arange(s, device=device).expand(bl, s)
+        h = shd.embed_rows(mesh, params["embed"], pspecs["embed"], tokens,
+                           d, rows).to(cd)
+        sp = shd.gather_for_use(mesh, params["shared"], pspecs["shared"],
+                                sh_use, cd)
+        ssm, conv = zero_states(b)
+        for g, (a, bnd) in enumerate(_groups(cfg)):
+            h = shared_block(sp, h, positions, keep_kv=False)[0]
+            for i in range(a, bnd):
+                args = (h, _layer(params, i), ssm[i], conv[i])
+                h = checkpoint(train_mamba, *args, use_reentrant=False) \
+                    if cfg.remat else train_mamba(*args)
+        h = rms_norm(h, params["final_norm"])
+        labels, mask = causal_lm_labels(tokens)
+        repeats = mesh.size // math.prod(mesh.shape[x] for x in bax)
+        emb = shd.gather(params["embed"], mesh, pspecs["embed"])
+        return chunked_cross_entropy(
+            h, emb, labels[rows], chunk=min(cfg.loss_chunk, s),
+            mask=mask[rows], denom=mask.sum().clamp(min=1.0) * repeats)
+
+    def zero_states(batch_size: int) -> tuple:
+        """The rank's zero SSM and conv states by `cache_specs`."""
+        specs = cache_specs(cfg, mesh, batch_size)
+        return tuple(torch.zeros(shd.shard_shape(mesh, tuple(t.shape),
+                                                 specs[k]),
+                                 dtype=t.dtype, device=device)
+                     for k, t in zip(("ssm", "conv"), _zero_states(
+                         cfg, batch_size, "meta")))
 
     def init_cache(batch_size: int, max_len: int):
         m = mesh.shape.get("model", 1)
@@ -750,14 +808,12 @@ def _build_live(cfg: ModelConfig, device: torch.device,
                 f"cache_specs do (no fallback): max_len {max_len} must be a "
                 f"multiple of {m}")
         specs = cache_specs(cfg, mesh, batch_size)
-        ssm, conv = _zero_states(cfg, batch_size, "meta")
         kv = torch.empty((_n_attn(cfg), batch_size, max_len, kh, dh),
                          dtype=KV_DTYPE, device="meta")
-        return {k: torch.zeros(shd.shard_shape(mesh, tuple(t.shape),
-                                               specs[k]),
-                               dtype=t.dtype, device=device)
-                for k, t in (("ssm", ssm), ("conv", conv), ("k", kv),
-                             ("v", kv))}
+        return dict(zip(("ssm", "conv"), zero_states(batch_size)),
+                    **{k: torch.zeros(shd.shard_shape(
+                        mesh, tuple(kv.shape), specs[k]), dtype=KV_DTYPE,
+                        device=device) for k in ("k", "v")})
 
     def merge_cache(cache: dict, prefill_cache: dict) -> dict:
         """The rank's decode cache seeded with its prefill's: the states

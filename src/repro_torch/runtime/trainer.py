@@ -19,14 +19,23 @@ The step runs eagerly: ``loss_fn(params, batch)`` under autograd over
 ``grad_accum`` microbatches (`grad_step`), the optional error-feedback
 compression, then `optim.adamw_update`.
 
-On a live mesh (``mesh=``, with the params' ``specs``) the step is the
-live twin of the reference's dry-run ``train_step``: the params, the
-gradients and the AdamW moments are this rank's blocks by ``specs``, the
-loss is a rank's share (`models.transformer._build_live`), the gradients
-are summed over the axes each leaf is replicated on, and AdamW updates
-the blocks with the mesh's global norm.  A trainer on a mesh takes no
-checkpoint (``checkpoint_every`` 0: a sharded checkpoint is not ported)
-and no gradient compression.
+On a live mesh (``mesh=``, with the params' ``specs``) the trainer is
+the reference's `Trainer` on sharded arrays, every rank running it
+together: the params, the gradients, the AdamW moments and the
+compression's residuals are this rank's blocks by ``specs``; the loss is
+a rank's share (the live bundles' ``train_loss``, every family), the
+gradients are summed over the axes each leaf is replicated on, then
+compressed as the whole leaves would be (`distributed.compress`), and
+AdamW updates the blocks with the mesh's global norm.  A checkpoint is
+each rank's blocks (`checkpoint.store`: a replicated block written
+once), restored onto any mesh; resume continues each rank's rows of the
+step-indexed stream.  Preemption is agreed at every step boundary (one
+``all_reduce`` of the ranks' flags), so SIGTERM or ``preempted`` on one
+rank stops every rank at the same step, which they checkpoint together.
+A transient failure (``fault_hook``) must hit every rank alike.  As the
+reference's `_state` (params and optimizer state), a checkpoint holds no
+error-feedback residuals: a resumed compressed run starts them from
+zero.
 """
 from __future__ import annotations
 
@@ -61,6 +70,15 @@ class TrainerConfig:
     log_every: int = 10
     grad_compression: bool = False
     grad_accum: int = 1                # microbatches per step
+
+
+def state_specs(specs) -> dict:
+    """The specs of a trainer's checkpointed state (``{"params", "opt":
+    {"m", "v", "step"}}``) from its params' ``specs``: the moments placed
+    as the params, the step count replicated (the reference's
+    ``opt_sh``)."""
+    return {"params": specs, "opt": {"m": specs, "v": specs,
+                                     "step": shd.P()}}
 
 
 def grad_step(loss_fn: Callable, params, batch: dict, *, accum: int = 1,
@@ -100,11 +118,6 @@ class Trainer:
                  cfg: TrainerConfig | None = None, masks=None, mesh=None,
                  specs=None):
         self.cfg = cfg or TrainerConfig()
-        if mesh is not None and (self.cfg.checkpoint_every
-                                 or self.cfg.grad_compression):
-            raise ValueError("a trainer on a live mesh takes no checkpoint "
-                             "(checkpoint_every must be 0) and no gradient "
-                             "compression: neither is ported to the mesh")
         self.mesh, self.specs = mesh, specs
         self.opt_cfg = opt_cfg or AdamWConfig()
         self.loss_fn = loss_fn
@@ -116,12 +129,14 @@ class Trainer:
         self.metrics_log: list[dict] = []
         self.straggler_steps: list[int] = []
         self.preempted = False
-        self._ckpt = CheckpointManager(self.cfg.checkpoint_dir,
-                                       every=self.cfg.checkpoint_every) \
+        self._ckpt = CheckpointManager(
+            self.cfg.checkpoint_dir, every=self.cfg.checkpoint_every,
+            mesh=mesh, specs=None if mesh is None else state_specs(specs)) \
             if self.cfg.checkpoint_every else None
         self._residuals = compress.zero_residuals(params) \
             if self.cfg.grad_compression else None
         self._sigterm = False
+        self._saved_step = None
 
     def _on_sigterm(self, *_):
         self._sigterm = True
@@ -131,7 +146,8 @@ class Trainer:
                                 accum=self.cfg.grad_accum, mesh=self.mesh,
                                 specs=self.specs)
         if residuals is not None:
-            grads, residuals = compress.compress_tree(grads, residuals)
+            grads, residuals = compress.compress_tree(
+                grads, residuals, mesh=self.mesh, specs=self.specs)
         params, opt_state, metrics = adamw_update(
             self.opt_cfg, params, grads, opt_state, mesh=self.mesh,
             specs=self.specs)
@@ -151,21 +167,48 @@ class Trainer:
         step, tree, extra = self._ckpt.restore_latest(self._state())
         if step is None:
             return False
-        self.step = step
+        self.step = self._saved_step = step
         self.params = tree["params"]
         self.opt_state = tree["opt"]
         if extra.get("data_state") and hasattr(self.data, "load_state_dict"):
             self.data.load_state_dict(extra["data_state"])
         return True
 
-    def _save(self, force=False):
+    @property
+    def checkpoints(self) -> dict:
+        """What the checkpoints cost this rank: each save's step, bytes,
+        files, seconds (on a mesh also its collectives) and the restore's
+        step, bytes and seconds."""
         if self._ckpt is None:
+            return {"saves": [], "restored": {}}
+        return {"saves": self._ckpt.saves, "restored": self._ckpt.restored}
+
+    def _save(self, force=False):
+        if self._ckpt is None or self._saved_step == self.step:
             return False
         extra = {}
         if hasattr(self.data, "state_dict"):
             extra["data_state"] = self.data.state_dict()
-        return self._ckpt.maybe_save(self.step, self._state(), extra=extra,
-                                     force=force)
+        before = shd.COLLECTIVES.snapshot()
+        saved = self._ckpt.maybe_save(self.step, self._state(), extra=extra,
+                                      force=force)
+        if saved:
+            self._saved_step = self.step
+            if self.mesh is not None:
+                self._ckpt.saves[-1]["collectives"] = \
+                    shd.COLLECTIVES.since(before)
+        return saved
+
+    def _stop(self) -> bool:
+        """Whether to stop at this step boundary: SIGTERM or
+        ``preempted`` here, on a mesh on any rank (one ``all_reduce`` of
+        the flags, so every rank stops at the same step)."""
+        stop = self._sigterm or self.preempted
+        if self.mesh is None:
+            return stop
+        flag = torch.tensor([float(stop)])
+        return bool(shd.all_reduce(flag, self.mesh,
+                                   tuple(self.mesh.axis_names)).item())
 
     # -- main loop -----------------------------------------------------------
     def run(self, *, fault_hook: Callable[[int], None] | None = None,
@@ -174,7 +217,7 @@ class Trainer:
         `TransientError` to simulate a transient failure: the step retries
         from the last good state.  ``on_step(step)``, where given, is
         called after each step with the number of steps taken, once the
-        step is logged and before its checkpoint.  SIGTERM is bound to
+        step is logged and checkpointed.  SIGTERM is bound to
         the preemption flag while the run lasts (from the main thread) and
         the earlier handler is restored when it ends."""
         previous = signal.getsignal(signal.SIGTERM)
@@ -192,7 +235,7 @@ class Trainer:
 
     def _run(self, fault_hook, on_step) -> dict:
         while self.step < self.cfg.total_steps:
-            if self._sigterm or self.preempted:
+            if self._stop():
                 self._save(force=True)
                 return {"status": "preempted", "step": self.step}
             batch = self.data.batch_at(self.step) \
@@ -224,9 +267,9 @@ class Trainer:
                     "grad_norm": float(metrics["grad_norm"]),
                     "lr": float(metrics["lr"]), "step_time_s": dt,
                     "grad_bytes": metrics["grad_bytes"]})
+            self._save()
             if on_step is not None:
                 on_step(self.step)
-            self._save()
         self._save(force=True)
         return {"status": "done", "step": self.step,
                 "final_loss": self.metrics_log[-1]["loss"]

@@ -36,6 +36,18 @@ the module afresh, so a test's monkeypatch does not reach it.
   the last step's `COLLECTIVES`;
   the params, ``m`` and ``v`` blocks after the last step; the resident
   bytes beside `launch.train.mesh_bytes`;
+* `trainer_cases` — the mesh's `runtime.Trainer` of several smoke
+  configs on one live mesh, each case its own run: from numpy params or
+  resumed from a checkpoint, with ``--ckpt-every``, compression and a
+  preemption flag set on one rank; per step the loss, the grad norm and
+  whether the replicated blocks equal the other ranks' bit for bit, the
+  state's blocks after the run, its result, checkpoints and the last
+  step's `COLLECTIVES`;
+* `restore_case` — a checkpoint of any mesh (or one process) restored
+  onto this mesh by the state's specs; `partial_save` — a step whose
+  blocks every rank wrote but one rank raises before the commit;
+  `compress_cases` — `distributed.compress.compress_tree` on the mesh of
+  the blocks of whole gradients, twice (the residuals fed back);
 * `adjoint_cases` — each differentiable collective of
   `distributed.sharding` (gathers over some axes and over all, two cuts
   in one `gather_tree`, `all_reduce`, `cols` both ways, `embed_rows`) at
@@ -59,7 +71,7 @@ from ..distributed import sharding as shd
 from ..engine import execute as engine_execute
 from ..engine import plan as engine_plan
 from ..launch.mesh import init_mesh
-from ..models import build_model, transformer
+from ..models import api, build_model, transformer
 from ..models.convert import params_from_numpy
 from ..tree import flatten_with_paths
 
@@ -451,6 +463,184 @@ def train_cases(rank: int, world_size: int, init_method: str, axes, sizes,
     finally:
         mesh.close()
     return out
+
+
+def _trainer(cfg, mesh, params_np, opt, *, steps: int, batch: int,
+             seq: int, ckpt_dir: str = "", ckpt_every: int = 0,
+             grad_compression: bool = False):
+    """The mesh's `runtime.Trainer` of ``cfg`` from the numpy params,
+    placed by the live bundle's ``param_specs``, on the synthetic stream
+    (``batch`` x ``seq`` a step)."""
+    from ..data import DataConfig, SyntheticLMData
+    from ..runtime import Trainer, TrainerConfig
+    bundle = build_model(cfg, "cpu", mesh=mesh)
+    specs = bundle.param_specs()
+    params = shd.place_tree(params_from_numpy(params_np, "cpu"),
+                            shd.tree_shardings(mesh, specs))
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq, global_batch=batch),
+                           device="cpu")
+    return Trainer(loss_fn=bundle.train_loss, params=params, data=data,
+                   opt_cfg=opt, cfg=TrainerConfig(
+                       total_steps=steps, checkpoint_every=ckpt_every,
+                       checkpoint_dir=ckpt_dir or "/nonexistent",
+                       grad_compression=grad_compression, log_every=1),
+                   mesh=mesh, specs=specs)
+
+
+def trainer_cases(rank: int, world_size: int, init_method: str, axes,
+                  sizes, cases: list) -> list:
+    """See the module docstring.  A case is ``{"cfg", "params_np",
+    "opt", "steps", "batch", "seq"}`` with optional ``ckpt_dir``,
+    ``ckpt_every``, ``resume``, ``grad_compression`` and ``preempt``
+    (``(rank, step)``: that rank alone sets ``preempted`` when the step
+    starts)."""
+    from ..launch.dryrun import tree_bytes
+    from ..launch.train import replicas_equal
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    out = []
+    try:
+        for case in cases:
+            tr = _trainer(case["cfg"], mesh, case["params_np"], case["opt"],
+                          steps=case["steps"], batch=case["batch"],
+                          seq=case["seq"], ckpt_dir=case.get("ckpt_dir", ""),
+                          ckpt_every=case.get("ckpt_every", 0),
+                          grad_compression=case.get("grad_compression",
+                                                    False))
+            resumed = tr.resume() if case.get("resume") else False
+            start = tr.step
+            equal: list = []
+            preempt = case.get("preempt")
+
+            def hook(step, tr=tr):
+                if preempt is not None and preempt == (rank, step):
+                    tr.preempted = True
+
+            def on_step(step, tr=tr):
+                equal.append(all(replicas_equal(t, mesh, tr.specs) for t in (
+                    tr.params, tr.opt_state["m"], tr.opt_state["v"])))
+                shd.COLLECTIVES.reset()
+            shd.COLLECTIVES.reset()
+            res = tr.run(fault_hook=hook, on_step=on_step)
+            out.append({
+                "coord": mesh.coord(), "resumed": resumed, "start": start,
+                "result": res, "steps": [m["step"] for m in tr.metrics_log],
+                "loss": [m["loss"] for m in tr.metrics_log],
+                "grad_norm": [m["grad_norm"] for m in tr.metrics_log],
+                "replicas_equal": equal,
+                "checkpoints": tr.checkpoints,
+                "state": {_key(p): _bits(t) for p, t in flatten_with_paths(
+                    {"params": tr.params, "m": tr.opt_state["m"],
+                     "v": tr.opt_state["v"]})},
+                "residual_bytes": None if tr._residuals is None
+                else tree_bytes(tr._residuals)})
+    finally:
+        mesh.close()
+    return out
+
+
+def restore_case(rank: int, world_size: int, init_method: str, axes,
+                 sizes, cfg, root: str, step: int) -> dict:
+    """Step ``step`` of the checkpoint under ``root`` (a trainer's state,
+    saved on any mesh or by one process) restored onto this mesh by the
+    specs of ``cfg``'s live bundle: ``{"coord", "state": {key: bits},
+    "restored": bytes read}``, or ``{"coord", "error"}`` where it
+    raises.  The state's keys are `trainer_cases`' (``params/...``,
+    ``m/...``, ``v/...``)."""
+    from ..checkpoint import restore_checkpoint
+    from ..runtime import state_specs
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    try:
+        bundle = build_model(cfg, "cpu", mesh=mesh)
+        specs = state_specs(bundle.param_specs())
+        whole = api.init_shapes(cfg)
+        like = {"params": whole, "opt": {"m": whole, "v": whole,
+                                         "step": torch.zeros(
+                                             (), dtype=torch.int32)}}
+        like = {k: _placed_like(v, mesh, specs[k]) for k, v in like.items()}
+        stats: dict = {}
+        try:
+            tree, _ = restore_checkpoint(root, step, like, device="cpu",
+                                         mesh=mesh, specs=specs,
+                                         stats=stats)
+        except (OSError, ValueError, KeyError) as e:
+            return {"coord": mesh.coord(), "error": f"{type(e).__name__}: "
+                                                    f"{e}"}
+        return {"coord": mesh.coord(), "restored": stats["bytes"],
+                "state": {_key(p): _bits(t) for p, t in flatten_with_paths(
+                    {"params": tree["params"], "m": tree["opt"]["m"],
+                     "v": tree["opt"]["v"]})}}
+    finally:
+        mesh.close()
+
+
+def _placed_like(tree, mesh, specs):
+    """Empty CPU tensors of ``tree``'s leaves' blocks by ``specs``."""
+    if isinstance(tree, dict):
+        return {k: _placed_like(v, mesh, specs[k]) for k, v in tree.items()}
+    return torch.empty(shd.shard_shape(mesh, tuple(tree.shape), specs),
+                       dtype=tree.dtype)
+
+
+def partial_save(rank: int, world_size: int, init_method: str, axes,
+                 sizes, cfg, root: str, step: int, bad: int) -> None:
+    """Every rank writes its blocks of ``cfg``'s seed-0 params for
+    ``step`` into the step's ``.tmp`` directory, then rank ``bad`` raises
+    before the commit while the others wait in it."""
+    from ..checkpoint.store import _barrier, _fresh_tmp, commit_blocks, \
+        write_blocks
+    from pathlib import Path
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    try:
+        bundle = build_model(cfg, "cpu", mesh=mesh)
+        params = bundle.init(0)
+        if rank == 0:
+            _fresh_tmp(Path(root), step)
+        _barrier(mesh)
+        records = write_blocks(Path(root) / f"step_{step:08d}.tmp",
+                               {"params": params}, mesh,
+                               {"params": bundle.param_specs()})
+        if rank == bad:
+            raise RuntimeError(f"rank {rank} dies before the commit")
+        commit_blocks(root, step, records, mesh)
+    finally:
+        mesh.close()
+
+
+def compress_cases(rank: int, world_size: int, init_method: str, axes,
+                   sizes, grads_np: dict, specs: dict) -> dict:
+    """`distributed.compress.compress_tree` on this mesh of the blocks
+    (by ``specs``, each a tuple of a spec's dims) of the whole float32
+    gradients ``grads_np``, twice:
+    the second round takes the first's residuals and the gradients
+    halved.  Returns this rank's dequantized and residual blocks of each
+    round (bits) and the `COLLECTIVES` of the first."""
+    from ..distributed import compress
+    mesh = init_mesh(axes, sizes, rank=rank, world_size=world_size,
+                     backend="gloo", init_method=init_method, device="cpu")
+    specs = {k: shd.P(*s) for k, s in specs.items()}    # pickled as tuples
+    try:
+        grads = {k: shd.place(torch.from_numpy(v), mesh, specs[k])
+                 for k, v in grads_np.items()}
+        res = compress.zero_residuals(grads)
+        out: dict = {"coord": mesh.coord(), "rounds": []}
+        for i in range(2):
+            shd.COLLECTIVES.reset()
+            deq, res = compress.compress_tree(
+                {k: g / (i + 1) for k, g in grads.items()}, res, mesh=mesh,
+                specs=specs)
+            if i == 0:
+                out["collectives"] = shd.COLLECTIVES.snapshot()
+            out["rounds"].append({"deq": {k: _bits(t) for k, t in
+                                          deq.items()},
+                                  "res": {k: _bits(t) for k, t in
+                                          res.items()}})
+        return out
+    finally:
+        mesh.close()
 
 
 def adjoint_cases(rank: int, world_size: int, init_method: str, axes,
